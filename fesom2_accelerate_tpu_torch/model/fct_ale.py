@@ -1,0 +1,162 @@
+"""Single-device FCT-ALE solver (PyTorch port).
+
+Counterpart of ``fesom2_accelerate_tpu/model/fct_ale.py``.  The phase split
+of the reference (src/fesom2-accelerate.cu:258-379) survives as
+``pre_comm`` / ``inter_comm`` / ``post_comm``, the places where a sharded
+run inserts its halo exchange (docs/refactoring.md:200,235).  The solver
+keeps the mesh tensors on one explicit device and runs one of two step
+functions over state tensors on that device:
+
+* ``backend="torch"``: :func:`fct_ale_step`, plain PyTorch stages, any
+  device, float32 or float64 (the correctness gate);
+* ``backend="cuda"``: :func:`~fesom2_accelerate_tpu_torch.ops.cuda.step.
+  fct_ale_step_cuda`, three hand-written CUDA kernels; CUDA devices only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fesom2_accelerate_tpu_torch.config import FctAleConfig
+from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
+from fesom2_accelerate_tpu_torch.ops import stages
+from fesom2_accelerate_tpu_torch.ops.cuda.step import fct_ale_step_cuda
+from fesom2_accelerate_tpu_torch.ops.meshdata import MeshData, build_mesh_data
+
+
+def pre_comm(md: MeshData, cfg: FctAleConfig, ttf, fct_LO, fct_adf_v,
+             fct_adf_h):
+    """Stages a1..b2 -> limiter factors (reference
+    fct_ale_pre_comm_acc_, src/fesom2-accelerate.cu:258-340)."""
+    tmax, tmin = stages.a1(md, fct_LO, ttf)
+    if cfg.vlimit == 1:
+        # fused a2+a3: the element-cluster reduce collapses to a node-
+        # neighbour max over incident edges (stages.a3_vlimit1_fused)
+        tmax2, tmin2 = stages.a3_vlimit1_fused(md, tmax, tmin, fct_LO)
+    else:
+        UV_max, UV_min = stages.a2(md, tmax, tmin, cfg.bignumber)
+        tmax2, tmin2 = stages.a3(md, UV_max, UV_min, tmax, fct_LO,
+                                 cfg.vlimit)
+    fct_plus, fct_minus = stages.b1_vertical(md, fct_adf_v)
+    fct_plus, fct_minus = stages.b1_horizontal(
+        md, fct_plus, fct_minus, fct_adf_h
+    )
+    fct_plus, fct_minus = stages.b2(
+        md, fct_plus, fct_minus, tmax2, tmin2, cfg.dt, cfg.flux_eps
+    )
+    return dict(
+        fct_ttf_max=tmax2, fct_ttf_min=tmin2,
+        fct_plus=fct_plus, fct_minus=fct_minus,
+    )
+
+
+def inter_comm(md: MeshData, cfg: FctAleConfig, fct_plus, fct_minus,
+               fct_adf_v):
+    """b3 vertical: node-local work the reference overlaps with the MPI
+    wait (fct_ale_inter_comm_acc_, src/fesom2-accelerate.cu:342-356)."""
+    return stages.b3_vertical(md, fct_plus, fct_minus, fct_adf_v, cfg.iter_yn)
+
+
+def post_comm(md: MeshData, cfg: FctAleConfig, fct_plus, fct_minus,
+              fct_adf_h):
+    """b3 horizontal, after exchanged limiter factors are available
+    (fct_ale_post_comm_acc_, src/fesom2-accelerate.cu:358-379)."""
+    return stages.b3_horizontal(
+        md, fct_plus, fct_minus, fct_adf_h, cfg.iter_yn
+    )
+
+
+def fct_ale_step(md: MeshData, cfg: FctAleConfig, state: dict) -> dict:
+    """Full a->b->c chain on one device.  ``state`` carries the fields of
+    :func:`fesom2_accelerate_tpu_torch.mesh.generate.random_fields` as
+    tensors on the mesh data's device."""
+    lim = pre_comm(md, cfg, state["ttf"], state["fct_LO"],
+                   state["fct_adf_v"], state["fct_adf_h"])
+    fct_plus, fct_minus = lim["fct_plus"], lim["fct_minus"]
+    adf_v, adf_v2 = inter_comm(md, cfg, fct_plus, fct_minus,
+                               state["fct_adf_v"])
+    adf_h, adf_h2 = post_comm(md, cfg, fct_plus, fct_minus,
+                              state["fct_adf_h"])
+
+    out = dict(state)
+    out.update(
+        fct_ttf_max=lim["fct_ttf_max"], fct_ttf_min=lim["fct_ttf_min"],
+        fct_plus=fct_plus, fct_minus=fct_minus,
+    )
+    if cfg.iter_yn:
+        new_LO = stages.c_update_LO(
+            md, state["fct_LO"], adf_v, adf_h, state["hnode_new"], cfg.dt
+        )
+        # swap in the residual fluxes for the next FCT iteration
+        # (docs/refactoring.md:287-289)
+        out.update(
+            fct_LO=new_LO, fct_adf_v=adf_v2, fct_adf_h=adf_h2,
+            fct_adf_v_limited=adf_v, fct_adf_h_limited=adf_h,
+        )
+    else:
+        del_v, del_h = stages.c_update_solution(
+            md, state["ttf"], state["hnode"], state["hnode_new"],
+            state["fct_LO"], adf_v, adf_h,
+            state["del_ttf_advvert"], state["del_ttf_advhoriz"], cfg.dt,
+        )
+        out.update(
+            fct_adf_v=adf_v, fct_adf_h=adf_h,
+            del_ttf_advvert=del_v, del_ttf_advhoriz=del_h,
+        )
+    return out
+
+
+class FctAleSolver:
+    """Owns the mesh tensors on one device and the step function.
+
+    Usage::
+
+        solver = FctAleSolver(mesh, FctAleConfig(), backend="cuda",
+                              device="cuda")
+        state = solver.init_state(fields)      # host numpy -> device
+        state = solver.step(state)             # one FCT-ALE step
+        state = solver.run(state, n_steps=10)  # Python loop of steps
+
+    backend: "torch" (plain PyTorch stages, any device and float dtype) or
+    "cuda" (the three CUDA kernels; ``device`` must be a CUDA device)."""
+
+    def __init__(self, mesh: Mesh, cfg: FctAleConfig = FctAleConfig(),
+                 backend: str = "torch", *,
+                 device: torch.device | str):
+        device = torch.device(device)
+        if backend == "torch":
+            self._step_fn = fct_ale_step
+        elif backend == "cuda":
+            if device.type != "cuda":
+                raise ValueError(
+                    f"backend='cuda' needs a CUDA device, got {device}")
+            self._step_fn = fct_ale_step_cuda
+        else:
+            raise ValueError(f"backend must be 'torch' or 'cuda', got "
+                             f"{backend!r}")
+        self.mesh = mesh
+        self.cfg = cfg
+        self.backend = backend
+        self.device = device
+        self.md = build_mesh_data(mesh, cfg.dtype, device)
+
+    def init_state(self, fields: dict) -> dict:
+        """Host numpy fields -> tensors of the config dtype on the device
+        (copies: the state never aliases the caller's arrays)."""
+        return {
+            k: torch.tensor(np.asarray(v), dtype=self.cfg.dtype,
+                            device=self.device)
+            for k, v in fields.items()
+        }
+
+    def step(self, state: dict) -> dict:
+        return self._step_fn(self.md, self.cfg, state)
+
+    def run(self, state: dict, n_steps: int) -> dict:
+        """n_steps of the step function; the carry keeps the input's keys
+        and drops the diagnostic ones, as the JAX solver's scan does."""
+        for _ in range(n_steps):
+            new = self._step_fn(self.md, self.cfg, state)
+            state = {k: new[k] for k in state}
+        return state

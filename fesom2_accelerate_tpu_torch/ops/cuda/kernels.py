@@ -1,0 +1,239 @@
+"""Wrappers of the three CUDA kernels of the FCT-ALE step, each beside its
+plain PyTorch version.
+
+=============  ==========================================  ================
+wrapper        replaces (JAX package, Pallas)              plain version
+=============  ==========================================  ================
+bounds         kernels.py:bounds_dia_dma_pallas (K1)       bounds_ref
+limit          kernels_packed.py:limit_packed_pallas (K2)  limit_ref
+update_fused   kernels_packed.py:update_fused_pallas (K34) update_fused_ref
+=============  ==========================================  ================
+
+A wrapper given tensors on the CPU returns its plain version, built from
+:mod:`fesom2_accelerate_tpu_torch.ops.stages`.  Given CUDA tensors it checks
+device, dtype, shape and contiguity, allocates its outputs with
+``torch.empty``, launches the kernel on the current stream, raises if the
+launcher reports an error, and adds one to its ``launches`` count.  Any
+other device raises.  Nothing falls back.
+
+Tolerances against the plain versions, on the card: ``bounds`` is
+bit-exact (max/min, selects and one subtraction).  ``limit`` and
+``update_fused`` agree to relerr <= 1e-6 in float32 and <= 1e-12 in
+float64, relerr = max|a-b| / max(max|b|, 1): the incident-edge sums run in
+another order, and nvcc contracts a*b+c into one FMA rounding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fesom2_accelerate_tpu_torch.ops import stages
+from fesom2_accelerate_tpu_torch.ops.cuda import build
+from fesom2_accelerate_tpu_torch.ops.meshdata import MeshData
+
+TOLERANCE = {torch.float32: 1e-6, torch.float64: 1e-12}
+
+# incidence slots a kernel keeps in registers (kMaxDegree in fct_ale.cu)
+MAX_DEGREE = 16
+
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check(md: MeshData, named: dict) -> torch.device:
+    """Raise unless every tensor is a contiguous CUDA tensor of the mesh
+    data's dtype, on the mesh data's device, with the shape given."""
+    dev = md.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernels need mesh data on a CUDA device, "
+                         f"got {dev}")
+    if md.nd_idx.shape[1] > MAX_DEGREE:
+        raise ValueError(f"node degree {md.nd_idx.shape[1]} exceeds the "
+                         f"kernels' {MAX_DEGREE} incidence slots")
+    for name, (t, shape) in named.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, mesh data on {dev}")
+        if t.dtype != md.dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected "
+                            f"{md.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return dev
+
+
+def _launch(name: str, md: MeshData, dev: torch.device, *args) -> None:
+    fn = getattr(build.library(), name + _SUFFIX[md.dtype])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(*args, dev.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _mesh_ptrs(md: MeshData, *names) -> list:
+    return [getattr(md, n).data_ptr() for n in names]
+
+
+# --------------------------------------------------------------------------
+# K1 bounds: a1 + a2 + a3 -> fct_ttf_max, fct_ttf_min
+# --------------------------------------------------------------------------
+
+
+def bounds_ref(md: MeshData, fct_LO, ttf, vlimit: int):
+    """a1, the element-cluster bounds through the edge-neighbour identity
+    (for every vlimit, as the kernel computes them), then the vlimit window
+    and ``- fct_LO``."""
+    tmax, tmin = stages.a1(md, fct_LO, ttf)
+    cmax, cmin = stages._cluster_reduce_via_edges(md, tmax, tmin)
+    if vlimit == 1:
+        return stages._a3_vlimit1_from_cluster(md, cmax, cmin, fct_LO)
+    return stages._a3_vlimit23_from_cluster(md, cmax, cmin, tmax, fct_LO,
+                                            widen=(vlimit == 2))
+
+
+def bounds(md: MeshData, fct_LO, ttf, vlimit: int):
+    """K1 -> (fct_ttf_max, fct_ttf_min), each [L, N]."""
+    if _on_cpu(fct_LO, ttf, md.area_inv):
+        return bounds_ref(md, fct_LO, ttf, vlimit)
+    if vlimit not in (1, 2, 3):
+        raise ValueError(f"vlimit must be 1, 2 or 3, got {vlimit}")
+    L, N = md.n_layers, md.n_nodes
+    dev = _check(md, dict(fct_LO=(fct_LO, (L, N)), ttf=(ttf, (L, N))))
+    tmax = torch.empty((L, N), dtype=md.dtype, device=dev)
+    tmin = torch.empty_like(tmax)
+    _launch("fct_bounds", md, dev, fct_LO.data_ptr(), ttf.data_ptr(),
+            *_mesh_ptrs(md, "nd_other", "nd_lev", "nd_num", "nlev_nod"),
+            tmax.data_ptr(), tmin.data_ptr(), L, N, md.nd_idx.shape[1],
+            vlimit)
+    bounds.launches += 1
+    return tmax, tmin
+
+
+bounds.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K2 limit: b1 vertical + b1 horizontal + b2 + b3 vertical
+# --------------------------------------------------------------------------
+
+
+def limit_ref(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
+              flux_eps: float, iter_yn: bool):
+    plus, minus = stages.b1_vertical(md, fct_adf_v)
+    plus, minus = stages.b1_horizontal(md, plus, minus, fct_adf_h)
+    plus, minus = stages.b2(md, plus, minus, tmax, tmin, dt, flux_eps)
+    adf_v_lim, adf_v_res = stages.b3_vertical(md, plus, minus, fct_adf_v,
+                                              iter_yn)
+    return plus, minus, adf_v_lim, adf_v_res
+
+
+def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
+          flux_eps: float, iter_yn: bool):
+    """K2 -> (fct_plus [L, N], fct_minus [L, N], limited fct_adf_v
+    [L+1, N], its residual [L+1, N] when ``iter_yn`` else None)."""
+    if _on_cpu(fct_adf_v, tmax, tmin, fct_adf_h, md.area_inv):
+        return limit_ref(md, fct_adf_v, tmax, tmin, fct_adf_h, dt, flux_eps,
+                         iter_yn)
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    dev = _check(md, dict(fct_adf_v=(fct_adf_v, (L + 1, N)),
+                          tmax=(tmax, (L, N)), tmin=(tmin, (L, N)),
+                          fct_adf_h=(fct_adf_h, (L, Ed))))
+    plus = torch.empty((L, N), dtype=md.dtype, device=dev)
+    minus = torch.empty_like(plus)
+    adf_v_lim = torch.empty((L + 1, N), dtype=md.dtype, device=dev)
+    adf_v_res = torch.empty_like(adf_v_lim) if iter_yn else None
+    _launch("fct_limit", md, dev, fct_adf_v.data_ptr(), tmax.data_ptr(),
+            tmin.data_ptr(), fct_adf_h.data_ptr(),
+            *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn",
+                        "nd_num", "nlev_nod"),
+            plus.data_ptr(), minus.data_ptr(), adf_v_lim.data_ptr(),
+            _ptr(adf_v_res), L, N, Ed, md.nd_idx.shape[1], float(dt),
+            float(flux_eps))
+    limit.launches += 1
+    return plus, minus, adf_v_lim, adf_v_res
+
+
+limit.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K34 update_fused: b3 horizontal + stage c
+# --------------------------------------------------------------------------
+
+
+def update_fused_ref(md: MeshData, fct_plus, fct_minus, adf_v_lim,
+                     fct_adf_h, ttf, hnode, hnode_new, fct_LO,
+                     del_ttf_advvert, del_ttf_advhoriz, dt: float,
+                     iter_yn: bool):
+    adf_h_lim, adf_h_res = stages.b3_horizontal(md, fct_plus, fct_minus,
+                                                fct_adf_h, iter_yn)
+    if iter_yn:
+        new_LO = stages.c_update_LO(md, fct_LO, adf_v_lim, adf_h_lim,
+                                    hnode_new, dt)
+        return new_LO, None, adf_h_lim, adf_h_res
+    del_v, del_h = stages.c_update_solution(
+        md, ttf, hnode, hnode_new, fct_LO, adf_v_lim, adf_h_lim,
+        del_ttf_advvert, del_ttf_advhoriz, dt)
+    return del_v, del_h, adf_h_lim, None
+
+
+def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
+                 ttf, hnode, hnode_new, fct_LO, del_ttf_advvert,
+                 del_ttf_advhoriz, dt: float, iter_yn: bool):
+    """K34 -> (o1, o2, limited fct_adf_h [L, Ed], its residual).
+
+    Non-iterative: o1, o2 are the new ``del_ttf_advvert`` and
+    ``del_ttf_advhoriz``, and the residual is None.  Iterative: o1 is the
+    new ``fct_LO``, o2 is None, and the residual is [L, Ed]."""
+    node_in = (fct_plus, fct_minus, ttf, hnode, hnode_new, fct_LO,
+               del_ttf_advvert, del_ttf_advhoriz)
+    if _on_cpu(adf_v_lim, fct_adf_h, md.area_inv, *node_in):
+        return update_fused_ref(md, fct_plus, fct_minus, adf_v_lim,
+                                fct_adf_h, ttf, hnode, hnode_new, fct_LO,
+                                del_ttf_advvert, del_ttf_advhoriz, dt,
+                                iter_yn)
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    names = ("fct_plus", "fct_minus", "ttf", "hnode", "hnode_new", "fct_LO",
+             "del_ttf_advvert", "del_ttf_advhoriz")
+    checks = {n: (t, (L, N)) for n, t in zip(names, node_in)}
+    checks.update(adf_v_lim=(adf_v_lim, (L + 1, N)),
+                  fct_adf_h=(fct_adf_h, (L, Ed)))
+    dev = _check(md, checks)
+    o1 = torch.empty((L, N), dtype=md.dtype, device=dev)
+    o2 = None if iter_yn else torch.empty_like(o1)
+    adf_h_lim = torch.empty((L, Ed), dtype=md.dtype, device=dev)
+    adf_h_res = torch.empty_like(adf_h_lim) if iter_yn else None
+    _launch("fct_update_fused", md, dev, fct_plus.data_ptr(),
+            fct_minus.data_ptr(), adf_v_lim.data_ptr(), fct_adf_h.data_ptr(),
+            ttf.data_ptr(), hnode.data_ptr(), hnode_new.data_ptr(),
+            fct_LO.data_ptr(), del_ttf_advvert.data_ptr(),
+            del_ttf_advhoriz.data_ptr(),
+            *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_other", "nd_lev",
+                        "nd_sgn", "nd_num", "nlev_nod"),
+            o1.data_ptr(), _ptr(o2), adf_h_lim.data_ptr(), _ptr(adf_h_res),
+            L, N, Ed, md.nd_idx.shape[1], float(dt), int(iter_yn))
+    update_fused.launches += 1
+    return o1, o2, adf_h_lim, adf_h_res
+
+
+update_fused.launches = 0
+
+WRAPPERS = (bounds, limit, update_fused)
+
+
+def reset_launch_counts() -> None:
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def launch_counts() -> dict:
+    return {w.__name__: w.launches for w in WRAPPERS}

@@ -1,0 +1,198 @@
+"""Device-resident mesh data for the PyTorch port.
+
+Counterpart of ``fesom2_accelerate_tpu/ops/meshdata.py``: a frozen dataclass
+of tensors (connectivity, activity masks, inverse areas) built once per mesh
+on an explicit device.  The fields of the JAX ``MeshData`` keep their names
+and meaning; five more carry what the CUDA kernels read per node
+(``nlev_nod``, ``nd_num``, ``nd_lev``, ``nd_sgn``, with ``nd_other`` shared).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshData:
+    """Tensor mirror of Mesh connectivity + precomputed masks."""
+
+    # connectivity (int32)
+    elem_nodes: torch.Tensor  # [E, 3]
+    edges: torch.Tensor  # [Ed, 2]
+    ne_idx: torch.Tensor  # [N, KE] node->elem incidence (padded with 0)
+    ne_pos: torch.Tensor  # [N, KE] local node position in the element
+    nd_idx: torch.Tensor  # [N, KD] node->edge incidence (padded with 0)
+    nd_other: torch.Tensor  # [N, KD] the OTHER endpoint of each incident edge
+
+    # masks / weights
+    node_mask: torch.Tensor  # [L, N] bool, z < nlev_nod - 1
+    elem_mask: torch.Tensor  # [L, E] bool
+    edge_mask: torch.Tensor  # [L, Ed] bool
+    vint_mask: torch.Tensor  # [L+1, N] bool, active vertical interfaces
+    ne_k: torch.Tensor  # [N, KE] bool, valid incidence slots
+    nd_k: torch.Tensor  # [N, KD] bool
+    nd_sign: torch.Tensor  # [N, KD] dtype, +-1 (-1 in padding, masked by nd_k)
+
+    # geometry
+    area_inv: torch.Tensor  # [L, N] (layer rows of 1/area)
+
+    # vertical structure helpers
+    surface_or_bottom: torch.Tensor  # [L, N] bool: z==0 or z>=nlev-2
+    interior_row: torch.Tensor  # [L, N] bool: 1 <= z <= nlev-3
+    not_surface: torch.Tensor  # [L, N] bool: z >= 1
+
+    # per-node rows read by the CUDA kernels
+    nlev_nod: torch.Tensor  # [N] int32
+    nd_num: torch.Tensor  # [N] int32, valid slots of each nd_* row
+    nd_lev: torch.Tensor  # [N, KD] int32, nlev_edge of the slot's edge (0 pad)
+    nd_sgn: torch.Tensor  # [N, KD] int8, +1 first endpoint, -1 second (0 pad)
+
+    @property
+    def n_layers(self) -> int:
+        return int(self.node_mask.shape[0])
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.node_mask.shape[1])
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.edge_mask.shape[1])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.area_inv.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.area_inv.device
+
+
+def _masks(mesh: Mesh) -> dict:
+    """Activity masks and gather helper indices (the JAX package's
+    ``ops/oracle.py:masks``)."""
+    L = mesh.n_layers
+    z = np.arange(L)[:, None]
+    node_mask = z < (mesh.nlev_nod[None, :] - 1)  # [L, N]
+    elem_mask = z < (mesh.nlev_elem[None, :] - 1)  # [L, E]
+    edge_mask = z < mesh.nlev_edge[None, :]  # [L, Ed]
+    zi = np.arange(L + 1)[:, None]
+    vint_mask = zi < (mesh.nlev_nod[None, :] - 1)  # [L+1, N] active interfaces
+
+    ne = mesh.node_elems
+    ne_idx = np.where(ne >= 0, ne, 0)
+    ne_k = np.arange(ne.shape[1])[None, :] < mesh.node_elems_num[:, None]
+
+    nd = mesh.node_edges
+    nd_idx = np.where(nd >= 0, nd, 0)
+    nd_k = np.arange(nd.shape[1])[None, :] < mesh.node_edges_num[:, None]
+    nd_sign = mesh.node_edges_sign.astype(np.float64)
+
+    return dict(
+        node_mask=node_mask,
+        elem_mask=elem_mask,
+        edge_mask=edge_mask,
+        vint_mask=vint_mask,
+        ne_idx=ne_idx,
+        ne_k=ne_k,
+        nd_idx=nd_idx,
+        nd_k=nd_k,
+        nd_sign=nd_sign,
+    )
+
+
+def _kernel_rows(nd_idx, nd_k, nd_sign, nlev_edge, nlev_nod) -> dict:
+    """The per-node rows the CUDA kernels read, from the shared fields."""
+    return dict(
+        nlev_nod=nlev_nod,
+        nd_num=nd_k.sum(axis=1),
+        nd_lev=np.where(nd_k, nlev_edge[nd_idx], 0),
+        nd_sgn=np.where(nd_k, np.sign(nd_sign), 0),
+    )
+
+
+_INT32 = ("elem_nodes", "edges", "ne_idx", "ne_pos", "nd_idx", "nd_other",
+          "nlev_nod", "nd_num", "nd_lev")
+_FLOAT = ("nd_sign", "area_inv")
+
+
+def _to_tensors(arrays: dict, dtype: torch.dtype,
+                device: torch.device) -> MeshData:
+    def conv(name, a):
+        # torch.tensor copies, so the mesh data never aliases numpy memory
+        if name in _INT32:
+            return torch.tensor(np.asarray(a, dtype=np.int32), device=device)
+        if name == "nd_sgn":
+            return torch.tensor(np.asarray(a, dtype=np.int8), device=device)
+        if name in _FLOAT:
+            return torch.tensor(np.asarray(a)).to(dtype=dtype, device=device)
+        return torch.tensor(np.asarray(a, dtype=np.bool_), device=device)
+
+    return MeshData(**{f.name: conv(f.name, arrays[f.name])
+                       for f in dataclasses.fields(MeshData)})
+
+
+def build_mesh_data(mesh: Mesh, dtype: torch.dtype,
+                    device: torch.device | str) -> MeshData:
+    """Build the mesh tensors on ``device``; float data in ``dtype``."""
+    mk = _masks(mesh)
+    L = mesh.n_layers
+    z = np.arange(L)[:, None]
+    bottom = mesh.nlev_nod[None, :] - 2
+    surface_or_bottom = (z == 0) | (z >= bottom)
+    interior_row = (z >= 1) & (z <= mesh.nlev_nod[None, :] - 3)
+    not_surface = np.broadcast_to(z >= 1, (L, mesh.n_nodes))
+
+    # other endpoint of each incident edge: sign +1 means this node is the
+    # edge start, so the neighbour is the end node
+    ends = mesh.edges[mk["nd_idx"]]  # [N, KD, 2]
+    nd_other = np.where(mesh.node_edges_sign == 1, ends[:, :, 1],
+                        ends[:, :, 0])
+    nd_other = np.where(mesh.node_edges >= 0, nd_other, 0)
+
+    arrays = dict(
+        elem_nodes=mesh.elem_nodes,
+        edges=mesh.edges,
+        ne_idx=mk["ne_idx"],
+        ne_pos=np.where(mesh.node_elems_pos >= 0, mesh.node_elems_pos, 0),
+        nd_idx=mk["nd_idx"],
+        nd_other=nd_other,
+        node_mask=mk["node_mask"],
+        elem_mask=mk["elem_mask"],
+        edge_mask=mk["edge_mask"],
+        vint_mask=mk["vint_mask"],
+        ne_k=mk["ne_k"],
+        nd_k=mk["nd_k"],
+        nd_sign=mk["nd_sign"],
+        area_inv=mesh.area_inv[:L],
+        surface_or_bottom=surface_or_bottom,
+        interior_row=interior_row,
+        not_surface=not_surface,
+        **_kernel_rows(mk["nd_idx"], mk["nd_k"], mk["nd_sign"],
+                       mesh.nlev_edge, mesh.nlev_nod),
+    )
+    return _to_tensors(arrays, dtype, torch.device(device))
+
+
+def mesh_data_from_numpy(arrays: dict,
+                         device: torch.device | str) -> MeshData:
+    """The port's MeshData from the JAX package's ``MeshData`` arrays.
+
+    ``arrays`` maps each field of the JAX ``MeshData`` to its value as a
+    numpy array; the float dtype is that of ``area_inv``.  The rows only
+    the CUDA kernels read are derived from those fields (``nlev_nod`` from
+    the interface mask, ``nlev_edge`` from the edge mask), so both packages
+    are shown to compute on identical mesh data."""
+    a = {k: np.asarray(v) for k, v in arrays.items()}
+    nlev_edge = a["edge_mask"].sum(axis=0)
+    nlev_nod = a["vint_mask"].sum(axis=0) + 1
+    full = dict(a, **_kernel_rows(a["nd_idx"], a["nd_k"], a["nd_sign"],
+                                  nlev_edge, nlev_nod))
+    dtype = {np.dtype(np.float32): torch.float32,
+             np.dtype(np.float64): torch.float64}[a["area_inv"].dtype]
+    return _to_tensors(full, dtype, torch.device(device))

@@ -1,0 +1,232 @@
+"""PyTorch port: the plain versions of the three CUDA kernels against the
+JAX package's Pallas step, the wrappers' device rules, and the build
+command.
+
+The CUDA kernels themselves run only on a GPU (``python3 chip_smoke.py``
+holds each against its plain version there).  Here each plain version
+(``bounds_ref``, ``limit_ref``, ``update_fused_ref``) is fed the JAX Pallas
+step's own inputs and intermediates, with the Pallas kernels run in TPU
+interpret mode as tests/test_pallas.py runs them, and compared in float32:
+fct_ttf_max/min bit-exact (max/min and one subtraction), every other
+output within relerr 1e-6 (another summation order, f32 rounding)."""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from fesom2_accelerate_tpu.config import FctAleConfig as JaxFctAleConfig
+from fesom2_accelerate_tpu.mesh import generate_planar_mesh as jax_planar_mesh
+from fesom2_accelerate_tpu.ops import stages as jax_stages
+from fesom2_accelerate_tpu.ops.meshdata import build_mesh_data as jax_mesh_data
+from fesom2_accelerate_tpu.ops.pallas.step import (
+    build_pallas_data,
+    fct_ale_step_pallas,
+)
+from fesom2_accelerate_tpu_torch import FctAleConfig
+from fesom2_accelerate_tpu_torch.mesh import generate_planar_mesh, random_fields
+from fesom2_accelerate_tpu_torch.model.fct_ale import fct_ale_step
+from fesom2_accelerate_tpu_torch.ops.cuda import build, kernels
+from fesom2_accelerate_tpu_torch.ops.cuda.step import fct_ale_step_cuda
+from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
+
+from conftest import masked_allclose
+
+DT, EPS = 0.7, 1e-7
+F32_RELERR = 1e-6
+
+
+def _relerr(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1.0)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    mesh = generate_planar_mesh(preset="tiny")
+    pd, ps = build_pallas_data(jax_planar_mesh(preset="tiny"))
+    assert ps.a3f_dia_D and ps.pack_K and ps.fuse_k34, \
+        "tiny must take the main path's DIA K1 / packed K2 / fused K34"
+    fields = random_fields(mesh, seed=11, dtype=np.float32)
+    md = build_mesh_data(mesh, torch.float32, "cpu")
+    return mesh, pd, ps, fields, md
+
+
+@pytest.mark.parametrize("vlimit", [1, 2, 3])
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_plain_kernels_match_pallas_intermediates(tiny, vlimit, iter_yn):
+    mesh, pd, ps, fields, md = tiny
+    cfg = JaxFctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=DT,
+                          flux_eps=EPS, dtype=jnp.float32)
+    with pltpu.force_tpu_interpret_mode():
+        out = fct_ale_step_pallas(
+            pd, ps, cfg, {k: jnp.asarray(v, jnp.float32)
+                          for k, v in fields.items()})
+    p = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in out.items()}
+    s = {k: torch.from_numpy(np.asarray(v, np.float32))
+         for k, v in fields.items()}
+
+    tmax, tmin = kernels.bounds_ref(md, s["fct_LO"], s["ttf"], vlimit)
+    assert torch.equal(tmax, p["fct_ttf_max"])
+    assert torch.equal(tmin, p["fct_ttf_min"])
+
+    plus, minus, av_lim, av_res = kernels.limit_ref(
+        md, s["fct_adf_v"], p["fct_ttf_max"], p["fct_ttf_min"],
+        s["fct_adf_h"], DT, EPS, iter_yn)
+    av_lim_ref = p["fct_adf_v_limited"] if iter_yn else p["fct_adf_v"]
+    got = dict(fct_plus=plus, fct_minus=minus, adf_v_lim=av_lim)
+    ref = dict(fct_plus=p["fct_plus"], fct_minus=p["fct_minus"],
+               adf_v_lim=av_lim_ref)
+    if iter_yn:
+        got["adf_v_res"], ref["adf_v_res"] = av_res, p["fct_adf_v"]
+    else:
+        assert av_res is None
+
+    o1, o2, ah_lim, ah_res = kernels.update_fused_ref(
+        md, p["fct_plus"], p["fct_minus"], av_lim_ref, s["fct_adf_h"],
+        s["ttf"], s["hnode"], s["hnode_new"], s["fct_LO"],
+        s["del_ttf_advvert"], s["del_ttf_advhoriz"], DT, iter_yn)
+    if iter_yn:
+        assert o2 is None
+        got.update(fct_LO=o1, adf_h_lim=ah_lim, adf_h_res=ah_res)
+        ref.update(fct_LO=p["fct_LO"], adf_h_lim=p["fct_adf_h_limited"],
+                   adf_h_res=p["fct_adf_h"])
+    else:
+        assert ah_res is None
+        got.update(del_ttf_advvert=o1, del_ttf_advhoriz=o2, adf_h_lim=ah_lim)
+        ref.update(del_ttf_advvert=p["del_ttf_advvert"],
+                   del_ttf_advhoriz=p["del_ttf_advhoriz"],
+                   adf_h_lim=p["fct_adf_h"])
+    for k in ref:
+        assert got[k].dtype == torch.float32, k
+        assert got[k].shape == ref[k].shape, k
+        err = _relerr(got[k], ref[k])
+        assert err <= F32_RELERR, f"{k}: relerr {err:.2e}"
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_limit_ref_b3v_mask_follows_stages(iter_yn):
+    """A nonzero vertical flux at z = nlev_nod - 1 passes through b3v
+    unlimited, as in stages.b3_vertical and the numpy oracle (the Pallas K2
+    limits rows z < nlev_nod and would zero it)."""
+    mesh = generate_planar_mesh(preset="small")
+    fields = random_fields(mesh, seed=2)
+    rows, cols = mesh.nlev_nod - 1, np.arange(mesh.n_nodes)
+    av = fields["fct_adf_v"].copy()
+    av[rows, cols] = np.linspace(-1.0, 1.0, mesh.n_nodes) + 0.25
+    rng = np.random.default_rng(5)
+    tmax = np.abs(rng.standard_normal(fields["ttf"].shape))
+    tmin = -np.abs(rng.standard_normal(fields["ttf"].shape))
+
+    md = build_mesh_data(mesh, torch.float64, "cpu")
+    t = torch.from_numpy
+    plus, minus, av_lim, av_res = kernels.limit_ref(
+        md, t(av), t(tmax), t(tmin), t(fields["fct_adf_h"]), DT, EPS,
+        iter_yn)
+    assert torch.equal(av_lim[rows, cols], t(av)[rows, cols])
+
+    jmd = jax_mesh_data(jax_planar_mesh(preset="small"), dtype=jnp.float64)
+    j = jnp.asarray
+    jp, jm = jax_stages.b1_vertical(jmd, j(av))
+    jp, jm = jax_stages.b1_horizontal(jmd, jp, jm, j(fields["fct_adf_h"]))
+    jp, jm = jax_stages.b2(jmd, jp, jm, j(tmax), j(tmin), DT, EPS)
+    jv, jr = jax_stages.b3_vertical(jmd, jp, jm, j(av), iter_yn)
+    for a, b, name in ((plus, jp, "fct_plus"), (minus, jm, "fct_minus"),
+                       (av_lim, jv, "adf_v_lim"), (av_res, jr, "adf_v_res")):
+        if b is None:
+            assert a is None
+            continue
+        masked_allclose(a.numpy(), np.asarray(b), msg=name)
+
+
+@pytest.mark.parametrize("vlimit", [1, 2, 3])
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_cuda_step_on_cpu_matches_torch_step(vlimit, iter_yn):
+    """fct_ale_step_cuda on CPU tensors runs the wrappers' plain versions:
+    the same keys and values as fct_ale_step (f64), and no launch."""
+    mesh = generate_planar_mesh(preset="small")
+    md = build_mesh_data(mesh, torch.float64, "cpu")
+    cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=DT,
+                       dtype=torch.float64)
+    state = {k: torch.from_numpy(v)
+             for k, v in random_fields(mesh, seed=9).items()}
+    kernels.reset_launch_counts()
+    got = fct_ale_step_cuda(md, cfg, state)
+    ref = fct_ale_step(md, cfg, state)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        masked_allclose(got[k].numpy(), ref[k].numpy(), msg=k)
+    assert kernels.launch_counts() == {"bounds": 0, "limit": 0,
+                                       "update_fused": 0}
+    assert build.library.cache_info().currsize == 0, \
+        "the CPU path must not build or load the CUDA library"
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    """A wrapper runs its plain version only for CPU tensors; any other
+    device is checked and refused before a launch (here: meta tensors)."""
+    mesh = generate_planar_mesh(preset="toy")
+    md = build_mesh_data(mesh, torch.float32, "meta")
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    node = torch.empty((L, N), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.bounds(md, node, node, 1)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.limit(md, torch.empty((L + 1, N), device="meta"), node,
+                      node, torch.empty((L, Ed), device="meta"), DT, EPS,
+                      False)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.update_fused(md, node, node,
+                             torch.empty((L + 1, N), device="meta"),
+                             torch.empty((L, Ed), device="meta"), node,
+                             node, node, node, node, node, DT, False)
+    # CPU tensors against mesh data elsewhere are refused as well
+    with pytest.raises(ValueError):
+        kernels.bounds(md, torch.zeros(L, N), torch.zeros(L, N), 1)
+
+
+def test_nvcc_command_targets_sm90a_without_fast_math(tmp_path):
+    cmd = build.nvcc_command(tmp_path / "lib.so")
+    joined = " ".join(cmd)
+    assert "arch=compute_90a,code=sm_90a" in joined
+    assert "--use_fast_math" not in joined and "-use_fast_math" not in joined
+    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+        assert flag in cmd
+    assert str(build.CSRC / "fct_ale.cu") in cmd
+    assert build.library_path().parent == build.BUILD_DIR
+
+
+def test_library_name_is_keyed_by_source_hash(tmp_path, monkeypatch):
+    """An edit of a source changes the library's name, so it rebuilds."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    text = (build.CSRC / "fct_ale.cu").read_text()
+    (src / "fct_ale.cu").write_text(text)
+    monkeypatch.setattr(build, "CSRC", src)
+    before = build.library_path()
+    (src / "fct_ale.cu").write_text(text + "\n// edit\n")
+    after = build.library_path()
+    assert before != after and before.parent == after.parent
+
+
+def test_launcher_argtypes_cover_every_launcher():
+    """Each C launcher's ctypes signature: pointers and the stream as
+    c_void_p (never a 32-bit int), as the launchers in fct_ale.cu take."""
+    import ctypes
+    import re
+
+    src = (build.CSRC / "fct_ale.cu").read_text()
+    for name, argtypes in build.ARGTYPES.items():
+        macro = {"fct_bounds": "FCT_BOUNDS_ARGS",
+                 "fct_limit": "FCT_LIMIT_ARGS",
+                 "fct_update_fused": "FCT_UPDATE_ARGS"}[name]
+        body = re.search(rf"#define {macro}(.*?)\n#define", src, re.S).group(1)
+        params = [p.strip() for p in body.replace("\\", " ").split(",")]
+        assert len(params) == len(argtypes), name
+        for p, t in zip(params, argtypes):
+            want = (ctypes.c_void_p if "*" in p else
+                    ctypes.c_double if p.startswith("double") else
+                    ctypes.c_int)
+            assert t is want, f"{name}: {p}"
