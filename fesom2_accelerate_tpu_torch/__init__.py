@@ -1,24 +1,36 @@
-"""fesom2_accelerate_tpu_torch: the FCT-ALE tracer limiter in PyTorch, with
-hand-written CUDA kernels for one NVIDIA H100.
+"""fesom2_accelerate_tpu_torch: the FCT-ALE tracer limiter and the sea-ice
+EVP stress divergence in PyTorch, with hand-written CUDA kernels for one
+NVIDIA H100.
 
 A port of the JAX package ``fesom2_accelerate_tpu`` beside it, which stays
 the reference.  The module layout and names follow the JAX package, so each
 module has its counterpart there.  This package imports torch and numpy and
-never jax: it carries its own copy of the numpy mesh code.
+never jax: it carries its own copy of the numpy mesh code (planar and
+cylinder generators, RCM ordering, the FESOM2 mesh-file reader).
 
 * ``FctAleSolver(mesh, cfg, backend="torch", device=...)`` runs the plain
   PyTorch stages on any device (the float64 correctness gate);
 * ``backend="cuda"`` runs the step as three CUDA kernels (K1 bounds,
-  K2 limit, K34 update_fused; ``ops/cuda/``) on a CUDA device.
+  K2 limit, K34 update_fused; ``ops/cuda/``) on a CUDA device;
+* ``Stress2RhsSolver(mesh, dtype, backend="torch"|"cuda", device=...)``
+  runs stress2rhs in plain PyTorch or through the H-S2R CUDA kernel.
 """
 
 from fesom2_accelerate_tpu_torch.config import FctAleConfig
-from fesom2_accelerate_tpu_torch.mesh import Mesh, generate_planar_mesh
-from fesom2_accelerate_tpu_torch.model import FctAleSolver
+from fesom2_accelerate_tpu_torch.mesh import (
+    Mesh,
+    generate_cylinder_mesh,
+    generate_planar_mesh,
+    read_fesom_mesh,
+)
+from fesom2_accelerate_tpu_torch.model import FctAleSolver, Stress2RhsSolver
 
 __all__ = [
     "FctAleConfig",
     "FctAleSolver",
     "Mesh",
+    "Stress2RhsSolver",
+    "generate_cylinder_mesh",
     "generate_planar_mesh",
+    "read_fesom_mesh",
 ]

@@ -1,7 +1,8 @@
 """Synthetic mesh and field generators (numpy).
 
 A copy of ``fesom2_accelerate_tpu/mesh/generate.py`` (``PRESETS``,
-``generate_planar_mesh``, ``random_fields``): the port cannot import the JAX
+``generate_planar_mesh``, ``generate_cylinder_mesh``, ``random_fields``):
+the port cannot import the JAX
 package, whose ``__init__`` imports jax.  The code is kept identical, so both
 packages build the same mesh and the same fields from the same arguments
 and seed; the tests hold the port to that.
@@ -100,6 +101,70 @@ def generate_planar_mesh(
 
 def elem_nodes_mean(values: np.ndarray, elem_nodes: np.ndarray) -> np.ndarray:
     return values[elem_nodes].mean(axis=1)
+
+
+def generate_cylinder_mesh(nx: int, ny: int, nl: int,
+                           reorder: bool = True):
+    """Periodic-in-x (cylindrical) triangulated band — the synthetic stand-in
+    for a global spherical FESOM mesh's zonal periodicity.
+
+    The raw column-major numbering has a SEAM: elements connect column
+    nx-1 back to column 0, so naive numbering has bandwidth ~N.  With
+    ``reorder`` (default) the mesh is RCM-renumbered; the BFS frontier wraps
+    the cycle in both directions, bounding the bandwidth at roughly twice
+    the circumference.  Returns (mesh, node_perm | None)."""
+    assert nx >= 3 and ny >= 2 and nl >= 4
+    # RAW numbering runs along the meridians (y fastest), the order a
+    # lat/lon file naturally arrives in: the x-seam then connects ids
+    # ~N apart — no locality until RCM renumbers
+    node_id = np.arange(nx * ny, dtype=np.int32).reshape(nx, ny).T
+    xs, ys = np.meshgrid(np.arange(nx, dtype=np.float64),
+                         np.arange(ny, dtype=np.float64))
+    node_xy = np.empty((nx * ny, 2), dtype=np.float64)
+    node_xy[node_id.ravel()] = np.stack([xs.ravel(), ys.ravel()], axis=1)
+
+    tris = []
+    for j in range(ny - 1):
+        for i in range(nx):  # i == nx-1 wraps to column 0: the seam
+            a = node_id[j, i]
+            b = node_id[j, (i + 1) % nx]
+            c = node_id[j + 1, i]
+            d = node_id[j + 1, (i + 1) % nx]
+            if (i + j) % 2 == 0:
+                tris.append((a, b, d))
+                tris.append((a, d, c))
+            else:
+                tris.append((a, b, c))
+                tris.append((b, d, c))
+    elem_nodes = np.asarray(tris, dtype=np.int32)
+    cx = elem_nodes_mean(node_xy[:, 0], elem_nodes) / max(nx - 1, 1)
+    cy = elem_nodes_mean(node_xy[:, 1], elem_nodes) / max(ny - 1, 1)
+    depth = 0.55 + 0.45 * np.sin(2 * np.pi * cx) * np.sin(np.pi * cy)
+    depth = np.clip(depth, 0.0, 1.0)
+    nlev_elem = np.clip((3 + np.round(depth * (nl - 3))).astype(np.int32),
+                        3, nl)
+    # seam-aware areas: wrap-around triangles straddle x=0/x=nx in raw
+    # coordinates, which would give bogus planar areas — unwrap x per
+    # element before the area formula
+    p = node_xy[elem_nodes]  # [E, 3, 2]
+    x = p[:, :, 0]
+    x = np.where(x - x.min(axis=1, keepdims=True) > nx / 2, x - nx, x)
+    p = np.stack([x, p[:, :, 1]], axis=2)
+    cross = ((p[:, 1, 0] - p[:, 0, 0]) * (p[:, 2, 1] - p[:, 0, 1])
+             - (p[:, 1, 1] - p[:, 0, 1]) * (p[:, 2, 0] - p[:, 0, 0]))
+    elem_area = 0.5 * np.abs(cross) + 1e-12
+    node_area = np.zeros(nx * ny)
+    np.add.at(node_area, elem_nodes.ravel(),
+              np.repeat(elem_area / 3.0, 3))
+    area = node_area[None, :] * np.linspace(1.0, 0.85, nl)[:, None]
+
+    mesh = build_mesh_from_elements(elem_nodes, nlev_elem, nl, node_xy,
+                                    area=area)
+    if not reorder:
+        return mesh, None
+    from fesom2_accelerate_tpu_torch.mesh.ordering import reorder_mesh
+
+    return reorder_mesh(mesh)
 
 
 def random_fields(mesh: Mesh, seed: int = 0, dtype=np.float64) -> dict:

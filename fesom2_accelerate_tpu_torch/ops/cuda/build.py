@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels from the sources in ``csrc/``.
 
-The kernels have a plain C interface (``extern "C"`` launchers), so they
-are compiled by ``nvcc`` alone into a shared library and loaded with
-``ctypes``: no PyTorch headers, which keeps a build to seconds.  The build
-happens at first use, into ``_build/`` beside this file (listed in
-``.gitignore``), under a name keyed by a hash of the sources and the
-command, so an edit rebuilds.  A failed build raises; there is no
-fallback.
+The kernels have a plain C interface (``extern "C"`` launchers), so each
+source is compiled by ``nvcc`` alone into a shared library of its own and
+loaded with ``ctypes``: no PyTorch headers, which keeps a build to seconds.
+The sources are compiled in parallel, one ``nvcc`` process each, all
+started together.  The build happens at first use, into ``_build/`` beside
+this file (listed in ``.gitignore``), under a name keyed by a hash of the
+source and the command, so an edit rebuilds that source.  A failed build
+raises; there is no fallback.
 
 The command targets Hopper only (``sm_90a``) and leaves out
 ``--use_fast_math``: b2's divisions and the limiter selections stay IEEE.
@@ -22,10 +23,10 @@ import pathlib
 import shutil
 import subprocess
 import time
+import types
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("fct_ale.cu",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,6 +40,13 @@ ARGTYPES = {
     "fct_bounds": [_P] * 8 + [_I] * 5 + [_P],
     "fct_limit": [_P] * 14 + [_I] * 4 + [_D, _D, _I, _P],
     "fct_update_fused": [_P] * 21 + [_I] * 4 + [_D, _I, _I, _P],
+    "stress2rhs": [_P] * 7 + [_I] * 4 + [_P],
+}
+
+# each source and the launchers it defines (each as ``_f32`` and ``_f64``)
+SOURCES = {
+    "fct_ale.cu": ("fct_bounds", "fct_limit", "fct_update_fused"),
+    "stress2rhs.cu": ("stress2rhs",),
 }
 
 
@@ -51,58 +59,71 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def nvcc_command(output: pathlib.Path) -> list[str]:
-    return [nvcc(), *NVCC_FLAGS, "-o", str(output),
-            *(str(CSRC / s) for s in SOURCES)]
+def nvcc_command(source: str, output: pathlib.Path) -> list[str]:
+    return [nvcc(), *NVCC_FLAGS, "-o", str(output), str(CSRC / source)]
 
 
-def _source_key() -> str:
+def _source_key(source: str) -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
-        h.update(s.encode())
-        h.update((CSRC / s).read_bytes())
+    h.update(source.encode())
+    h.update((CSRC / source).read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> pathlib.Path:
-    return BUILD_DIR / f"libfct_ale_{_source_key()}.so"
+def library_path(source: str) -> pathlib.Path:
+    stem = pathlib.Path(source).stem
+    return BUILD_DIR / f"lib{stem}_{_source_key(source)}.so"
 
 
-def build() -> tuple[pathlib.Path, float]:
-    """Compile the kernels if the keyed library is missing.
+def build() -> tuple[list[pathlib.Path], float]:
+    """Compile every source whose keyed library is missing, all in parallel.
 
-    Returns (library path, seconds spent compiling; 0.0 when it was
-    already built).  The compiler's output goes to ``<library>.log``."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0
+    Returns (library paths in ``SOURCES`` order, wall seconds spent
+    compiling; 0.0 when all were already built).  Each compiler's output
+    goes to ``<library>.log``."""
+    paths = [library_path(s) for s in SOURCES]
+    todo = [(s, p) for s, p in zip(SOURCES, paths) if not p.exists()]
+    if not todo:
+        return paths, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = nvcc_command(tmp)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return out, seconds
+    procs = []
+    for source, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = nvcc_command(source, tmp)
+        procs.append((out, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for out, tmp, cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + stdout
+                                           + stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stderr[-4000:]}")
+        else:
+            # atomic: a concurrent loader sees all or nothing
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths, time.perf_counter() - t0
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), with every
-    launcher's ``argtypes`` and ``restype`` set."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in ARGTYPES.items():
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, name + suffix)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
+def library() -> types.SimpleNamespace:
+    """Every launcher of the kernel libraries (built on first call), as
+    attributes ``<name>_f32`` / ``<name>_f64`` with ``argtypes`` and
+    ``restype`` set."""
+    paths, _ = build()
+    fns = {}
+    for names, path in zip(SOURCES.values(), paths):
+        lib = ctypes.CDLL(str(path))
+        for name in names:
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, name + suffix)
+                fn.argtypes = ARGTYPES[name]
+                fn.restype = ctypes.c_int
+                fns[name + suffix] = fn
+    return types.SimpleNamespace(**fns)

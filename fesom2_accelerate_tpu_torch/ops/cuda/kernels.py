@@ -1,26 +1,33 @@
-"""Wrappers of the three CUDA kernels of the FCT-ALE step, each beside its
-plain PyTorch version.
+"""Wrappers of the CUDA kernels, each beside its plain PyTorch version.
 
-=============  ==========================================  ================
-wrapper        replaces (JAX package, Pallas)              plain version
-=============  ==========================================  ================
-bounds         kernels.py:bounds_dia_dma_pallas (K1)       bounds_ref
-limit          kernels_packed.py:limit_packed_pallas (K2)  limit_ref
-update_fused   kernels_packed.py:update_fused_pallas (K34) update_fused_ref
-=============  ==========================================  ================
+============  ==============================================  ================
+wrapper       replaces (JAX package, Pallas)                  plain version
+============  ==============================================  ================
+bounds        kernels.py:bounds_dia_dma_pallas (K1); also     bounds_ref
+              bounds_pallas, bounds_dia_pallas
+limit         kernels_packed.py:limit_packed_pallas (K2);     limit_ref
+              also kernels.py:limit_pallas
+update_fused  kernels_packed.py:update_fused_pallas (K34)     update_fused_ref
+stress2rhs    kernels.py:stress2rhs_pallas and                stress2rhs_ref
+              kernels_packed.py:stress2rhs_packed_pallas
+============  ==============================================  ================
 
-A wrapper given tensors on the CPU returns its plain version, built from
-:mod:`fesom2_accelerate_tpu_torch.ops.stages`.  Given CUDA tensors it checks
+The first three are the FCT-ALE step (``fct_ale.cu``), the fourth is the
+sea-ice EVP stress divergence (``stress2rhs.cu``).  A wrapper given tensors
+on the CPU returns its plain version, built from
+:mod:`fesom2_accelerate_tpu_torch.ops.stages` (the stress2rhs one is written
+out here, in the kernel's summation order).  Given CUDA tensors it checks
 device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches the kernel on the current stream, raises if the
 launcher reports an error, and adds one to its ``launches`` count.  Any
 other device raises.  Nothing falls back.
 
 Tolerances against the plain versions, on the card: ``bounds`` is
-bit-exact (max/min, selects and one subtraction).  ``limit`` and
-``update_fused`` agree to relerr <= 1e-6 in float32 and <= 1e-12 in
-float64, relerr = max|a-b| / max(max|b|, 1): the incident-edge sums run in
-another order, and nvcc contracts a*b+c into one FMA rounding.
+bit-exact (max/min, selects and one subtraction).  ``limit``,
+``update_fused`` and ``stress2rhs`` agree to relerr <= 1e-6 in float32 and
+<= 1e-12 in float64, relerr = max|a-b| / max(max|b|, 1): nvcc contracts
+a*b+c into one FMA rounding, and the FCT kernels sum the incident edges in
+another order.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from fesom2_accelerate_tpu_torch.ops.meshdata import MeshData
 
 TOLERANCE = {torch.float32: 1e-6, torch.float64: 1e-12}
 
-# incidence slots a kernel keeps in registers (kMaxDegree in fct_ale.cu)
+# incidence slots a kernel keeps in registers (kMaxDegree in fct_ale.cu,
+# kMaxSlots in stress2rhs.cu)
 MAX_DEGREE = 16
 
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
@@ -43,16 +51,17 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _check(md: MeshData, named: dict) -> torch.device:
+def _check(md: MeshData, named: dict, slots: int) -> torch.device:
     """Raise unless every tensor is a contiguous CUDA tensor of the mesh
-    data's dtype, on the mesh data's device, with the shape given."""
+    data's dtype, on the mesh data's device, with the shape given, and the
+    kernel's incidence rows (``slots`` wide) fit its registers."""
+    if slots > MAX_DEGREE:
+        raise ValueError(f"node degree {slots} exceeds the kernels' "
+                         f"{MAX_DEGREE} incidence slots")
     dev = md.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernels need mesh data on a CUDA device, "
                          f"got {dev}")
-    if md.nd_idx.shape[1] > MAX_DEGREE:
-        raise ValueError(f"node degree {md.nd_idx.shape[1]} exceeds the "
-                         f"kernels' {MAX_DEGREE} incidence slots")
     for name, (t, shape) in named.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, mesh data on {dev}")
@@ -107,7 +116,8 @@ def bounds(md: MeshData, fct_LO, ttf, vlimit: int):
     if vlimit not in (1, 2, 3):
         raise ValueError(f"vlimit must be 1, 2 or 3, got {vlimit}")
     L, N = md.n_layers, md.n_nodes
-    dev = _check(md, dict(fct_LO=(fct_LO, (L, N)), ttf=(ttf, (L, N))))
+    dev = _check(md, dict(fct_LO=(fct_LO, (L, N)), ttf=(ttf, (L, N))),
+                 md.nd_idx.shape[1])
     tmax = torch.empty((L, N), dtype=md.dtype, device=dev)
     tmin = torch.empty_like(tmax)
     _launch("fct_bounds", md, dev, fct_LO.data_ptr(), ttf.data_ptr(),
@@ -146,7 +156,8 @@ def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
     L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
     dev = _check(md, dict(fct_adf_v=(fct_adf_v, (L + 1, N)),
                           tmax=(tmax, (L, N)), tmin=(tmin, (L, N)),
-                          fct_adf_h=(fct_adf_h, (L, Ed))))
+                          fct_adf_h=(fct_adf_h, (L, Ed))),
+                 md.nd_idx.shape[1])
     plus = torch.empty((L, N), dtype=md.dtype, device=dev)
     minus = torch.empty_like(plus)
     adf_v_lim = torch.empty((L + 1, N), dtype=md.dtype, device=dev)
@@ -207,7 +218,7 @@ def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
     checks = {n: (t, (L, N)) for n, t in zip(names, node_in)}
     checks.update(adf_v_lim=(adf_v_lim, (L + 1, N)),
                   fct_adf_h=(fct_adf_h, (L, Ed)))
-    dev = _check(md, checks)
+    dev = _check(md, checks, md.nd_idx.shape[1])
     o1 = torch.empty((L, N), dtype=md.dtype, device=dev)
     o2 = None if iter_yn else torch.empty_like(o1)
     adf_h_lim = torch.empty((L, Ed), dtype=md.dtype, device=dev)
@@ -227,7 +238,67 @@ def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
 
 update_fused.launches = 0
 
-WRAPPERS = (bounds, limit, update_fused)
+
+# --------------------------------------------------------------------------
+# H-S2R stress2rhs: sea-ice EVP stress divergence, element slab -> U, V
+# --------------------------------------------------------------------------
+
+# rows of the element slab [SLAB_ROWS, E]: s11, s12, s22, ea, mf/3, then
+# gradient_sca 0..5 from row _GRAD (kS11..kGrad in stress2rhs.cu)
+SLAB_ROWS = 11
+_GRAD = 5
+
+
+def stress2rhs_ref(md: MeshData, slab, inv_areamass, rhs_a, rhs_m):
+    """The kernel's sums, in its order: for each node, its incidence slots
+    in slot order, each adding the corner contribution of
+    :func:`stages.stress2rhs` read from the slab, masked where the slot is
+    padding or the element is ice-free (``ea == 0``)."""
+    E = slab.shape[1]
+    flat = slab.reshape(-1)
+    U = torch.zeros_like(inv_areamass)
+    V = torch.zeros_like(inv_areamass)
+    for code in md.ne_slot.long():  # [N] per slot
+        valid = code >= 0
+        e = torch.where(valid, code, 0) // 3
+        corner = torch.where(valid, code, 0) - 3 * e
+        s11, s12, s22, ea, mf3 = torch.index_select(slab[:_GRAD], 1, e)
+        g = torch.take(flat, (_GRAD + corner) * E + e)
+        g3 = torch.take(flat, (_GRAD + 3 + corner) * E + e)
+        live = valid & (ea != 0.0)
+        U = U + torch.where(live, -ea * (s11 * g + s12 * g3 + s12 * mf3),
+                            0.0)
+        V = V + torch.where(live, -ea * (s12 * g + s22 * g3 - s11 * mf3),
+                            0.0)
+    has_mass = inv_areamass > 0.0
+    return (torch.where(has_mass, U * inv_areamass + rhs_a, 0.0),
+            torch.where(has_mass, V * inv_areamass + rhs_m, 0.0))
+
+
+def stress2rhs(md: MeshData, slab, inv_areamass, rhs_a, rhs_m):
+    """H-S2R -> (U [N], V [N]) from the element slab [SLAB_ROWS, E] (rows
+    s11, s12, s22, area * (ice_strength > 0), metric_factor / 3,
+    gradient_sca 0..5) and the node rows [N]."""
+    if _on_cpu(slab, inv_areamass, rhs_a, rhs_m, md.area_inv):
+        return stress2rhs_ref(md, slab, inv_areamass, rhs_a, rhs_m)
+    N, E = md.n_nodes, md.n_elems
+    if 3 * E + 2 > torch.iinfo(torch.int32).max:
+        raise ValueError(f"{E} elements overflow the int32 slot codes")
+    dev = _check(md, dict(slab=(slab, (SLAB_ROWS, E)),
+                          inv_areamass=(inv_areamass, (N,)),
+                          rhs_a=(rhs_a, (N,)), rhs_m=(rhs_m, (N,))),
+                 md.ne_slot.shape[0])
+    out = torch.empty((2, N), dtype=md.dtype, device=dev)
+    _launch("stress2rhs", md, dev, slab.data_ptr(), md.ne_slot.data_ptr(),
+            inv_areamass.data_ptr(), rhs_a.data_ptr(), rhs_m.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), N, E, md.ne_slot.shape[0])
+    stress2rhs.launches += 1
+    return out[0], out[1]
+
+
+stress2rhs.launches = 0
+
+WRAPPERS = (bounds, limit, update_fused, stress2rhs)
 
 
 def reset_launch_counts() -> None:

@@ -3,8 +3,10 @@
 Counterpart of ``fesom2_accelerate_tpu/ops/meshdata.py``: a frozen dataclass
 of tensors (connectivity, activity masks, inverse areas) built once per mesh
 on an explicit device.  The fields of the JAX ``MeshData`` keep their names
-and meaning; five more carry what the CUDA kernels read per node
-(``nlev_nod``, ``nd_num``, ``nd_lev``, ``nd_sgn``, with ``nd_other`` shared).
+and meaning; five more carry what the FCT CUDA kernels read per node
+(``nlev_nod``, ``nd_num``, ``nd_lev``, ``nd_sgn``, with ``nd_other`` shared),
+and ``ne_slot`` is the node->element incidence that the stress2rhs kernel
+reads, slot-major.
 """
 
 from __future__ import annotations
@@ -51,6 +53,10 @@ class MeshData:
     nd_num: torch.Tensor  # [N] int32, valid slots of each nd_* row
     nd_lev: torch.Tensor  # [N, KD] int32, nlev_edge of the slot's edge (0 pad)
     nd_sgn: torch.Tensor  # [N, KD] int8, +1 first endpoint, -1 second (0 pad)
+    # [KE, N] int32, 3 * element + local position of each valid incidence
+    # slot, -1 in padding; slot-major so that neighbouring node threads read
+    # neighbouring words
+    ne_slot: torch.Tensor
 
     @property
     def n_layers(self) -> int:
@@ -59,6 +65,10 @@ class MeshData:
     @property
     def n_nodes(self) -> int:
         return int(self.node_mask.shape[1])
+
+    @property
+    def n_elems(self) -> int:
+        return int(self.elem_nodes.shape[0])
 
     @property
     def n_edges(self) -> int:
@@ -106,18 +116,21 @@ def _masks(mesh: Mesh) -> dict:
     )
 
 
-def _kernel_rows(nd_idx, nd_k, nd_sign, nlev_edge, nlev_nod) -> dict:
+def _kernel_rows(nd_idx, nd_k, nd_sign, nlev_edge, nlev_nod, ne_idx,
+                 ne_pos, ne_k) -> dict:
     """The per-node rows the CUDA kernels read, from the shared fields."""
     return dict(
         nlev_nod=nlev_nod,
         nd_num=nd_k.sum(axis=1),
         nd_lev=np.where(nd_k, nlev_edge[nd_idx], 0),
         nd_sgn=np.where(nd_k, np.sign(nd_sign), 0),
+        ne_slot=np.ascontiguousarray(
+            np.where(ne_k, 3 * ne_idx.astype(np.int64) + ne_pos, -1).T),
     )
 
 
 _INT32 = ("elem_nodes", "edges", "ne_idx", "ne_pos", "nd_idx", "nd_other",
-          "nlev_nod", "nd_num", "nd_lev")
+          "nlev_nod", "nd_num", "nd_lev", "ne_slot")
 _FLOAT = ("nd_sign", "area_inv")
 
 
@@ -155,11 +168,12 @@ def build_mesh_data(mesh: Mesh, dtype: torch.dtype,
                         ends[:, :, 0])
     nd_other = np.where(mesh.node_edges >= 0, nd_other, 0)
 
+    ne_pos = np.where(mesh.node_elems_pos >= 0, mesh.node_elems_pos, 0)
     arrays = dict(
         elem_nodes=mesh.elem_nodes,
         edges=mesh.edges,
         ne_idx=mk["ne_idx"],
-        ne_pos=np.where(mesh.node_elems_pos >= 0, mesh.node_elems_pos, 0),
+        ne_pos=ne_pos,
         nd_idx=mk["nd_idx"],
         nd_other=nd_other,
         node_mask=mk["node_mask"],
@@ -174,7 +188,8 @@ def build_mesh_data(mesh: Mesh, dtype: torch.dtype,
         interior_row=interior_row,
         not_surface=not_surface,
         **_kernel_rows(mk["nd_idx"], mk["nd_k"], mk["nd_sign"],
-                       mesh.nlev_edge, mesh.nlev_nod),
+                       mesh.nlev_edge, mesh.nlev_nod, mk["ne_idx"], ne_pos,
+                       mk["ne_k"]),
     )
     return _to_tensors(arrays, dtype, torch.device(device))
 
@@ -192,7 +207,8 @@ def mesh_data_from_numpy(arrays: dict,
     nlev_edge = a["edge_mask"].sum(axis=0)
     nlev_nod = a["vint_mask"].sum(axis=0) + 1
     full = dict(a, **_kernel_rows(a["nd_idx"], a["nd_k"], a["nd_sign"],
-                                  nlev_edge, nlev_nod))
+                                  nlev_edge, nlev_nod, a["ne_idx"],
+                                  a["ne_pos"], a["ne_k"]))
     dtype = {np.dtype(np.float32): torch.float32,
              np.dtype(np.float64): torch.float64}[a["area_inv"].dtype]
     return _to_tensors(full, dtype, torch.device(device))

@@ -1,4 +1,5 @@
-"""Plain PyTorch implementation of every FCT-ALE stage.
+"""Plain PyTorch implementation of every FCT-ALE stage, and of the sea-ice
+EVP ``stress2rhs``.
 
 Counterpart of ``fesom2_accelerate_tpu/ops/stages.py``: the same masked
 level-major math over a :class:`MeshData` of tensors.  In float64 it is the
@@ -244,3 +245,37 @@ def c_update_LO(md: MeshData, fct_LO, fct_adf_v, fct_adf_h, hnode_new, dt):
     out = torch.where(md.node_mask, fct_LO + dv, fct_LO)
     dh = edge_flux_to_nodes(md, fct_adf_h) * dt * md.area_inv / hnode_new
     return out + dh
+
+
+def stress2rhs(md: MeshData, elem_area, ice_strength, sigma11, sigma12,
+               sigma22, gradient_sca, metric_factor, inv_areamass,
+               rhs_a, rhs_m):
+    """Sea-ice EVP stress divergence, gather form.
+
+    Reference src/reference.cpp:440-480; the element->node scatter becomes a
+    masked sum over each node's incident elements with its local gradient
+    coefficient."""
+    idx = md.ne_idx.long()  # [N, KE]
+    pos = md.ne_pos.long()
+    E = elem_area.shape[0]
+
+    active = md.ne_k & (torch.take(ice_strength, idx) > 0.0)
+
+    gflat = gradient_sca.reshape(-1)  # [6 * E]
+    g_k = torch.take(gflat, pos * E + idx)
+    g_k3 = torch.take(gflat, (pos + 3) * E + idx)
+    ea = torch.take(elem_area, idx)
+    s11 = torch.take(sigma11, idx)
+    s12 = torch.take(sigma12, idx)
+    s22 = torch.take(sigma22, idx)
+    mf3 = torch.take(metric_factor, idx) * (1.0 / 3.0)
+
+    u_c = -ea * (s11 * g_k + s12 * g_k3 + s12 * mf3)
+    v_c = -ea * (s12 * g_k + s22 * g_k3 - s11 * mf3)
+    U = torch.where(active, u_c, 0.0).sum(dim=1)
+    V = torch.where(active, v_c, 0.0).sum(dim=1)
+
+    has_mass = inv_areamass > 0.0
+    U = torch.where(has_mass, U * inv_areamass + rhs_a, 0.0)
+    V = torch.where(has_mass, V * inv_areamass + rhs_m, 0.0)
+    return U, V

@@ -1,6 +1,6 @@
-"""PyTorch port: the plain versions of the three CUDA kernels against the
-JAX package's Pallas step, the wrappers' device rules, and the build
-command.
+"""PyTorch port: the plain versions of the three FCT CUDA kernels against
+the JAX package's Pallas step, the wrappers' device rules, and the build
+command of every kernel source.
 
 The CUDA kernels themselves run only on a GPU (``python3 chip_smoke.py``
 holds each against its plain version there).  Here each plain version
@@ -159,7 +159,7 @@ def test_cuda_step_on_cpu_matches_torch_step(vlimit, iter_yn):
     for k in ref:
         masked_allclose(got[k].numpy(), ref[k].numpy(), msg=k)
     assert kernels.launch_counts() == {"bounds": 0, "limit": 0,
-                                       "update_fused": 0}
+                                       "update_fused": 0, "stress2rhs": 0}
     assert build.library.cache_info().currsize == 0, \
         "the CPU path must not build or load the CUDA library"
 
@@ -188,45 +188,61 @@ def test_wrappers_raise_off_cpu_and_cuda():
 
 
 def test_nvcc_command_targets_sm90a_without_fast_math(tmp_path):
-    cmd = build.nvcc_command(tmp_path / "lib.so")
-    joined = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in joined
-    assert "--use_fast_math" not in joined and "-use_fast_math" not in joined
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
-        assert flag in cmd
-    assert str(build.CSRC / "fct_ale.cu") in cmd
-    assert build.library_path().parent == build.BUILD_DIR
+    for source in build.SOURCES:
+        cmd = build.nvcc_command(source, tmp_path / "lib.so")
+        joined = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in joined
+        assert "--use_fast_math" not in joined
+        assert "-use_fast_math" not in joined
+        for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+            assert flag in cmd
+        assert str(build.CSRC / source) in cmd
+        assert build.library_path(source).parent == build.BUILD_DIR
+    assert set(build.SOURCES) == {"fct_ale.cu", "stress2rhs.cu"}
 
 
 def test_library_name_is_keyed_by_source_hash(tmp_path, monkeypatch):
-    """An edit of a source changes the library's name, so it rebuilds."""
+    """An edit of a source changes its library's name, so it rebuilds;
+    the other source's library keeps its name."""
     src = tmp_path / "csrc"
     src.mkdir()
-    text = (build.CSRC / "fct_ale.cu").read_text()
-    (src / "fct_ale.cu").write_text(text)
+    for source in build.SOURCES:
+        (src / source).write_text((build.CSRC / source).read_text())
     monkeypatch.setattr(build, "CSRC", src)
-    before = build.library_path()
+    before = {s: build.library_path(s) for s in build.SOURCES}
+    text = (src / "fct_ale.cu").read_text()
     (src / "fct_ale.cu").write_text(text + "\n// edit\n")
-    after = build.library_path()
-    assert before != after and before.parent == after.parent
+    after = {s: build.library_path(s) for s in build.SOURCES}
+    assert before["fct_ale.cu"] != after["fct_ale.cu"]
+    assert before["fct_ale.cu"].parent == after["fct_ale.cu"].parent
+    assert before["stress2rhs.cu"] == after["stress2rhs.cu"]
 
 
 def test_launcher_argtypes_cover_every_launcher():
     """Each C launcher's ctypes signature: pointers and the stream as
-    c_void_p (never a 32-bit int), as the launchers in fct_ale.cu take."""
+    c_void_p (never a 32-bit int), as the launchers in csrc/ take, and
+    each launcher is defined, as _f32 and _f64, in the source that
+    SOURCES names for it."""
     import ctypes
     import re
 
-    src = (build.CSRC / "fct_ale.cu").read_text()
-    for name, argtypes in build.ARGTYPES.items():
-        macro = {"fct_bounds": "FCT_BOUNDS_ARGS",
-                 "fct_limit": "FCT_LIMIT_ARGS",
-                 "fct_update_fused": "FCT_UPDATE_ARGS"}[name]
-        body = re.search(rf"#define {macro}(.*?)\n#define", src, re.S).group(1)
-        params = [p.strip() for p in body.replace("\\", " ").split(",")]
-        assert len(params) == len(argtypes), name
-        for p, t in zip(params, argtypes):
-            want = (ctypes.c_void_p if "*" in p else
-                    ctypes.c_double if p.startswith("double") else
-                    ctypes.c_int)
-            assert t is want, f"{name}: {p}"
+    macros = {"fct_bounds": "FCT_BOUNDS_ARGS", "fct_limit": "FCT_LIMIT_ARGS",
+              "fct_update_fused": "FCT_UPDATE_ARGS",
+              "stress2rhs": "S2R_ARGS"}
+    named = [n for names in build.SOURCES.values() for n in names]
+    assert sorted(named) == sorted(build.ARGTYPES) == sorted(macros)
+    for source, names in build.SOURCES.items():
+        src = (build.CSRC / source).read_text()
+        for name in names:
+            argtypes = build.ARGTYPES[name]
+            body = re.search(rf"#define {macros[name]}(.*?)\n#define", src,
+                             re.S).group(1)
+            params = [p.strip() for p in body.replace("\\", " ").split(",")]
+            assert len(params) == len(argtypes), name
+            for p, t in zip(params, argtypes):
+                want = (ctypes.c_void_p if "*" in p else
+                        ctypes.c_double if p.startswith("double") else
+                        ctypes.c_int)
+                assert t is want, f"{name}: {p}"
+            for suffix in ("_f32", "_f64"):
+                assert re.search(rf"int {name}{suffix}\(", src), name

@@ -136,8 +136,10 @@ def test_config_checks():
 
 
 def test_port_imports_no_jax():
-    """With jax and the JAX package made unimportable, the port imports and
-    runs one toy step."""
+    """With jax and the JAX package made unimportable, the port imports
+    (the stress2rhs solver, the mesh ordering and file reader and the byte
+    models included), runs one toy FCT step and one toy stress2rhs
+    call."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -152,6 +154,17 @@ def test_port_imports_no_jax():
         "                   device='cpu')\n"
         "out = s.step(s.init_state(random_fields(mesh, seed=0)))\n"
         "assert bool(torch.isfinite(out['del_ttf_advhoriz']).all())\n"
+        "import fesom2_accelerate_tpu_torch.model.stress2rhs\n"
+        "import fesom2_accelerate_tpu_torch.mesh.ordering\n"
+        "import fesom2_accelerate_tpu_torch.mesh.fesom_io\n"
+        "from fesom2_accelerate_tpu_torch.runtime import profiling\n"
+        "assert profiling.stress2rhs_bytes(mesh) > 0\n"
+        "E, N = mesh.n_elems, mesh.n_nodes\n"
+        "e, n = torch.ones(E), torch.ones(N)\n"
+        "s2r = f.Stress2RhsSolver(mesh, torch.float32, backend='torch',\n"
+        "                         device='cpu')\n"
+        "U, V = s2r(e, e, e, e, e, torch.ones(6, E), e, n, n, n)\n"
+        "assert U.shape == (N,) and bool(torch.isfinite(V).all())\n"
         "assert not [m for m in sys.modules\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib')\n"
         "            and sys.modules[m] is not None]\n"
