@@ -31,7 +31,28 @@ Phases (each raises on failure, so the script exits non-zero):
    and runs a 120-substep EVP loop of ``call_packed`` on core2, float32,
    with ``backend="cuda"`` and ``backend="torch"``; the launch count, the
    final U, V against each other, device and host time per substep,
-   nodes/s and modeled GB/s; then the same loop on the RCM cylinder.
+   nodes/s and modeled GB/s; then the same loop on the RCM cylinder;
+6. the sharded path, 4 parts of one mesh on the one card:
+   a. H-K3 (b3h), H-K3fix (b3h_fixup) and H-K4 (update) against their plain
+      versions on ``small`` and core2, as one mesh and on each of its 4
+      parts with the part's fix-edge list, iter_yn both ways, float32 and
+      float64 (H-K3 and H-K3fix bit-exact, also with a duplicated id list;
+      H-K4 to relerr 1e-6 / 1e-12); H-K34 on each part, every edge output
+      bit-exact against its plain version (the writer-slot rule);
+   b. 20 steps of ``ShardedFctAleSolver(backend="cuda", devices=["cuda:0"]
+      * 4)`` on core2 (float32, dt=0.5, flux_eps=1e-7, vlimit 1, seed 0),
+      split and fused, each against 20 steps of ``FctAleSolver(backend=
+      "cuda")``: gathered node fields and ``fct_adf_h`` within MAIN_RELERR,
+      and the launch counts (split 4 x K1, K2, K3, K3fix, K4 per step,
+      fused 4 x K1, K2, K34); the time per step of split, fused and the
+      single-device run (CUDA events, device time with the stream held,
+      host wall and the host's enqueue time), the exchange alone, and each
+      new kernel beside its plain version at one part's shapes and at the
+      whole mesh's;
+   c. float64 against the single-device CUDA step at 1e-12: the multi-hop
+      mesh ``generate_planar_mesh(nx=4, ny=7, nl=5)`` at 8 parts (exchange
+      radius >= 2) and ``small`` at 8 parts in iterative mode, 3 steps,
+      split and fused, both exchange forms.
 The last three lines are the per-kernel JSON summary, the card's name and
 power limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
 """
@@ -120,11 +141,12 @@ def phase_build() -> None:
         name, spill = None, ""
         for line in log.read_text().splitlines():
             m = re.search(r"Compiling entry function '.*?((?:bounds|limit|"
-                          r"update_fused|stress2rhs)_kernel)I([fd])Li(\d+)E",
-                          line)
+                          r"update_fused|update|b3h_fixup|b3h|stress2rhs)"
+                          r"_kernel)I([fd])(?:Li(\d+)E)?", line)
             if m:
                 dtype = "float" if m.group(2) == "f" else "double"
-                name = f"{m.group(1)}<{dtype},{m.group(3)}>"
+                width = f",{m.group(3)}" if m.group(3) else ""
+                name = f"{m.group(1)}<{dtype}{width}>"
             elif "spill" in line and name:
                 spill = line.strip()
             elif "registers" in line and name:
@@ -138,8 +160,7 @@ class Errors:
     """Largest absolute error seen per kernel over every checked case."""
 
     def __init__(self):
-        self.max_abs = {"bounds": 0.0, "limit": 0.0, "update_fused": 0.0,
-                        "stress2rhs": 0.0}
+        self.max_abs = {name: 0.0 for name in KERNEL_SOURCES}
 
     def check(self, kernel, name, got, ref, tol, case):
         if ref is None:
@@ -638,9 +659,305 @@ def phase_s2r_path(card: str, meshes: dict) -> tuple:
     return counts, times
 
 
+SHARD_PARTS = 4
+
+
+def part_targets(mesh, dtype, fields) -> list:
+    """(label, mesh data, state, fix-edge ids) on the card: the whole mesh
+    (every third edge as its id list) and each of its SHARD_PARTS parts
+    (its own fix-edge list)."""
+    from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
+    from fesom2_accelerate_tpu_torch.parallel import partition as part_mod
+    from fesom2_accelerate_tpu_torch.parallel.step_sharded import (
+        EDGE_FIELDS,
+        fix_edge_ids,
+    )
+
+    def tensors(d):
+        return {k: torch.tensor(v, dtype=dtype, device="cuda")
+                for k, v in d.items()}
+
+    whole = build_mesh_data(mesh, dtype, "cuda")
+    out = [("whole", whole, tensors(fields),
+            torch.arange(0, mesh.n_edges, 3, dtype=torch.int32,
+                         device="cuda"))]
+    pm = part_mod.partition_mesh(mesh, SHARD_PARTS)
+    local = {k: (part_mod.scatter_edge_field if k in EDGE_FIELDS
+                 else part_mod.scatter_node_field)(pm, v)
+             for k, v in fields.items()}
+    for p, m in enumerate(pm.local_meshes):
+        state = {k: v[p] for k, v in local.items()}
+        # columns that hold no node get hnode_new = 1, so that iterative
+        # stage c (a division by hnode_new) is finite there and every
+        # output can be checked; in a run they hold 0/0, which no gather
+        # reads
+        state["hnode_new"][..., pm.local_nodes_global[p] < 0] = 1.0
+        out.append((f"part {p}", build_mesh_data(m, dtype, "cuda"),
+                    tensors(state),
+                    torch.tensor(fix_edge_ids(pm, p), device="cuda")))
+    return out
+
+
+def check_split_kernels(md, s, fix_ids, cfg, errs: Errors, case: str):
+    """H-K3, H-K3fix (also with duplicated ids), H-K4 and H-K34 against
+    their plain versions, fed the plain K1/K2 outputs.  The fixup gets
+    other factors than K3 (scaled by 3/4), as after an exchange."""
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    it = cfg.iter_yn
+    tmax, tmin = K.bounds_ref(md, s["fct_LO"], s["ttf"], cfg.vlimit)
+    plus, minus, avl, _ = K.limit_ref(md, s["fct_adf_v"], tmax, tmin,
+                                      s["fct_adf_h"], cfg.dt, cfg.flux_eps,
+                                      it)
+    ah = s["fct_adf_h"]
+    ref_e = K.b3h_ref(md, plus, minus, ah, it)
+    got_e = K.b3h(md, plus, minus, ah, it)
+    for i, name in enumerate(("adf_h_lim", "adf_h_res")):
+        errs.check("b3h", name, got_e[i], ref_e[i], 0.0, case)
+
+    px, mx = 0.75 * plus, 0.75 * minus
+    dup = torch.cat([fix_ids, fix_ids.flip(0), fix_ids[: len(fix_ids) // 2]])
+
+    def fixed(fn, ids):
+        return fn(md, px, mx, ah, ref_e[0].clone(),
+                  ref_e[1].clone() if it else None, ids, it)
+
+    ref_f = fixed(K.b3h_fixup_ref, fix_ids)
+    for ids, what in ((fix_ids, ""), (dup, " duplicated ids")):
+        got_f = fixed(K.b3h_fixup, ids)
+        for i, name in enumerate(("adf_h_lim", "adf_h_res")):
+            errs.check("b3h_fixup", name, got_f[i], ref_f[i], 0.0,
+                       case + what)
+
+    tol = K.TOLERANCE[cfg.dtype]
+    node = (s["ttf"], s["hnode"], s["hnode_new"], s["fct_LO"],
+            s["del_ttf_advvert"], s["del_ttf_advhoriz"], cfg.dt, it)
+    ref_u = K.update_ref(md, avl, ref_f[0], *node)
+    got_u = K.update(md, avl, ref_f[0], *node)
+    for i, name in enumerate(("o1", "o2")):
+        errs.check("update", name, got_u[i], ref_u[i], tol, case)
+
+    args = (md, plus, minus, avl, ah, *node)
+    ref_k = K.update_fused_ref(*args)
+    got_k = K.update_fused(*args)
+    for i, name in enumerate(("o1", "o2", "adf_h_lim", "adf_h_res")):
+        errs.check("update_fused", name, got_k[i], ref_k[i],
+                   tol if i < 2 else 0.0, case)
+
+
+def phase_sharded_checks(errs: Errors, meshes: dict) -> None:
+    from fesom2_accelerate_tpu_torch import FctAleConfig
+    from fesom2_accelerate_tpu_torch.mesh import random_fields
+
+    for preset in ("small", "core2"):
+        mesh = meshes[preset]
+        fields = random_fields(mesh, seed=3, dtype=np.float64)
+        n = 0
+        for dtype in (torch.float32, torch.float64):
+            targets = part_targets(mesh, dtype, fields)
+            for iter_yn in (False, True):
+                cfg = FctAleConfig(iter_yn=iter_yn, dt=0.5,
+                                   flux_eps=1e-7 if dtype == torch.float32
+                                   else 1e-16, dtype=dtype)
+                for label, md, state, ids in targets:
+                    check_split_kernels(md, state, ids, cfg, errs,
+                                        f"{preset} {label} {dtype} "
+                                        f"iter={iter_yn}")
+                    n += 1
+        torch.cuda.synchronize()
+        print(f"split kernels vs plain: {preset}, whole and {SHARD_PARTS} "
+              f"parts, {n} cases ok (b3h, b3h_fixup bit-exact, also with "
+              f"duplicated ids; update relerr <= 1e-6 f32, 1e-12 f64; "
+              f"update_fused edge outputs bit-exact on every part)",
+              flush=True)
+
+
+def sharded_vs_single(mesh, fields, cfg, n_parts: int, steps: int,
+                      label: str, tol: float, **kw) -> tuple:
+    """``steps`` steps of ShardedFctAleSolver(backend="cuda") on n_parts
+    parts of the card, split and fused, each against the same steps of
+    FctAleSolver(backend="cuda"): every gathered field within ``tol``.
+    Returns the launch counts of each mode's run, the solvers and their
+    initial states."""
+    from fesom2_accelerate_tpu_torch import FctAleSolver, ShardedFctAleSolver
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    single = FctAleSolver(mesh, cfg, backend="cuda", device="cuda")
+    s0 = single.init_state(fields)
+    ref = {k: v.cpu().numpy() for k, v in single.run(s0, steps).items()}
+    counts, solvers = {}, {"single": (single, s0)}
+    for mode in ("split", "fused"):
+        sh = ShardedFctAleSolver(mesh, cfg, backend="cuda",
+                                 devices=["cuda:0"] * n_parts,
+                                 fused=(mode == "fused"), **kw)
+        state = sh.init_state(fields)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = sh.run(state, steps)
+        torch.cuda.synchronize()
+        counts[mode] = K.launch_counts()
+        got = sh.gather_state(out)
+        if set(got) != set(ref):
+            raise AssertionError(f"{label} {mode}: keys {set(got) ^ set(ref)}")
+        for k, v in ref.items():
+            if got[k].shape != v.shape or not np.isfinite(got[k]).all():
+                raise AssertionError(f"{label} {mode} {k}: bad shape or "
+                                     f"non-finite")
+            e = float(np.abs(got[k].astype(np.float64) - v).max()
+                      / max(float(np.abs(v).max()), 1.0))
+            if e > tol:
+                raise AssertionError(f"{label} {mode} {k}: relerr {e:.3e} "
+                                     f"> {tol:.0e}")
+        solvers[mode] = (sh, state)
+    print(f"{label}: {mesh.n_nodes} nodes, {n_parts} parts (exchange "
+          f"{sh.exchange_mode}, radius {sh.pm.neighbor_radius}), "
+          f"{cfg.dtype} iter={cfg.iter_yn}, {steps} steps, split and fused "
+          f"within relerr {tol:.0e} of the single-device cuda run; launches "
+          f"{counts}", flush=True)
+    return counts, solvers
+
+
+def phase_sharded_small() -> None:
+    from fesom2_accelerate_tpu_torch import FctAleConfig
+    from fesom2_accelerate_tpu_torch.mesh import (
+        generate_planar_mesh,
+        random_fields,
+    )
+
+    tol = 1e-12
+    multihop = generate_planar_mesh(nx=4, ny=7, nl=5)
+    small = generate_planar_mesh(preset="small")
+    for mesh, iters, label in ((multihop, (False, True), "multi-hop"),
+                               (small, (True,), "small")):
+        fields = random_fields(mesh, seed=2, dtype=np.float64)
+        for iter_yn in iters:
+            cfg = FctAleConfig(dt=0.7, iter_yn=iter_yn, dtype=torch.float64)
+            for exchange in ("ppermute", "allgather"):
+                _, solvers = sharded_vs_single(
+                    mesh, fields, cfg, 8, 3,
+                    f"sharded f64 {label} ({exchange})", tol,
+                    exchange=exchange)
+                if label == "multi-hop" and \
+                        solvers["split"][0].pm.neighbor_radius < 2:
+                    raise AssertionError("multi-hop mesh has radius < 2")
+
+
+def phase_sharded_path(card: str, meshes: dict) -> tuple:
+    from fesom2_accelerate_tpu_torch import FctAleConfig
+    from fesom2_accelerate_tpu_torch.mesh import random_fields
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    mesh = meshes["core2"]
+    fields = random_fields(mesh, seed=0, dtype=np.float64)
+    cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
+                       dtype=torch.float32)
+    steps = MAIN_STEPS
+    counts, solvers = sharded_vs_single(
+        mesh, fields, cfg, SHARD_PARTS, steps, "sharded path (core2)",
+        MAIN_RELERR)
+    per = {k: SHARD_PARTS * steps for k in ("bounds", "limit")}
+    check_counts(counts["split"], dict(per, b3h=SHARD_PARTS * steps,
+                                       b3h_fixup=SHARD_PARTS * steps,
+                                       update=SHARD_PARTS * steps),
+                 "sharded split")
+    check_counts(counts["fused"], dict(per, update_fused=SHARD_PARTS * steps),
+                 "sharded fused")
+
+    # time per step of each mode, warm-up then best of 3, in turns: CUDA
+    # events around a 20-step run (as phase 4), device time of one step
+    # with the stream held while the host enqueues (device_time_ms), and
+    # host wall time of the run; the card idles for the difference
+    runs = {mode: (lambda sv=sv: sv[0].run(sv[1], steps))
+            for mode, sv in solvers.items()}
+    best = best_times(runs, 1, timer=cuda_time_ms)
+    dev = best_times({mode: (lambda sv=sv: sv[0].step(sv[1]))
+                      for mode, sv in solvers.items()}, 5)
+    # host wall of the run (to its final synchronize), and the host's own
+    # time to enqueue 5 steps (no synchronize inside: 5 steps stay well
+    # inside the launch queue, so the host never waits for the card)
+    wall = {mode: float("inf") for mode in runs}
+    enq = {mode: float("inf") for mode in runs}
+    for _ in range(TIMING_RUNS):
+        for mode, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall[mode] = min(wall[mode], (time.perf_counter() - t0) * 1e3)
+            sv = solvers[mode]
+            t0 = time.perf_counter()
+            for _ in range(5):
+                sv[0].step(sv[1])
+            enq[mode] = min(enq[mode], (time.perf_counter() - t0) * 1e3 / 5)
+            torch.cuda.synchronize()
+    gp = int(np.sum(mesh.nlev_nod - 1))
+    for mode, ms in best.items():
+        ms /= steps
+        host_ms = wall[mode] / steps
+        print(f"step time {mode}: {ms:.4f} ms/step, "
+              f"{gp / (ms * 1e-3):.4e} grid-points/s; device "
+              f"{dev[mode]:.4f} ms/step, host wall {host_ms:.4f} ms/step "
+              f"(card idle {max(0.0, 1.0 - dev[mode] / host_ms):.1%}), "
+              f"host enqueue {enq[mode]:.4f} ms/step "
+              f"(core2 f32, {SHARD_PARTS} parts on one card; card {card})")
+
+    sh, state = solvers["split"]
+    plus = [torch.rand(mesh.n_layers, sh.pm.n_local, device="cuda")
+            for _ in range(SHARD_PARTS)]
+    t = best_times({"exchange": lambda: sh.halo_fill(plus)}, 20)
+    print(f"exchange alone ({sh.exchange_mode}, one [L, 2H+B] field, "
+          f"{SHARD_PARTS} parts, H={sh.pm.H}, B={sh.pm.B}): "
+          f"{t['exchange']:.4f} ms (card {card})")
+
+    # each new kernel beside its plain version: at the shapes of part 1 (an
+    # interior part, the main path's) and of the whole mesh
+    times = {}
+    whole = solvers["single"]
+    for label, md, s, ids in (
+            ("part 1", sh.mds[1], {k: v[1] for k, v in state.items()},
+             sh.fix_ids[1]),
+            ("whole", whole[0].md, whole[1],
+             torch.arange(0, mesh.n_edges, 3, dtype=torch.int32,
+                          device="cuda"))):
+        tmax, tmin = K.bounds(md, s["fct_LO"], s["ttf"], 1)
+        plus, minus, avl, _ = K.limit(md, s["fct_adf_v"], tmax, tmin,
+                                      s["fct_adf_h"], cfg.dt, cfg.flux_eps,
+                                      False)
+        ah = s["fct_adf_h"]
+        lim, _ = K.b3h(md, plus, minus, ah, False)
+        node = (s["ttf"], s["hnode"], s["hnode_new"], s["fct_LO"],
+                s["del_ttf_advvert"], s["del_ttf_advhoriz"], cfg.dt, False)
+        calls = {
+            "b3h": (lambda: K.b3h(md, plus, minus, ah, False),
+                    lambda: K.b3h_ref(md, plus, minus, ah, False)),
+            "b3h_fixup": (
+                lambda: K.b3h_fixup(md, plus, minus, ah, lim, None, ids,
+                                    False),
+                lambda: K.b3h_fixup_ref(md, plus, minus, ah, lim, None, ids,
+                                        False)),
+            "update": (lambda: K.update(md, avl, lim, *node),
+                       lambda: K.update_ref(md, avl, lim, *node)),
+            "update_fused": (
+                lambda: K.update_fused(md, plus, minus, avl, ah, *node),
+                lambda: K.update_fused_ref(md, plus, minus, avl, ah,
+                                           *node)),
+        }
+        for name, (kern, plain) in calls.items():
+            tk = best_times({"kernel": kern, "plain": plain}, 5)
+            if label == "part 1" and name != "update_fused":
+                times[name] = tk
+            print(f"kernel {name} on core2 {label} ({md.n_nodes} nodes, "
+                  f"{md.n_edges} edges, {len(ids)} fix ids): "
+                  f"{tk['kernel']:.4f} ms, plain {tk['plain']:.4f} ms "
+                  f"(f32; card {card})", flush=True)
+    return counts["split"], times
+
+
 SOURCE = "fesom2_accelerate_tpu_torch/ops/cuda/csrc/"
 KERNEL_SOURCES = {"bounds": "fct_ale.cu", "limit": "fct_ale.cu",
-                  "update_fused": "fct_ale.cu", "stress2rhs": "stress2rhs.cu"}
+                  "update_fused": "fct_ale.cu", "stress2rhs": "stress2rhs.cu",
+                  "b3h": "fct_ale.cu", "b3h_fixup": "fct_ale.cu",
+                  "update": "fct_ale.cu"}
 PALLAS = "fesom2_accelerate_tpu/ops/pallas/"
 REPLACES = {
     "bounds": PALLAS + "kernels.py:545",
@@ -648,6 +965,10 @@ REPLACES = {
     "update_fused": PALLAS + "kernels_packed.py:744",
     "stress2rhs": (PALLAS + "kernels.py:1091, " + PALLAS
                    + "kernels_packed.py:1064"),
+    "b3h": PALLAS + "kernels_packed.py:359, " + PALLAS + "kernels.py:769",
+    "b3h_fixup": (PALLAS + "kernels_packed.py:410, " + PALLAS
+                  + "kernels.py:820"),
+    "update": PALLAS + "kernels_packed.py:537, " + PALLAS + "kernels.py:940",
 }
 
 
@@ -662,6 +983,15 @@ def main() -> int:
     counts, times = phase_main_path(card, meshes)
     s2r_counts, times["stress2rhs"] = phase_s2r_path(card, meshes)
     counts["stress2rhs"] = s2r_counts["stress2rhs"]
+    t0 = time.perf_counter()
+    phase_sharded_checks(errs, meshes)
+    phase_sharded_small()
+    split_counts, split_times = phase_sharded_path(card, meshes)
+    print(f"phase 6 (sharded path) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name in ("b3h", "b3h_fixup", "update"):
+        counts[name] = split_counts[name]
+        times[name] = split_times[name]
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE + src,
          "replaces": REPLACES[name], "launches": counts[name],

@@ -13,7 +13,11 @@ cylinder generators, RCM ordering, the FESOM2 mesh-file reader).
 * ``backend="cuda"`` runs the step as three CUDA kernels (K1 bounds,
   K2 limit, K34 update_fused; ``ops/cuda/``) on a CUDA device;
 * ``Stress2RhsSolver(mesh, dtype, backend="torch"|"cuda", device=...)``
-  runs stress2rhs in plain PyTorch or through the H-S2R CUDA kernel.
+  runs stress2rhs in plain PyTorch or through the H-S2R CUDA kernel;
+* ``ShardedFctAleSolver(mesh, cfg, backend="torch"|"cuda", devices=[...])``
+  runs the FCT step on ``partition_mesh``'s parts, one per entry of
+  ``devices`` (several may share one card), with a halo exchange between
+  K2 and the b3 horizontal limiting (``parallel/``).
 """
 
 from fesom2_accelerate_tpu_torch.config import FctAleConfig
@@ -24,13 +28,19 @@ from fesom2_accelerate_tpu_torch.mesh import (
     read_fesom_mesh,
 )
 from fesom2_accelerate_tpu_torch.model import FctAleSolver, Stress2RhsSolver
+from fesom2_accelerate_tpu_torch.parallel import (
+    ShardedFctAleSolver,
+    partition_mesh,
+)
 
 __all__ = [
     "FctAleConfig",
     "FctAleSolver",
     "Mesh",
+    "ShardedFctAleSolver",
     "Stress2RhsSolver",
     "generate_cylinder_mesh",
     "generate_planar_mesh",
+    "partition_mesh",
     "read_fesom_mesh",
 ]

@@ -73,16 +73,24 @@ def fct_ale_step(md: MeshData, cfg: FctAleConfig, state: dict) -> dict:
     tensors on the mesh data's device."""
     lim = pre_comm(md, cfg, state["ttf"], state["fct_LO"],
                    state["fct_adf_v"], state["fct_adf_h"])
-    fct_plus, fct_minus = lim["fct_plus"], lim["fct_minus"]
-    adf_v, adf_v2 = inter_comm(md, cfg, fct_plus, fct_minus,
-                               state["fct_adf_v"])
-    adf_h, adf_h2 = post_comm(md, cfg, fct_plus, fct_minus,
-                              state["fct_adf_h"])
+    vert = inter_comm(md, cfg, lim["fct_plus"], lim["fct_minus"],
+                      state["fct_adf_v"])
+    horiz = post_comm(md, cfg, lim["fct_plus"], lim["fct_minus"],
+                      state["fct_adf_h"])
+    return update_step(md, cfg, state, lim, vert, horiz)
 
+
+def update_step(md: MeshData, cfg: FctAleConfig, state: dict, lim: dict,
+                vert: tuple, horiz: tuple) -> dict:
+    """Stage c and the step's output dict, from ``pre_comm``'s output and
+    the (limited, residual) flux pairs of ``inter_comm`` and
+    ``post_comm``."""
+    adf_v, adf_v2 = vert
+    adf_h, adf_h2 = horiz
     out = dict(state)
     out.update(
         fct_ttf_max=lim["fct_ttf_max"], fct_ttf_min=lim["fct_ttf_min"],
-        fct_plus=fct_plus, fct_minus=fct_minus,
+        fct_plus=lim["fct_plus"], fct_minus=lim["fct_minus"],
     )
     if cfg.iter_yn:
         new_LO = stages.c_update_LO(

@@ -39,13 +39,17 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 ARGTYPES = {
     "fct_bounds": [_P] * 8 + [_I] * 5 + [_P],
     "fct_limit": [_P] * 14 + [_I] * 4 + [_D, _D, _I, _P],
-    "fct_update_fused": [_P] * 21 + [_I] * 4 + [_D, _I, _I, _P],
+    "fct_update_fused": [_P] * 23 + [_I] * 5 + [_D, _I, _I, _P],
+    "fct_b3h": [_P] * 7 + [_I] * 4 + [_P],
+    "fct_b3h_fixup": [_P] * 8 + [_I] * 5 + [_P],
+    "fct_update": [_P] * 16 + [_I] * 4 + [_D, _I, _I, _P],
     "stress2rhs": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 # each source and the launchers it defines (each as ``_f32`` and ``_f64``)
 SOURCES = {
-    "fct_ale.cu": ("fct_bounds", "fct_limit", "fct_update_fused"),
+    "fct_ale.cu": ("fct_bounds", "fct_limit", "fct_update_fused", "fct_b3h",
+                   "fct_b3h_fixup", "fct_update"),
     "stress2rhs.cu": ("stress2rhs",),
 }
 

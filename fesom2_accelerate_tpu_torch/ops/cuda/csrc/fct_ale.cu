@@ -1,6 +1,11 @@
-// FCT-ALE main-path kernels for Hopper (sm_90a): K1 bounds, K2 limit and
-// K34 update_fused, templated on float/double, with extern "C" launchers
-// that are loaded through ctypes (ops/cuda/build.py, ops/cuda/kernels.py).
+// FCT-ALE kernels for Hopper (sm_90a), templated on float/double, with
+// extern "C" launchers that are loaded through ctypes (ops/cuda/build.py,
+// ops/cuda/kernels.py):
+//   * the single-device chain K1 bounds -> K2 limit -> K34 update_fused;
+//   * the split chain of a sharded step, K1 -> K2 -> K3 b3h -> halo
+//     exchange -> K3fix b3h_fixup -> K4 update: K3 limits every edge on the
+//     pre-exchange factors, K3fix redoes the edges that touch a halo node
+//     with the exchanged ones, K4 is stage c from the limited edge fluxes.
 //
 // Each kernel computes what the JAX package's Pallas kernel of the same
 // role computes, on natural level-major shapes: node fields [L, N],
@@ -9,26 +14,30 @@
 // home slots, DMA windows, 128-lane tiles): all of it stands in for the
 // vector gather that Hopper has.
 //
-// Design shared by the three kernels:
+// Design shared by the node kernels (K1, K2, K34, K4):
 //   * one thread per node, looping over the levels z; consecutive threads
 //     read consecutive nodes at each level, so node-field accesses are
 //     coalesced and the [L, N] layout stays the API layout;
 //   * the node's incidence row (up to MAXD slots of nd_idx / nd_other /
-//     nd_lev / nd_sgn) is loaded once into registers;
+//     nd_lev / nd_sgn / nd_wrt) is loaded once into registers;
 //   * vertical stencils (a3's z-1..z+1 window, b3v's z-1 factors, stage c's
 //     z+1 interface) are carried in registers across the level loop;
 //   * every edge->node sum is a gather over the node's incident edges, and
-//     each edge output is written once, by its first endpoint: no atomics,
-//     so results are identical from run to run.
-// All three are bound by device-memory traffic (a few flops per byte);
-// the neighbour gathers at each level hit L2/L1 because the mesh numbering
+//     each edge output of K34 is written once, from the one incidence slot
+//     that nd_wrt marks (ops/meshdata.py): no atomics, so results are
+//     identical from run to run.
+// The edge kernels (K3, K3fix) run one thread per (edge, level),
+// consecutive threads on consecutive edges of one level.
+// All are bound by device-memory traffic (a few flops per byte); the
+// neighbour gathers at each level hit L2/L1 because the mesh numbering
 // keeps edge-neighbours within about min(nx, ny) node indices.
 //
 // Built without --use_fast_math: b2's divisions and every limiter
 // selection stay IEEE.  nvcc still contracts a*b+c into FMA, one reason
-// (with the order of the incident-edge sums) that K2 and K34 agree with
+// (with the order of the incident-edge sums) that K2, K34 and K4 agree with
 // their plain versions to a relative error and not bit for bit.  K1 does
-// only max/min, selects and one subtraction, so it is bit-exact.
+// only max/min, selects and one subtraction, and K3/K3fix only selects and
+// one product per output, so those are bit-exact.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -241,14 +250,46 @@ limit_kernel(const T* __restrict__ adf_v, const T* __restrict__ tmax,
 }
 
 // ---------------------------------------------------------------------------
+// Stage c (docs/refactoring.md:269-314) at node idx, from the signed sum acc
+// of its limited incident edge fluxes and its limited vertical fluxes up
+// (interface z) and dn (interface z+1).  Shared by K34 and K4.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ void stage_c(
+    const T* __restrict__ ttf, const T* __restrict__ hnode,
+    const T* __restrict__ hnode_new, const T* __restrict__ lo,
+    const T* __restrict__ dvin, const T* __restrict__ dhin,
+    const T* __restrict__ area_inv, T* __restrict__ o1, T* __restrict__ o2,
+    size_t idx, bool act, T up, T dn, T acc, T dt, int iter_yn) {
+  const T ai = area_inv[idx];
+  const T ddiv = (up - dn) * dt * ai;
+  const T dh = acc * dt * ai;
+  const T l = lo[idx];
+  if (iter_yn) {
+    const T hnn = hnode_new[idx];
+    o1[idx] = (act ? l + ddiv / hnn : l) + dh / hnn;
+  } else {
+    const T dv = -ttf[idx] * hnode[idx] + l * hnode_new[idx] + ddiv;
+    const T d = dvin[idx];
+    o1[idx] = act ? d + dv : d;
+    o2[idx] = dhin[idx] + dh;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // H-K34 update_fused.  Replaces kernels_packed.py:update_fused_pallas (the
 // computation of _update_fused_kernel): for each incident edge, b3
 // horizontal limiting from both endpoints' factors
 // (kernels/fct_ale_b3_horizontal.cu:28-39), the signed sum of the limited
 // fluxes into the node's stage-c increment (c_update_solution /
 // c_update_LO), and stage c itself.  Each limited edge flux (and its
-// residual) is written by the edge's first endpoint (sign +1) only, at
-// every level: the analogue of the packed layout's home slot.
+// residual) is written at every level from the one slot that nd_wrt marks:
+// the edge's first endpoint on a whole mesh (the analogue of the packed
+// layout's home slot), its owned second endpoint where the first is a halo
+// node of a part, whose incidence row is empty.  The first n_free threads
+// also pass the edges of ed_free through (a part's padding, in no row), so
+// every edge output is written exactly once.
 // ---------------------------------------------------------------------------
 
 template <typename T, int MAXD>
@@ -265,17 +306,27 @@ update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
                     const int* __restrict__ nd_other,
                     const int* __restrict__ nd_lev,
                     const signed char* __restrict__ nd_sgn,
+                    const signed char* __restrict__ nd_wrt,
                     const int* __restrict__ nd_num,
-                    const int* __restrict__ nlev_nod, T* __restrict__ o1,
+                    const int* __restrict__ nlev_nod,
+                    const int* __restrict__ ed_free, T* __restrict__ o1,
                     T* __restrict__ o2, T* __restrict__ adf_h_lim,
                     T* __restrict__ adf_h_res, int L, int N, int Ed, int KD,
-                    T dt, int iter_yn) {
+                    int n_free, T dt, int iter_yn) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n < n_free) {
+    const int e = ed_free[n];
+    for (int z = 0; z < L; ++z) {
+      const size_t idx = (size_t)z * Ed + e;
+      adf_h_lim[idx] = adf_h[idx];
+      if (adf_h_res != nullptr) adf_h_res[idx] = T(0);
+    }
+  }
   if (n >= N) return;
   const int nlev = nlev_nod[n];
   const int num = nd_num[n];
   int eidx[MAXD], oth[MAXD], lev[MAXD];
-  bool live[MAXD], first[MAXD];
+  bool live[MAXD], first[MAXD], wrt[MAXD];
 #pragma unroll
   for (int k = 0; k < MAXD; ++k) {
     const bool ok = k < num;
@@ -284,6 +335,7 @@ update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
     oth[k] = ok ? nd_other[(size_t)n * KD + k] : n;
     lev[k] = ok ? nd_lev[(size_t)n * KD + k] : 0;
     first[k] = ok && nd_sgn[(size_t)n * KD + k] > 0;
+    wrt[k] = ok && nd_wrt[(size_t)n * KD + k] != 0;
   }
 
   T up = adf_v_lim[n];
@@ -311,32 +363,143 @@ update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
         const T ae = f >= T(0) ? ae_pos : ae_neg;
         const T lim = ae * f;
         acc += first[k] ? lim : -lim;
-        if (first[k]) {
+        if (wrt[k]) {
           adf_h_lim[erow + eidx[k]] = lim;
           if (adf_h_res != nullptr) adf_h_res[erow + eidx[k]] = (T(1) - ae) * f;
         }
-      } else if (first[k]) {
+      } else if (wrt[k]) {
         // inactive level of this edge: the flux passes through unlimited
         adf_h_lim[erow + eidx[k]] = adf_h[erow + eidx[k]];
         if (adf_h_res != nullptr) adf_h_res[erow + eidx[k]] = T(0);
       }
     }
-    // stage c (docs/refactoring.md:269-314)
     const T dn = adf_v_lim[idx + N];
-    const T ai = area_inv[idx];
-    const T ddiv = (up - dn) * dt * ai;
-    const T dh = acc * dt * ai;
-    const bool act = z < nlev - 1;
-    const T l = lo[idx];
-    if (iter_yn) {
-      const T hnn = hnode_new[idx];
-      o1[idx] = (act ? l + ddiv / hnn : l) + dh / hnn;
-    } else {
-      const T dv = -ttf[idx] * hnode[idx] + l * hnode_new[idx] + ddiv;
-      const T d = dvin[idx];
-      o1[idx] = act ? d + dv : d;
-      o2[idx] = dhin[idx] + dh;
+    stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, o2, idx,
+            z < nlev - 1, up, dn, acc, dt, iter_yn);
+    up = dn;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// H-K3 b3h and H-K3fix b3h_fixup.  Replace kernels_packed.py:
+// b3h_packed_pallas / kernels.py:b3h_pallas (the split K3) and
+// kernels_packed.py:b3h_packed_fixup_pallas / kernels.py:b3h_fixup_pallas
+// (its post-exchange fixup): the limiter selection of
+// kernels_packed.py:337-344 for one edge e = (n1, n2) at one level z,
+//   ae = min(1, min(p1, m2)) if f >= 0 else min(1, min(m1, p2)),
+// the limited flux ae * f and the residual (1 - ae) * f on active levels
+// (z < nlev_edge), f and 0 elsewhere.  K3 covers every edge; K3fix only the
+// edges of an id list (those that touch a halo node), writing in place
+// into K3's outputs.  A duplicated id rewrites the same values.  Where the
+// TPU kernels gather both endpoints' factors through one-hot contractions
+// or packed pair shifts, each thread here reads them directly; the reads
+// of one level fall within a few node rows of each other.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ void b3h_edge(
+    const T* __restrict__ plus, const T* __restrict__ minus,
+    const T* __restrict__ adf_h, const int* __restrict__ edges,
+    const int* __restrict__ nlev_edge, T* __restrict__ adf_h_lim,
+    T* __restrict__ adf_h_res, int z, int e, int N, int Ed) {
+  const size_t idx = (size_t)z * Ed + e;
+  const T f = adf_h[idx];
+  if (z < nlev_edge[e]) {
+    const size_t row = (size_t)z * N;
+    const int n1 = edges[2 * (size_t)e];
+    const int n2 = edges[2 * (size_t)e + 1];
+    const T ae_pos = vmin(T(1), vmin(plus[row + n1], minus[row + n2]));
+    const T ae_neg = vmin(T(1), vmin(minus[row + n1], plus[row + n2]));
+    const T ae = f >= T(0) ? ae_pos : ae_neg;
+    adf_h_lim[idx] = ae * f;
+    if (adf_h_res != nullptr) adf_h_res[idx] = (T(1) - ae) * f;
+  } else {
+    adf_h_lim[idx] = f;
+    if (adf_h_res != nullptr) adf_h_res[idx] = T(0);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+b3h_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
+           const T* __restrict__ adf_h, const int* __restrict__ edges,
+           const int* __restrict__ nlev_edge, T* __restrict__ adf_h_lim,
+           T* __restrict__ adf_h_res, int N, int Ed) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= Ed) return;
+  b3h_edge(plus, minus, adf_h, edges, nlev_edge, adf_h_lim, adf_h_res,
+           (int)blockIdx.y, e, N, Ed);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+b3h_fixup_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
+                 const T* __restrict__ adf_h, const int* __restrict__ edges,
+                 const int* __restrict__ nlev_edge,
+                 const int* __restrict__ ids, T* __restrict__ adf_h_lim,
+                 T* __restrict__ adf_h_res, int N, int Ed, int n_ids) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_ids) return;
+  const int e = ids[i];
+  // ids come from the part's own edges (step_sharded.fix_edge_ids); an id
+  // out of range must still not write outside the edge arrays
+  if (e < 0 || e >= Ed) return;
+  b3h_edge(plus, minus, adf_h, edges, nlev_edge, adf_h_lim, adf_h_res,
+           (int)blockIdx.y, e, N, Ed);
+}
+
+// ---------------------------------------------------------------------------
+// H-K4 update.  Replaces kernels_packed.py:update_packed_pallas and
+// kernels.py:update_pallas (the split K4): stage c from edge fluxes that
+// are already limited.  K34's node gather and epilogue without the
+// limiting: the signed sum of the limited fluxes over the node's incidence
+// slots in slot order, then stage_c.  It reads one edge value per slot and
+// level where K34 reads the flux and the other endpoint's two factors.
+// ---------------------------------------------------------------------------
+
+template <typename T, int MAXD>
+__global__ void __launch_bounds__(kThreads)
+update_kernel(const T* __restrict__ adf_v_lim,
+              const T* __restrict__ adf_h_lim, const T* __restrict__ ttf,
+              const T* __restrict__ hnode, const T* __restrict__ hnode_new,
+              const T* __restrict__ lo, const T* __restrict__ dvin,
+              const T* __restrict__ dhin, const T* __restrict__ area_inv,
+              const int* __restrict__ nd_idx, const int* __restrict__ nd_lev,
+              const signed char* __restrict__ nd_sgn,
+              const int* __restrict__ nd_num,
+              const int* __restrict__ nlev_nod, T* __restrict__ o1,
+              T* __restrict__ o2, int L, int N, int Ed, int KD, T dt,
+              int iter_yn) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int nlev = nlev_nod[n];
+  const int num = nd_num[n];
+  int eidx[MAXD], lev[MAXD];
+  bool first[MAXD];
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) {
+    const bool ok = k < num;
+    eidx[k] = ok ? nd_idx[(size_t)n * KD + k] : 0;
+    lev[k] = ok ? nd_lev[(size_t)n * KD + k] : 0;
+    first[k] = ok && nd_sgn[(size_t)n * KD + k] > 0;
+  }
+
+  T up = adf_v_lim[n];
+  for (int z = 0; z < L; ++z) {
+    const size_t idx = (size_t)z * N + n;
+    const size_t erow = (size_t)z * Ed;
+    T acc = T(0);
+#pragma unroll
+    for (int k = 0; k < MAXD; ++k) {
+      // lev[k] is 0 on padding slots
+      if (z < lev[k]) {
+        const T f = adf_h_lim[erow + eidx[k]];
+        acc += first[k] ? f : -f;
+      }
     }
+    const T dn = adf_v_lim[idx + N];
+    stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, o2, idx,
+            z < nlev - 1, up, dn, acc, dt, iter_yn);
     up = dn;
   }
 }
@@ -399,11 +562,77 @@ int launch_update_fused(const void* plus, const void* minus,
                         const void* dvin, const void* dhin,
                         const void* area_inv, const void* nd_idx,
                         const void* nd_other, const void* nd_lev,
-                        const void* nd_sgn, const void* nd_num,
-                        const void* nlev_nod, void* o1, void* o2,
+                        const void* nd_sgn, const void* nd_wrt,
+                        const void* nd_num, const void* nlev_nod,
+                        const void* ed_free, void* o1, void* o2,
                         void* adf_h_lim, void* adf_h_res, int L, int N,
-                        int Ed, int KD, double dt, int iter_yn, int device,
-                        void* stream) {
+                        int Ed, int KD, int n_free, double dt, int iter_yn,
+                        int device, void* stream) {
+  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree || n_free < 0 ||
+      n_free > Ed)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto kernel) {
+    kernel<<<grid_for(N > n_free ? N : n_free), kThreads, 0, s>>>(
+        (const T*)plus, (const T*)minus, (const T*)adf_v_lim,
+        (const T*)adf_h, (const T*)ttf, (const T*)hnode,
+        (const T*)hnode_new, (const T*)lo, (const T*)dvin, (const T*)dhin,
+        (const T*)area_inv, (const int*)nd_idx, (const int*)nd_other,
+        (const int*)nd_lev, (const signed char*)nd_sgn,
+        (const signed char*)nd_wrt, (const int*)nd_num, (const int*)nlev_nod,
+        (const int*)ed_free, (T*)o1, (T*)o2, (T*)adf_h_lim, (T*)adf_h_res,
+        L, N, Ed, KD, n_free, (T)dt, iter_yn);
+  };
+  if (KD <= 8) args(update_fused_kernel<T, 8>);
+  else args(update_fused_kernel<T, kMaxDegree>);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_b3h(const void* plus, const void* minus, const void* adf_h,
+               const void* edges, const void* nlev_edge, void* adf_h_lim,
+               void* adf_h_res, int L, int N, int Ed, int device,
+               void* stream) {
+  if (L < 1 || L > 65535 || N < 1 || Ed < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Ed + kThreads - 1) / kThreads, L);
+  b3h_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      (const T*)plus, (const T*)minus, (const T*)adf_h, (const int*)edges,
+      (const int*)nlev_edge, (T*)adf_h_lim, (T*)adf_h_res, N, Ed);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_b3h_fixup(const void* plus, const void* minus, const void* adf_h,
+                     const void* edges, const void* nlev_edge,
+                     const void* ids, void* adf_h_lim, void* adf_h_res,
+                     int L, int N, int Ed, int n_ids, int device,
+                     void* stream) {
+  if (L < 1 || L > 65535 || N < 1 || Ed < 1 || n_ids < 1)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_ids + kThreads - 1) / kThreads, L);
+  b3h_fixup_kernel<T><<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      (const T*)plus, (const T*)minus, (const T*)adf_h, (const int*)edges,
+      (const int*)nlev_edge, (const int*)ids, (T*)adf_h_lim, (T*)adf_h_res,
+      N, Ed, n_ids);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_update(const void* adf_v_lim, const void* adf_h_lim,
+                  const void* ttf, const void* hnode, const void* hnode_new,
+                  const void* lo, const void* dvin, const void* dhin,
+                  const void* area_inv, const void* nd_idx,
+                  const void* nd_lev, const void* nd_sgn, const void* nd_num,
+                  const void* nlev_nod, void* o1, void* o2, int L, int N,
+                  int Ed, int KD, double dt, int iter_yn, int device,
+                  void* stream) {
   if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -411,16 +640,14 @@ int launch_update_fused(const void* plus, const void* minus,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto args = [&](auto kernel) {
     kernel<<<grid_for(N), kThreads, 0, s>>>(
-        (const T*)plus, (const T*)minus, (const T*)adf_v_lim,
-        (const T*)adf_h, (const T*)ttf, (const T*)hnode,
-        (const T*)hnode_new, (const T*)lo, (const T*)dvin, (const T*)dhin,
-        (const T*)area_inv, (const int*)nd_idx, (const int*)nd_other,
+        (const T*)adf_v_lim, (const T*)adf_h_lim, (const T*)ttf,
+        (const T*)hnode, (const T*)hnode_new, (const T*)lo, (const T*)dvin,
+        (const T*)dhin, (const T*)area_inv, (const int*)nd_idx,
         (const int*)nd_lev, (const signed char*)nd_sgn, (const int*)nd_num,
-        (const int*)nlev_nod, (T*)o1, (T*)o2, (T*)adf_h_lim, (T*)adf_h_res,
-        L, N, Ed, KD, (T)dt, iter_yn);
+        (const int*)nlev_nod, (T*)o1, (T*)o2, L, N, Ed, KD, (T)dt, iter_yn);
   };
-  if (KD <= 8) args(update_fused_kernel<T, 8>);
-  else args(update_fused_kernel<T, kMaxDegree>);
+  if (KD <= 8) args(update_kernel<T, 8>);
+  else args(update_kernel<T, kMaxDegree>);
   return cudaGetLastError();
 }
 
@@ -463,19 +690,68 @@ int fct_limit_f64(FCT_LIMIT_ARGS) { return launch_limit<double>(FCT_LIMIT_CALL);
       const void *hnode_new, const void *lo, const void *dvin,               \
       const void *dhin, const void *area_inv, const void *nd_idx,            \
       const void *nd_other, const void *nd_lev, const void *nd_sgn,          \
-      const void *nd_num, const void *nlev_nod, void *o1, void *o2,          \
-      void *adf_h_lim, void *adf_h_res, int L, int N, int Ed, int KD,        \
-      double dt, int iter_yn, int device, void *stream
+      const void *nd_wrt, const void *nd_num, const void *nlev_nod,          \
+      const void *ed_free, void *o1, void *o2, void *adf_h_lim,              \
+      void *adf_h_res, int L, int N, int Ed, int KD, int n_free, double dt,  \
+      int iter_yn, int device, void *stream
 #define FCT_UPDATE_CALL                                                     \
   plus, minus, adf_v_lim, adf_h, ttf, hnode, hnode_new, lo, dvin, dhin,     \
-      area_inv, nd_idx, nd_other, nd_lev, nd_sgn, nd_num, nlev_nod, o1, o2, \
-      adf_h_lim, adf_h_res, L, N, Ed, KD, dt, iter_yn, device, stream
+      area_inv, nd_idx, nd_other, nd_lev, nd_sgn, nd_wrt, nd_num, nlev_nod, \
+      ed_free, o1, o2, adf_h_lim, adf_h_res, L, N, Ed, KD, n_free, dt,      \
+      iter_yn, device, stream
 
 int fct_update_fused_f32(FCT_UPDATE_ARGS) {
   return launch_update_fused<float>(FCT_UPDATE_CALL);
 }
 int fct_update_fused_f64(FCT_UPDATE_ARGS) {
   return launch_update_fused<double>(FCT_UPDATE_CALL);
+}
+
+#define FCT_B3H_ARGS                                                        \
+  const void *plus, const void *minus, const void *adf_h, const void *edges, \
+      const void *nlev_edge, void *adf_h_lim, void *adf_h_res, int L, int N, \
+      int Ed, int device, void *stream
+#define FCT_B3H_CALL                                                        \
+  plus, minus, adf_h, edges, nlev_edge, adf_h_lim, adf_h_res, L, N, Ed,     \
+      device, stream
+
+int fct_b3h_f32(FCT_B3H_ARGS) { return launch_b3h<float>(FCT_B3H_CALL); }
+int fct_b3h_f64(FCT_B3H_ARGS) { return launch_b3h<double>(FCT_B3H_CALL); }
+
+#define FCT_B3H_FIXUP_ARGS                                                  \
+  const void *plus, const void *minus, const void *adf_h, const void *edges, \
+      const void *nlev_edge, const void *ids, void *adf_h_lim,              \
+      void *adf_h_res, int L, int N, int Ed, int n_ids, int device,         \
+      void *stream
+#define FCT_B3H_FIXUP_CALL                                                  \
+  plus, minus, adf_h, edges, nlev_edge, ids, adf_h_lim, adf_h_res, L, N,    \
+      Ed, n_ids, device, stream
+
+int fct_b3h_fixup_f32(FCT_B3H_FIXUP_ARGS) {
+  return launch_b3h_fixup<float>(FCT_B3H_FIXUP_CALL);
+}
+int fct_b3h_fixup_f64(FCT_B3H_FIXUP_ARGS) {
+  return launch_b3h_fixup<double>(FCT_B3H_FIXUP_CALL);
+}
+
+#define FCT_UPDATE_SPLIT_ARGS                                               \
+  const void *adf_v_lim, const void *adf_h_lim, const void *ttf,            \
+      const void *hnode, const void *hnode_new, const void *lo,             \
+      const void *dvin, const void *dhin, const void *area_inv,             \
+      const void *nd_idx, const void *nd_lev, const void *nd_sgn,           \
+      const void *nd_num, const void *nlev_nod, void *o1, void *o2, int L,  \
+      int N, int Ed, int KD, double dt, int iter_yn, int device,            \
+      void *stream
+#define FCT_UPDATE_SPLIT_CALL                                               \
+  adf_v_lim, adf_h_lim, ttf, hnode, hnode_new, lo, dvin, dhin, area_inv,    \
+      nd_idx, nd_lev, nd_sgn, nd_num, nlev_nod, o1, o2, L, N, Ed, KD, dt,   \
+      iter_yn, device, stream
+
+int fct_update_f32(FCT_UPDATE_SPLIT_ARGS) {
+  return launch_update<float>(FCT_UPDATE_SPLIT_CALL);
+}
+int fct_update_f64(FCT_UPDATE_SPLIT_ARGS) {
+  return launch_update<double>(FCT_UPDATE_SPLIT_CALL);
 }
 
 }  // extern "C"

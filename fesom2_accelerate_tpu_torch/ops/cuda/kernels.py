@@ -8,26 +8,35 @@ bounds        kernels.py:bounds_dia_dma_pallas (K1); also     bounds_ref
 limit         kernels_packed.py:limit_packed_pallas (K2);     limit_ref
               also kernels.py:limit_pallas
 update_fused  kernels_packed.py:update_fused_pallas (K34)     update_fused_ref
+b3h           kernels_packed.py:b3h_packed_pallas and         b3h_ref
+              kernels.py:b3h_pallas (split K3)
+b3h_fixup     kernels_packed.py:b3h_packed_fixup_pallas and   b3h_fixup_ref
+              kernels.py:b3h_fixup_pallas (K3 fixup)
+update        kernels_packed.py:update_packed_pallas and      update_ref
+              kernels.py:update_pallas (split K4)
 stress2rhs    kernels.py:stress2rhs_pallas and                stress2rhs_ref
               kernels_packed.py:stress2rhs_packed_pallas
 ============  ==============================================  ================
 
-The first three are the FCT-ALE step (``fct_ale.cu``), the fourth is the
-sea-ice EVP stress divergence (``stress2rhs.cu``).  A wrapper given tensors
-on the CPU returns its plain version, built from
-:mod:`fesom2_accelerate_tpu_torch.ops.stages` (the stress2rhs one is written
-out here, in the kernel's summation order).  Given CUDA tensors it checks
-device, dtype, shape and contiguity, allocates its outputs with
-``torch.empty``, launches the kernel on the current stream, raises if the
-launcher reports an error, and adds one to its ``launches`` count.  Any
-other device raises.  Nothing falls back.
+All but the last are the FCT-ALE step (``fct_ale.cu``): K1 -> K2 -> K34 on
+one device, or K1 -> K2 -> K3 -> halo exchange -> K3fix -> K4 in a sharded
+step (``parallel/step_sharded.py``); the last is the sea-ice EVP stress
+divergence (``stress2rhs.cu``).  A wrapper given tensors on the CPU returns
+its plain version, built from :mod:`fesom2_accelerate_tpu_torch.ops.stages`
+(the stress2rhs one is written out here, in the kernel's summation order).
+Given CUDA tensors it checks device, dtype, shape and contiguity, allocates
+its outputs with ``torch.empty`` (``b3h_fixup`` writes in place into
+``b3h``'s), launches the kernel on the current stream of the mesh data's
+device, raises if the launcher reports an error, and adds one to its
+``launches`` count.  Any other device raises.  Nothing falls back.
 
-Tolerances against the plain versions, on the card: ``bounds`` is
-bit-exact (max/min, selects and one subtraction).  ``limit``,
-``update_fused`` and ``stress2rhs`` agree to relerr <= 1e-6 in float32 and
-<= 1e-12 in float64, relerr = max|a-b| / max(max|b|, 1): nvcc contracts
-a*b+c into one FMA rounding, and the FCT kernels sum the incident edges in
-another order.
+Tolerances against the plain versions, on the card: ``bounds``, ``b3h`` and
+``b3h_fixup`` are bit-exact (max/min, selects, one subtraction or one
+product per output), and so are the edge outputs of ``update_fused``.
+``limit``, ``update_fused``'s node outputs, ``update`` and ``stress2rhs``
+agree to relerr <= 1e-6 in float32 and <= 1e-12 in float64, relerr =
+max|a-b| / max(max|b|, 1): nvcc contracts a*b+c into one FMA rounding, and
+the FCT kernels sum the incident edges in another order.
 """
 
 from __future__ import annotations
@@ -78,8 +87,10 @@ def _check(md: MeshData, named: dict, slots: int) -> torch.device:
 
 def _launch(name: str, md: MeshData, dev: torch.device, *args) -> None:
     fn = getattr(build.library(), name + _SUFFIX[md.dtype])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(*args, dev.index or 0, stream)
+    # the launcher selects dev; the guard gives torch its device back after
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, dev.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
@@ -185,16 +196,12 @@ def update_fused_ref(md: MeshData, fct_plus, fct_minus, adf_v_lim,
                      fct_adf_h, ttf, hnode, hnode_new, fct_LO,
                      del_ttf_advvert, del_ttf_advhoriz, dt: float,
                      iter_yn: bool):
-    adf_h_lim, adf_h_res = stages.b3_horizontal(md, fct_plus, fct_minus,
-                                                fct_adf_h, iter_yn)
-    if iter_yn:
-        new_LO = stages.c_update_LO(md, fct_LO, adf_v_lim, adf_h_lim,
-                                    hnode_new, dt)
-        return new_LO, None, adf_h_lim, adf_h_res
-    del_v, del_h = stages.c_update_solution(
-        md, ttf, hnode, hnode_new, fct_LO, adf_v_lim, adf_h_lim,
-        del_ttf_advvert, del_ttf_advhoriz, dt)
-    return del_v, del_h, adf_h_lim, None
+    adf_h_lim, adf_h_res = b3h_ref(md, fct_plus, fct_minus, fct_adf_h,
+                                   iter_yn)
+    o1, o2 = update_ref(md, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
+                        fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt,
+                        iter_yn)
+    return o1, o2, adf_h_lim, adf_h_res
 
 
 def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
@@ -204,7 +211,9 @@ def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
 
     Non-iterative: o1, o2 are the new ``del_ttf_advvert`` and
     ``del_ttf_advhoriz``, and the residual is None.  Iterative: o1 is the
-    new ``fct_LO``, o2 is None, and the residual is [L, Ed]."""
+    new ``fct_LO``, o2 is None, and the residual is [L, Ed].  Every edge
+    output is written once: from the slot ``md.nd_wrt`` marks, or passed
+    through for the edges of ``md.ed_free``."""
     node_in = (fct_plus, fct_minus, ttf, hnode, hnode_new, fct_LO,
                del_ttf_advvert, del_ttf_advhoriz)
     if _on_cpu(adf_v_lim, fct_adf_h, md.area_inv, *node_in):
@@ -223,20 +232,152 @@ def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
     o2 = None if iter_yn else torch.empty_like(o1)
     adf_h_lim = torch.empty((L, Ed), dtype=md.dtype, device=dev)
     adf_h_res = torch.empty_like(adf_h_lim) if iter_yn else None
+    n_free = md.ed_free.shape[0]
     _launch("fct_update_fused", md, dev, fct_plus.data_ptr(),
             fct_minus.data_ptr(), adf_v_lim.data_ptr(), fct_adf_h.data_ptr(),
             ttf.data_ptr(), hnode.data_ptr(), hnode_new.data_ptr(),
             fct_LO.data_ptr(), del_ttf_advvert.data_ptr(),
             del_ttf_advhoriz.data_ptr(),
             *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_other", "nd_lev",
-                        "nd_sgn", "nd_num", "nlev_nod"),
+                        "nd_sgn", "nd_wrt", "nd_num", "nlev_nod"),
+            md.ed_free.data_ptr() if n_free else None,
             o1.data_ptr(), _ptr(o2), adf_h_lim.data_ptr(), _ptr(adf_h_res),
-            L, N, Ed, md.nd_idx.shape[1], float(dt), int(iter_yn))
+            L, N, Ed, md.nd_idx.shape[1], n_free, float(dt), int(iter_yn))
     update_fused.launches += 1
     return o1, o2, adf_h_lim, adf_h_res
 
 
 update_fused.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K3 b3h and K3fix b3h_fixup: b3 horizontal, alone (split K3 of a sharded
+# step), and again on the halo-touching edges after the exchange
+# --------------------------------------------------------------------------
+
+
+def b3h_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool):
+    return stages.b3_horizontal(md, fct_plus, fct_minus, fct_adf_h, iter_yn)
+
+
+def b3h(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool):
+    """K3 -> (limited fct_adf_h [L, Ed], its residual [L, Ed] when
+    ``iter_yn`` else None), for every edge."""
+    if _on_cpu(fct_plus, fct_minus, fct_adf_h, md.area_inv):
+        return b3h_ref(md, fct_plus, fct_minus, fct_adf_h, iter_yn)
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    dev = _check(md, dict(fct_plus=(fct_plus, (L, N)),
+                          fct_minus=(fct_minus, (L, N)),
+                          fct_adf_h=(fct_adf_h, (L, Ed))), 0)
+    adf_h_lim = torch.empty((L, Ed), dtype=md.dtype, device=dev)
+    adf_h_res = torch.empty_like(adf_h_lim) if iter_yn else None
+    _launch("fct_b3h", md, dev, fct_plus.data_ptr(), fct_minus.data_ptr(),
+            fct_adf_h.data_ptr(), *_mesh_ptrs(md, "edges", "nlev_edge"),
+            adf_h_lim.data_ptr(), _ptr(adf_h_res), L, N, Ed)
+    b3h.launches += 1
+    return adf_h_lim, adf_h_res
+
+
+b3h.launches = 0
+
+
+def b3h_fixup_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
+                  adf_h_res, fix_ids, iter_yn: bool):
+    ids = fix_ids.long()
+    lim, res = stages.b3_limit_edges(
+        fct_plus, fct_minus, fct_adf_h.index_select(1, ids),
+        md.edges.index_select(0, ids), md.edge_mask.index_select(1, ids),
+        iter_yn)
+    adf_h_lim.index_copy_(1, ids, lim)
+    if iter_yn:
+        adf_h_res.index_copy_(1, ids, res)
+    return adf_h_lim, adf_h_res
+
+
+def b3h_fixup(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
+              adf_h_res, fix_ids, iter_yn: bool):
+    """K3fix: b3 horizontal again on the edges ``fix_ids`` (int32 [F]),
+    written in place into K3's outputs ``adf_h_lim`` (and ``adf_h_res``
+    when ``iter_yn``), which it returns.  An empty id list launches
+    nothing."""
+    if _on_cpu(fct_plus, fct_minus, fct_adf_h, adf_h_lim, fix_ids,
+               md.area_inv):
+        return b3h_fixup_ref(md, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
+                             adf_h_res, fix_ids, iter_yn)
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    checks = dict(fct_plus=(fct_plus, (L, N)), fct_minus=(fct_minus, (L, N)),
+                  fct_adf_h=(fct_adf_h, (L, Ed)),
+                  adf_h_lim=(adf_h_lim, (L, Ed)))
+    if iter_yn:
+        checks["adf_h_res"] = (adf_h_res, (L, Ed))
+    dev = _check(md, checks, 0)
+    if (fix_ids.device != dev or fix_ids.dtype != torch.int32
+            or fix_ids.dim() != 1 or not fix_ids.is_contiguous()):
+        raise ValueError(f"fix_ids must be a contiguous 1-D int32 tensor on "
+                         f"{dev}")
+    n_ids = fix_ids.shape[0]
+    if n_ids:
+        _launch("fct_b3h_fixup", md, dev, fct_plus.data_ptr(),
+                fct_minus.data_ptr(), fct_adf_h.data_ptr(),
+                *_mesh_ptrs(md, "edges", "nlev_edge"), fix_ids.data_ptr(),
+                adf_h_lim.data_ptr(), _ptr(adf_h_res if iter_yn else None),
+                L, N, Ed, n_ids)
+        b3h_fixup.launches += 1
+    return adf_h_lim, adf_h_res
+
+
+b3h_fixup.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K4 update: stage c from limited edge fluxes (split K4 of a sharded step)
+# --------------------------------------------------------------------------
+
+
+def update_ref(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
+               fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt: float,
+               iter_yn: bool):
+    if iter_yn:
+        return stages.c_update_LO(md, fct_LO, adf_v_lim, adf_h_lim,
+                                  hnode_new, dt), None
+    return stages.c_update_solution(
+        md, ttf, hnode, hnode_new, fct_LO, adf_v_lim, adf_h_lim,
+        del_ttf_advvert, del_ttf_advhoriz, dt)
+
+
+def update(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
+           fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt: float,
+           iter_yn: bool):
+    """K4 -> (o1, o2) from the limited fluxes ``adf_v_lim`` [L+1, N] and
+    ``adf_h_lim`` [L, Ed]; o1, o2 as in :func:`update_fused`."""
+    node_in = (ttf, hnode, hnode_new, fct_LO, del_ttf_advvert,
+               del_ttf_advhoriz)
+    if _on_cpu(adf_v_lim, adf_h_lim, md.area_inv, *node_in):
+        return update_ref(md, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
+                          fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt,
+                          iter_yn)
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    names = ("ttf", "hnode", "hnode_new", "fct_LO", "del_ttf_advvert",
+             "del_ttf_advhoriz")
+    checks = {n: (t, (L, N)) for n, t in zip(names, node_in)}
+    checks.update(adf_v_lim=(adf_v_lim, (L + 1, N)),
+                  adf_h_lim=(adf_h_lim, (L, Ed)))
+    dev = _check(md, checks, md.nd_idx.shape[1])
+    o1 = torch.empty((L, N), dtype=md.dtype, device=dev)
+    o2 = None if iter_yn else torch.empty_like(o1)
+    _launch("fct_update", md, dev, adf_v_lim.data_ptr(),
+            adf_h_lim.data_ptr(), ttf.data_ptr(), hnode.data_ptr(),
+            hnode_new.data_ptr(), fct_LO.data_ptr(),
+            del_ttf_advvert.data_ptr(), del_ttf_advhoriz.data_ptr(),
+            *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn",
+                        "nd_num", "nlev_nod"),
+            o1.data_ptr(), _ptr(o2), L, N, Ed, md.nd_idx.shape[1],
+            float(dt), int(iter_yn))
+    update.launches += 1
+    return o1, o2
+
+
+update.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -298,7 +439,8 @@ def stress2rhs(md: MeshData, slab, inv_areamass, rhs_a, rhs_m):
 
 stress2rhs.launches = 0
 
-WRAPPERS = (bounds, limit, update_fused, stress2rhs)
+WRAPPERS = (bounds, limit, update_fused, b3h, b3h_fixup, update,
+            stress2rhs)
 
 
 def reset_launch_counts() -> None:

@@ -3,10 +3,19 @@
 Counterpart of ``fesom2_accelerate_tpu/ops/meshdata.py``: a frozen dataclass
 of tensors (connectivity, activity masks, inverse areas) built once per mesh
 on an explicit device.  The fields of the JAX ``MeshData`` keep their names
-and meaning; five more carry what the FCT CUDA kernels read per node
-(``nlev_nod``, ``nd_num``, ``nd_lev``, ``nd_sgn``, with ``nd_other`` shared),
-and ``ne_slot`` is the node->element incidence that the stress2rhs kernel
+and meaning; more carry what the FCT CUDA kernels read per node
+(``nlev_nod``, ``nd_num``, ``nd_lev``, ``nd_sgn``, ``nd_wrt``, with
+``nd_other`` shared) and per edge (``nlev_edge``, ``ed_free``), and
+``ne_slot`` is the node->element incidence that the stress2rhs kernel
 reads, slot-major.
+
+Edge outputs of the node-threaded H-K34 are written from incidence slots:
+``nd_wrt`` marks, for every edge, exactly one slot that writes it.  On a
+whole mesh that is the edge's first endpoint (sign +1).  On a part of a
+partitioned mesh the incidence rows of halo nodes are empty, so an edge
+from a low-side halo node to an owned node is written by its owned second
+endpoint instead.  Edges in no incidence row (a part's padding) are listed
+in ``ed_free`` and passed through by a separate edge loop.
 """
 
 from __future__ import annotations
@@ -53,6 +62,9 @@ class MeshData:
     nd_num: torch.Tensor  # [N] int32, valid slots of each nd_* row
     nd_lev: torch.Tensor  # [N, KD] int32, nlev_edge of the slot's edge (0 pad)
     nd_sgn: torch.Tensor  # [N, KD] int8, +1 first endpoint, -1 second (0 pad)
+    nd_wrt: torch.Tensor  # [N, KD] int8, 1 on the one slot that writes the edge
+    nlev_edge: torch.Tensor  # [Ed] int32, active levels of each edge
+    ed_free: torch.Tensor  # [n_free] int32, edges no incidence slot writes
     # [KE, N] int32, 3 * element + local position of each valid incidence
     # slot, -1 in padding; slot-major so that neighbouring node threads read
     # neighbouring words
@@ -116,21 +128,39 @@ def _masks(mesh: Mesh) -> dict:
     )
 
 
+def _writer_slots(nd_idx, nd_k, nd_sign, n_edges: int):
+    """(nd_wrt, ed_free): the slot that writes each edge (its first
+    endpoint's, else its second endpoint's) and the edges in no slot."""
+    first = nd_k & (nd_sign > 0)
+    has_first = np.zeros(n_edges, dtype=bool)
+    has_first[nd_idx[first]] = True
+    wrt = first | (nd_k & (nd_sign < 0) & ~has_first[nd_idx])
+    written = np.zeros(n_edges, dtype=bool)
+    written[nd_idx[wrt]] = True
+    return wrt, np.nonzero(~written)[0]
+
+
 def _kernel_rows(nd_idx, nd_k, nd_sign, nlev_edge, nlev_nod, ne_idx,
                  ne_pos, ne_k) -> dict:
-    """The per-node rows the CUDA kernels read, from the shared fields."""
+    """The per-node and per-edge rows the CUDA kernels read, from the
+    shared fields."""
+    nd_wrt, ed_free = _writer_slots(nd_idx, nd_k, nd_sign, len(nlev_edge))
     return dict(
         nlev_nod=nlev_nod,
         nd_num=nd_k.sum(axis=1),
         nd_lev=np.where(nd_k, nlev_edge[nd_idx], 0),
         nd_sgn=np.where(nd_k, np.sign(nd_sign), 0),
+        nd_wrt=nd_wrt,
+        nlev_edge=nlev_edge,
+        ed_free=ed_free,
         ne_slot=np.ascontiguousarray(
             np.where(ne_k, 3 * ne_idx.astype(np.int64) + ne_pos, -1).T),
     )
 
 
 _INT32 = ("elem_nodes", "edges", "ne_idx", "ne_pos", "nd_idx", "nd_other",
-          "nlev_nod", "nd_num", "nd_lev", "ne_slot")
+          "nlev_nod", "nd_num", "nd_lev", "nlev_edge", "ed_free", "ne_slot")
+_INT8 = ("nd_sgn", "nd_wrt")
 _FLOAT = ("nd_sign", "area_inv")
 
 
@@ -140,7 +170,7 @@ def _to_tensors(arrays: dict, dtype: torch.dtype,
         # torch.tensor copies, so the mesh data never aliases numpy memory
         if name in _INT32:
             return torch.tensor(np.asarray(a, dtype=np.int32), device=device)
-        if name == "nd_sgn":
+        if name in _INT8:
             return torch.tensor(np.asarray(a, dtype=np.int8), device=device)
         if name in _FLOAT:
             return torch.tensor(np.asarray(a)).to(dtype=dtype, device=device)

@@ -195,11 +195,12 @@ def b3_vertical(md: MeshData, fct_plus, fct_minus, fct_adf_v,
     return out, None
 
 
-def b3_horizontal(md: MeshData, fct_plus, fct_minus, fct_adf_h,
-                  iter_yn: bool):
-    """Reference kernels/fct_ale_b3_horizontal.cu:28-39."""
-    n1 = md.edges[:, 0]
-    n2 = md.edges[:, 1]
+def b3_limit_edges(fct_plus, fct_minus, fct_adf_h, edges, edge_mask,
+                   iter_yn: bool):
+    """b3 horizontal on the edges given: ``edges`` [Ed', 2] endpoints,
+    ``fct_adf_h`` and ``edge_mask`` [L, Ed'] their fluxes and activity."""
+    n1 = edges[:, 0]
+    n2 = edges[:, 1]
     p1 = torch.index_select(fct_plus, 1, n1)
     m1 = torch.index_select(fct_minus, 1, n1)
     p2 = torch.index_select(fct_plus, 1, n2)
@@ -207,11 +208,18 @@ def b3_horizontal(md: MeshData, fct_plus, fct_minus, fct_adf_h,
     ae_pos = torch.clamp(torch.minimum(p1, m2), max=1.0)
     ae_neg = torch.clamp(torch.minimum(m1, p2), max=1.0)
     ae = torch.where(fct_adf_h >= 0.0, ae_pos, ae_neg)
-    out = torch.where(md.edge_mask, ae * fct_adf_h, fct_adf_h)
+    out = torch.where(edge_mask, ae * fct_adf_h, fct_adf_h)
     if iter_yn:
-        adf_h2 = torch.where(md.edge_mask, (1.0 - ae) * fct_adf_h, 0.0)
+        adf_h2 = torch.where(edge_mask, (1.0 - ae) * fct_adf_h, 0.0)
         return out, adf_h2
     return out, None
+
+
+def b3_horizontal(md: MeshData, fct_plus, fct_minus, fct_adf_h,
+                  iter_yn: bool):
+    """Reference kernels/fct_ale_b3_horizontal.cu:28-39."""
+    return b3_limit_edges(fct_plus, fct_minus, fct_adf_h, md.edges,
+                          md.edge_mask, iter_yn)
 
 
 def edge_flux_to_nodes(md: MeshData, fct_adf_h):

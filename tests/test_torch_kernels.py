@@ -159,7 +159,9 @@ def test_cuda_step_on_cpu_matches_torch_step(vlimit, iter_yn):
     for k in ref:
         masked_allclose(got[k].numpy(), ref[k].numpy(), msg=k)
     assert kernels.launch_counts() == {"bounds": 0, "limit": 0,
-                                       "update_fused": 0, "stress2rhs": 0}
+                                       "update_fused": 0, "b3h": 0,
+                                       "b3h_fixup": 0, "update": 0,
+                                       "stress2rhs": 0}
     assert build.library.cache_info().currsize == 0, \
         "the CPU path must not build or load the CUDA library"
 
@@ -228,6 +230,9 @@ def test_launcher_argtypes_cover_every_launcher():
 
     macros = {"fct_bounds": "FCT_BOUNDS_ARGS", "fct_limit": "FCT_LIMIT_ARGS",
               "fct_update_fused": "FCT_UPDATE_ARGS",
+              "fct_b3h": "FCT_B3H_ARGS",
+              "fct_b3h_fixup": "FCT_B3H_FIXUP_ARGS",
+              "fct_update": "FCT_UPDATE_SPLIT_ARGS",
               "stress2rhs": "S2R_ARGS"}
     named = [n for names in build.SOURCES.values() for n in names]
     assert sorted(named) == sorted(build.ARGTYPES) == sorted(macros)

@@ -137,9 +137,10 @@ def test_config_checks():
 
 def test_port_imports_no_jax():
     """With jax and the JAX package made unimportable, the port imports
-    (the stress2rhs solver, the mesh ordering and file reader and the byte
-    models included), runs one toy FCT step and one toy stress2rhs
-    call."""
+    (the stress2rhs solver, the mesh ordering and file reader, the byte
+    models and the partitioner and sharded solver included), runs one toy
+    FCT step, one toy stress2rhs call and one sharded toy step on two
+    parts."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -165,6 +166,13 @@ def test_port_imports_no_jax():
         "                         device='cpu')\n"
         "U, V = s2r(e, e, e, e, e, torch.ones(6, E), e, n, n, n)\n"
         "assert U.shape == (N,) and bool(torch.isfinite(V).all())\n"
+        "import fesom2_accelerate_tpu_torch.parallel.partition\n"
+        "import fesom2_accelerate_tpu_torch.parallel.step_sharded\n"
+        "sh = f.ShardedFctAleSolver(mesh, f.FctAleConfig(),\n"
+        "                           devices=['cpu'] * 2)\n"
+        "st = sh.step(sh.init_state(random_fields(mesh, seed=0)))\n"
+        "assert sh.gather_node(st['del_ttf_advhoriz']).shape[-1] == N\n"
+        "assert f.partition_mesh(mesh, 2).n_parts == 2\n"
         "assert not [m for m in sys.modules\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib')\n"
         "            and sys.modules[m] is not None]\n"
