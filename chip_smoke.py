@@ -52,23 +52,51 @@ Phases (each raises on failure, so the script exits non-zero):
    c. float64 against the single-device CUDA step at 1e-12: the multi-hop
       mesh ``generate_planar_mesh(nx=4, ny=7, nl=5)`` at 8 parts (exchange
       radius >= 2) and ``small`` at 8 parts in iterative mode, 3 steps,
-      split and fused, both exchange forms.
-The last three lines are the per-kernel JSON summary, the card's name and
-power limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
+      split and fused, both exchange forms;
+7. the last two kernels, the step's forms and the tuner:
+   a. H-K12 (limit_fused) against its plain version (bounds_ref then
+      limit_ref) on small, core2, the cylinder and polar_cap, the cases of
+      phase 3 and its b3v-mask case (bounds bit-exact, the rest 1e-6 /
+      1e-12), and its largest difference from H-K1 -> H-K2 on the card;
+      H-A2 (a2) against a2_ref on core2 and the cylinder, f32 and f64,
+      bit-exact;
+   b. 20 core2 f32 steps of ``FctAleSolver(backend="cuda")`` in each of the
+      four forms (``fuse_k12`` x ``fuse_k34``) against the default
+      K1 -> K2 -> K34, within MAIN_RELERR, with 2, 3 or 4 launches per
+      step; the step time of each form (events around 20 steps, best of
+      3); H-K12 beside H-K1 + H-K2 and its plain version, H-A2 beside its
+      plain version (device time, stream held); the plain stages of the
+      step one by one (``runtime/tracing.time_stages``), with GB/s;
+   c. a short run of the tuning harness (``utils/tuning.py``): ``tune_a2``
+      and ``tune_step`` at 128 and 256 threads on core2, every
+      configuration validated against the float64 gate before it is timed.
+Every kernel instance's ptxas report is printed, and a spill fails the
+build phase.  The last three lines are the per-kernel JSON summary (each
+kernel's launches on its path, max abs error, ms, plain ms, the byte bound
+at the H100 SXM data-sheet rate of ``runtime/profiling.py``, and
+``library_ms``: null, since no single PyTorch call computes any of these
+functions), the card's name and power limit as nvidia-smi prints them,
+and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
-import functools
 import json
 import pathlib
-import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from fesom2_accelerate_tpu_torch.runtime import profiling
+from fesom2_accelerate_tpu_torch.runtime.tracing import (
+    card_line,
+    cuda_time_ms,
+    device_time_ms,
+    time_stages,
+)
 
 MAIN_STEPS = 20
 # after 20 steps the two paths have limited their fluxes 20 times in f32
@@ -96,13 +124,6 @@ def relerr(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def abserr(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def phase_env() -> str:
@@ -133,27 +154,23 @@ def phase_build() -> None:
     build.library()
     print(f"build: {', '.join(p.name for p in paths)} in {seconds:.2f} s "
           f"(nvcc, sm_90a, one process per source)")
+    # one line per kernel instance: registers and spills from ptxas -v
+    spills = []
     for path in paths:
         log = path.with_suffix(".log")
         if not log.exists():
             continue
-        # one line per kernel instance: registers and spills from ptxas -v
-        name, spill = None, ""
-        for line in log.read_text().splitlines():
-            m = re.search(r"Compiling entry function '.*?((?:bounds|limit|"
-                          r"update_fused|update|b3h_fixup|b3h|stress2rhs)"
-                          r"_kernel)I([fd])(?:Li(\d+)E)?", line)
-            if m:
-                dtype = "float" if m.group(2) == "f" else "double"
-                width = f",{m.group(3)}" if m.group(3) else ""
-                name = f"{m.group(1)}<{dtype}{width}>"
-            elif "spill" in line and name:
-                spill = line.strip()
-            elif "registers" in line and name:
-                print(f"  ptxas: {name}: "
-                      f"{line.split(':', 1)[1].strip()}; {spill}")
-                name = None
+        for r in build.ptxas_report(log.read_text()):
+            name = (f"{r['kernel']}<{r['dtype']},"
+                    f"{','.join(map(str, r['params']))}>")
+            print(f"  ptxas: {name}: {r['registers']} registers, stack "
+                  f"{r['stack']}, spill stores {r['spill_stores']}, spill "
+                  f"loads {r['spill_loads']}")
+            if r["spill_stores"] or r["spill_loads"]:
+                spills.append(name)
     sys.stdout.flush()
+    if spills:
+        raise AssertionError(f"kernel instances spill registers: {spills}")
 
 
 class Errors:
@@ -310,62 +327,6 @@ def phase_kernel_checks(errs: Errors, meshes: dict) -> None:
                         f"relerr {e:.3e}")
     print("cuda step vs torch step: small f64, vlimit 1/2/3 x iter_yn ok "
           "(relerr <= 1e-12)", flush=True)
-
-
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of one fn() over reps calls, by CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-@functools.cache
-def sleep_cycles_per_ms() -> float:
-    """Cycles of ``torch.cuda._sleep`` per millisecond on this card,
-    timed over a 10^8-cycle sleep after a first call has loaded the sleep
-    kernel (a first call's load time would make every hold too short)."""
-    torch.cuda._sleep(1000)
-    torch.cuda.synchronize()
-    return 10 ** 8 / cuda_time_ms(lambda: torch.cuda._sleep(10 ** 8), 1)
-
-
-def device_time_ms(fn, reps: int) -> float:
-    """Device time of one fn() over reps calls, by CUDA events, with the
-    stream held busy by a sleep kernel while the host enqueues the calls:
-    the host's time per launch (checks, allocation, ctypes) is then not
-    counted, only the work on the card and the gaps between its kernels.
-
-    The hold is checked: if the start event has already run when the last
-    call is enqueued, the sleep ended early and host gaps were counted, so
-    the measurement is taken again with a 4x longer sleep.  Where fn()
-    runs more launches than the stream can queue (the plain versions'
-    loops), no hold is long enough; such a time includes the host's gaps
-    and is returned after the second try."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    hold_ms = 2.0 * (time.perf_counter() - t0) * 1e3 + 1.0
-    for _ in range(2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(hold_ms * sleep_cycles_per_ms()))
-        start.record()
-        for _ in range(reps):
-            fn()
-        held = not start.query()
-        end.record()
-        end.synchronize()
-        if held:
-            break
-        hold_ms *= 4.0
-    return start.elapsed_time(end) / reps
 
 
 def best_times(calls: dict, reps: int, timer=device_time_ms) -> dict:
@@ -569,7 +530,7 @@ def phase_main_path(card: str, meshes: dict) -> tuple:
         times[name] = t
         print(f"kernel {name}: {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms (core2 f32; card {card})")
-    return counts, times
+    return counts, times, md
 
 
 def s2r_loop(solver, packed, inv_areamass, rhs_a, rhs_m):
@@ -650,13 +611,15 @@ def s2r_path(card: str, mesh, label: str) -> tuple:
     print(f"kernel stress2rhs on {label}: {t['kernel']:.4f} ms "
           f"({nbytes / (t['kernel'] * 1e-3) / 1e9:.1f} GB/s modeled), plain "
           f"{t['plain']:.4f} ms (f32; card {card})", flush=True)
-    return counts, t
+    # the kernel's inputs, for its data-dependent bytes (profiling.kernel_io)
+    return counts, t, (md, dict(slab=pc, inv_areamass=node[0]))
 
 
 def phase_s2r_path(card: str, meshes: dict) -> tuple:
-    counts, times = s2r_path(card, meshes["core2"], "stress2rhs path (core2)")
+    counts, times, shape = s2r_path(card, meshes["core2"],
+                                    "stress2rhs path (core2)")
     s2r_path(card, meshes["cylinder"], "stress2rhs path (RCM cylinder)")
-    return counts, times
+    return counts, times, shape
 
 
 SHARD_PARTS = 4
@@ -946,33 +909,244 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
             tk = best_times({"kernel": kern, "plain": plain}, 5)
             if label == "part 1" and name != "update_fused":
                 times[name] = tk
+            nbytes, ops = profiling.kernel_io(md, name, ids=ids)
+            bound, _ = profiling.bound_ms(nbytes, ops, md.dtype)
             print(f"kernel {name} on core2 {label} ({md.n_nodes} nodes, "
                   f"{md.n_edges} edges, {len(ids)} fix ids): "
-                  f"{tk['kernel']:.4f} ms, plain {tk['plain']:.4f} ms "
+                  f"{tk['kernel']:.4f} ms, plain {tk['plain']:.4f} ms, "
+                  f"{nbytes / 1e6:.1f} MB, bound {bound:.4f} ms "
                   f"(f32; card {card})", flush=True)
-    return counts["split"], times
+    return counts["split"], times, (sh.mds[1], dict(ids=sh.fix_ids[1]))
+
+
+# the four single-device forms (fuse_k12, fuse_k34), the default first, and
+# each one's launches per step
+FORMS = {
+    (False, True): {"bounds": 1, "limit": 1, "update_fused": 1},
+    (True, True): {"limit_fused": 1, "update_fused": 1},
+    (False, False): {"bounds": 1, "limit": 1, "b3h": 1, "update": 1},
+    (True, False): {"limit_fused": 1, "b3h": 1, "update": 1},
+}
+TUNE_THREADS = (128, 256)
+
+
+def form_name(fuse_k12: bool, fuse_k34: bool) -> str:
+    return ("K12" if fuse_k12 else "K1->K2") + ("->K34" if fuse_k34
+                                                 else "->K3->K4")
+
+
+def check_limit_fused(md, state, cfg, errs: Errors, case: str) -> float:
+    """H-K12 against its plain version (bounds_ref then limit_ref): the
+    bounds bit-exact, the other outputs within TOLERANCE.  Returns the
+    largest absolute difference from H-K1 -> H-K2 on the same inputs."""
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    s = state
+    args = (md, s["fct_LO"], s["ttf"], s["fct_adf_v"], s["fct_adf_h"],
+            cfg.vlimit, cfg.dt, cfg.flux_eps, cfg.iter_yn)
+    ref = K.limit_fused_ref(*args)
+    got = K.limit_fused(*args)
+    for i, name in enumerate(("fct_ttf_max", "fct_ttf_min", "fct_plus",
+                              "fct_minus", "adf_v_lim", "adf_v_res")):
+        errs.check("limit_fused", name, got[i], ref[i],
+                   0.0 if i < 2 else K.TOLERANCE[cfg.dtype], case)
+    chain = K.bounds(md, s["fct_LO"], s["ttf"], cfg.vlimit)
+    chain += K.limit(md, s["fct_adf_v"], *chain, s["fct_adf_h"], cfg.dt,
+                     cfg.flux_eps, cfg.iter_yn)
+    return max(abserr(g, c) for g, c in zip(got, chain) if c is not None)
+
+
+def phase_new_kernel_checks(errs: Errors, meshes: dict) -> None:
+    """H-K12 on small, core2, the cylinder and polar_cap (the cases of
+    phase 3 and its b3v-mask case); H-A2 on core2 and the cylinder."""
+    from fesom2_accelerate_tpu_torch import FctAleConfig
+    from fesom2_accelerate_tpu_torch.mesh import random_fields
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+    from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
+
+    for key in ("small", "core2", "cylinder", "polar_cap"):
+        mesh = meshes[key]
+        fields = random_fields(mesh, seed=3, dtype=np.float64)
+        md = {dt: build_mesh_data(mesh, dt, "cuda")
+              for dt in (torch.float32, torch.float64)}
+        diff = 0.0
+        for dtype, vlimit, iter_yn in FCT_CASES:
+            cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=0.5,
+                               flux_eps=1e-7 if dtype == torch.float32
+                               else 1e-16, dtype=dtype)
+            state = {k: torch.tensor(v, dtype=dtype, device="cuda")
+                     for k, v in fields.items()}
+            diff = max(diff, check_limit_fused(
+                md[dtype], state, cfg, errs,
+                f"{key} {dtype} vlimit={vlimit} iter={iter_yn}"))
+        # b3v mask: a nonzero flux at each node's bottom interface passes
+        # through unlimited, as in H-K2 and the oracle
+        cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, iter_yn=True)
+        m32 = md[torch.float32]
+        state = {k: torch.tensor(v, dtype=torch.float32, device="cuda")
+                 for k, v in fields.items()}
+        rows = (m32.nlev_nod - 1).long()
+        cols = torch.arange(m32.n_nodes, device="cuda")
+        state["fct_adf_v"][rows, cols] = torch.linspace(
+            -1.0, 1.0, m32.n_nodes, device="cuda") + 0.5
+        diff = max(diff, check_limit_fused(m32, state, cfg, errs,
+                                           f"{key} b3v-mask"))
+        got = K.limit_fused(m32, state["fct_LO"], state["ttf"],
+                            state["fct_adf_v"], state["fct_adf_h"], 1,
+                            cfg.dt, cfg.flux_eps, True)
+        if not torch.equal(got[4][rows, cols], state["fct_adf_v"][rows, cols]):
+            raise AssertionError("limit_fused b3v-mask: bottom interface "
+                                 "flux changed")
+        torch.cuda.synchronize()
+        print(f"limit_fused vs plain: {key} ({mesh.n_nodes} nodes): "
+              f"{len(FCT_CASES) + 1} cases ok (bounds bit-exact, the rest "
+              f"relerr <= 1e-6 f32, 1e-12 f64); max |K12 - (K1 -> K2)| on "
+              f"the card: {diff:.3e}", flush=True)
+
+    for key in ("core2", "cylinder"):
+        mesh = meshes[key]
+        fields = random_fields(mesh, seed=3, dtype=np.float64)
+        for dtype in (torch.float32, torch.float64):
+            md = build_mesh_data(mesh, dtype, "cuda")
+            s = {k: torch.tensor(fields[k], dtype=dtype, device="cuda")
+                 for k in ("fct_LO", "ttf")}
+            tmax, tmin = K.bounds_ref(md, s["fct_LO"], s["ttf"], 1)
+            ref = K.a2_ref(md, tmax, tmin, 1e3)
+            got = K.a2(md, tmax, tmin, 1e3)
+            for i, name in enumerate(("UV_max", "UV_min")):
+                errs.check("a2", name, got[i], ref[i], 0.0, f"{key} {dtype}")
+        torch.cuda.synchronize()
+        print(f"a2 vs plain: {key} ({mesh.n_elems} elements): f32 and f64 "
+              f"bit-exact", flush=True)
+
+
+def phase_forms(card: str, meshes: dict) -> tuple:
+    """20 core2 f32 steps of FctAleSolver(backend="cuda") in each of the
+    four forms against the default form (MAIN_RELERR, launches per step),
+    the step time of each form, and H-K12 and H-A2 beside their plain
+    versions.  Returns the K12 -> K34 run's launch counts, the kernel
+    times and the mesh data they were taken on."""
+    from fesom2_accelerate_tpu_torch import FctAleConfig, FctAleSolver
+    from fesom2_accelerate_tpu_torch.mesh import random_fields
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    mesh = meshes["core2"]
+    fields = random_fields(mesh, seed=0, dtype=np.float64)
+    cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
+                       dtype=torch.float32)
+    runs, counts, ref = {}, {}, None
+    for (f12, f34), per_step in FORMS.items():
+        name = form_name(f12, f34)
+        sv = FctAleSolver(mesh, cfg, backend="cuda", device="cuda",
+                          fuse_k12=f12, fuse_k34=f34)
+        state = sv.init_state(fields)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = sv.run(state, MAIN_STEPS)
+        torch.cuda.synchronize()
+        counts[name] = K.launch_counts()
+        check_counts(counts[name], {k: n * MAIN_STEPS
+                                    for k, n in per_step.items()}, name)
+        ref = out if ref is None else ref
+        err = 0.0
+        for k, v in ref.items():
+            if out[k].shape != v.shape or not bool(
+                    torch.isfinite(out[k]).all()):
+                raise AssertionError(f"{name} {k}: bad shape or non-finite")
+            err = max(err, relerr(out[k], v))
+        if err > MAIN_RELERR:
+            raise AssertionError(f"{name}: relerr {err:.3e} against the "
+                                 f"default form > {MAIN_RELERR:.0e}")
+        runs[name] = lambda sv=sv, state=state: sv.run(state, MAIN_STEPS)
+        print(f"form {name}: {MAIN_STEPS} core2 f32 steps, launches "
+              f"{ {k: v for k, v in counts[name].items() if v} }, "
+              f"{sum(per_step.values())} per step, relerr {err:.3e} "
+              f"against K1->K2->K34", flush=True)
+    best = best_times(runs, 1, timer=cuda_time_ms)
+    for name, ms in best.items():
+        print(f"step time {name}: {ms / MAIN_STEPS:.4f} ms/step (core2 f32, "
+              f"events around {MAIN_STEPS} steps, best of {TIMING_RUNS}; "
+              f"card {card})")
+
+    sv = FctAleSolver(mesh, cfg, backend="cuda", device="cuda")
+    md, s = sv.md, sv.init_state(fields)
+    args = (md, s["fct_LO"], s["ttf"], s["fct_adf_v"], s["fct_adf_h"], 1,
+            cfg.dt, cfg.flux_eps, False)
+
+    def chain():
+        tmax, tmin = K.bounds(md, s["fct_LO"], s["ttf"], 1)
+        return K.limit(md, s["fct_adf_v"], tmax, tmin, s["fct_adf_h"],
+                       cfg.dt, cfg.flux_eps, False)
+
+    t12 = best_times({"kernel": lambda: K.limit_fused(*args),
+                      "K1+K2": chain,
+                      "plain": lambda: K.limit_fused_ref(*args)}, 5)
+    print(f"kernel limit_fused: {t12['kernel']:.4f} ms against K1 + K2 "
+          f"{t12['K1+K2']:.4f} ms, plain {t12['plain']:.4f} ms (core2 f32; "
+          f"card {card})")
+    tmax, tmin = K.bounds(md, s["fct_LO"], s["ttf"], 1)
+    ta2 = best_times({"kernel": lambda: K.a2(md, tmax, tmin, 1e3),
+                      "plain": lambda: K.a2_ref(md, tmax, tmin, 1e3)}, 5)
+    print(f"kernel a2: {ta2['kernel']:.4f} ms, plain {ta2['plain']:.4f} ms "
+          f"(core2 f32, back to back: the 47.9 MB of bounds nearly fit the "
+          f"50 MB L2; card {card})", flush=True)
+    for stage, r in time_stages(mesh, fields, "cuda").items():
+        print(f"plain stage {stage}: {r['ms']:.4f} ms, {r['GBps']} GB/s "
+              f"modeled (core2 f32, time_stages; card {card})")
+    return counts[form_name(True, True)], {"limit_fused": t12,
+                                           "a2": ta2}, md
+
+
+def phase_tuner(meshes: dict) -> dict:
+    """A short run of the tuning harness on core2: tune_a2 and tune_step at
+    TUNE_THREADS, every configuration validated before it is timed.
+    Returns the a2 run's launch counts (the path H-A2 runs on)."""
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+    from fesom2_accelerate_tpu_torch.utils import tuning
+
+    mesh = meshes["core2"]
+    K.reset_launch_counts()
+    a2 = tuning.tune_a2(mesh, TUNE_THREADS, preset_name="core2")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    step = tuning.tune_step(mesh, TUNE_THREADS, preset_name="core2")
+    for family, results in (("a2", a2), ("step", step)):
+        for r in results:
+            print(f"tune {family} {r.params}: {r.ms:.4f} ms, {r.gbps} GB/s "
+                  f"modeled, relerr {r.max_relerr:.3e}, ok {r.ok} "
+                  f"({r.card})")
+        bad = [r.params for r in results if not r.ok]
+        if bad:
+            raise AssertionError(f"tune {family}: failed validation {bad}")
+        b = tuning.best(results)
+        print(f"tune {family} best: {b.params} {b.ms:.4f} ms", flush=True)
+    return counts
 
 
 SOURCE = "fesom2_accelerate_tpu_torch/ops/cuda/csrc/"
 KERNEL_SOURCES = {"bounds": "fct_ale.cu", "limit": "fct_ale.cu",
                   "update_fused": "fct_ale.cu", "stress2rhs": "stress2rhs.cu",
                   "b3h": "fct_ale.cu", "b3h_fixup": "fct_ale.cu",
-                  "update": "fct_ale.cu"}
+                  "update": "fct_ale.cu", "limit_fused": "fct_ale.cu",
+                  "a2": "fct_ale.cu"}
+# every Pallas function (file:line of its def) that each kernel covers:
+# between them, the 16 functions of the repo that reach pl.pallas_call
 PALLAS = "fesom2_accelerate_tpu/ops/pallas/"
 REPLACES = {
-    "bounds": PALLAS + "kernels.py:545",
-    "limit": PALLAS + "kernels_packed.py:247",
-    "update_fused": PALLAS + "kernels_packed.py:744",
-    "stress2rhs": (PALLAS + "kernels.py:1091, " + PALLAS
-                   + "kernels_packed.py:1064"),
-    "b3h": PALLAS + "kernels_packed.py:359, " + PALLAS + "kernels.py:769",
-    "b3h_fixup": (PALLAS + "kernels_packed.py:410, " + PALLAS
-                  + "kernels.py:820"),
-    "update": PALLAS + "kernels_packed.py:537, " + PALLAS + "kernels.py:940",
+    "bounds": ("kernels.py:545", "kernels.py:348", "kernels.py:465"),
+    "limit": ("kernels_packed.py:247", "kernels.py:686"),
+    "update_fused": ("kernels_packed.py:744",),
+    "stress2rhs": ("kernels.py:1091", "kernels_packed.py:1064"),
+    "b3h": ("kernels_packed.py:359", "kernels.py:769"),
+    "b3h_fixup": ("kernels_packed.py:410", "kernels.py:820"),
+    "update": ("kernels_packed.py:537", "kernels.py:940"),
+    "limit_fused": ("kernels_packed.py:895",),
+    "a2": ("kernels.py:1015",),
 }
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     card = phase_env()
     phase_build()
     meshes = build_meshes()
@@ -980,25 +1154,53 @@ def main() -> int:
     phase_kernel_checks(errs, meshes)
     phase_s2r_checks(errs, meshes)
     phase_fct_on_rcm(errs, meshes)
-    counts, times = phase_main_path(card, meshes)
-    s2r_counts, times["stress2rhs"] = phase_s2r_path(card, meshes)
+    counts, times, md = phase_main_path(card, meshes)
+    # each kernel's mesh data (and the inputs its bytes depend on) on the
+    # path whose launches it counts, for its bound
+    shapes = {name: (md, {}) for name in ("bounds", "limit", "update_fused")}
+    s2r_counts, times["stress2rhs"], shapes["stress2rhs"] = phase_s2r_path(
+        card, meshes)
     counts["stress2rhs"] = s2r_counts["stress2rhs"]
     t0 = time.perf_counter()
     phase_sharded_checks(errs, meshes)
     phase_sharded_small()
-    split_counts, split_times = phase_sharded_path(card, meshes)
+    split_counts, split_times, part = phase_sharded_path(card, meshes)
     print(f"phase 6 (sharded path) took {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name in ("b3h", "b3h_fixup", "update"):
         counts[name] = split_counts[name]
         times[name] = split_times[name]
-    kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE + src,
-         "replaces": REPLACES[name], "launches": counts[name],
-         "max_abs_err": errs.max_abs[name], "ms": times[name]["kernel"],
-         "plain_ms": times[name]["plain"]}
-        for name, src in KERNEL_SOURCES.items()
-    ]
+        shapes[name] = part
+    t0 = time.perf_counter()
+    phase_new_kernel_checks(errs, meshes)
+    k12_counts, new_times, md = phase_forms(card, meshes)
+    counts["limit_fused"] = k12_counts["limit_fused"]
+    counts["a2"] = phase_tuner(meshes)["a2"]
+    times.update(new_times)
+    shapes.update(limit_fused=(md, {}), a2=(md, {}))
+    print(f"phase 7 (K12, A2, step forms, tuner) took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kernels = []
+    for name, src in KERNEL_SOURCES.items():
+        kmd, inputs = shapes[name]
+        nbytes, ops = profiling.kernel_io(kmd, name, **inputs)
+        bound, bound_by = profiling.bound_ms(nbytes, ops, kmd.dtype)
+        if counts[name] < 1:
+            raise AssertionError(f"{name}: no launch on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE + src,
+            "replaces": ", ".join(PALLAS + r for r in REPLACES[name]),
+            "launches": counts[name], "max_abs_err": errs.max_abs[name],
+            "ms": times[name]["kernel"], "plain_ms": times[name]["plain"],
+            "bound_ms": bound, "bound_by": bound_by,
+            # no single PyTorch call computes any of these functions
+            "library_ms": None})
+        print(f"kernel {name}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
+              f"G operations, bound {bound:.4f} ms ({bound_by}; H100 SXM "
+              f"data sheet), measured {times[name]['kernel']:.4f} ms "
+              f"({bound / times[name]['kernel']:.1%} of the bound's rate)")
+    print(f"smoke run took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,13 @@ cylinder generators, RCM ordering, the FESOM2 mesh-file reader).
 
 * ``FctAleSolver(mesh, cfg, backend="torch", device=...)`` runs the plain
   PyTorch stages on any device (the float64 correctness gate);
-* ``backend="cuda"`` runs the step as three CUDA kernels (K1 bounds,
-  K2 limit, K34 update_fused; ``ops/cuda/``) on a CUDA device;
+* ``backend="cuda"`` runs the step as hand-written CUDA kernels on a CUDA
+  device (``ops/cuda/``): K1 bounds -> K2 limit -> K34 update_fused by
+  default, or another form with ``fuse_k12`` (K12 limit_fused in place of
+  K1 -> K2) and ``fuse_k34=False`` (K3 b3h -> K4 update in place of K34);
+* ``utils/tuning.py`` sweeps the kernels' block sizes and the step's
+  forms on a card, each configuration validated first
+  (``python -m fesom2_accelerate_tpu_torch.utils.tune``);
 * ``Stress2RhsSolver(mesh, dtype, backend="torch"|"cuda", device=...)``
   runs stress2rhs in plain PyTorch or through the H-S2R CUDA kernel;
 * ``ShardedFctAleSolver(mesh, cfg, backend="torch"|"cuda", devices=[...])``

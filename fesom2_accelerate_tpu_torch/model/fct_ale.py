@@ -10,10 +10,15 @@ functions over state tensors on that device:
 * ``backend="torch"``: :func:`fct_ale_step`, plain PyTorch stages, any
   device, float32 or float64 (the correctness gate);
 * ``backend="cuda"``: :func:`~fesom2_accelerate_tpu_torch.ops.cuda.step.
-  fct_ale_step_cuda`, three hand-written CUDA kernels; CUDA devices only.
+  fct_ale_step_cuda`, hand-written CUDA kernels; CUDA devices only.  The
+  keywords ``fuse_k12`` and ``fuse_k34`` choose its form (K12 or K1 -> K2,
+  K34 or K3 -> K4), the counterparts of the JAX package's
+  ``build_pallas_data(fuse_k12=, fuse_k34=)``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -127,25 +132,36 @@ class FctAleSolver:
         state = solver.run(state, n_steps=10)  # Python loop of steps
 
     backend: "torch" (plain PyTorch stages, any device and float dtype) or
-    "cuda" (the three CUDA kernels; ``device`` must be a CUDA device)."""
+    "cuda" (the CUDA kernels; ``device`` must be a CUDA device).  With
+    "cuda", ``fuse_k12`` runs K1 and K2 as the one kernel K12 and
+    ``fuse_k34=False`` runs K3 -> K4 in place of K34; "torch" refuses any
+    value but the default."""
 
     def __init__(self, mesh: Mesh, cfg: FctAleConfig = FctAleConfig(),
                  backend: str = "torch", *,
-                 device: torch.device | str):
+                 device: torch.device | str, fuse_k12: bool = False,
+                 fuse_k34: bool = True):
         device = torch.device(device)
         if backend == "torch":
+            if (fuse_k12, fuse_k34) != (False, True):
+                raise ValueError(
+                    "fuse_k12 and fuse_k34 choose the form of "
+                    "backend='cuda'; backend='torch' takes the defaults")
             self._step_fn = fct_ale_step
         elif backend == "cuda":
             if device.type != "cuda":
                 raise ValueError(
                     f"backend='cuda' needs a CUDA device, got {device}")
-            self._step_fn = fct_ale_step_cuda
+            self._step_fn = functools.partial(
+                fct_ale_step_cuda, fuse_k12=fuse_k12, fuse_k34=fuse_k34)
         else:
             raise ValueError(f"backend must be 'torch' or 'cuda', got "
                              f"{backend!r}")
         self.mesh = mesh
         self.cfg = cfg
         self.backend = backend
+        self.fuse_k12 = fuse_k12
+        self.fuse_k34 = fuse_k34
         self.device = device
         self.md = build_mesh_data(mesh, cfg.dtype, device)
 

@@ -11,6 +11,13 @@ raises; there is no fallback.
 
 The command targets Hopper only (``sm_90a``) and leaves out
 ``--use_fast_math``: b2's divisions and the limiter selections stay IEEE.
+``-Xptxas -v`` writes each kernel instance's registers, stack and spills
+into the log; :func:`ptxas_report` reads them back.
+
+Usage on a machine with nvcc (builds, then prints one line per kernel
+instance)::
+
+    python -m fesom2_accelerate_tpu_torch.ops.cuda.build
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -36,20 +44,24 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# every launcher ends in (threads per block, device, stream)
 ARGTYPES = {
-    "fct_bounds": [_P] * 8 + [_I] * 5 + [_P],
-    "fct_limit": [_P] * 14 + [_I] * 4 + [_D, _D, _I, _P],
-    "fct_update_fused": [_P] * 23 + [_I] * 5 + [_D, _I, _I, _P],
-    "fct_b3h": [_P] * 7 + [_I] * 4 + [_P],
-    "fct_b3h_fixup": [_P] * 8 + [_I] * 5 + [_P],
-    "fct_update": [_P] * 16 + [_I] * 4 + [_D, _I, _I, _P],
-    "stress2rhs": [_P] * 7 + [_I] * 4 + [_P],
+    "fct_bounds": [_P] * 8 + [_I] * 6 + [_P],
+    "fct_limit": [_P] * 14 + [_I] * 4 + [_D, _D, _I, _I, _P],
+    "fct_limit_fused": [_P] * 17 + [_I] * 5 + [_D, _D, _I, _I, _P],
+    "fct_update_fused": [_P] * 23 + [_I] * 5 + [_D, _I, _I, _I, _P],
+    "fct_b3h": [_P] * 7 + [_I] * 5 + [_P],
+    "fct_b3h_fixup": [_P] * 8 + [_I] * 6 + [_P],
+    "fct_update": [_P] * 16 + [_I] * 4 + [_D, _I, _I, _I, _P],
+    "fct_a2": [_P] * 6 + [_I] * 3 + [_D, _I, _I, _P],
+    "stress2rhs": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 # each source and the launchers it defines (each as ``_f32`` and ``_f64``)
 SOURCES = {
-    "fct_ale.cu": ("fct_bounds", "fct_limit", "fct_update_fused", "fct_b3h",
-                   "fct_b3h_fixup", "fct_update"),
+    "fct_ale.cu": ("fct_bounds", "fct_limit", "fct_limit_fused",
+                   "fct_update_fused", "fct_b3h", "fct_b3h_fixup",
+                   "fct_update", "fct_a2"),
     "stress2rhs.cu": ("stress2rhs",),
 }
 
@@ -131,3 +143,61 @@ def library() -> types.SimpleNamespace:
                 fn.restype = ctypes.c_int
                 fns[name + suffix] = fn
     return types.SimpleNamespace(**fns)
+
+
+# the kernels of the sources (``<name>_kernel``), longest first so that a
+# name is not taken for its prefix
+KERNELS = ("limit_fused", "limit", "update_fused", "update", "b3h_fixup",
+           "b3h", "bounds", "a2", "stress2rhs")
+
+# an entry line of ``ptxas -v``: the mangled kernel name, with its template
+# arguments (dtype, then the int parameters: incidence slots where the
+# kernel has them, block size last)
+_ENTRY = re.compile(r"Compiling entry function '\w*?(" + "|".join(KERNELS)
+                    + r")_kernelI([fd])((?:Li\d+E)+)")
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """One dict per kernel instance in an nvcc log: ``kernel``, ``dtype``
+    (float or double), ``params`` (the int template arguments, block size
+    last), ``registers``, ``stack``, ``spill_stores`` and ``spill_loads``
+    (bytes)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = dict(kernel=m.group(1) + "_kernel",
+                       dtype="float" if m.group(2) == "f" else "double",
+                       params=tuple(int(v) for v in
+                                    re.findall(r"Li(\d+)E", m.group(3))))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            out.append(cur)
+            cur = None
+    return out
+
+
+def main() -> None:
+    paths, seconds = build()
+    print(f"built {', '.join(p.name for p in paths)} in {seconds:.2f} s")
+    for path in paths:
+        for r in ptxas_report(path.with_suffix(".log").read_text()):
+            print(f"{r['kernel']}<{r['dtype']},"
+                  f"{','.join(map(str, r['params']))}>: {r['registers']} "
+                  f"registers, stack {r.get('stack')}, spill stores "
+                  f"{r.get('spill_stores')}, spill loads "
+                  f"{r.get('spill_loads')}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,20 +1,23 @@
 // FCT-ALE kernels for Hopper (sm_90a), templated on float/double, with
 // extern "C" launchers that are loaded through ctypes (ops/cuda/build.py,
 // ops/cuda/kernels.py):
-//   * the single-device chain K1 bounds -> K2 limit -> K34 update_fused;
+//   * the single-device chain K1 bounds -> K2 limit -> K34 update_fused,
+//     or any of its other forms: K12 limit_fused (K1 and K2 in one pass)
+//     in place of K1 -> K2, and K3 -> K4 in place of K34;
 //   * the split chain of a sharded step, K1 -> K2 -> K3 b3h -> halo
 //     exchange -> K3fix b3h_fixup -> K4 update: K3 limits every edge on the
 //     pre-exchange factors, K3fix redoes the edges that touch a halo node
-//     with the exchanged ones, K4 is stage c from the limited edge fluxes.
+//     with the exchanged ones, K4 is stage c from the limited edge fluxes;
+//   * A2 a2, the standalone element bounds of the tuning harness.
 //
 // Each kernel computes what the JAX package's Pallas kernel of the same
 // role computes, on natural level-major shapes: node fields [L, N],
-// interface fields [L+1, N], edge fields [L, Ed].  None of the TPU layout
-// machinery carries over (one-hot MXU contractions, DIA lane rolls, packed
-// home slots, DMA windows, 128-lane tiles): all of it stands in for the
-// vector gather that Hopper has.
+// interface fields [L+1, N], edge fields [L, Ed], element fields [L, E].
+// None of the TPU layout machinery carries over (one-hot MXU contractions,
+// DIA lane rolls, packed home slots, DMA windows, 128-lane tiles): all of it
+// stands in for the vector gather that Hopper has.
 //
-// Design shared by the node kernels (K1, K2, K34, K4):
+// Design shared by the node kernels (K1, K2, K12, K34, K4):
 //   * one thread per node, looping over the levels z; consecutive threads
 //     read consecutive nodes at each level, so node-field accesses are
 //     coalesced and the [L, N] layout stays the API layout;
@@ -26,25 +29,42 @@
 //     each edge output of K34 is written once, from the one incidence slot
 //     that nd_wrt marks (ops/meshdata.py): no atomics, so results are
 //     identical from run to run.
-// The edge kernels (K3, K3fix) run one thread per (edge, level),
-// consecutive threads on consecutive edges of one level.
-// All are bound by device-memory traffic (a few flops per byte); the
-// neighbour gathers at each level hit L2/L1 because the mesh numbering
-// keeps edge-neighbours within about min(nx, ny) node indices.
+// The edge and element kernels (K3, K3fix, A2) run one thread per (edge or
+// element, level), consecutive threads on consecutive entities of one
+// level.  All are bound by device-memory traffic (a few flops per byte);
+// the neighbour gathers at each level hit L2/L1 because the mesh numbering
+// keeps neighbours within about min(nx, ny) node indices.
+//
+// Launch configuration: every launcher takes the threads per block (64,
+// 128, 256 or 512; 128 is the default the wrappers pass) and every kernel
+// is instantiated once per block size with __launch_bounds__ of that size
+// (min_blocks below), so the 128-thread instances compile exactly as they
+// did with a fixed block of 128, and a larger block gets a register cap
+// that fits it.  The
+// node kernels' 16-slot instances (meshes of node degree > 8) exist for
+// 64 and 128 threads only: at 256 or 512 their registers would spill.  The
+// tuning harness (utils/tuning.py) sweeps this, as the JAX harness sweeps
+// the Pallas tile and chunk sizes.
 //
 // Built without --use_fast_math: b2's divisions and every limiter
 // selection stay IEEE.  nvcc still contracts a*b+c into FMA, one reason
-// (with the order of the incident-edge sums) that K2, K34 and K4 agree with
-// their plain versions to a relative error and not bit for bit.  K1 does
-// only max/min, selects and one subtraction, and K3/K3fix only selects and
-// one product per output, so those are bit-exact.
+// (with the order of the incident-edge sums) that K2, K12, K34 and K4 agree
+// with their plain versions to a relative error and not bit for bit.  K1
+// and A2 do only max/min, selects and one subtraction, and K3/K3fix only
+// selects and one product per output, so those are bit-exact.
 
 #include <cuda_runtime.h>
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;
+// The least resident blocks per SM hinted to ptxas: none (0) below 512
+// threads, so those instances compile exactly as with a bare
+// __launch_bounds__(THREADS); one at 512, which lets a 512-thread block use
+// up to 128 registers a thread (without it ptxas held limit_kernel<double,
+// 8, 512> to 64 registers and spilled).
+constexpr int min_blocks(int threads) { return threads >= 512 ? 1 : 0; }
 
 __device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double vmax(double a, double b) { return fmax(a, b); }
@@ -96,8 +116,84 @@ __device__ __forceinline__ Level<T> cluster_level(
   return r;
 }
 
+// The vertical window of K1 carried across the level loop: the cluster
+// bounds and a1 at levels z-1 (padded at the surface), z and z+1.
+template <typename T>
+struct Window {
+  T pmax, pmin;    // cluster bounds at z-1
+  T pa_hi, pa_lo;  // a1max at z-1 (max / min window pads)
+  Level<T> cur;    // level z
+};
+
 template <typename T, int MAXD>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ Window<T> window_start(
+    const T* __restrict__ lo, const T* __restrict__ ttf, int n, int N,
+    int nlev, const int (&oth)[MAXD], const int (&lev)[MAXD]) {
+  const T big = T(1e30);
+  Window<T> w;
+  w.pmax = -big;
+  w.pmin = big;
+  w.pa_hi = -big;
+  w.pa_lo = big;
+  w.cur = cluster_level<T, MAXD>(lo, ttf, 0, n, N, nlev, oth, lev);
+  return w;
+}
+
+// K1 at level z of node n: fct_ttf_max / fct_ttf_min (0 on inactive rows)
+// into tx / tn, then the window moved down to z+1.  Shared by K1 and K12,
+// so both compute the same bits.
+template <typename T, int MAXD>
+__device__ __forceinline__ void bounds_level(
+    const T* __restrict__ lo, const T* __restrict__ ttf, int z, int n,
+    int L, int N, int nlev, int vlimit, const int (&oth)[MAXD],
+    const int (&lev)[MAXD], Window<T>& w, T& tx, T& tn) {
+  const T big = T(1e30);
+  Level<T> nxt;
+  T na_hi, na_lo;
+  if (z + 1 < L) {
+    nxt = cluster_level<T, MAXD>(lo, ttf, z + 1, n, N, nlev, oth, lev);
+    na_hi = nxt.a1max;
+    na_lo = nxt.a1max;
+  } else {
+    nxt.cmax = -big;
+    nxt.cmin = big;
+    nxt.a1max = T(0);
+    nxt.lo = T(0);
+    na_hi = -big;
+    na_lo = big;
+  }
+  const Level<T>& cur = w.cur;
+  const bool act = z < nlev - 1;
+  const bool plain = (z == 0) || (z >= nlev - 2);
+  T smax = cur.cmax, smin = cur.cmin;
+  if (!plain) {
+    if (vlimit == 1) {
+      smax = vmax(vmax(w.pmax, cur.cmax), nxt.cmax);
+      smin = vmin(vmin(w.pmin, cur.cmin), nxt.cmin);
+    } else {
+      // vlimit 2/3: both windows over a1's fct_ttf_max
+      const T wmax = vmax(vmax(w.pa_hi, cur.a1max), na_hi);
+      const T wmin = vmin(vmin(w.pa_lo, cur.a1max), na_lo);
+      if (vlimit == 2) {
+        smax = vmax(cur.cmax, wmax);
+        smin = vmin(cur.cmin, wmin);
+      } else {
+        smax = vmin(cur.cmax, wmax);
+        smin = vmax(cur.cmin, wmin);
+      }
+    }
+  }
+  tx = act ? smax - cur.lo : T(0);
+  tn = act ? smin - cur.lo : T(0);
+  w.pmax = cur.cmax;
+  w.pmin = cur.cmin;
+  w.pa_hi = cur.a1max;
+  w.pa_lo = cur.a1max;
+  w.cur = nxt;
+}
+
+template <typename T, int MAXD, int THREADS>
+__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
               const int* __restrict__ nd_other,
               const int* __restrict__ nd_lev,
@@ -106,7 +202,6 @@ bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
               T* __restrict__ tmin_out, int L, int N, int KD, int vlimit) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  const T big = T(1e30);
   const int nlev = nlev_nod[n];
   const int num = nd_num[n];
   int oth[MAXD], lev[MAXD];
@@ -116,54 +211,14 @@ bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
     oth[k] = ok ? nd_other[(size_t)n * KD + k] : n;
     lev[k] = ok ? nd_lev[(size_t)n * KD + k] : 0;
   }
-
-  // window registers: level z-1 (padded), z, z+1
-  T pmax = -big, pmin = big;        // cluster bounds at z-1
-  T pa_hi = -big, pa_lo = big;      // a1max at z-1 (max / min window pads)
-  Level<T> cur = cluster_level<T, MAXD>(lo, ttf, 0, n, N, nlev, oth, lev);
+  Window<T> w = window_start<T, MAXD>(lo, ttf, n, N, nlev, oth, lev);
   for (int z = 0; z < L; ++z) {
-    Level<T> nxt;
-    T na_hi, na_lo;
-    if (z + 1 < L) {
-      nxt = cluster_level<T, MAXD>(lo, ttf, z + 1, n, N, nlev, oth, lev);
-      na_hi = nxt.a1max;
-      na_lo = nxt.a1max;
-    } else {
-      nxt.cmax = -big;
-      nxt.cmin = big;
-      nxt.a1max = T(0);
-      nxt.lo = T(0);
-      na_hi = -big;
-      na_lo = big;
-    }
-    const bool act = z < nlev - 1;
-    const bool plain = (z == 0) || (z >= nlev - 2);
-    T smax = cur.cmax, smin = cur.cmin;
-    if (!plain) {
-      if (vlimit == 1) {
-        smax = vmax(vmax(pmax, cur.cmax), nxt.cmax);
-        smin = vmin(vmin(pmin, cur.cmin), nxt.cmin);
-      } else {
-        // vlimit 2/3: both windows over a1's fct_ttf_max
-        const T wmax = vmax(vmax(pa_hi, cur.a1max), na_hi);
-        const T wmin = vmin(vmin(pa_lo, cur.a1max), na_lo);
-        if (vlimit == 2) {
-          smax = vmax(cur.cmax, wmax);
-          smin = vmin(cur.cmin, wmin);
-        } else {
-          smax = vmin(cur.cmax, wmax);
-          smin = vmax(cur.cmin, wmin);
-        }
-      }
-    }
+    T tx, tn;
+    bounds_level<T, MAXD>(lo, ttf, z, n, L, N, nlev, vlimit, oth, lev, w,
+                          tx, tn);
     const size_t idx = (size_t)z * N + n;
-    tmax_out[idx] = act ? smax - cur.lo : T(0);
-    tmin_out[idx] = act ? smin - cur.lo : T(0);
-    pmax = cur.cmax;
-    pmin = cur.cmin;
-    pa_hi = cur.a1max;
-    pa_lo = cur.a1max;
-    cur = nxt;
+    tmax_out[idx] = tx;
+    tmin_out[idx] = tn;
   }
 }
 
@@ -176,8 +231,85 @@ bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
 // passes through.
 // ---------------------------------------------------------------------------
 
-template <typename T, int MAXD>
-__global__ void __launch_bounds__(kThreads)
+// The node's bounds at one level, as K2 reads them (from device memory,
+// where b2 uses them, as the parent kernel did) and as K12 holds them (in
+// registers).
+template <typename T>
+struct BoundsInMemory {
+  const T* __restrict__ tmax;
+  const T* __restrict__ tmin;
+  size_t idx;
+  __device__ __forceinline__ T max() const { return tmax[idx]; }
+  __device__ __forceinline__ T min() const { return tmin[idx]; }
+};
+
+template <typename T>
+struct BoundsInRegisters {
+  T tx, tn;
+  __device__ __forceinline__ T max() const { return tx; }
+  __device__ __forceinline__ T min() const { return tn; }
+};
+
+// Whether incidence slot k is the edge's first endpoint: K2 keeps one flag
+// per slot (as K34 and K4 do), K12 one bit per slot, to save registers.
+template <int MAXD>
+__device__ __forceinline__ bool is_first(const bool (&first)[MAXD], int k) {
+  return first[k];
+}
+__device__ __forceinline__ bool is_first(unsigned first, int k) {
+  return (first >> k) & 1u;
+}
+
+// K2 at level z of node n, from the bounds of that node and level (read
+// only on active rows) and the vertical fluxes up (interface z) and dn
+// (interface z+1); the b3v factors of level z-1 are carried in fp_prev /
+// fm_prev.  Shared by K2 and K12, so both compute the same bits.
+template <typename T, int MAXD, typename First, typename Bounds>
+__device__ __forceinline__ void limit_level(
+    const T* __restrict__ adf_h, const T* __restrict__ area_inv,
+    const int (&eidx)[MAXD], const int (&lev)[MAXD], const First& first,
+    int z, size_t idx, int Ed, bool act, const Bounds& bnd, T up, T dn,
+    T dt, T eps, T& fp_prev, T& fm_prev, T* __restrict__ plus_out,
+    T* __restrict__ minus_out, T* __restrict__ adf_v_lim,
+    T* __restrict__ adf_v_res) {
+  // b1 vertical (kernels/fct_ale_b1_vertical.cu:13-14)
+  const T pv = vmax(T(0), up) + vmax(T(0), -dn);
+  const T mv = vmin(T(0), up) + vmin(T(0), -dn);
+  // b1 horizontal: signed incident-edge fluxes
+  T gp = T(0), gm = T(0);
+  const size_t erow = (size_t)z * Ed;
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) {
+    if (z < lev[k]) {
+      const T f = adf_h[erow + eidx[k]];
+      const T x = is_first(first, k) ? f : -f;
+      gp += vmax(T(0), x);
+      gm += vmin(T(0), x);
+    }
+  }
+  // b2 (kernels/fct_ale_b2.cu:10-11)
+  const T ai = area_inv[idx];
+  const T fplus = (pv + gp) * dt * ai + eps;
+  const T fminus = (mv + gm) * dt * ai - eps;
+  const T fp = act ? vmin(T(1), bnd.max() / fplus) : T(0);
+  const T fm = act ? vmin(T(1), bnd.min() / fminus) : T(0);
+  plus_out[idx] = fp;
+  minus_out[idx] = fm;
+  // b3 vertical (kernels/fct_ale_b3_vertical.cu:17-45)
+  const T flux = up;
+  const T ae_pos = vmin(T(1), vmin(fm_prev, fp));
+  const T ae_neg = vmin(T(1), vmin(fp_prev, fm));
+  const T ae = flux >= T(0) ? ae_pos : ae_neg;
+  adf_v_lim[idx] = act ? ae * flux : flux;
+  if (adf_v_res != nullptr) {
+    adf_v_res[idx] = (act && z >= 1) ? (T(1) - ae) * flux : T(0);
+  }
+  fp_prev = fp;
+  fm_prev = fm;
+}
+
+template <typename T, int MAXD, int THREADS>
+__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 limit_kernel(const T* __restrict__ adf_v, const T* __restrict__ tmax,
              const T* __restrict__ tmin, const T* __restrict__ adf_h,
              const T* __restrict__ area_inv, const int* __restrict__ nd_idx,
@@ -207,41 +339,80 @@ limit_kernel(const T* __restrict__ adf_v, const T* __restrict__ tmax,
   for (int z = 0; z < L; ++z) {
     const size_t idx = (size_t)z * N + n;
     const T dn = adf_v[idx + N];
-    // b1 vertical (kernels/fct_ale_b1_vertical.cu:13-14)
-    const T pv = vmax(T(0), up) + vmax(T(0), -dn);
-    const T mv = vmin(T(0), up) + vmin(T(0), -dn);
-    // b1 horizontal: signed incident-edge fluxes
-    T gp = T(0), gm = T(0);
-    const size_t erow = (size_t)z * Ed;
+    limit_level<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx, Ed,
+                         z < nlev - 1, BoundsInMemory<T>{tmax, tmin, idx}, up,
+                         dn, dt, eps, fp_prev, fm_prev, plus_out, minus_out,
+                         adf_v_lim, adf_v_res);
+    up = dn;
+  }
+  const size_t last = (size_t)L * N + n;
+  adf_v_lim[last] = up;
+  if (adf_v_res != nullptr) adf_v_res[last] = T(0);
+}
+
+// ---------------------------------------------------------------------------
+// H-K12 limit_fused.  Replaces kernels_packed.py:limit_fused_pallas (the
+// computation of _limit_fused_kernel): K1 and K2 in one level loop of one
+// thread per node.  At each z the K1 window gives the node's bounds
+// (bounds_level), which are written out and fed, as values, to K2's body
+// at the same z (limit_level): b2 needs the bounds of its own node and
+// level only, and the a3 window's z+1 look-ahead is already carried in
+// registers, so the fusion recomputes nothing.  It saves the write and
+// re-read of fct_ttf_max/min through device memory (the bounds are still
+// written once, as outputs of the step) and one launch.  b3v follows the
+// oracle's mask z < nlev_nod - 1, as K2 does; the Pallas kernel calls
+// _limit_body, whose mask is z < nlev_nod (ROADMAP Queue C).
+// Bound by memory traffic.  Registers are the risk: the thread holds both
+// kernels' incidence rows (nd_other and nd_idx, with nd_lev loaded once
+// for both and the first-endpoint flags in one bit mask), K1's three-level
+// window and K2's carried b3v factors.
+// ---------------------------------------------------------------------------
+
+template <typename T, int MAXD, int THREADS>
+__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
+limit_fused_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
+                   const T* __restrict__ adf_v, const T* __restrict__ adf_h,
+                   const T* __restrict__ area_inv,
+                   const int* __restrict__ nd_idx,
+                   const int* __restrict__ nd_other,
+                   const int* __restrict__ nd_lev,
+                   const signed char* __restrict__ nd_sgn,
+                   const int* __restrict__ nd_num,
+                   const int* __restrict__ nlev_nod,
+                   T* __restrict__ tmax_out, T* __restrict__ tmin_out,
+                   T* __restrict__ plus_out, T* __restrict__ minus_out,
+                   T* __restrict__ adf_v_lim, T* __restrict__ adf_v_res,
+                   int L, int N, int Ed, int KD, int vlimit, T dt, T eps) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int nlev = nlev_nod[n];
+  const int num = nd_num[n];
+  int oth[MAXD], eidx[MAXD], lev[MAXD];
+  unsigned first = 0u;
 #pragma unroll
-    for (int k = 0; k < MAXD; ++k) {
-      if (z < lev[k]) {
-        const T f = adf_h[erow + eidx[k]];
-        const T x = first[k] ? f : -f;
-        gp += vmax(T(0), x);
-        gm += vmin(T(0), x);
-      }
-    }
-    const bool act = z < nlev - 1;
-    // b2 (kernels/fct_ale_b2.cu:10-11)
-    const T ai = area_inv[idx];
-    const T fplus = (pv + gp) * dt * ai + eps;
-    const T fminus = (mv + gm) * dt * ai - eps;
-    const T fp = act ? vmin(T(1), tmax[idx] / fplus) : T(0);
-    const T fm = act ? vmin(T(1), tmin[idx] / fminus) : T(0);
-    plus_out[idx] = fp;
-    minus_out[idx] = fm;
-    // b3 vertical (kernels/fct_ale_b3_vertical.cu:17-45)
-    const T flux = up;
-    const T ae_pos = vmin(T(1), vmin(fm_prev, fp));
-    const T ae_neg = vmin(T(1), vmin(fp_prev, fm));
-    const T ae = flux >= T(0) ? ae_pos : ae_neg;
-    adf_v_lim[idx] = act ? ae * flux : flux;
-    if (adf_v_res != nullptr) {
-      adf_v_res[idx] = (act && z >= 1) ? (T(1) - ae) * flux : T(0);
-    }
-    fp_prev = fp;
-    fm_prev = fm;
+  for (int k = 0; k < MAXD; ++k) {
+    const bool ok = k < num;
+    oth[k] = ok ? nd_other[(size_t)n * KD + k] : n;
+    eidx[k] = ok ? nd_idx[(size_t)n * KD + k] : 0;
+    lev[k] = ok ? nd_lev[(size_t)n * KD + k] : 0;
+    if (ok && nd_sgn[(size_t)n * KD + k] > 0) first |= 1u << k;
+  }
+
+  Window<T> w = window_start<T, MAXD>(lo, ttf, n, N, nlev, oth, lev);
+  T fp_prev = T(1), fm_prev = T(1);
+  T up = adf_v[n];
+  for (int z = 0; z < L; ++z) {
+    const size_t idx = (size_t)z * N + n;
+    T tx, tn;
+    bounds_level<T, MAXD>(lo, ttf, z, n, L, N, nlev, vlimit, oth, lev, w,
+                          tx, tn);
+    tmax_out[idx] = tx;
+    tmin_out[idx] = tn;
+    const T dn = adf_v[idx + N];
+    limit_level<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx, Ed,
+                         z < nlev - 1, BoundsInRegisters<T>{tx, tn}, up, dn,
+                         dt, eps, fp_prev, fm_prev, plus_out, minus_out,
+                         adf_v_lim, adf_v_res);
     up = dn;
   }
   const size_t last = (size_t)L * N + n;
@@ -292,8 +463,8 @@ __device__ __forceinline__ void stage_c(
 // every edge output is written exactly once.
 // ---------------------------------------------------------------------------
 
-template <typename T, int MAXD>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int MAXD, int THREADS>
+__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
                     const T* __restrict__ adf_v_lim,
                     const T* __restrict__ adf_h, const T* __restrict__ ttf,
@@ -419,8 +590,8 @@ __device__ __forceinline__ void b3h_edge(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int THREADS>
+__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 b3h_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
            const T* __restrict__ adf_h, const int* __restrict__ edges,
            const int* __restrict__ nlev_edge, T* __restrict__ adf_h_lim,
@@ -431,8 +602,8 @@ b3h_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
            (int)blockIdx.y, e, N, Ed);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int THREADS>
+__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 b3h_fixup_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
                  const T* __restrict__ adf_h, const int* __restrict__ edges,
                  const int* __restrict__ nlev_edge,
@@ -457,8 +628,8 @@ b3h_fixup_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
 // level where K34 reads the flux and the other endpoint's two factors.
 // ---------------------------------------------------------------------------
 
-template <typename T, int MAXD>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int MAXD, int THREADS>
+__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 update_kernel(const T* __restrict__ adf_v_lim,
               const T* __restrict__ adf_h_lim, const T* __restrict__ ttf,
               const T* __restrict__ hnode, const T* __restrict__ hnode_new,
@@ -504,29 +675,109 @@ update_kernel(const T* __restrict__ adf_v_lim,
   }
 }
 
-inline dim3 grid_for(int N) { return dim3((N + kThreads - 1) / kThreads); }
+// ---------------------------------------------------------------------------
+// H-A2 a2.  Replaces kernels.py:a2_pallas (the computation of _a2_kernel):
+// the element bounds of stage a2 (reference src/reference.cpp:321-351,
+// stages.a2), UV_max / UV_min [L, E] = the max / min of a1's fct_ttf_max /
+// fct_ttf_min over the element's 3 nodes where z < nlev_elem - 1, and
+// -bignumber / +bignumber elsewhere (full-depth padding).  The Pallas
+// kernel gathers the 3 nodes with a windowed one-hot MXU contraction; here
+// one thread per (element, level), consecutive threads on consecutive
+// elements of one level, reads the 3 nodes directly, so the [L, E] writes
+// coalesce and the node reads of a warp fall within a few rows of the
+// level (element ids follow node ids).  Bound by memory traffic: it writes
+// two element fields and reads two node fields.  Max/min and selects only:
+// bit-exact against its plain version.
+// ---------------------------------------------------------------------------
+
+template <typename T, int THREADS>
+__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
+a2_kernel(const T* __restrict__ tmax, const T* __restrict__ tmin,
+          const int* __restrict__ elem_nodes,
+          const int* __restrict__ nlev_elem, T* __restrict__ uv_max,
+          T* __restrict__ uv_min, int N, int E, T big) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const int z = (int)blockIdx.y;
+  const size_t idx = (size_t)z * E + e;
+  if (z < nlev_elem[e] - 1) {
+    const size_t row = (size_t)z * N;
+    const int n0 = elem_nodes[3 * (size_t)e];
+    const int n1 = elem_nodes[3 * (size_t)e + 1];
+    const int n2 = elem_nodes[3 * (size_t)e + 2];
+    uv_max[idx] = vmax(vmax(tmax[row + n0], tmax[row + n1]), tmax[row + n2]);
+    uv_min[idx] = vmin(vmin(tmin[row + n0], tmin[row + n1]), tmin[row + n2]);
+  } else {
+    uv_max[idx] = -big;
+    uv_min[idx] = big;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch helpers
+// ---------------------------------------------------------------------------
+
+inline dim3 blocks_for(int n, int threads) {
+  return dim3((n + threads - 1) / threads);
+}
 
 // incidence rows wider than this are refused (the wrapper checks first)
 constexpr int kMaxDegree = 16;
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// Calls f(Int<THREADS>) for the block sizes that have kernel instances and
+// returns the launch's error; any other size is refused before a launch.
+template <typename F>
+int with_threads(int threads, F&& f) {
+  switch (threads) {
+    case 64: f(Int<64>{}); break;
+    case 128: f(Int<128>{}); break;
+    case 256: f(Int<256>{}); break;
+    case 512: f(Int<512>{}); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// Calls f(Int<MAXD>, Int<THREADS>): the incidence slots in registers (8 or
+// kMaxDegree, the least that holds KD) and the block size.  Rows of more
+// than 8 slots are instantiated for blocks of at most kMaxWideThreads:
+// their node kernels need more registers than a larger block leaves a
+// thread (H-K12 and H-K34 would spill), so such a launch is refused.
+constexpr int kMaxWideThreads = 128;
+
+template <typename F>
+int with_config(int KD, int threads, F&& f) {
+  if (KD > 8 && threads > kMaxWideThreads) return cudaErrorInvalidValue;
+  return with_threads(threads, [&](auto nt) {
+    if constexpr (decltype(nt)::value <= kMaxWideThreads) {
+      if (KD > 8) {
+        f(Int<kMaxDegree>{}, nt);
+        return;
+      }
+    }
+    f(Int<8>{}, nt);
+  });
+}
 
 template <typename T>
 int launch_bounds(const void* lo, const void* ttf, const void* nd_other,
                   const void* nd_lev, const void* nd_num,
                   const void* nlev_nod, void* tmax, void* tmin, int L, int N,
-                  int KD, int vlimit, int device, void* stream) {
+                  int KD, int vlimit, int threads, int device, void* stream) {
   if (L < 1 || N < 1 || KD < 1 || KD > kMaxDegree) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto kernel) {
-    kernel<<<grid_for(N), kThreads, 0, s>>>(
+  return with_config(KD, threads, [&](auto d, auto nt) {
+    constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
+    bounds_kernel<T, D, TH><<<blocks_for(N, TH), TH, 0, s>>>(
         (const T*)lo, (const T*)ttf, (const int*)nd_other, (const int*)nd_lev,
         (const int*)nd_num, (const int*)nlev_nod, (T*)tmax, (T*)tmin, L, N,
         KD, vlimit);
-  };
-  if (KD <= 8) args(bounds_kernel<T, 8>);
-  else args(bounds_kernel<T, kMaxDegree>);
-  return cudaGetLastError();
+  });
 }
 
 template <typename T>
@@ -535,23 +786,48 @@ int launch_limit(const void* adf_v, const void* tmax, const void* tmin,
                  const void* nd_lev, const void* nd_sgn, const void* nd_num,
                  const void* nlev_nod, void* plus, void* minus,
                  void* adf_v_lim, void* adf_v_res, int L, int N, int Ed,
-                 int KD, double dt, double eps, int device, void* stream) {
+                 int KD, double dt, double eps, int threads, int device,
+                 void* stream) {
   if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto kernel) {
-    kernel<<<grid_for(N), kThreads, 0, s>>>(
+  return with_config(KD, threads, [&](auto d, auto nt) {
+    constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
+    limit_kernel<T, D, TH><<<blocks_for(N, TH), TH, 0, s>>>(
         (const T*)adf_v, (const T*)tmax, (const T*)tmin, (const T*)adf_h,
         (const T*)area_inv, (const int*)nd_idx, (const int*)nd_lev,
         (const signed char*)nd_sgn, (const int*)nd_num, (const int*)nlev_nod,
         (T*)plus, (T*)minus, (T*)adf_v_lim, (T*)adf_v_res, L, N, Ed, KD,
         (T)dt, (T)eps);
-  };
-  if (KD <= 8) args(limit_kernel<T, 8>);
-  else args(limit_kernel<T, kMaxDegree>);
-  return cudaGetLastError();
+  });
+}
+
+template <typename T>
+int launch_limit_fused(const void* lo, const void* ttf, const void* adf_v,
+                       const void* adf_h, const void* area_inv,
+                       const void* nd_idx, const void* nd_other,
+                       const void* nd_lev, const void* nd_sgn,
+                       const void* nd_num, const void* nlev_nod, void* tmax,
+                       void* tmin, void* plus, void* minus, void* adf_v_lim,
+                       void* adf_v_res, int L, int N, int Ed, int KD,
+                       int vlimit, double dt, double eps, int threads,
+                       int device, void* stream) {
+  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_config(KD, threads, [&](auto d, auto nt) {
+    constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
+    limit_fused_kernel<T, D, TH><<<blocks_for(N, TH), TH, 0, s>>>(
+        (const T*)lo, (const T*)ttf, (const T*)adf_v, (const T*)adf_h,
+        (const T*)area_inv, (const int*)nd_idx, (const int*)nd_other,
+        (const int*)nd_lev, (const signed char*)nd_sgn, (const int*)nd_num,
+        (const int*)nlev_nod, (T*)tmax, (T*)tmin, (T*)plus, (T*)minus,
+        (T*)adf_v_lim, (T*)adf_v_res, L, N, Ed, KD, vlimit, (T)dt, (T)eps);
+  });
 }
 
 template <typename T>
@@ -567,15 +843,17 @@ int launch_update_fused(const void* plus, const void* minus,
                         const void* ed_free, void* o1, void* o2,
                         void* adf_h_lim, void* adf_h_res, int L, int N,
                         int Ed, int KD, int n_free, double dt, int iter_yn,
-                        int device, void* stream) {
+                        int threads, int device, void* stream) {
   if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree || n_free < 0 ||
       n_free > Ed)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto kernel) {
-    kernel<<<grid_for(N > n_free ? N : n_free), kThreads, 0, s>>>(
+  return with_config(KD, threads, [&](auto d, auto nt) {
+    constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
+    update_fused_kernel<T, D, TH><<<blocks_for(N > n_free ? N : n_free, TH),
+                                    TH, 0, s>>>(
         (const T*)plus, (const T*)minus, (const T*)adf_v_lim,
         (const T*)adf_h, (const T*)ttf, (const T*)hnode,
         (const T*)hnode_new, (const T*)lo, (const T*)dvin, (const T*)dhin,
@@ -584,44 +862,46 @@ int launch_update_fused(const void* plus, const void* minus,
         (const signed char*)nd_wrt, (const int*)nd_num, (const int*)nlev_nod,
         (const int*)ed_free, (T*)o1, (T*)o2, (T*)adf_h_lim, (T*)adf_h_res,
         L, N, Ed, KD, n_free, (T)dt, iter_yn);
-  };
-  if (KD <= 8) args(update_fused_kernel<T, 8>);
-  else args(update_fused_kernel<T, kMaxDegree>);
-  return cudaGetLastError();
+  });
 }
 
 template <typename T>
 int launch_b3h(const void* plus, const void* minus, const void* adf_h,
                const void* edges, const void* nlev_edge, void* adf_h_lim,
-               void* adf_h_res, int L, int N, int Ed, int device,
+               void* adf_h_res, int L, int N, int Ed, int threads, int device,
                void* stream) {
   if (L < 1 || L > 65535 || N < 1 || Ed < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Ed + kThreads - 1) / kThreads, L);
-  b3h_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      (const T*)plus, (const T*)minus, (const T*)adf_h, (const int*)edges,
-      (const int*)nlev_edge, (T*)adf_h_lim, (T*)adf_h_res, N, Ed);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_threads(threads, [&](auto nt) {
+    constexpr int TH = decltype(nt)::value;
+    const dim3 grid((Ed + TH - 1) / TH, L);
+    b3h_kernel<T, TH><<<grid, TH, 0, s>>>(
+        (const T*)plus, (const T*)minus, (const T*)adf_h, (const int*)edges,
+        (const int*)nlev_edge, (T*)adf_h_lim, (T*)adf_h_res, N, Ed);
+  });
 }
 
 template <typename T>
 int launch_b3h_fixup(const void* plus, const void* minus, const void* adf_h,
                      const void* edges, const void* nlev_edge,
                      const void* ids, void* adf_h_lim, void* adf_h_res,
-                     int L, int N, int Ed, int n_ids, int device,
+                     int L, int N, int Ed, int n_ids, int threads, int device,
                      void* stream) {
   if (L < 1 || L > 65535 || N < 1 || Ed < 1 || n_ids < 1)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_ids + kThreads - 1) / kThreads, L);
-  b3h_fixup_kernel<T><<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      (const T*)plus, (const T*)minus, (const T*)adf_h, (const int*)edges,
-      (const int*)nlev_edge, (const int*)ids, (T*)adf_h_lim, (T*)adf_h_res,
-      N, Ed, n_ids);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_threads(threads, [&](auto nt) {
+    constexpr int TH = decltype(nt)::value;
+    const dim3 grid((n_ids + TH - 1) / TH, L);
+    b3h_fixup_kernel<T, TH><<<grid, TH, 0, s>>>(
+        (const T*)plus, (const T*)minus, (const T*)adf_h, (const int*)edges,
+        (const int*)nlev_edge, (const int*)ids, (T*)adf_h_lim,
+        (T*)adf_h_res, N, Ed, n_ids);
+  });
 }
 
 template <typename T>
@@ -631,41 +911,58 @@ int launch_update(const void* adf_v_lim, const void* adf_h_lim,
                   const void* area_inv, const void* nd_idx,
                   const void* nd_lev, const void* nd_sgn, const void* nd_num,
                   const void* nlev_nod, void* o1, void* o2, int L, int N,
-                  int Ed, int KD, double dt, int iter_yn, int device,
-                  void* stream) {
+                  int Ed, int KD, double dt, int iter_yn, int threads,
+                  int device, void* stream) {
   if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto kernel) {
-    kernel<<<grid_for(N), kThreads, 0, s>>>(
+  return with_config(KD, threads, [&](auto d, auto nt) {
+    constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
+    update_kernel<T, D, TH><<<blocks_for(N, TH), TH, 0, s>>>(
         (const T*)adf_v_lim, (const T*)adf_h_lim, (const T*)ttf,
         (const T*)hnode, (const T*)hnode_new, (const T*)lo, (const T*)dvin,
         (const T*)dhin, (const T*)area_inv, (const int*)nd_idx,
         (const int*)nd_lev, (const signed char*)nd_sgn, (const int*)nd_num,
         (const int*)nlev_nod, (T*)o1, (T*)o2, L, N, Ed, KD, (T)dt, iter_yn);
-  };
-  if (KD <= 8) args(update_kernel<T, 8>);
-  else args(update_kernel<T, kMaxDegree>);
-  return cudaGetLastError();
+  });
+}
+
+template <typename T>
+int launch_a2(const void* tmax, const void* tmin, const void* elem_nodes,
+              const void* nlev_elem, void* uv_max, void* uv_min, int L, int N,
+              int E, double big, int threads, int device, void* stream) {
+  if (L < 1 || L > 65535 || N < 1 || E < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_threads(threads, [&](auto nt) {
+    constexpr int TH = decltype(nt)::value;
+    const dim3 grid((E + TH - 1) / TH, L);
+    a2_kernel<T, TH><<<grid, TH, 0, s>>>(
+        (const T*)tmax, (const T*)tmin, (const int*)elem_nodes,
+        (const int*)nlev_elem, (T*)uv_max, (T*)uv_min, N, E, (T)big);
+  });
 }
 
 }  // namespace
 
 // Plain C interface.  Every pointer is a device pointer (or null for an
-// absent optional output); ``stream`` is a cudaStream_t.  Each launcher
-// returns cudaGetLastError() after its launch (0 on success) and does not
-// synchronise.
+// absent optional output); ``threads`` is the block size (64, 128, 256 or
+// 512, else cudaErrorInvalidValue and no launch); ``stream`` is a
+// cudaStream_t.  Each launcher returns cudaGetLastError() after its launch
+// (0 on success) and does not synchronise.
 extern "C" {
 
 #define FCT_BOUNDS_ARGS                                                     \
   const void *lo, const void *ttf, const void *nd_other, const void *nd_lev, \
       const void *nd_num, const void *nlev_nod, void *tmax, void *tmin,     \
-      int L, int N, int KD, int vlimit, int device, void *stream
+      int L, int N, int KD, int vlimit, int threads, int device,            \
+      void *stream
 #define FCT_BOUNDS_CALL \
   lo, ttf, nd_other, nd_lev, nd_num, nlev_nod, tmax, tmin, L, N, KD, vlimit, \
-      device, stream
+      threads, device, stream
 
 int fct_bounds_f32(FCT_BOUNDS_ARGS) { return launch_bounds<float>(FCT_BOUNDS_CALL); }
 int fct_bounds_f64(FCT_BOUNDS_ARGS) { return launch_bounds<double>(FCT_BOUNDS_CALL); }
@@ -675,14 +972,35 @@ int fct_bounds_f64(FCT_BOUNDS_ARGS) { return launch_bounds<double>(FCT_BOUNDS_CA
       const void *area_inv, const void *nd_idx, const void *nd_lev,          \
       const void *nd_sgn, const void *nd_num, const void *nlev_nod,          \
       void *plus, void *minus, void *adf_v_lim, void *adf_v_res, int L,      \
-      int N, int Ed, int KD, double dt, double eps, int device, void *stream
+      int N, int Ed, int KD, double dt, double eps, int threads, int device, \
+      void *stream
 #define FCT_LIMIT_CALL                                                      \
   adf_v, tmax, tmin, adf_h, area_inv, nd_idx, nd_lev, nd_sgn, nd_num,       \
       nlev_nod, plus, minus, adf_v_lim, adf_v_res, L, N, Ed, KD, dt, eps,   \
-      device, stream
+      threads, device, stream
 
 int fct_limit_f32(FCT_LIMIT_ARGS) { return launch_limit<float>(FCT_LIMIT_CALL); }
 int fct_limit_f64(FCT_LIMIT_ARGS) { return launch_limit<double>(FCT_LIMIT_CALL); }
+
+#define FCT_LIMIT_FUSED_ARGS                                                \
+  const void *lo, const void *ttf, const void *adf_v, const void *adf_h,    \
+      const void *area_inv, const void *nd_idx, const void *nd_other,       \
+      const void *nd_lev, const void *nd_sgn, const void *nd_num,           \
+      const void *nlev_nod, void *tmax, void *tmin, void *plus,             \
+      void *minus, void *adf_v_lim, void *adf_v_res, int L, int N, int Ed,  \
+      int KD, int vlimit, double dt, double eps, int threads, int device,   \
+      void *stream
+#define FCT_LIMIT_FUSED_CALL                                                \
+  lo, ttf, adf_v, adf_h, area_inv, nd_idx, nd_other, nd_lev, nd_sgn,        \
+      nd_num, nlev_nod, tmax, tmin, plus, minus, adf_v_lim, adf_v_res, L,   \
+      N, Ed, KD, vlimit, dt, eps, threads, device, stream
+
+int fct_limit_fused_f32(FCT_LIMIT_FUSED_ARGS) {
+  return launch_limit_fused<float>(FCT_LIMIT_FUSED_CALL);
+}
+int fct_limit_fused_f64(FCT_LIMIT_FUSED_ARGS) {
+  return launch_limit_fused<double>(FCT_LIMIT_FUSED_CALL);
+}
 
 #define FCT_UPDATE_ARGS                                                      \
   const void *plus, const void *minus, const void *adf_v_lim,                \
@@ -693,12 +1011,12 @@ int fct_limit_f64(FCT_LIMIT_ARGS) { return launch_limit<double>(FCT_LIMIT_CALL);
       const void *nd_wrt, const void *nd_num, const void *nlev_nod,          \
       const void *ed_free, void *o1, void *o2, void *adf_h_lim,              \
       void *adf_h_res, int L, int N, int Ed, int KD, int n_free, double dt,  \
-      int iter_yn, int device, void *stream
+      int iter_yn, int threads, int device, void *stream
 #define FCT_UPDATE_CALL                                                     \
   plus, minus, adf_v_lim, adf_h, ttf, hnode, hnode_new, lo, dvin, dhin,     \
       area_inv, nd_idx, nd_other, nd_lev, nd_sgn, nd_wrt, nd_num, nlev_nod, \
       ed_free, o1, o2, adf_h_lim, adf_h_res, L, N, Ed, KD, n_free, dt,      \
-      iter_yn, device, stream
+      iter_yn, threads, device, stream
 
 int fct_update_fused_f32(FCT_UPDATE_ARGS) {
   return launch_update_fused<float>(FCT_UPDATE_CALL);
@@ -710,10 +1028,10 @@ int fct_update_fused_f64(FCT_UPDATE_ARGS) {
 #define FCT_B3H_ARGS                                                        \
   const void *plus, const void *minus, const void *adf_h, const void *edges, \
       const void *nlev_edge, void *adf_h_lim, void *adf_h_res, int L, int N, \
-      int Ed, int device, void *stream
+      int Ed, int threads, int device, void *stream
 #define FCT_B3H_CALL                                                        \
   plus, minus, adf_h, edges, nlev_edge, adf_h_lim, adf_h_res, L, N, Ed,     \
-      device, stream
+      threads, device, stream
 
 int fct_b3h_f32(FCT_B3H_ARGS) { return launch_b3h<float>(FCT_B3H_CALL); }
 int fct_b3h_f64(FCT_B3H_ARGS) { return launch_b3h<double>(FCT_B3H_CALL); }
@@ -721,11 +1039,11 @@ int fct_b3h_f64(FCT_B3H_ARGS) { return launch_b3h<double>(FCT_B3H_CALL); }
 #define FCT_B3H_FIXUP_ARGS                                                  \
   const void *plus, const void *minus, const void *adf_h, const void *edges, \
       const void *nlev_edge, const void *ids, void *adf_h_lim,              \
-      void *adf_h_res, int L, int N, int Ed, int n_ids, int device,         \
-      void *stream
+      void *adf_h_res, int L, int N, int Ed, int n_ids, int threads,        \
+      int device, void *stream
 #define FCT_B3H_FIXUP_CALL                                                  \
   plus, minus, adf_h, edges, nlev_edge, ids, adf_h_lim, adf_h_res, L, N,    \
-      Ed, n_ids, device, stream
+      Ed, n_ids, threads, device, stream
 
 int fct_b3h_fixup_f32(FCT_B3H_FIXUP_ARGS) {
   return launch_b3h_fixup<float>(FCT_B3H_FIXUP_CALL);
@@ -740,12 +1058,12 @@ int fct_b3h_fixup_f64(FCT_B3H_FIXUP_ARGS) {
       const void *dvin, const void *dhin, const void *area_inv,             \
       const void *nd_idx, const void *nd_lev, const void *nd_sgn,           \
       const void *nd_num, const void *nlev_nod, void *o1, void *o2, int L,  \
-      int N, int Ed, int KD, double dt, int iter_yn, int device,            \
-      void *stream
+      int N, int Ed, int KD, double dt, int iter_yn, int threads,           \
+      int device, void *stream
 #define FCT_UPDATE_SPLIT_CALL                                               \
   adf_v_lim, adf_h_lim, ttf, hnode, hnode_new, lo, dvin, dhin, area_inv,    \
       nd_idx, nd_lev, nd_sgn, nd_num, nlev_nod, o1, o2, L, N, Ed, KD, dt,   \
-      iter_yn, device, stream
+      iter_yn, threads, device, stream
 
 int fct_update_f32(FCT_UPDATE_SPLIT_ARGS) {
   return launch_update<float>(FCT_UPDATE_SPLIT_CALL);
@@ -753,5 +1071,16 @@ int fct_update_f32(FCT_UPDATE_SPLIT_ARGS) {
 int fct_update_f64(FCT_UPDATE_SPLIT_ARGS) {
   return launch_update<double>(FCT_UPDATE_SPLIT_CALL);
 }
+
+#define FCT_A2_ARGS                                                         \
+  const void *tmax, const void *tmin, const void *elem_nodes,               \
+      const void *nlev_elem, void *uv_max, void *uv_min, int L, int N,      \
+      int E, double big, int threads, int device, void *stream
+#define FCT_A2_CALL                                                         \
+  tmax, tmin, elem_nodes, nlev_elem, uv_max, uv_min, L, N, E, big, threads, \
+      device, stream
+
+int fct_a2_f32(FCT_A2_ARGS) { return launch_a2<float>(FCT_A2_CALL); }
+int fct_a2_f64(FCT_A2_ARGS) { return launch_a2<double>(FCT_A2_CALL); }
 
 }  // extern "C"

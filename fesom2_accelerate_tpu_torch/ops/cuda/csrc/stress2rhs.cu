@@ -40,10 +40,9 @@
 
 #include <cuda_runtime.h>
 #include <cstddef>
+#include <type_traits>
 
 namespace {
-
-constexpr int kThreads = 128;
 
 // incidence rows wider than this are refused (the wrapper checks first)
 constexpr int kMaxSlots = 16;
@@ -51,8 +50,8 @@ constexpr int kMaxSlots = 16;
 // rows of the element slab
 constexpr int kS11 = 0, kS12 = 1, kS22 = 2, kEa = 3, kMf3 = 4, kGrad = 5;
 
-template <typename T, int MAXK>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int MAXK, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 stress2rhs_kernel(const T* __restrict__ slab, const int* __restrict__ ne_slot,
                   const T* __restrict__ inv_areamass,
                   const T* __restrict__ rhs_a, const T* __restrict__ rhs_m,
@@ -86,41 +85,57 @@ stress2rhs_kernel(const T* __restrict__ slab, const int* __restrict__ ne_slot,
   v_out[n] = has_mass ? v * iam + rhs_m[n] : T(0);
 }
 
+template <int V>
+using Int = std::integral_constant<int, V>;
+
 template <typename T>
 int launch_stress2rhs(const void* slab, const void* ne_slot,
                       const void* inv_areamass, const void* rhs_a,
                       const void* rhs_m, void* u, void* v, int N, int E,
-                      int KE, int device, void* stream) {
+                      int KE, int threads, int device, void* stream) {
   // 3 * E + 2 must fit the int32 slot codes
   if (N < 1 || E < 1 || E > 715827882 || KE < 1 || KE > kMaxSlots)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kThreads - 1) / kThreads);
-  auto args = [&](auto kernel) {
-    kernel<<<grid, kThreads, 0, s>>>(
+  auto launch = [&](auto k, auto nt) {
+    constexpr int K = decltype(k)::value, TH = decltype(nt)::value;
+    stress2rhs_kernel<T, K, TH><<<dim3((N + TH - 1) / TH), TH, 0, s>>>(
         (const T*)slab, (const int*)ne_slot, (const T*)inv_areamass,
         (const T*)rhs_a, (const T*)rhs_m, (T*)u, (T*)v, N, E, KE);
   };
-  if (KE <= 8) args(stress2rhs_kernel<T, 8>);
-  else args(stress2rhs_kernel<T, kMaxSlots>);
+  // one instance per block size, each with __launch_bounds__ of its size,
+  // as in fct_ale.cu; any other size is refused before a launch
+  auto sized = [&](auto nt) {
+    if (KE <= 8) launch(Int<8>{}, nt);
+    else launch(Int<kMaxSlots>{}, nt);
+  };
+  switch (threads) {
+    case 64: sized(Int<64>{}); break;
+    case 128: sized(Int<128>{}); break;
+    case 256: sized(Int<256>{}); break;
+    case 512: sized(Int<512>{}); break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface.  Every pointer is a device pointer; ``stream`` is a
-// cudaStream_t.  Each launcher returns cudaGetLastError() after its launch
-// (0 on success) and does not synchronise.
+// Plain C interface.  Every pointer is a device pointer; ``threads`` is the
+// block size (64, 128, 256 or 512); ``stream`` is a cudaStream_t.  Each
+// launcher returns cudaGetLastError() after its launch (0 on success) and
+// does not synchronise.
 extern "C" {
 
 #define S2R_ARGS                                                             \
   const void *slab, const void *ne_slot, const void *inv_areamass,           \
       const void *rhs_a, const void *rhs_m, void *u, void *v, int N, int E,  \
-      int KE, int device, void *stream
-#define S2R_CALL \
-  slab, ne_slot, inv_areamass, rhs_a, rhs_m, u, v, N, E, KE, device, stream
+      int KE, int threads, int device, void *stream
+#define S2R_CALL                                                              \
+  slab, ne_slot, inv_areamass, rhs_a, rhs_m, u, v, N, E, KE, threads, device, \
+      stream
 
 int stress2rhs_f32(S2R_ARGS) { return launch_stress2rhs<float>(S2R_CALL); }
 int stress2rhs_f64(S2R_ARGS) { return launch_stress2rhs<double>(S2R_CALL); }

@@ -7,6 +7,8 @@ bounds        kernels.py:bounds_dia_dma_pallas (K1); also     bounds_ref
               bounds_pallas, bounds_dia_pallas
 limit         kernels_packed.py:limit_packed_pallas (K2);     limit_ref
               also kernels.py:limit_pallas
+limit_fused   kernels_packed.py:limit_fused_pallas (K12,      limit_fused_ref
+              K1 and K2 in one kernel)
 update_fused  kernels_packed.py:update_fused_pallas (K34)     update_fused_ref
 b3h           kernels_packed.py:b3h_packed_pallas and         b3h_ref
               kernels.py:b3h_pallas (split K3)
@@ -14,15 +16,20 @@ b3h_fixup     kernels_packed.py:b3h_packed_fixup_pallas and   b3h_fixup_ref
               kernels.py:b3h_fixup_pallas (K3 fixup)
 update        kernels_packed.py:update_packed_pallas and      update_ref
               kernels.py:update_pallas (split K4)
+a2            kernels.py:a2_pallas (standalone a2, the         a2_ref
+              tuning harness's)
 stress2rhs    kernels.py:stress2rhs_pallas and                stress2rhs_ref
               kernels_packed.py:stress2rhs_packed_pallas
 ============  ==============================================  ================
 
-All but the last are the FCT-ALE step (``fct_ale.cu``): K1 -> K2 -> K34 on
-one device, or K1 -> K2 -> K3 -> halo exchange -> K3fix -> K4 in a sharded
-step (``parallel/step_sharded.py``); the last is the sea-ice EVP stress
-divergence (``stress2rhs.cu``).  A wrapper given tensors on the CPU returns
-its plain version, built from :mod:`fesom2_accelerate_tpu_torch.ops.stages`
+All but the last are in ``fct_ale.cu``.  The FCT-ALE step runs K1 -> K2 ->
+K34 on one device by default, K12 in place of K1 -> K2 and K3 -> K4 in
+place of K34 on request (``ops/cuda/step.py``), or K1 -> K2 -> K3 -> halo
+exchange -> K3fix -> K4 in a sharded step (``parallel/step_sharded.py``);
+a2 runs in the tuning harness (``utils/tuning.py``).  The last is the
+sea-ice EVP stress divergence (``stress2rhs.cu``).  A wrapper given
+tensors on the CPU returns its plain version, built from
+:mod:`fesom2_accelerate_tpu_torch.ops.stages`
 (the stress2rhs one is written out here, in the kernel's summation order).
 Given CUDA tensors it checks device, dtype, shape and contiguity, allocates
 its outputs with ``torch.empty`` (``b3h_fixup`` writes in place into
@@ -30,11 +37,17 @@ its outputs with ``torch.empty`` (``b3h_fixup`` writes in place into
 device, raises if the launcher reports an error, and adds one to its
 ``launches`` count.  Any other device raises.  Nothing falls back.
 
-Tolerances against the plain versions, on the card: ``bounds``, ``b3h`` and
-``b3h_fixup`` are bit-exact (max/min, selects, one subtraction or one
-product per output), and so are the edge outputs of ``update_fused``.
-``limit``, ``update_fused``'s node outputs, ``update`` and ``stress2rhs``
-agree to relerr <= 1e-6 in float32 and <= 1e-12 in float64, relerr =
+Every wrapper takes ``threads``, the CUDA block size (one of ``THREADS``,
+default 128): the launch configuration the tuning harness sweeps.  The
+plain version ignores it; a value outside ``THREADS`` raises on any device.
+
+Tolerances against the plain versions, on the card: ``bounds``, ``a2``,
+``b3h`` and ``b3h_fixup`` are bit-exact (max/min, selects, one subtraction
+or one product per output), and so are the edge outputs of
+``update_fused`` and the bounds that ``limit_fused`` returns.  ``limit``,
+``limit_fused``'s other outputs, ``update_fused``'s node outputs,
+``update`` and ``stress2rhs`` agree to relerr <= 1e-6 in float32 and
+<= 1e-12 in float64, relerr =
 max|a-b| / max(max|b|, 1): nvcc contracts a*b+c into one FMA rounding, and
 the FCT kernels sum the incident edges in another order.
 """
@@ -54,6 +67,27 @@ TOLERANCE = {torch.float32: 1e-6, torch.float64: 1e-12}
 MAX_DEGREE = 16
 
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
+
+# block sizes the kernels are instantiated for, and the default
+THREADS = (64, 128, 256, 512)
+DEFAULT_THREADS = 128
+
+
+# incidence rows wider than 8 slots have node-kernel instances for blocks of
+# at most this many threads (kMaxWideThreads in fct_ale.cu: more would
+# spill their registers)
+MAX_WIDE_THREADS = 128
+
+
+def check_threads(threads: int, slots: int = 0) -> int:
+    """``threads`` if the kernels have an instance for that block size and
+    an incidence row of ``slots`` slots (0: a kernel without one)."""
+    if threads not in THREADS:
+        raise ValueError(f"threads must be one of {THREADS}, got {threads}")
+    if slots > 8 and threads > MAX_WIDE_THREADS:
+        raise ValueError(f"incidence rows of {slots} > 8 slots take threads "
+                         f"<= {MAX_WIDE_THREADS}, got {threads}")
+    return int(threads)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -85,12 +119,13 @@ def _check(md: MeshData, named: dict, slots: int) -> torch.device:
     return dev
 
 
-def _launch(name: str, md: MeshData, dev: torch.device, *args) -> None:
+def _launch(name: str, md: MeshData, dev: torch.device, threads: int,
+            *args) -> None:
     fn = getattr(build.library(), name + _SUFFIX[md.dtype])
     # the launcher selects dev; the guard gives torch its device back after
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, dev.index or 0, stream)
+        rc = fn(*args, threads, dev.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
@@ -120,8 +155,10 @@ def bounds_ref(md: MeshData, fct_LO, ttf, vlimit: int):
                                             widen=(vlimit == 2))
 
 
-def bounds(md: MeshData, fct_LO, ttf, vlimit: int):
+def bounds(md: MeshData, fct_LO, ttf, vlimit: int, *,
+           threads: int = DEFAULT_THREADS):
     """K1 -> (fct_ttf_max, fct_ttf_min), each [L, N]."""
+    threads = check_threads(threads, md.nd_idx.shape[1])
     if _on_cpu(fct_LO, ttf, md.area_inv):
         return bounds_ref(md, fct_LO, ttf, vlimit)
     if vlimit not in (1, 2, 3):
@@ -131,7 +168,8 @@ def bounds(md: MeshData, fct_LO, ttf, vlimit: int):
                  md.nd_idx.shape[1])
     tmax = torch.empty((L, N), dtype=md.dtype, device=dev)
     tmin = torch.empty_like(tmax)
-    _launch("fct_bounds", md, dev, fct_LO.data_ptr(), ttf.data_ptr(),
+    _launch("fct_bounds", md, dev, threads, fct_LO.data_ptr(),
+            ttf.data_ptr(),
             *_mesh_ptrs(md, "nd_other", "nd_lev", "nd_num", "nlev_nod"),
             tmax.data_ptr(), tmin.data_ptr(), L, N, md.nd_idx.shape[1],
             vlimit)
@@ -158,9 +196,10 @@ def limit_ref(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
 
 
 def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
-          flux_eps: float, iter_yn: bool):
+          flux_eps: float, iter_yn: bool, *, threads: int = DEFAULT_THREADS):
     """K2 -> (fct_plus [L, N], fct_minus [L, N], limited fct_adf_v
     [L+1, N], its residual [L+1, N] when ``iter_yn`` else None)."""
+    threads = check_threads(threads, md.nd_idx.shape[1])
     if _on_cpu(fct_adf_v, tmax, tmin, fct_adf_h, md.area_inv):
         return limit_ref(md, fct_adf_v, tmax, tmin, fct_adf_h, dt, flux_eps,
                          iter_yn)
@@ -173,7 +212,8 @@ def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
     minus = torch.empty_like(plus)
     adf_v_lim = torch.empty((L + 1, N), dtype=md.dtype, device=dev)
     adf_v_res = torch.empty_like(adf_v_lim) if iter_yn else None
-    _launch("fct_limit", md, dev, fct_adf_v.data_ptr(), tmax.data_ptr(),
+    _launch("fct_limit", md, dev, threads, fct_adf_v.data_ptr(),
+            tmax.data_ptr(),
             tmin.data_ptr(), fct_adf_h.data_ptr(),
             *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn",
                         "nd_num", "nlev_nod"),
@@ -185,6 +225,56 @@ def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
 
 
 limit.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K12 limit_fused: K1 and K2 in one pass over the nodes
+# --------------------------------------------------------------------------
+
+
+def limit_fused_ref(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
+                    vlimit: int, dt: float, flux_eps: float, iter_yn: bool):
+    """K1's plain version, then K2's on its bounds."""
+    tmax, tmin = bounds_ref(md, fct_LO, ttf, vlimit)
+    return (tmax, tmin) + limit_ref(md, fct_adf_v, tmax, tmin, fct_adf_h, dt,
+                                    flux_eps, iter_yn)
+
+
+def limit_fused(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
+                vlimit: int, dt: float, flux_eps: float, iter_yn: bool, *,
+                threads: int = DEFAULT_THREADS):
+    """K12 -> (fct_ttf_max, fct_ttf_min, fct_plus, fct_minus, limited
+    fct_adf_v, its residual or None): :func:`bounds` and :func:`limit` in
+    one launch, without the bounds' round trip through device memory."""
+    threads = check_threads(threads, md.nd_idx.shape[1])
+    if _on_cpu(fct_LO, ttf, fct_adf_v, fct_adf_h, md.area_inv):
+        return limit_fused_ref(md, fct_LO, ttf, fct_adf_v, fct_adf_h, vlimit,
+                               dt, flux_eps, iter_yn)
+    if vlimit not in (1, 2, 3):
+        raise ValueError(f"vlimit must be 1, 2 or 3, got {vlimit}")
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    dev = _check(md, dict(fct_LO=(fct_LO, (L, N)), ttf=(ttf, (L, N)),
+                          fct_adf_v=(fct_adf_v, (L + 1, N)),
+                          fct_adf_h=(fct_adf_h, (L, Ed))),
+                 md.nd_idx.shape[1])
+    tmax = torch.empty((L, N), dtype=md.dtype, device=dev)
+    tmin = torch.empty_like(tmax)
+    plus = torch.empty_like(tmax)
+    minus = torch.empty_like(tmax)
+    adf_v_lim = torch.empty((L + 1, N), dtype=md.dtype, device=dev)
+    adf_v_res = torch.empty_like(adf_v_lim) if iter_yn else None
+    _launch("fct_limit_fused", md, dev, threads, fct_LO.data_ptr(),
+            ttf.data_ptr(), fct_adf_v.data_ptr(), fct_adf_h.data_ptr(),
+            *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_other", "nd_lev",
+                        "nd_sgn", "nd_num", "nlev_nod"),
+            tmax.data_ptr(), tmin.data_ptr(), plus.data_ptr(),
+            minus.data_ptr(), adf_v_lim.data_ptr(), _ptr(adf_v_res), L, N,
+            Ed, md.nd_idx.shape[1], vlimit, float(dt), float(flux_eps))
+    limit_fused.launches += 1
+    return tmax, tmin, plus, minus, adf_v_lim, adf_v_res
+
+
+limit_fused.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -206,7 +296,8 @@ def update_fused_ref(md: MeshData, fct_plus, fct_minus, adf_v_lim,
 
 def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
                  ttf, hnode, hnode_new, fct_LO, del_ttf_advvert,
-                 del_ttf_advhoriz, dt: float, iter_yn: bool):
+                 del_ttf_advhoriz, dt: float, iter_yn: bool, *,
+                 threads: int = DEFAULT_THREADS):
     """K34 -> (o1, o2, limited fct_adf_h [L, Ed], its residual).
 
     Non-iterative: o1, o2 are the new ``del_ttf_advvert`` and
@@ -214,6 +305,7 @@ def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
     new ``fct_LO``, o2 is None, and the residual is [L, Ed].  Every edge
     output is written once: from the slot ``md.nd_wrt`` marks, or passed
     through for the edges of ``md.ed_free``."""
+    threads = check_threads(threads, md.nd_idx.shape[1])
     node_in = (fct_plus, fct_minus, ttf, hnode, hnode_new, fct_LO,
                del_ttf_advvert, del_ttf_advhoriz)
     if _on_cpu(adf_v_lim, fct_adf_h, md.area_inv, *node_in):
@@ -233,7 +325,7 @@ def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
     adf_h_lim = torch.empty((L, Ed), dtype=md.dtype, device=dev)
     adf_h_res = torch.empty_like(adf_h_lim) if iter_yn else None
     n_free = md.ed_free.shape[0]
-    _launch("fct_update_fused", md, dev, fct_plus.data_ptr(),
+    _launch("fct_update_fused", md, dev, threads, fct_plus.data_ptr(),
             fct_minus.data_ptr(), adf_v_lim.data_ptr(), fct_adf_h.data_ptr(),
             ttf.data_ptr(), hnode.data_ptr(), hnode_new.data_ptr(),
             fct_LO.data_ptr(), del_ttf_advvert.data_ptr(),
@@ -260,9 +352,11 @@ def b3h_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool):
     return stages.b3_horizontal(md, fct_plus, fct_minus, fct_adf_h, iter_yn)
 
 
-def b3h(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool):
+def b3h(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool, *,
+        threads: int = DEFAULT_THREADS):
     """K3 -> (limited fct_adf_h [L, Ed], its residual [L, Ed] when
     ``iter_yn`` else None), for every edge."""
+    threads = check_threads(threads)
     if _on_cpu(fct_plus, fct_minus, fct_adf_h, md.area_inv):
         return b3h_ref(md, fct_plus, fct_minus, fct_adf_h, iter_yn)
     L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
@@ -271,7 +365,8 @@ def b3h(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool):
                           fct_adf_h=(fct_adf_h, (L, Ed))), 0)
     adf_h_lim = torch.empty((L, Ed), dtype=md.dtype, device=dev)
     adf_h_res = torch.empty_like(adf_h_lim) if iter_yn else None
-    _launch("fct_b3h", md, dev, fct_plus.data_ptr(), fct_minus.data_ptr(),
+    _launch("fct_b3h", md, dev, threads, fct_plus.data_ptr(),
+            fct_minus.data_ptr(),
             fct_adf_h.data_ptr(), *_mesh_ptrs(md, "edges", "nlev_edge"),
             adf_h_lim.data_ptr(), _ptr(adf_h_res), L, N, Ed)
     b3h.launches += 1
@@ -295,11 +390,13 @@ def b3h_fixup_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
 
 
 def b3h_fixup(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
-              adf_h_res, fix_ids, iter_yn: bool):
+              adf_h_res, fix_ids, iter_yn: bool, *,
+              threads: int = DEFAULT_THREADS):
     """K3fix: b3 horizontal again on the edges ``fix_ids`` (int32 [F]),
     written in place into K3's outputs ``adf_h_lim`` (and ``adf_h_res``
     when ``iter_yn``), which it returns.  An empty id list launches
     nothing."""
+    threads = check_threads(threads)
     if _on_cpu(fct_plus, fct_minus, fct_adf_h, adf_h_lim, fix_ids,
                md.area_inv):
         return b3h_fixup_ref(md, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
@@ -317,7 +414,7 @@ def b3h_fixup(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
                          f"{dev}")
     n_ids = fix_ids.shape[0]
     if n_ids:
-        _launch("fct_b3h_fixup", md, dev, fct_plus.data_ptr(),
+        _launch("fct_b3h_fixup", md, dev, threads, fct_plus.data_ptr(),
                 fct_minus.data_ptr(), fct_adf_h.data_ptr(),
                 *_mesh_ptrs(md, "edges", "nlev_edge"), fix_ids.data_ptr(),
                 adf_h_lim.data_ptr(), _ptr(adf_h_res if iter_yn else None),
@@ -347,9 +444,10 @@ def update_ref(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
 
 def update(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
            fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt: float,
-           iter_yn: bool):
+           iter_yn: bool, *, threads: int = DEFAULT_THREADS):
     """K4 -> (o1, o2) from the limited fluxes ``adf_v_lim`` [L+1, N] and
     ``adf_h_lim`` [L, Ed]; o1, o2 as in :func:`update_fused`."""
+    threads = check_threads(threads, md.nd_idx.shape[1])
     node_in = (ttf, hnode, hnode_new, fct_LO, del_ttf_advvert,
                del_ttf_advhoriz)
     if _on_cpu(adf_v_lim, adf_h_lim, md.area_inv, *node_in):
@@ -365,7 +463,7 @@ def update(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
     dev = _check(md, checks, md.nd_idx.shape[1])
     o1 = torch.empty((L, N), dtype=md.dtype, device=dev)
     o2 = None if iter_yn else torch.empty_like(o1)
-    _launch("fct_update", md, dev, adf_v_lim.data_ptr(),
+    _launch("fct_update", md, dev, threads, adf_v_lim.data_ptr(),
             adf_h_lim.data_ptr(), ttf.data_ptr(), hnode.data_ptr(),
             hnode_new.data_ptr(), fct_LO.data_ptr(),
             del_ttf_advvert.data_ptr(), del_ttf_advhoriz.data_ptr(),
@@ -378,6 +476,37 @@ def update(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
 
 
 update.launches = 0
+
+
+# --------------------------------------------------------------------------
+# A2 a2: element bounds (standalone a2 of the tuning harness)
+# --------------------------------------------------------------------------
+
+
+def a2_ref(md: MeshData, tmax, tmin, bignumber: float):
+    return stages.a2(md, tmax, tmin, bignumber)
+
+
+def a2(md: MeshData, tmax, tmin, bignumber: float, *,
+       threads: int = DEFAULT_THREADS):
+    """A2 -> (UV_max, UV_min), each [L, E]: the max / min of ``tmax`` /
+    ``tmin`` [L, N] over each element's 3 nodes on its active levels
+    (z < nlev_elem - 1), -bignumber / +bignumber below."""
+    threads = check_threads(threads)
+    if _on_cpu(tmax, tmin, md.area_inv):
+        return a2_ref(md, tmax, tmin, bignumber)
+    L, N, E = md.n_layers, md.n_nodes, md.n_elems
+    dev = _check(md, dict(tmax=(tmax, (L, N)), tmin=(tmin, (L, N))), 0)
+    uv_max = torch.empty((L, E), dtype=md.dtype, device=dev)
+    uv_min = torch.empty_like(uv_max)
+    _launch("fct_a2", md, dev, threads, tmax.data_ptr(), tmin.data_ptr(),
+            *_mesh_ptrs(md, "elem_nodes", "nlev_elem"), uv_max.data_ptr(),
+            uv_min.data_ptr(), L, N, E, float(bignumber))
+    a2.launches += 1
+    return uv_max, uv_min
+
+
+a2.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -416,10 +545,12 @@ def stress2rhs_ref(md: MeshData, slab, inv_areamass, rhs_a, rhs_m):
             torch.where(has_mass, V * inv_areamass + rhs_m, 0.0))
 
 
-def stress2rhs(md: MeshData, slab, inv_areamass, rhs_a, rhs_m):
+def stress2rhs(md: MeshData, slab, inv_areamass, rhs_a, rhs_m, *,
+               threads: int = DEFAULT_THREADS):
     """H-S2R -> (U [N], V [N]) from the element slab [SLAB_ROWS, E] (rows
     s11, s12, s22, area * (ice_strength > 0), metric_factor / 3,
     gradient_sca 0..5) and the node rows [N]."""
+    threads = check_threads(threads)
     if _on_cpu(slab, inv_areamass, rhs_a, rhs_m, md.area_inv):
         return stress2rhs_ref(md, slab, inv_areamass, rhs_a, rhs_m)
     N, E = md.n_nodes, md.n_elems
@@ -430,7 +561,8 @@ def stress2rhs(md: MeshData, slab, inv_areamass, rhs_a, rhs_m):
                           rhs_a=(rhs_a, (N,)), rhs_m=(rhs_m, (N,))),
                  md.ne_slot.shape[0])
     out = torch.empty((2, N), dtype=md.dtype, device=dev)
-    _launch("stress2rhs", md, dev, slab.data_ptr(), md.ne_slot.data_ptr(),
+    _launch("stress2rhs", md, dev, threads, slab.data_ptr(),
+            md.ne_slot.data_ptr(),
             inv_areamass.data_ptr(), rhs_a.data_ptr(), rhs_m.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), N, E, md.ne_slot.shape[0])
     stress2rhs.launches += 1
@@ -439,8 +571,8 @@ def stress2rhs(md: MeshData, slab, inv_areamass, rhs_a, rhs_m):
 
 stress2rhs.launches = 0
 
-WRAPPERS = (bounds, limit, update_fused, b3h, b3h_fixup, update,
-            stress2rhs)
+WRAPPERS = (bounds, limit, limit_fused, update_fused, b3h, b3h_fixup, update,
+            a2, stress2rhs)
 
 
 def reset_launch_counts() -> None:

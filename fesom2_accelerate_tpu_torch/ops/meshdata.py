@@ -5,9 +5,9 @@ of tensors (connectivity, activity masks, inverse areas) built once per mesh
 on an explicit device.  The fields of the JAX ``MeshData`` keep their names
 and meaning; more carry what the FCT CUDA kernels read per node
 (``nlev_nod``, ``nd_num``, ``nd_lev``, ``nd_sgn``, ``nd_wrt``, with
-``nd_other`` shared) and per edge (``nlev_edge``, ``ed_free``), and
-``ne_slot`` is the node->element incidence that the stress2rhs kernel
-reads, slot-major.
+``nd_other`` shared), per edge (``nlev_edge``, ``ed_free``) and per
+element (``nlev_elem``, with ``elem_nodes`` shared), and ``ne_slot`` is the
+node->element incidence that the stress2rhs kernel reads, slot-major.
 
 Edge outputs of the node-threaded H-K34 are written from incidence slots:
 ``nd_wrt`` marks, for every edge, exactly one slot that writes it.  On a
@@ -64,6 +64,7 @@ class MeshData:
     nd_sgn: torch.Tensor  # [N, KD] int8, +1 first endpoint, -1 second (0 pad)
     nd_wrt: torch.Tensor  # [N, KD] int8, 1 on the one slot that writes the edge
     nlev_edge: torch.Tensor  # [Ed] int32, active levels of each edge
+    nlev_elem: torch.Tensor  # [E] int32, levels of each element (a2's mask)
     ed_free: torch.Tensor  # [n_free] int32, edges no incidence slot writes
     # [KE, N] int32, 3 * element + local position of each valid incidence
     # slot, -1 in padding; slot-major so that neighbouring node threads read
@@ -159,7 +160,8 @@ def _kernel_rows(nd_idx, nd_k, nd_sign, nlev_edge, nlev_nod, ne_idx,
 
 
 _INT32 = ("elem_nodes", "edges", "ne_idx", "ne_pos", "nd_idx", "nd_other",
-          "nlev_nod", "nd_num", "nd_lev", "nlev_edge", "ed_free", "ne_slot")
+          "nlev_nod", "nd_num", "nd_lev", "nlev_edge", "nlev_elem", "ed_free",
+          "ne_slot")
 _INT8 = ("nd_sgn", "nd_wrt")
 _FLOAT = ("nd_sign", "area_inv")
 
@@ -217,6 +219,7 @@ def build_mesh_data(mesh: Mesh, dtype: torch.dtype,
         surface_or_bottom=surface_or_bottom,
         interior_row=interior_row,
         not_surface=not_surface,
+        nlev_elem=mesh.nlev_elem,
         **_kernel_rows(mk["nd_idx"], mk["nd_k"], mk["nd_sign"],
                        mesh.nlev_edge, mesh.nlev_nod, mk["ne_idx"], ne_pos,
                        mk["ne_k"]),
@@ -231,14 +234,16 @@ def mesh_data_from_numpy(arrays: dict,
     ``arrays`` maps each field of the JAX ``MeshData`` to its value as a
     numpy array; the float dtype is that of ``area_inv``.  The rows only
     the CUDA kernels read are derived from those fields (``nlev_nod`` from
-    the interface mask, ``nlev_edge`` from the edge mask), so both packages
-    are shown to compute on identical mesh data."""
+    the interface mask, ``nlev_edge`` from the edge mask, ``nlev_elem``
+    from the element mask), so both packages are shown to compute on
+    identical mesh data."""
     a = {k: np.asarray(v) for k, v in arrays.items()}
     nlev_edge = a["edge_mask"].sum(axis=0)
     nlev_nod = a["vint_mask"].sum(axis=0) + 1
-    full = dict(a, **_kernel_rows(a["nd_idx"], a["nd_k"], a["nd_sign"],
-                                  nlev_edge, nlev_nod, a["ne_idx"],
-                                  a["ne_pos"], a["ne_k"]))
+    full = dict(a, nlev_elem=a["elem_mask"].sum(axis=0) + 1,
+                **_kernel_rows(a["nd_idx"], a["nd_k"], a["nd_sign"],
+                               nlev_edge, nlev_nod, a["ne_idx"], a["ne_pos"],
+                               a["ne_k"]))
     dtype = {np.dtype(np.float32): torch.float32,
              np.dtype(np.float64): torch.float64}[a["area_inv"].dtype]
     return _to_tensors(full, dtype, torch.device(device))

@@ -1,1 +1,2 @@
-"""Run-time helpers of the port: bytes-moved models (``profiling``)."""
+"""Run-time helpers of the port: bytes-moved models and kernel bounds
+(``profiling``), device timing and the profiler (``tracing``)."""

@@ -9,6 +9,12 @@ table of TPU memory peaks is not carried over: a peak beside a number of
 the port is the card's own, measured or from its data sheet, and named
 with the card.
 
+Also here: a copy of the JAX tuning harness's per-family byte models
+(:func:`kernel_bytes`, :func:`a2_bytes`), and the least work of each CUDA
+kernel (:func:`kernel_io`: each input read once where the kernel's
+function needs it, each output written once) with :func:`bound_ms`, which
+turns it into a bound at a data-sheet peak (``PEAKS``).
+
 The reference's perf methodology is explicit per-kernel bytes models
 divided by measured time (kernels/fct_ale_a1.py:93-95 and friends).
 """
@@ -16,6 +22,7 @@ divided by measured time (kernels/fct_ale_a1.py:93-95 and friends).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 
@@ -93,3 +100,185 @@ def stress2rhs_bytes(mesh: Mesh, itemsize: int = 4) -> int:
     b += 5 * N * f  # inv_areamass, rhs_a, rhs_m reads; U, V writes
     b += 3 * 4 * E  # elem_nodes int32
     return b
+
+
+# --------------------------------------------------------------------------
+# The tuning harness's byte models
+# --------------------------------------------------------------------------
+
+
+def kernel_bytes(mesh: Mesh, itemsize: int = 4) -> dict:
+    """Per-family reference-style bytes models of the tuning harness.
+
+    ``bounds``, ``limit``, ``b3h`` and ``update`` are a copy of
+    ``fesom2_accelerate_tpu/utils/tuning.py:_kernel_bytes`` (same terms,
+    same values).  The two fused families are built from the same terms:
+    ``limit_fused`` is ``bounds`` + ``limit`` less the re-read of the bounds
+    (2 * nod); ``update_fused`` is ``b3h``'s factor gathers and flux write
+    (5 * edge) plus ``update``, whose incidence term now reads the
+    unlimited flux (K34 limits it in place of K3)."""
+    nod = int(np.sum(mesh.nlev_nod - 1))
+    edge = int(np.sum(mesh.nlev_edge))
+    deg_d = int(np.sum(mesh.node_edges_num * (mesh.nlev_nod - 1)))
+    vint = int(np.sum(mesh.nlev_nod))
+    f = itemsize
+    out = {
+        # a1+a2+a3 fused: read lo/ttf, neighbor gather per incidence,
+        # write tmax/tmin
+        "bounds": (4 * nod + 2 * deg_d) * f,
+        # b1v+b1h+b2+b3v: read adf_v, tt pair, area_inv, adf_h per
+        # incidence; write pm pair, limited adf_v
+        "limit": (2 * vint + 5 * nod + deg_d) * f,
+        # b3h: gather pm at both ends, read + write adf_h
+        "b3h": 6 * edge * f,
+        # c: read 7 node fields + adf_v + adf_h per incidence; write 2
+        "update": (9 * nod + vint + deg_d) * f,
+    }
+    out["limit_fused"] = out["bounds"] + out["limit"] - 2 * nod * f
+    out["update_fused"] = 5 * edge * f + out["update"]
+    return out
+
+
+def a2_bytes(mesh: Mesh, itemsize: int = 4) -> int:
+    """The standalone a2's bytes model, as ``tune_a2`` of the JAX harness
+    computes it (``utils/tuning.py:308-309``): the 3-node gathers of both
+    bounds on active element levels, the full-depth UV pair written."""
+    elem_active = int(np.sum(mesh.nlev_elem - 1))
+    return (6 * elem_active + 2 * mesh.n_layers * mesh.n_elems) * itemsize
+
+
+# --------------------------------------------------------------------------
+# The least work of each CUDA kernel, and its bound on a card
+# --------------------------------------------------------------------------
+
+# NVIDIA H100 SXM data sheet (dense rates, at the 700 W power limit): HBM3
+# bandwidth and the peak rates outside the tensor cores
+PEAKS = {
+    "h100_sxm": {"bytes_per_s": 3.35e12, "float32": 67e12, "float64": 34e12},
+}
+
+
+def _gathered_levels(n_nodes: int, ends, depth) -> int:
+    """Node-levels read through a gather: node n at levels z < the largest
+    ``depth`` of the entries of ``ends`` (same shape) that name n."""
+    top = torch.zeros(n_nodes, dtype=torch.int64, device=ends.device)
+    top.scatter_reduce_(0, ends.reshape(-1).long(),
+                        depth.reshape(-1).long().clamp(min=0), "amax")
+    return int(top.sum())
+
+
+def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
+              slab=None, inv_areamass=None) -> tuple[int, int]:
+    """(bytes, operations) of one call of the CUDA kernel ``name`` (a
+    wrapper of ``ops/cuda/kernels.py``) on mesh data ``md``: what the
+    kernel's function needs on this mesh and, where the work depends on
+    the data, on these inputs.
+
+    Bytes: each output written once at its full size (they are written
+    densely), and each input read once where the function needs it:
+      * a node field on the active node-levels, ``z < nlev_nod - 1``, and
+        a limited interface field on ``z < nlev_nod``, where the kernel's
+        result reads it; a factor or bound gathered through the mesh on the
+        node-levels the gathering edges or elements reach;
+      * an edge field on its active levels, ``z < nlev_edge``, where only
+        those are gathered;
+      * in full, an input whose values an output copies where the row is
+        inactive (``fct_adf_v`` in K2 and K12, ``fct_adf_h`` in K3 and K34,
+        the increments ``del_ttf_adv*`` or ``fct_LO`` in stage c);
+      * the live slots of the incidence rows (``nd_num`` per node), and the
+        per-node, per-edge and per-element rows;
+      * ``b3h_fixup``: only its edges ``ids`` (a duplicated id read once);
+      * ``stress2rhs``: the ``ea`` row of the element slab for every
+        element and its other 10 rows for the elements with ice
+        (``slab[3] != 0``), and ``rhs_a`` / ``rhs_m`` where
+        ``inv_areamass > 0``; both tensors must be given.
+    Operations: the arithmetic and comparisons of the kernel's loop body
+    per active (node, level), (incident edge, level), (edge, level),
+    (element, level) or incidence; far below the bytes' time on an H100
+    for every kernel."""
+    f = torch.empty((), dtype=md.dtype).element_size()
+    L, N, Ed, E = md.n_layers, md.n_nodes, md.n_edges, md.n_elems
+    node, iface, edge, elem = L * N * f, (L + 1) * N * f, L * Ed * f, L * E * f
+    nod = int(md.node_mask.sum())  # active node-levels
+    vint = int(md.nlev_nod.clamp(min=0).sum())  # interfaces stage c reads
+    edge_act = int(md.nlev_edge.sum())  # active edge-levels
+    live = (torch.arange(md.nd_idx.shape[1], device=md.nd_idx.device)[None, :]
+            < md.nd_num[:, None])
+    n_live = int(live.sum())  # live incidence slots
+    inc_lev = int(md.nd_lev.sum())  # active (incident edge, level) pairs
+    # plus/minus (K34) as the node rows' edges gather them: the node itself
+    # and each neighbour, up to the edge's levels
+    owner = torch.arange(N, device=live.device)[:, None].expand_as(live)
+    fac = _gathered_levels(
+        N, torch.cat([owner[live], md.nd_other[live]]),
+        torch.cat([md.nd_lev[live], md.nd_lev[live]]))
+    inc32, inc8, row = n_live * 4, n_live, N * 4
+    # stage c: node inputs read on active rows, and the inputs the outputs
+    # copy on inactive rows; the limited vertical flux on its interfaces
+    if iter_yn:
+        stage_c_in = 2 * nod * f + node + vint * f  # hnode_new, area_inv; LO
+        stage_c_out = node
+    else:
+        stage_c_in = 5 * nod * f + 2 * node + vint * f
+        stage_c_out = 2 * node
+    res_v = iface if iter_yn else 0
+    res_h = edge if iter_yn else 0
+    if name == "bounds":
+        return (2 * nod * f + 2 * inc32 + 2 * row + 2 * node,
+                12 * nod + 4 * inc_lev)
+    if name == "limit":
+        return (iface + 3 * nod * f + edge_act * f + 2 * inc32 + inc8
+                + 2 * row + 2 * node + iface + res_v, 24 * nod + 4 * inc_lev)
+    if name == "limit_fused":
+        return (2 * nod * f + iface + nod * f + edge_act * f + 3 * inc32
+                + inc8 + 2 * row + 4 * node + iface + res_v,
+                36 * nod + 8 * inc_lev)
+    if name == "update_fused":
+        n_free = md.ed_free.shape[0]
+        return (2 * fac * f + edge + stage_c_in + 3 * inc32 + 2 * inc8
+                + 2 * row + 4 * n_free + stage_c_out + edge + res_h,
+                12 * nod + 12 * inc_lev)
+    if name == "update":
+        return (edge_act * f + stage_c_in + 2 * inc32 + inc8 + 2 * row
+                + stage_c_out, 12 * nod + 2 * inc_lev)
+    if name == "b3h":
+        ends = md.edges.reshape(Ed, 2)
+        gath = _gathered_levels(N, ends, md.nlev_edge[:, None].expand(Ed, 2))
+        return (2 * gath * f + edge + 12 * Ed + edge + res_h,
+                8 * edge_act)
+    if name == "b3h_fixup":
+        if ids is None:
+            raise ValueError("b3h_fixup needs the edge ids it runs on")
+        u = torch.unique(ids.long())
+        ends = md.edges.reshape(Ed, 2)[u]
+        lev = md.nlev_edge[u]
+        gath = _gathered_levels(N, ends, lev[:, None].expand(-1, 2))
+        per = (2 if iter_yn else 1) * L * len(u) * f
+        return (4 * len(ids) + 12 * len(u) + 2 * gath * f + L * len(u) * f
+                + per, 8 * int(lev.sum()))
+    if name == "a2":
+        depth = (md.nlev_elem - 1).clamp(min=0)
+        gath = _gathered_levels(N, md.elem_nodes,
+                                depth[:, None].expand(-1, 3))
+        return 2 * gath * f + 16 * E + 2 * elem, 4 * int(depth.sum())
+    if name == "stress2rhs":
+        if slab is None or inv_areamass is None:
+            raise ValueError("stress2rhs needs its slab and inv_areamass")
+        iced = slab[3] != 0  # the ea row (ops/cuda/kernels.py SLAB_ROWS)
+        codes = md.ne_slot[md.ne_slot >= 0].long()
+        n_inc = int(iced[codes // 3].sum())  # incidences of iced elements
+        n_mass = int((inv_areamass > 0).sum())
+        return (E * f + 10 * int(iced.sum()) * f + 4 * codes.numel()
+                + N * f + 2 * n_mass * f + 2 * N * f, 14 * n_inc + 6 * N)
+    raise ValueError(f"no model for kernel {name!r}")
+
+
+def bound_ms(nbytes: int, ops: int = 0, dtype: torch.dtype = torch.float32,
+             peak: str = "h100_sxm") -> tuple[float, str]:
+    """The least time (ms) the card ``peak`` names could take to move
+    ``nbytes`` and do ``ops`` operations of ``dtype``: the larger of the two
+    times, and which of them ("bytes" or "operations") it is."""
+    p = PEAKS[peak]
+    t_bytes = nbytes / p["bytes_per_s"] * 1e3
+    t_ops = ops / p[str(dtype).removeprefix("torch.")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

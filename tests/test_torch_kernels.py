@@ -159,9 +159,10 @@ def test_cuda_step_on_cpu_matches_torch_step(vlimit, iter_yn):
     for k in ref:
         masked_allclose(got[k].numpy(), ref[k].numpy(), msg=k)
     assert kernels.launch_counts() == {"bounds": 0, "limit": 0,
+                                       "limit_fused": 0,
                                        "update_fused": 0, "b3h": 0,
                                        "b3h_fixup": 0, "update": 0,
-                                       "stress2rhs": 0}
+                                       "a2": 0, "stress2rhs": 0}
     assert build.library.cache_info().currsize == 0, \
         "the CPU path must not build or load the CUDA library"
 
@@ -229,10 +230,12 @@ def test_launcher_argtypes_cover_every_launcher():
     import re
 
     macros = {"fct_bounds": "FCT_BOUNDS_ARGS", "fct_limit": "FCT_LIMIT_ARGS",
+              "fct_limit_fused": "FCT_LIMIT_FUSED_ARGS",
               "fct_update_fused": "FCT_UPDATE_ARGS",
               "fct_b3h": "FCT_B3H_ARGS",
               "fct_b3h_fixup": "FCT_B3H_FIXUP_ARGS",
               "fct_update": "FCT_UPDATE_SPLIT_ARGS",
+              "fct_a2": "FCT_A2_ARGS",
               "stress2rhs": "S2R_ARGS"}
     named = [n for names in build.SOURCES.values() for n in names]
     assert sorted(named) == sorted(build.ARGTYPES) == sorted(macros)
@@ -251,3 +254,233 @@ def test_launcher_argtypes_cover_every_launcher():
                 assert t is want, f"{name}: {p}"
             for suffix in ("_f32", "_f64"):
                 assert re.search(rf"int {name}{suffix}\(", src), name
+
+
+# --------------------------------------------------------------------------
+# H-K12 limit_fused, the four single-device forms, H-A2 a2
+# --------------------------------------------------------------------------
+
+FUSED_RELERR = 2e-5  # tests/test_packed.py's bound for the fused K1+K2 step
+
+
+@pytest.fixture(scope="module")
+def small_fused():
+    mesh = generate_planar_mesh(preset="small")
+    pd, ps = build_pallas_data(jax_planar_mesh(preset="small"), fuse_k12=True)
+    assert ps.fuse_k12 and ps.a3f_dia_D and ps.pack_K
+    return mesh, pd, ps
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_limit_fused_matches_jax_fused_step(small_fused, iter_yn):
+    """The JAX step with its fused K1+K2 kernel (limit_fused_pallas, in TPU
+    interpret mode, as tests/test_packed.py runs it): limit_fused_ref gives
+    its bounds, factors and limited vertical flux, and fct_ale_step_cuda
+    (fuse_k12=True, both fuse_k34) on CPU tensors its every output, f32,
+    relerr <= 2e-5."""
+    mesh, pd, ps = small_fused
+    fields = random_fields(mesh, seed=13, dtype=np.float32)
+    jcfg = JaxFctAleConfig(dt=0.6, iter_yn=iter_yn, dtype=jnp.float32,
+                           flux_eps=EPS)
+    with pltpu.force_tpu_interpret_mode():
+        out = fct_ale_step_pallas(pd, ps, jcfg, {
+            k: jnp.asarray(v, jnp.float32) for k, v in fields.items()})
+    p = {k: np.asarray(v, np.float32) for k, v in out.items()}
+    s = {k: torch.from_numpy(v) for k, v in fields.items()}
+    md = build_mesh_data(mesh, torch.float32, "cpu")
+    got = kernels.limit_fused_ref(md, s["fct_LO"], s["ttf"], s["fct_adf_v"],
+                                  s["fct_adf_h"], 1, 0.6, EPS, iter_yn)
+    want = [p["fct_ttf_max"], p["fct_ttf_min"], p["fct_plus"],
+            p["fct_minus"],
+            p["fct_adf_v_limited"] if iter_yn else p["fct_adf_v"]]
+    want.append(p["fct_adf_v"] if iter_yn else None)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert _relerr(g, w) <= FUSED_RELERR
+    cfg = FctAleConfig(dt=0.6, iter_yn=iter_yn, flux_eps=EPS)
+    for fuse_k34 in (True, False):
+        step = fct_ale_step_cuda(md, cfg, s, fuse_k12=True,
+                                 fuse_k34=fuse_k34)
+        assert step.keys() == p.keys()
+        for k in p:
+            assert _relerr(step[k], p[k]) <= FUSED_RELERR, k
+
+
+@pytest.mark.parametrize("vlimit", [1, 2, 3])
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_limit_fused_ref_matches_oracle_f64(vlimit, iter_yn):
+    from fesom2_accelerate_tpu.ops import oracle
+
+    mesh = generate_planar_mesh(preset="small")
+    fields = random_fields(mesh, seed=9)
+    ref = oracle.fct_ale_step(jax_planar_mesh(preset="small"), fields,
+                              vlimit=vlimit, iter_yn=iter_yn, dt=DT,
+                              flux_eps=EPS)
+    md = build_mesh_data(mesh, torch.float64, "cpu")
+    t = {k: torch.from_numpy(v) for k, v in fields.items()}
+    got = kernels.limit_fused_ref(md, t["fct_LO"], t["ttf"], t["fct_adf_v"],
+                                  t["fct_adf_h"], vlimit, DT, EPS, iter_yn)
+    names = ["fct_ttf_max", "fct_ttf_min", "fct_plus", "fct_minus",
+             "fct_adf_v_limited" if iter_yn else "fct_adf_v"]
+    for g, name in zip(got, names):
+        masked_allclose(g.numpy(), ref[name], msg=name)
+    if iter_yn:
+        masked_allclose(got[5].numpy(), ref["fct_adf_v"], msg="adf_v_res")
+    else:
+        assert got[5] is None
+
+
+@pytest.mark.parametrize("fuse_k12", [False, True])
+@pytest.mark.parametrize("fuse_k34", [False, True])
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_step_forms_on_cpu_match_torch_step(fuse_k12, fuse_k34, iter_yn):
+    """Each of the four forms K1->K2 or K12, then K34 or K3->K4, on CPU
+    tensors: the keys and values (f64, 1e-12) of fct_ale_step, and no
+    launch."""
+    mesh = generate_planar_mesh(preset="small")
+    md = build_mesh_data(mesh, torch.float64, "cpu")
+    cfg = FctAleConfig(vlimit=3, iter_yn=iter_yn, dt=DT, dtype=torch.float64)
+    state = {k: torch.from_numpy(v)
+             for k, v in random_fields(mesh, seed=4).items()}
+    kernels.reset_launch_counts()
+    got = fct_ale_step_cuda(md, cfg, state, fuse_k12=fuse_k12,
+                            fuse_k34=fuse_k34, threads=256)
+    ref = fct_ale_step(md, cfg, state)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        masked_allclose(got[k].numpy(), ref[k].numpy(), msg=k)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_a2_ref_matches_oracle_and_pallas():
+    """a2_ref against the oracle's a2 (f64, bit-exact), and against the JAX
+    a2_pallas in interpret mode on the inputs tune_a2 builds (bounds from
+    f32 fields, computed in f64, rounded to f32): within tune_a2's 1e-5,
+    and in fact exact (max and min of the same three f32 values)."""
+    from fesom2_accelerate_tpu.ops import oracle
+    from fesom2_accelerate_tpu.ops.pallas import kernels as jax_kernels
+
+    jmesh = jax_planar_mesh(preset="small")
+    mesh = generate_planar_mesh(preset="small")
+    fields = random_fields(mesh, seed=0, dtype=np.float32)
+    mk = oracle.masks(jmesh)
+    tmax64, tmin64 = oracle.a1(jmesh, mk,
+                               fields["fct_LO"].astype(np.float64),
+                               fields["ttf"].astype(np.float64))
+    ref = oracle.a2(jmesh, mk, tmax64, tmin64)
+    md = build_mesh_data(mesh, torch.float64, "cpu")
+    got = kernels.a2_ref(md, torch.from_numpy(tmax64),
+                         torch.from_numpy(tmin64), 1e3)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r)
+
+    pd, ps = build_pallas_data(jmesh, tile=128)
+    L, Lp = ps.L, ps.Lp
+    src = np.zeros((2 * Lp, ps.Np), np.float32)
+    src[:L, :ps.N] = tmax64
+    src[Lp:Lp + L, :ps.N] = tmin64
+    with pltpu.force_tpu_interpret_mode():
+        out = np.asarray(jax_kernels.a2_pallas(
+            jnp.asarray(src), pd.a2_lidx, pd.a2_wb, pd.nlev_elem_row,
+            tile=128, nblocks=ps.a2_nblocks, bignumber=1e3))
+    md32 = build_mesh_data(mesh, torch.float32, "cpu")
+    got = kernels.a2_ref(md32, torch.from_numpy(src[:L, :ps.N]),
+                         torch.from_numpy(src[Lp:Lp + L, :ps.N]), 1e3)
+    for g, w in zip(got, (out[:L, :ps.E], out[Lp:Lp + L, :ps.E])):
+        assert _relerr(g, w) <= 1e-5
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_new_wrappers_refuse_other_devices_and_block_sizes():
+    """limit_fused and a2 refuse any device but the CPU (plain version)
+    and CUDA (the kernel); every wrapper refuses a block size that has no
+    kernel instance, on any device."""
+    mesh = generate_planar_mesh(preset="toy")
+    md = build_mesh_data(mesh, torch.float32, "meta")
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    node = torch.empty((L, N), device="meta")
+    iface = torch.empty((L + 1, N), device="meta")
+    edge = torch.empty((L, Ed), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.limit_fused(md, node, node, iface, edge, 1, DT, EPS, False)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.a2(md, node, node, 1e3)
+
+    cpu = build_mesh_data(mesh, torch.float32, "cpu")
+    s = {k: torch.from_numpy(v)
+         for k, v in random_fields(mesh, seed=1, dtype=np.float32).items()}
+    calls = {
+        "bounds": lambda t: kernels.bounds(cpu, s["fct_LO"], s["ttf"], 1,
+                                           threads=t),
+        "limit_fused": lambda t: kernels.limit_fused(
+            cpu, s["fct_LO"], s["ttf"], s["fct_adf_v"], s["fct_adf_h"], 1,
+            DT, EPS, False, threads=t),
+        "b3h": lambda t: kernels.b3h(cpu, s["ttf"], s["ttf"],
+                                     s["fct_adf_h"], False, threads=t),
+        "a2": lambda t: kernels.a2(cpu, s["ttf"], s["ttf"], 1e3, threads=t),
+    }
+    for name, call in calls.items():
+        for t in kernels.THREADS:
+            call(t)
+        with pytest.raises(ValueError, match="threads"):
+            call(100)
+    # rows of more than 8 slots have node-kernel instances up to 128 threads
+    import dataclasses
+
+    wide = dataclasses.replace(cpu, nd_idx=torch.zeros((N, 12),
+                                                       dtype=torch.int32))
+    for t in (256, 512):
+        with pytest.raises(ValueError, match="slots"):
+            kernels.bounds(wide, s["fct_LO"], s["ttf"], 1, threads=t)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_solver_form_keywords():
+    """fuse_k12 and fuse_k34 choose the form of backend='cuda';
+    backend='torch' refuses any value but the default, and 'cuda' still
+    needs a CUDA device.  The block size is no keyword of the solver."""
+    from fesom2_accelerate_tpu_torch import FctAleSolver
+
+    mesh = generate_planar_mesh(preset="toy")
+    with pytest.raises(TypeError):
+        FctAleSolver(mesh, FctAleConfig(), backend="torch", device="cpu",
+                     threads=128)
+    for kw in (dict(fuse_k12=True), dict(fuse_k34=False),
+               dict(fuse_k12=True, fuse_k34=False)):
+        with pytest.raises(ValueError, match="backend='torch'"):
+            FctAleSolver(mesh, FctAleConfig(), backend="torch",
+                         device="cpu", **kw)
+    with pytest.raises(ValueError, match="CUDA device"):
+        FctAleSolver(mesh, FctAleConfig(), backend="cuda", device="cpu",
+                     fuse_k12=True)
+    sv = FctAleSolver(mesh, FctAleConfig(), backend="torch", device="cpu")
+    assert (sv.fuse_k12, sv.fuse_k34) == (False, True)
+
+
+def test_ptxas_report_reads_each_instance():
+    """build.ptxas_report reads the kernel, dtype, template ints,
+    registers and spills of each instance from an nvcc -Xptxas -v log."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN36_GLOBAL__N__f6935f"
+        "_10_fct_ale_cu_7df9e15018limit_fused_kernelIdLi8ELi512EEEvPKT_'"
+        " for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN36_GLOBAL__N__x",
+        "    16 bytes stack frame, 8 bytes spill stores, 24 bytes spill "
+        "loads",
+        "ptxas info    : Used 64 registers, used 0 barriers, 400 bytes "
+        "cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN36_GLOBAL__N__f6935f"
+        "_10_fct_ale_cu_7df9e1509a2_kernelIfLi128EEEvPKT_' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN36_GLOBAL__N__y",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 20 registers, used 0 barriers, 392 bytes "
+        "cmem[0]",
+    ])
+    assert build.ptxas_report(log) == [
+        dict(kernel="limit_fused_kernel", dtype="double", params=(8, 512),
+             stack=16, spill_stores=8, spill_loads=24, registers=64),
+        dict(kernel="a2_kernel", dtype="float", params=(128,), stack=0,
+             spill_stores=0, spill_loads=0, registers=20),
+    ]

@@ -138,9 +138,10 @@ def test_config_checks():
 def test_port_imports_no_jax():
     """With jax and the JAX package made unimportable, the port imports
     (the stress2rhs solver, the mesh ordering and file reader, the byte
-    models and the partitioner and sharded solver included), runs one toy
-    FCT step, one toy stress2rhs call and one sharded toy step on two
-    parts."""
+    models, the partitioner, the sharded solver, the timing helpers and
+    the tuning harness included), runs one toy FCT step, one toy
+    stress2rhs call, one sharded toy step on two parts, and the tuner's
+    validation of a2 and of the K12 -> K3 -> K4 step."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -173,6 +174,11 @@ def test_port_imports_no_jax():
         "st = sh.step(sh.init_state(random_fields(mesh, seed=0)))\n"
         "assert sh.gather_node(st['del_ttf_advhoriz']).shape[-1] == N\n"
         "assert f.partition_mesh(mesh, 2).n_parts == 2\n"
+        "import fesom2_accelerate_tpu_torch.runtime.tracing\n"
+        "from fesom2_accelerate_tpu_torch.utils import tune, tuning\n"
+        "assert tuning.check_a2(tuning.a2_case(mesh, 'cpu'), 128) < 1e-5\n"
+        "assert tuning.check_step(tuning.fct_case(mesh, 'cpu'), True,\n"
+        "                         False, 128) < 1e-4\n"
         "assert not [m for m in sys.modules\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib')\n"
         "            and sys.modules[m] is not None]\n"
