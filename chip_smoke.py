@@ -13,7 +13,9 @@ Phases (each raises on failure, so the script exits non-zero):
    the ``small`` and ``core2`` meshes: vlimit 1/2/3 x iter_yn in float32,
    vlimit 1 x iter_yn in float64, and one K2 case with a nonzero vertical
    flux at each node's bottom interface z = nlev_nod - 1 (the b3v mask);
-   then the full CUDA step against the plain step in float64 on ``small``;
+   in every case H-K34 must also be bit-identical to H-K3 -> H-K4 on the
+   same factors (max difference printed); then the full CUDA step against
+   the plain step in float64 on ``small``;
 3b. hold H-S2R (stress2rhs) against its plain version on the ``small`` and
    ``core2`` planar meshes, the core2-size RCM cylinder and the FESOM2
    mesh files of ``tests/data/polar_cap`` (RCM-renumbered and as read), in
@@ -21,12 +23,18 @@ Phases (each raises on failure, so the script exits non-zero):
    inv_areamass > 0) and an all-massless case (exact zeros);
 3c. the FCT kernels on the RCM cylinder and polar_cap, the orderings on
    which the JAX package runs its one-hot kernels: the checks of phase 3
-   (vlimit 1/2/3 x iter_yn in float32, vlimit 1 in float64), then 20
-   steps of ``FctAleSolver(backend="cuda")`` against ``backend="torch"``;
+   (vlimit 1/2/3 x iter_yn in float32, vlimit 1 in float64, H-K34 against
+   H-K3 -> H-K4), then 20 steps of ``FctAleSolver(backend="cuda")``
+   against ``backend="torch"``;
 4. the FCT main path: 20 steps of ``FctAleSolver(backend="cuda")`` on
    core2, float32, dt=0.5, flux_eps=1e-7, vlimit 1, against the same 20
    steps of ``backend="torch"`` on the card, with each kernel's launch
    count, and the time per step of both paths (CUDA events, best of 3);
+   one line per kernel of the default step and of the split chain (H-K1,
+   H-K2, H-K34, H-K3, H-K4) at core2's shapes and 128 threads: registers
+   (ptxas), resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMulti-
+   processor), grid blocks and waves over the card's SMs, and for H-K34
+   the edges that cross a node tile (each limited twice);
 5. the stress2rhs path: ``Stress2RhsSolver`` packs the element inputs once
    and runs a 120-substep EVP loop of ``call_packed`` on core2, float32,
    with ``backend="cuda"`` and ``backend="torch"``; the launch count, the
@@ -38,7 +46,10 @@ Phases (each raises on failure, so the script exits non-zero):
       parts with the part's fix-edge list, iter_yn both ways, float32 and
       float64 (H-K3 and H-K3fix bit-exact, also with a duplicated id list;
       H-K4 to relerr 1e-6 / 1e-12); H-K34 on each part, every edge output
-      bit-exact against its plain version (the writer-slot rule);
+      bit-exact against its plain version (the tiles' edge ranges), and
+      every output bit-identical to H-K3 -> H-K4 on the same factors, for
+      vlimit 1/2/3 x iter_yn in float32 and vlimit 1 in float64 on
+      core2's parts;
    b. 20 steps of ``ShardedFctAleSolver(backend="cuda", devices=["cuda:0"]
       * 4)`` on core2 (float32, dt=0.5, flux_eps=1e-7, vlimit 1, seed 0),
       split and fused, each against 20 steps of ``FctAleSolver(backend=
@@ -147,7 +158,8 @@ def phase_env() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> list:
+    """Builds the kernels; returns every instance's ptxas report."""
     from fesom2_accelerate_tpu_torch.ops.cuda import build
 
     paths, seconds = build.build()
@@ -155,12 +167,13 @@ def phase_build() -> None:
     print(f"build: {', '.join(p.name for p in paths)} in {seconds:.2f} s "
           f"(nvcc, sm_90a, one process per source)")
     # one line per kernel instance: registers and spills from ptxas -v
-    spills = []
+    spills, reports = [], []
     for path in paths:
         log = path.with_suffix(".log")
         if not log.exists():
             continue
         for r in build.ptxas_report(log.read_text()):
+            reports.append(r)
             name = (f"{r['kernel']}<{r['dtype']},"
                     f"{','.join(map(str, r['params']))}>")
             print(f"  ptxas: {name}: {r['registers']} registers, stack "
@@ -171,6 +184,7 @@ def phase_build() -> None:
     sys.stdout.flush()
     if spills:
         raise AssertionError(f"kernel instances spill registers: {spills}")
+    return reports
 
 
 class Errors:
@@ -202,9 +216,35 @@ class Errors:
                                      f"{e:.3e} > {tol:.0e}")
 
 
-def check_kernels(md, state, cfg, errs: Errors, case: str) -> None:
+def k34_vs_k3_k4(md, s, cfg, plus, minus, adf_v_lim, case: str) -> float:
+    """H-K34 against H-K3 -> H-K4 on the same factors: every output must be
+    bit-identical.  Returns the largest absolute difference (0.0)."""
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    node = (s["ttf"], s["hnode"], s["hnode_new"], s["fct_LO"],
+            s["del_ttf_advvert"], s["del_ttf_advhoriz"], cfg.dt, cfg.iter_yn)
+    fused = K.update_fused(md, plus, minus, adf_v_lim, s["fct_adf_h"], *node)
+    lim, res = K.b3h(md, plus, minus, s["fct_adf_h"], cfg.iter_yn)
+    chain = K.update(md, adf_v_lim, lim, *node) + (lim, res)
+    diff = 0.0
+    for name, a, b in zip(("o1", "o2", "adf_h_lim", "adf_h_res"), fused,
+                          chain):
+        if b is None:
+            if a is not None:
+                raise AssertionError(f"K34 {name} {case}: expected None")
+            continue
+        d = abserr(a, b)
+        diff = max(diff, d)
+        if not torch.equal(a, b):
+            raise AssertionError(f"K34 {name} {case}: not bit-identical to "
+                                 f"K3 -> K4 (max abs diff {d:.3e})")
+    return diff
+
+
+def check_kernels(md, state, cfg, errs: Errors, case: str) -> float:
     """Each wrapper against its plain version on the same inputs; K2 and
-    K34 are fed the plain upstream outputs, so each is checked alone."""
+    K34 are fed the plain upstream outputs, so each is checked alone.
+    Returns K34's largest difference from K3 -> K4 on those factors."""
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
 
     tol = K.TOLERANCE[cfg.dtype]
@@ -229,6 +269,7 @@ def check_kernels(md, state, cfg, errs: Errors, case: str) -> None:
     got_u = K.update_fused(*args)
     for i, name in enumerate(("o1", "o2", "adf_h_lim", "adf_h_res")):
         errs.check("update_fused", name, got_u[i], ref_u[i], tol, case)
+    return k34_vs_k3_k4(md, s, cfg, *ref_l[:3], case)
 
 
 FCT_KERNELS = ("bounds", "limit", "update_fused")
@@ -271,15 +312,16 @@ def phase_kernel_checks(errs: Errors, meshes: dict) -> None:
     for preset in ("small", "core2"):
         mesh = meshes[preset]
         fields = random_fields(mesh, seed=3, dtype=np.float64)
-        n_cases = 0
+        n_cases, k34 = 0, 0.0
         for dtype, vlimit, iter_yn in FCT_CASES:
             cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=0.5,
                                flux_eps=1e-7 if dtype == torch.float32
                                else 1e-16, dtype=dtype)
             solver = FctAleSolver(mesh, cfg, backend="cuda", device="cuda")
             state = solver.init_state(fields)
-            check_kernels(solver.md, state, cfg, errs,
-                          f"{preset} {dtype} vlimit={vlimit} iter={iter_yn}")
+            k34 = max(k34, check_kernels(
+                solver.md, state, cfg, errs,
+                f"{preset} {dtype} vlimit={vlimit} iter={iter_yn}"))
             n_cases += 1
         # b3v mask: a nonzero flux at each node's bottom interface
         # z = nlev_nod - 1 must pass through unlimited, as in the oracle
@@ -293,7 +335,8 @@ def phase_kernel_checks(errs: Errors, meshes: dict) -> None:
         av[rows, cols] = torch.linspace(-1.0, 1.0, md.n_nodes,
                                         device="cuda") + 0.5
         state["fct_adf_v"] = av
-        check_kernels(md, state, cfg, errs, f"{preset} b3v-mask")
+        k34 = max(k34, check_kernels(md, state, cfg, errs,
+                                     f"{preset} b3v-mask"))
         tmax, tmin = K.bounds_ref(md, state["fct_LO"], state["ttf"], 1)
         lim = K.limit(md, av, tmax, tmin, state["fct_adf_h"], cfg.dt,
                       cfg.flux_eps, True)
@@ -304,7 +347,8 @@ def phase_kernel_checks(errs: Errors, meshes: dict) -> None:
               f"{mesh.n_layers} layers): {n_cases + 1} cases ok "
               f"(bounds bit-exact; limit, update_fused relerr <= "
               f"{K.TOLERANCE[torch.float32]:.0e} f32, "
-              f"{K.TOLERANCE[torch.float64]:.0e} f64)", flush=True)
+              f"{K.TOLERANCE[torch.float64]:.0e} f64); max |K34 - "
+              f"(K3 -> K4)| {k34:.3e}", flush=True)
 
     # the whole CUDA step against the plain step, float64, every mode
     mesh = meshes["small"]
@@ -457,28 +501,33 @@ def phase_fct_on_rcm(errs: Errors, meshes: dict) -> None:
         fields = random_fields(mesh, seed=3, dtype=np.float64)
         md = {dt: build_mesh_data(mesh, dt, "cuda")
               for dt in (torch.float32, torch.float64)}
+        k34 = 0.0
         for dtype, vlimit, iter_yn in FCT_CASES:
             cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=0.5,
                                flux_eps=1e-7 if dtype == torch.float32
                                else 1e-16, dtype=dtype)
             state = {k: torch.tensor(v, dtype=dtype, device="cuda")
                      for k, v in fields.items()}
-            check_kernels(md[dtype], state, cfg, errs,
-                          f"{key} {dtype} vlimit={vlimit} iter={iter_yn}")
+            k34 = max(k34, check_kernels(
+                md[dtype], state, cfg, errs,
+                f"{key} {dtype} vlimit={vlimit} iter={iter_yn}"))
         torch.cuda.synchronize()
         print(f"kernels vs plain: {key} ({mesh.n_nodes} nodes, "
-              f"{mesh.n_layers} layers): {len(FCT_CASES)} cases ok",
-              flush=True)
+              f"{mesh.n_layers} layers, {md[torch.float32].nd_idx.shape[1]} "
+              f"incidence slots, {md[torch.float32].tile_edges} edges in the "
+              f"largest K34 tile): {len(FCT_CASES)} cases ok; max |K34 - "
+              f"(K3 -> K4)| {k34:.3e}", flush=True)
         cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
                            dtype=torch.float32)
         fct_cuda_vs_torch(mesh, fields, cfg, MAIN_STEPS,
                           f"fct cuda vs torch on {key}")
 
 
-def phase_main_path(card: str, meshes: dict) -> tuple:
+def phase_main_path(card: str, meshes: dict, reports: list) -> tuple:
     from fesom2_accelerate_tpu_torch import FctAleConfig
     from fesom2_accelerate_tpu_torch.mesh import random_fields
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+    from fesom2_accelerate_tpu_torch.ops.meshdata import TILE_NODES
 
     mesh = meshes["core2"]
     fields = random_fields(mesh, seed=0, dtype=np.float64)
@@ -530,6 +579,31 @@ def phase_main_path(card: str, meshes: dict) -> tuple:
         times[name] = t
         print(f"kernel {name}: {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms (core2 f32; card {card})")
+
+    # how each kernel of the default step and of the split chain fills the
+    # card at these shapes and the default block size
+    th = K.DEFAULT_THREADS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in K.OCCUPANCY:
+        occ = K.occupancy(md, name, threads=th)
+        regs = [r["registers"] for r in reports
+                if r["kernel"] == name + "_kernel" and r["dtype"] == "float"
+                and r["params"] in ((8, th), (th,))]
+        extra = ""
+        if name == "update_fused":
+            # edges limited twice: they start in another tile than the one
+            # of their second endpoint, which sums them
+            e = md.edges.long()
+            real = e[:, 0] != e[:, 1]
+            cross = (e[:, 0] // TILE_NODES != e[:, 1] // TILE_NODES) & real
+            extra = (f", {md.tile_edges} edges in the largest tile, "
+                     f"{int(cross.sum())} of {int(real.sum())} edges "
+                     f"({100 * float(cross.sum()) / float(real.sum()):.1f}%)"
+                     f" cross a tile and are limited twice")
+        print(f"occupancy {name}: {regs[0]} registers, "
+              f"{occ['blocks_per_sm']} blocks of {th} a SM, "
+              f"{occ['grid_blocks']} blocks, {occ['waves']:.2f} waves on "
+              f"{sms} SMs{extra} (core2 f32; card {card})", flush=True)
     return counts, times, md
 
 
@@ -661,17 +735,26 @@ def part_targets(mesh, dtype, fields) -> list:
     return out
 
 
-def check_split_kernels(md, s, fix_ids, cfg, errs: Errors, case: str):
+def plain_factors(md, s, cfg) -> tuple:
+    """fct_plus, fct_minus and the limited vertical flux from the plain
+    K1 -> K2."""
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    tmax, tmin = K.bounds_ref(md, s["fct_LO"], s["ttf"], cfg.vlimit)
+    return K.limit_ref(md, s["fct_adf_v"], tmax, tmin, s["fct_adf_h"],
+                       cfg.dt, cfg.flux_eps, cfg.iter_yn)[:3]
+
+
+def check_split_kernels(md, s, fix_ids, cfg, errs: Errors,
+                        case: str) -> float:
     """H-K3, H-K3fix (also with duplicated ids), H-K4 and H-K34 against
     their plain versions, fed the plain K1/K2 outputs.  The fixup gets
-    other factors than K3 (scaled by 3/4), as after an exchange."""
+    other factors than K3 (scaled by 3/4), as after an exchange.  Returns
+    K34's largest difference from K3 -> K4 on the plain factors."""
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
 
     it = cfg.iter_yn
-    tmax, tmin = K.bounds_ref(md, s["fct_LO"], s["ttf"], cfg.vlimit)
-    plus, minus, avl, _ = K.limit_ref(md, s["fct_adf_v"], tmax, tmin,
-                                      s["fct_adf_h"], cfg.dt, cfg.flux_eps,
-                                      it)
+    plus, minus, avl = plain_factors(md, s, cfg)
     ah = s["fct_adf_h"]
     ref_e = K.b3h_ref(md, plus, minus, ah, it)
     got_e = K.b3h(md, plus, minus, ah, it)
@@ -706,6 +789,7 @@ def check_split_kernels(md, s, fix_ids, cfg, errs: Errors, case: str):
     for i, name in enumerate(("o1", "o2", "adf_h_lim", "adf_h_res")):
         errs.check("update_fused", name, got_k[i], ref_k[i],
                    tol if i < 2 else 0.0, case)
+    return k34_vs_k3_k4(md, s, cfg, plus, minus, avl, case)
 
 
 def phase_sharded_checks(errs: Errors, meshes: dict) -> None:
@@ -715,7 +799,7 @@ def phase_sharded_checks(errs: Errors, meshes: dict) -> None:
     for preset in ("small", "core2"):
         mesh = meshes[preset]
         fields = random_fields(mesh, seed=3, dtype=np.float64)
-        n = 0
+        n, k34 = 0, 0.0
         for dtype in (torch.float32, torch.float64):
             targets = part_targets(mesh, dtype, fields)
             for iter_yn in (False, True):
@@ -723,16 +807,29 @@ def phase_sharded_checks(errs: Errors, meshes: dict) -> None:
                                    flux_eps=1e-7 if dtype == torch.float32
                                    else 1e-16, dtype=dtype)
                 for label, md, state, ids in targets:
-                    check_split_kernels(md, state, ids, cfg, errs,
-                                        f"{preset} {label} {dtype} "
-                                        f"iter={iter_yn}")
+                    k34 = max(k34, check_split_kernels(
+                        md, state, ids, cfg, errs,
+                        f"{preset} {label} {dtype} iter={iter_yn}"))
                     n += 1
+            if preset != "core2" or dtype != torch.float32:
+                continue
+            # H-K34 = H-K3 -> H-K4 on core2's parts for the other vlimits
+            for vlimit in (2, 3):
+                for iter_yn in (False, True):
+                    cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn,
+                                       dt=0.5, flux_eps=1e-7, dtype=dtype)
+                    for label, md, state, _ in targets[1:]:
+                        k34 = max(k34, k34_vs_k3_k4(
+                            md, state, cfg, *plain_factors(md, state, cfg),
+                            f"{preset} {label} vlimit={vlimit} "
+                            f"iter={iter_yn}"))
         torch.cuda.synchronize()
         print(f"split kernels vs plain: {preset}, whole and {SHARD_PARTS} "
               f"parts, {n} cases ok (b3h, b3h_fixup bit-exact, also with "
               f"duplicated ids; update relerr <= 1e-6 f32, 1e-12 f64; "
-              f"update_fused edge outputs bit-exact on every part)",
-              flush=True)
+              f"update_fused edge outputs bit-exact on every part); max "
+              f"|K34 - (K3 -> K4)| {k34:.3e} (core2's parts also at vlimit "
+              f"2/3)", flush=True)
 
 
 def sharded_vs_single(mesh, fields, cfg, n_parts: int, steps: int,
@@ -1148,13 +1245,13 @@ REPLACES = {
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_env()
-    phase_build()
+    reports = phase_build()
     meshes = build_meshes()
     errs = Errors()
     phase_kernel_checks(errs, meshes)
     phase_s2r_checks(errs, meshes)
     phase_fct_on_rcm(errs, meshes)
-    counts, times, md = phase_main_path(card, meshes)
+    counts, times, md = phase_main_path(card, meshes, reports)
     # each kernel's mesh data (and the inputs its bytes depend on) on the
     # path whose launches it counts, for its bound
     shapes = {name: (md, {}) for name in ("bounds", "limit", "update_fused")}

@@ -44,16 +44,18 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# every launcher ends in (threads per block, device, stream)
+# every launcher ends in (threads per block, device, stream); the occupancy
+# query in (threads per block, device)
 ARGTYPES = {
     "fct_bounds": [_P] * 8 + [_I] * 6 + [_P],
     "fct_limit": [_P] * 14 + [_I] * 4 + [_D, _D, _I, _I, _P],
     "fct_limit_fused": [_P] * 17 + [_I] * 5 + [_D, _D, _I, _I, _P],
-    "fct_update_fused": [_P] * 23 + [_I] * 5 + [_D, _I, _I, _I, _P],
+    "fct_update_fused": [_P] * 24 + [_I] * 5 + [_D, _I, _I, _I, _P],
     "fct_b3h": [_P] * 7 + [_I] * 5 + [_P],
     "fct_b3h_fixup": [_P] * 8 + [_I] * 6 + [_P],
     "fct_update": [_P] * 16 + [_I] * 4 + [_D, _I, _I, _I, _P],
     "fct_a2": [_P] * 6 + [_I] * 3 + [_D, _I, _I, _P],
+    "fct_occupancy": [_I] * 6 + [_P, _I, _I],
     "stress2rhs": [_P] * 7 + [_I] * 5 + [_P],
 }
 
@@ -61,7 +63,7 @@ ARGTYPES = {
 SOURCES = {
     "fct_ale.cu": ("fct_bounds", "fct_limit", "fct_limit_fused",
                    "fct_update_fused", "fct_b3h", "fct_b3h_fixup",
-                   "fct_update", "fct_a2"),
+                   "fct_update", "fct_a2", "fct_occupancy"),
     "stress2rhs.cu": ("stress2rhs",),
 }
 
@@ -127,21 +129,29 @@ def build() -> tuple[list[pathlib.Path], float]:
     return paths, time.perf_counter() - t0
 
 
+def load(path: pathlib.Path, names) -> dict:
+    """The launchers ``names`` of the library at ``path``, each as
+    ``<name>_f32`` and ``<name>_f64``, with ``argtypes`` and ``restype``
+    set."""
+    lib = ctypes.CDLL(str(path))
+    fns = {}
+    for name in names:
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = ARGTYPES[name]
+            fn.restype = ctypes.c_int
+            fns[name + suffix] = fn
+    return fns
+
+
 @functools.cache
 def library() -> types.SimpleNamespace:
     """Every launcher of the kernel libraries (built on first call), as
-    attributes ``<name>_f32`` / ``<name>_f64`` with ``argtypes`` and
-    ``restype`` set."""
+    attributes ``<name>_f32`` / ``<name>_f64``."""
     paths, _ = build()
     fns = {}
     for names, path in zip(SOURCES.values(), paths):
-        lib = ctypes.CDLL(str(path))
-        for name in names:
-            for suffix in ("_f32", "_f64"):
-                fn = getattr(lib, name + suffix)
-                fn.argtypes = ARGTYPES[name]
-                fn.restype = ctypes.c_int
-                fns[name + suffix] = fn
+        fns.update(load(path, names))
     return types.SimpleNamespace(**fns)
 
 

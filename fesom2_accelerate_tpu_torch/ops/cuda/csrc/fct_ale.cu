@@ -17,41 +17,54 @@
 // DIA lane rolls, packed home slots, DMA windows, 128-lane tiles): all of it
 // stands in for the vector gather that Hopper has.
 //
-// Design shared by the node kernels (K1, K2, K12, K34, K4):
-//   * one thread per node, looping over the levels z; consecutive threads
-//     read consecutive nodes at each level, so node-field accesses are
-//     coalesced and the [L, N] layout stays the API layout;
-//   * the node's incidence row (up to MAXD slots of nd_idx / nd_other /
-//     nd_lev / nd_sgn / nd_wrt) is loaded once into registers;
-//   * vertical stencils (a3's z-1..z+1 window, b3v's z-1 factors, stage c's
-//     z+1 interface) are carried in registers across the level loop;
-//   * every edge->node sum is a gather over the node's incident edges, and
-//     each edge output of K34 is written once, from the one incidence slot
-//     that nd_wrt marks (ops/meshdata.py): no atomics, so results are
-//     identical from run to run.
-// The edge and element kernels (K3, K3fix, A2) run one thread per (edge or
-// element, level), consecutive threads on consecutive entities of one
-// level.  All are bound by device-memory traffic (a few flops per byte);
-// the neighbour gathers at each level hit L2/L1 because the mesh numbering
-// keeps neighbours within about min(nx, ny) node indices.
+// Design of the kernels.  All are bound by device-memory traffic (a few
+// flops per byte); the neighbour gathers at each level hit L2/L1 because
+// the mesh numbering keeps neighbours within about min(nx, ny) node indices.
+//   * Tiled node kernels (K1, K34).  A block covers a tile of kTileNodes
+//     consecutive nodes (one warp's width) and a chunk of consecutive
+//     levels (K1 32, K34 16); lane l of every warp holds node n0 + l, and
+//     the warps take the chunk's levels in turn.  No thread walks the whole
+//     column, and the grid has many blocks per SM (core2: 3,977 tiles x 2
+//     chunks for K1, x 3 for K34: 6 and 9 waves), so the card fills
+//     whatever each thread's registers.  K1 computes the cluster bounds of
+//     the chunk and one level either side into shared memory, then applies
+//     the vertical window from there.  K34 limits the edges that start in
+//     its tile (an index range, ed_ptr of ops/meshdata.py: edges are sorted
+//     by their first endpoint) one thread per (edge, level), writing them
+//     coalesced and keeping them in shared memory, then sums each node's
+//     incident fluxes from there.
+//   * Node-threaded kernels (K2, K12, K4): one thread per node, looping over
+//     the levels z with the node's incidence row (up to MAXD slots of
+//     nd_idx / nd_other / nd_lev / nd_sgn) in registers and the vertical
+//     stencils (a3's z-1..z+1 window, b3v's z-1 factors, stage c's z+1
+//     interface) carried across the loop.
+//   * Edge and element kernels (K3, K3fix, A2): one thread per (edge or
+//     element, level), consecutive threads on consecutive entities of one
+//     level.
+// Consecutive threads read consecutive nodes of one level, so node-field
+// accesses coalesce and the [L, N] layout stays the API layout.  Every
+// edge->node sum is a gather over the node's incident edges in slot order:
+// no atomics, so results are identical from run to run.
 //
 // Launch configuration: every launcher takes the threads per block (64,
 // 128, 256 or 512; 128 is the default the wrappers pass) and every kernel
 // is instantiated once per block size with __launch_bounds__ of that size
-// (min_blocks below), so the 128-thread instances compile exactly as they
-// did with a fixed block of 128, and a larger block gets a register cap
-// that fits it.  The
-// node kernels' 16-slot instances (meshes of node degree > 8) exist for
-// 64 and 128 threads only: at 256 or 512 their registers would spill.  The
-// tuning harness (utils/tuning.py) sweeps this, as the JAX harness sweeps
-// the Pallas tile and chunk sizes.
+// (min_blocks below), so a larger block gets a register cap that fits it.
+// In a tiled kernel the block size sets how many warps share a tile's
+// levels; the tile itself does not change.  The node kernels' 16-slot
+// instances (meshes of node degree > 8) exist for 64 and 128 threads only:
+// at 256 or 512 the node-threaded ones would spill.  The tuning harness
+// (utils/tuning.py) sweeps this, as the JAX harness sweeps the Pallas tile
+// and chunk sizes.
 //
 // Built without --use_fast_math: b2's divisions and every limiter
 // selection stay IEEE.  nvcc still contracts a*b+c into FMA, one reason
 // (with the order of the incident-edge sums) that K2, K12, K34 and K4 agree
 // with their plain versions to a relative error and not bit for bit.  K1
 // and A2 do only max/min, selects and one subtraction, and K3/K3fix only
-// selects and one product per output, so those are bit-exact.
+// selects and one product per output, so those are bit-exact.  K34 rounds
+// each limited flux on its own (mul_rn) and sums in K4's slot order, so it
+// gives the bits of K3 -> K4.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -70,6 +83,23 @@ __device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double vmax(double a, double b) { return fmax(a, b); }
 __device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
 __device__ __forceinline__ double vmin(double a, double b) { return fmin(a, b); }
+
+// A product rounded on its own: nvcc never contracts it into a following
+// sum.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// The tile of the tiled node kernels (K1, K34): nodes of one block, and the
+// levels of one block of each.  ops/meshdata.py:TILE_NODES is its copy
+// (tests/test_torch_kernels.py holds the two equal, as it does for
+// kMaxWideThreads and OccupancyKernel).
+constexpr int kTileNodes = 32;
+constexpr int kBoundsLevels = 32;
+constexpr int kUpdateLevels = 16;
 
 // ---------------------------------------------------------------------------
 // H-K1 bounds.  Replaces kernels.py:bounds_dia_dma_pallas (with the
@@ -116,8 +146,129 @@ __device__ __forceinline__ Level<T> cluster_level(
   return r;
 }
 
-// The vertical window of K1 carried across the level loop: the cluster
-// bounds and a1 at levels z-1 (padded at the surface), z and z+1.
+// fct_ttf_max / fct_ttf_min (0 on inactive rows) of node-level (n, z) from
+// the vlimit 1/2/3 window over levels z-1 (p*), z (cur) and z+1 (x*): the
+// cluster bounds at z-1 and z+1, and a1's fct_ttf_max there for the vlimit
+// 2/3 window (*a_hi in its max, *a_lo in its min: both a1max where the level
+// exists, -big / +big above the surface and below the bottom).  Shared by K1
+// and K12, so both compute the same bits.
+template <typename T>
+__device__ __forceinline__ void bounds_window(
+    T pmax, T pmin, T pa_hi, T pa_lo, const Level<T>& cur, T xmax, T xmin,
+    T xa_hi, T xa_lo, int z, int nlev, int vlimit, T& tx, T& tn) {
+  const bool act = z < nlev - 1;
+  const bool plain = (z == 0) || (z >= nlev - 2);
+  T smax = cur.cmax, smin = cur.cmin;
+  if (!plain) {
+    if (vlimit == 1) {
+      smax = vmax(vmax(pmax, cur.cmax), xmax);
+      smin = vmin(vmin(pmin, cur.cmin), xmin);
+    } else {
+      // vlimit 2/3: both windows over a1's fct_ttf_max
+      const T wmax = vmax(vmax(pa_hi, cur.a1max), xa_hi);
+      const T wmin = vmin(vmin(pa_lo, cur.a1max), xa_lo);
+      if (vlimit == 2) {
+        smax = vmax(cur.cmax, wmax);
+        smin = vmin(cur.cmin, wmin);
+      } else {
+        smax = vmin(cur.cmax, wmax);
+        smin = vmax(cur.cmin, wmin);
+      }
+    }
+  }
+  tx = act ? smax - cur.lo : T(0);
+  tn = act ? smin - cur.lo : T(0);
+}
+
+// H-K1 on a tile of kTileNodes nodes x kBoundsLevels levels [z0, z0+LC).
+// Replaces kernels.py:bounds_dia_dma_pallas (and bounds_pallas,
+// bounds_dia_pallas: the same function).  Bound by its bytes on the H100
+// (fct_LO and ttf read on active rows, the two bounds written: 90.5 MB on
+// core2 f32, 0.027 ms at 3.35 TB/s).  The node-threaded form ran one
+// thread per node down all 47 levels: 995 blocks of 128 on core2, 1.08
+// waves at its 72 registers, and the last blocks ran their whole column on
+// an idle card.  Here phase 1 computes each (node, level)'s cluster
+// bounds, a1 and fct_LO for levels z0-1 .. z0+LC into shared memory (lane
+// l holds node n0+l, so each warp's reads of one level are contiguous, and
+// the node's incidence row is held in registers across the warp's levels);
+// phase 2 applies the window to levels [z0, z0+LC) from there and writes
+// both bounds coalesced.  The level either side is computed twice (by this
+// chunk and its neighbour): 2/32 more gathers, for a grid of ceil(N/32) x
+// ceil(L/32) blocks (7,954 on core2: 6 waves at 10 blocks an SM).  By
+// ablation (utils/ablate.py, core2 f32 on an H100), the neighbour gathers
+// of fct_LO and ttf take about 40% of the time; without them the kernel
+// still runs at about 60% of its bound.
+template <typename T, int MAXD, int THREADS>
+__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
+bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
+              const int* __restrict__ nd_other,
+              const int* __restrict__ nd_lev,
+              const int* __restrict__ nd_num,
+              const int* __restrict__ nlev_nod, T* __restrict__ tmax_out,
+              T* __restrict__ tmin_out, int L, int N, int KD, int vlimit) {
+  constexpr int kWarps = THREADS / kTileNodes;
+  constexpr int LC = kBoundsLevels;
+  // row r holds level z0 - 1 + r
+  __shared__ T s_cmax[LC + 2][kTileNodes];
+  __shared__ T s_cmin[LC + 2][kTileNodes];
+  __shared__ T s_a1[LC + 2][kTileNodes];
+  __shared__ T s_lo[LC + 2][kTileNodes];
+  const int lane = threadIdx.x % kTileNodes;
+  const int warp = threadIdx.x / kTileNodes;
+  const int n = blockIdx.x * kTileNodes + lane;
+  const int z0 = blockIdx.y * LC;
+  const int nlev = n < N ? nlev_nod[n] : 0;
+  if (n < N) {
+    const int num = nd_num[n];
+    int oth[MAXD], lev[MAXD];
+#pragma unroll
+    for (int k = 0; k < MAXD; ++k) {
+      const bool ok = k < num;
+      oth[k] = ok ? nd_other[(size_t)n * KD + k] : n;
+      lev[k] = ok ? nd_lev[(size_t)n * KD + k] : 0;
+    }
+    for (int r = warp; r < LC + 2; r += kWarps) {
+      const int z = z0 - 1 + r;
+      if (z < 0 || z >= L) continue;
+      const Level<T> c = cluster_level<T, MAXD>(lo, ttf, z, n, N, nlev, oth,
+                                                lev);
+      s_cmax[r][lane] = c.cmax;
+      s_cmin[r][lane] = c.cmin;
+      s_a1[r][lane] = c.a1max;
+      s_lo[r][lane] = c.lo;
+    }
+  }
+  __syncthreads();
+  if (n >= N) return;
+  const T big = T(1e30);
+  for (int r = 1 + warp; r <= LC; r += kWarps) {
+    const int z = z0 - 1 + r;
+    if (z >= L) break;
+    const Level<T> cur{s_cmax[r][lane], s_cmin[r][lane], s_a1[r][lane],
+                       s_lo[r][lane]};
+    T pmax = -big, pmin = big, pa_hi = -big, pa_lo = big;
+    if (z >= 1) {
+      pmax = s_cmax[r - 1][lane];
+      pmin = s_cmin[r - 1][lane];
+      pa_hi = pa_lo = s_a1[r - 1][lane];
+    }
+    T xmax = -big, xmin = big, xa_hi = -big, xa_lo = big;
+    if (z + 1 < L) {
+      xmax = s_cmax[r + 1][lane];
+      xmin = s_cmin[r + 1][lane];
+      xa_hi = xa_lo = s_a1[r + 1][lane];
+    }
+    T tx, tn;
+    bounds_window(pmax, pmin, pa_hi, pa_lo, cur, xmax, xmin, xa_hi, xa_lo, z,
+                  nlev, vlimit, tx, tn);
+    const size_t idx = (size_t)z * N + n;
+    tmax_out[idx] = tx;
+    tmin_out[idx] = tn;
+  }
+}
+
+// H-K12's vertical window, carried down its level loop: the cluster bounds
+// and a1 at level z-1 (padded at the surface) and the whole of level z.
 template <typename T>
 struct Window {
   T pmax, pmin;    // cluster bounds at z-1
@@ -139,9 +290,8 @@ __device__ __forceinline__ Window<T> window_start(
   return w;
 }
 
-// K1 at level z of node n: fct_ttf_max / fct_ttf_min (0 on inactive rows)
-// into tx / tn, then the window moved down to z+1.  Shared by K1 and K12,
-// so both compute the same bits.
+// K1 at level z of node n in H-K12's level loop: fct_ttf_max / fct_ttf_min
+// into tx / tn, then the window moved down to z+1.
 template <typename T, int MAXD>
 __device__ __forceinline__ void bounds_level(
     const T* __restrict__ lo, const T* __restrict__ ttf, int z, int n,
@@ -162,64 +312,13 @@ __device__ __forceinline__ void bounds_level(
     na_hi = -big;
     na_lo = big;
   }
-  const Level<T>& cur = w.cur;
-  const bool act = z < nlev - 1;
-  const bool plain = (z == 0) || (z >= nlev - 2);
-  T smax = cur.cmax, smin = cur.cmin;
-  if (!plain) {
-    if (vlimit == 1) {
-      smax = vmax(vmax(w.pmax, cur.cmax), nxt.cmax);
-      smin = vmin(vmin(w.pmin, cur.cmin), nxt.cmin);
-    } else {
-      // vlimit 2/3: both windows over a1's fct_ttf_max
-      const T wmax = vmax(vmax(w.pa_hi, cur.a1max), na_hi);
-      const T wmin = vmin(vmin(w.pa_lo, cur.a1max), na_lo);
-      if (vlimit == 2) {
-        smax = vmax(cur.cmax, wmax);
-        smin = vmin(cur.cmin, wmin);
-      } else {
-        smax = vmin(cur.cmax, wmax);
-        smin = vmax(cur.cmin, wmin);
-      }
-    }
-  }
-  tx = act ? smax - cur.lo : T(0);
-  tn = act ? smin - cur.lo : T(0);
-  w.pmax = cur.cmax;
-  w.pmin = cur.cmin;
-  w.pa_hi = cur.a1max;
-  w.pa_lo = cur.a1max;
+  bounds_window(w.pmax, w.pmin, w.pa_hi, w.pa_lo, w.cur, nxt.cmax, nxt.cmin,
+                na_hi, na_lo, z, nlev, vlimit, tx, tn);
+  w.pmax = w.cur.cmax;
+  w.pmin = w.cur.cmin;
+  w.pa_hi = w.cur.a1max;
+  w.pa_lo = w.cur.a1max;
   w.cur = nxt;
-}
-
-template <typename T, int MAXD, int THREADS>
-__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
-bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
-              const int* __restrict__ nd_other,
-              const int* __restrict__ nd_lev,
-              const int* __restrict__ nd_num,
-              const int* __restrict__ nlev_nod, T* __restrict__ tmax_out,
-              T* __restrict__ tmin_out, int L, int N, int KD, int vlimit) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int nlev = nlev_nod[n];
-  const int num = nd_num[n];
-  int oth[MAXD], lev[MAXD];
-#pragma unroll
-  for (int k = 0; k < MAXD; ++k) {
-    const bool ok = k < num;
-    oth[k] = ok ? nd_other[(size_t)n * KD + k] : n;
-    lev[k] = ok ? nd_lev[(size_t)n * KD + k] : 0;
-  }
-  Window<T> w = window_start<T, MAXD>(lo, ttf, n, N, nlev, oth, lev);
-  for (int z = 0; z < L; ++z) {
-    T tx, tn;
-    bounds_level<T, MAXD>(lo, ttf, z, n, L, N, nlev, vlimit, oth, lev, w,
-                          tx, tn);
-    const size_t idx = (size_t)z * N + n;
-    tmax_out[idx] = tx;
-    tmin_out[idx] = tn;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -449,20 +548,86 @@ __device__ __forceinline__ void stage_c(
 }
 
 // ---------------------------------------------------------------------------
-// H-K34 update_fused.  Replaces kernels_packed.py:update_fused_pallas (the
-// computation of _update_fused_kernel): for each incident edge, b3
-// horizontal limiting from both endpoints' factors
-// (kernels/fct_ale_b3_horizontal.cu:28-39), the signed sum of the limited
-// fluxes into the node's stage-c increment (c_update_solution /
-// c_update_LO), and stage c itself.  Each limited edge flux (and its
-// residual) is written at every level from the one slot that nd_wrt marks:
-// the edge's first endpoint on a whole mesh (the analogue of the packed
-// layout's home slot), its owned second endpoint where the first is a halo
-// node of a part, whose incidence row is empty.  The first n_free threads
-// also pass the edges of ed_free through (a part's padding, in no row), so
-// every edge output is written exactly once.
+// b3 horizontal (kernels/fct_ale_b3_horizontal.cu:28-39), shared by K3,
+// K3fix and K34: the limiter of one edge at one level from the factors of
+// its first (p1, m1) and second (p2, m2) endpoint,
+//   ae = min(1, min(p1, m2)) if f >= 0 else min(1, min(m1, p2)),
+// the limited flux ae * f and the residual (1 - ae) * f on active levels
+// (z < nlev_edge), f and 0 elsewhere.
 // ---------------------------------------------------------------------------
 
+template <typename T>
+__device__ __forceinline__ T edge_limiter(T f, T p1, T m1, T p2, T m2) {
+  const T ae_pos = vmin(T(1), vmin(p1, m2));
+  const T ae_neg = vmin(T(1), vmin(m1, p2));
+  return f >= T(0) ? ae_pos : ae_neg;
+}
+
+// Edge e at level z: both outputs written, the limited flux returned.
+template <typename T>
+__device__ __forceinline__ T b3h_edge(
+    const T* __restrict__ plus, const T* __restrict__ minus,
+    const T* __restrict__ adf_h, const int* __restrict__ edges,
+    const int* __restrict__ nlev_edge, T* __restrict__ adf_h_lim,
+    T* __restrict__ adf_h_res, int z, int e, int N, int Ed) {
+  const size_t idx = (size_t)z * Ed + e;
+  const T f = adf_h[idx];
+  T lim = f, res = T(0);
+  if (z < nlev_edge[e]) {
+    const size_t row = (size_t)z * N;
+    const int n1 = edges[2 * (size_t)e];
+    const int n2 = edges[2 * (size_t)e + 1];
+    const T ae = edge_limiter(f, plus[row + n1], minus[row + n1],
+                              plus[row + n2], minus[row + n2]);
+    lim = mul_rn(ae, f);
+    res = (T(1) - ae) * f;
+  }
+  adf_h_lim[idx] = lim;
+  if (adf_h_res != nullptr) adf_h_res[idx] = res;
+  return lim;
+}
+
+// ---------------------------------------------------------------------------
+// H-K34 update_fused.  Replaces kernels_packed.py:update_fused_pallas (the
+// computation of _update_fused_kernel): b3 horizontal limiting of every
+// edge, the signed sum of each node's limited incident fluxes (c_update_
+// solution / c_update_LO) and stage c.
+//
+// Bound by its bytes on the H100: the node fields of stage c, both
+// factors, the flux read and the limited flux (and residual) written, 392
+// MB on core2 f32 (0.117 ms at 3.35 TB/s).  The node-threaded form ran one
+// thread per node down all 47 levels (995 blocks of 128 on core2, 1.26
+// waves at its 80 registers) and wrote each edge output from a node thread
+// at nd_idx addresses, about 3 edges apart across a warp: each store
+// instruction touched about three times the sectors it filled.
+//
+// Here a block takes a tile of kTileNodes nodes [n0, n1) and kUpdateLevels
+// levels (11,931 blocks on core2: 9 waves at 10 blocks an SM).  Edges are
+// sorted by their first endpoint, so the edges that start in the tile are
+// the range [ed_ptr[n0], ed_ptr[n1]) (the last tile also passes the
+// padding edges of a part, after ed_ptr[N], through).
+//   * Edge phase: one thread per (edge, level) of that range, consecutive
+//     threads on consecutive edges of one level, as K3 (b3h_edge): both
+//     outputs are written coalesced, and each limited flux is kept in
+//     shared memory (tile_edges of them a level, sized on the host from the
+//     largest tile).  Every edge is written by exactly one block, also an
+//     edge from a part's low-side halo column to an owned node.
+//   * Node phase, after __syncthreads: lane l of each warp sums node n0+l's
+//     incident fluxes at the warp's levels, in slot order with K4's signs.
+//     An edge of the tile's range comes from shared memory; one that starts
+//     in an earlier tile is limited again from fct_plus / fct_minus, with
+//     b3h_edge's expression.  Then stage c.  The tile's incidence rows are
+//     staged in shared memory and read there per slot, which holds the
+//     kernel to 48 registers (f32, 8 slots); rows held in registers nearly
+//     doubled that and halved the blocks an SM.
+// Each limited flux is rounded on its own (mul_rn) and summed in K4's
+// order, so the results are bit-identical to K3 -> K4's.  A mesh whose
+// neighbours lie far apart in the numbering has most edges cross a tile
+// (core2: 68%, neighbours 303 nodes apart against 32-node tiles).  By
+// ablation (utils/ablate.py, core2 f32 on an H100) the node phase's
+// gather of those edges, one scattered value per slot and level, takes
+// about 40% of the time; limiting them again costs about 2% over reading
+// them back.
 template <typename T, int MAXD, int THREADS>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
@@ -473,81 +638,88 @@ update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
                     const T* __restrict__ lo, const T* __restrict__ dvin,
                     const T* __restrict__ dhin,
                     const T* __restrict__ area_inv,
+                    const int* __restrict__ edges,
+                    const int* __restrict__ nlev_edge,
+                    const int* __restrict__ ed_ptr,
                     const int* __restrict__ nd_idx,
                     const int* __restrict__ nd_other,
                     const int* __restrict__ nd_lev,
                     const signed char* __restrict__ nd_sgn,
-                    const signed char* __restrict__ nd_wrt,
                     const int* __restrict__ nd_num,
-                    const int* __restrict__ nlev_nod,
-                    const int* __restrict__ ed_free, T* __restrict__ o1,
+                    const int* __restrict__ nlev_nod, T* __restrict__ o1,
                     T* __restrict__ o2, T* __restrict__ adf_h_lim,
                     T* __restrict__ adf_h_res, int L, int N, int Ed, int KD,
-                    int n_free, T dt, int iter_yn) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n < n_free) {
-    const int e = ed_free[n];
-    for (int z = 0; z < L; ++z) {
-      const size_t idx = (size_t)z * Ed + e;
-      adf_h_lim[idx] = adf_h[idx];
-      if (adf_h_res != nullptr) adf_h_res[idx] = T(0);
-    }
+                    int tile_edges, T dt, int iter_yn) {
+  constexpr int kWarps = THREADS / kTileNodes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_lim = reinterpret_cast<T*>(smem);  // [levels][ns]
+  // the tile's incidence rows, slot-major (lane l reads column l, no bank
+  // conflict); padding slots have level bound 0
+  __shared__ int s_eidx[MAXD][kTileNodes];
+  __shared__ int s_oth[MAXD][kTileNodes];
+  __shared__ int s_lev[MAXD][kTileNodes];
+  __shared__ int s_sgn[MAXD][kTileNodes];
+  const int n0 = blockIdx.x * kTileNodes;
+  const int n1 = min(n0 + kTileNodes, N);
+  const int z0 = blockIdx.y * kUpdateLevels;
+  const int nz = min(kUpdateLevels, L - z0);
+  const int e0 = ed_ptr[n0];
+  const int e1 = ed_ptr[n1];
+  const int ne = (n1 == N ? Ed : e1) - e0;  // edges this block writes
+  const int ns = min(e1 - e0, tile_edges);  // edges kept in shared memory
+  // the rows of the tile's nodes are one contiguous run of [N, KD]: read
+  // coalesced once per block (visible after the edge phase's barrier)
+  for (int w = threadIdx.x; w < MAXD * kTileNodes; w += THREADS) {
+    const int l = w / MAXD, k = w - l * MAXD;
+    const bool ok = n0 + l < N && k < KD && k < nd_num[n0 + l];
+    const size_t g = (size_t)(n0 + l) * KD + k;
+    s_eidx[k][l] = ok ? nd_idx[g] : 0;
+    s_oth[k][l] = ok ? nd_other[g] : 0;
+    s_lev[k][l] = ok ? nd_lev[g] : 0;
+    s_sgn[k][l] = ok ? nd_sgn[g] : 0;
   }
+  for (int i = threadIdx.x; i < ne * nz; i += THREADS) {
+    const int r = i / ne;
+    const int j = i - r * ne;
+    const T lim = b3h_edge(plus, minus, adf_h, edges, nlev_edge, adf_h_lim,
+                           adf_h_res, z0 + r, e0 + j, N, Ed);
+    if (j < ns) s_lim[r * ns + j] = lim;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % kTileNodes;
+  const int n = n0 + lane;
   if (n >= N) return;
   const int nlev = nlev_nod[n];
-  const int num = nd_num[n];
-  int eidx[MAXD], oth[MAXD], lev[MAXD];
-  bool live[MAXD], first[MAXD], wrt[MAXD];
-#pragma unroll
-  for (int k = 0; k < MAXD; ++k) {
-    const bool ok = k < num;
-    live[k] = ok;
-    eidx[k] = ok ? nd_idx[(size_t)n * KD + k] : 0;
-    oth[k] = ok ? nd_other[(size_t)n * KD + k] : n;
-    lev[k] = ok ? nd_lev[(size_t)n * KD + k] : 0;
-    first[k] = ok && nd_sgn[(size_t)n * KD + k] > 0;
-    wrt[k] = ok && nd_wrt[(size_t)n * KD + k] != 0;
-  }
-
-  T up = adf_v_lim[n];
-  for (int z = 0; z < L; ++z) {
+  for (int r = threadIdx.x / kTileNodes; r < nz; r += kWarps) {
+    const int z = z0 + r;
     const size_t row = (size_t)z * N;
     const size_t idx = row + n;
-    const size_t erow = (size_t)z * Ed;
-    const T pn = plus[idx];
-    const T mn = minus[idx];
     T acc = T(0);
 #pragma unroll
     for (int k = 0; k < MAXD; ++k) {
-      if (!live[k]) continue;
-      const bool eact = z < lev[k];
-      if (eact) {
-        const T f = adf_h[erow + eidx[k]];
-        const T po = plus[row + oth[k]];
-        const T mo = minus[row + oth[k]];
-        const T p1 = first[k] ? pn : po;
-        const T m1 = first[k] ? mn : mo;
-        const T p2 = first[k] ? po : pn;
-        const T m2 = first[k] ? mo : mn;
-        const T ae_pos = vmin(T(1), vmin(p1, m2));
-        const T ae_neg = vmin(T(1), vmin(m1, p2));
-        const T ae = f >= T(0) ? ae_pos : ae_neg;
-        const T lim = ae * f;
-        acc += first[k] ? lim : -lim;
-        if (wrt[k]) {
-          adf_h_lim[erow + eidx[k]] = lim;
-          if (adf_h_res != nullptr) adf_h_res[erow + eidx[k]] = (T(1) - ae) * f;
+      if (z < s_lev[k][lane]) {
+        const int e = s_eidx[k][lane];
+        const bool first = s_sgn[k][lane] > 0;
+        const int j = e - e0;
+        T lim;
+        if ((unsigned)j < (unsigned)ns) {
+          lim = s_lim[r * ns + j];
+        } else {
+          const int o = s_oth[k][lane];
+          const T f = adf_h[(size_t)z * Ed + e];
+          const T pn = plus[idx], mn = minus[idx];
+          const T po = plus[row + o], mo = minus[row + o];
+          const T ae = first ? edge_limiter(f, pn, mn, po, mo)
+                             : edge_limiter(f, po, mo, pn, mn);
+          lim = mul_rn(ae, f);
         }
-      } else if (wrt[k]) {
-        // inactive level of this edge: the flux passes through unlimited
-        adf_h_lim[erow + eidx[k]] = adf_h[erow + eidx[k]];
-        if (adf_h_res != nullptr) adf_h_res[erow + eidx[k]] = T(0);
+        acc += first ? lim : -lim;
       }
     }
-    const T dn = adf_v_lim[idx + N];
     stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, o2, idx,
-            z < nlev - 1, up, dn, acc, dt, iter_yn);
-    up = dn;
+            z < nlev - 1, adf_v_lim[idx], adf_v_lim[idx + N], acc, dt,
+            iter_yn);
   }
 }
 
@@ -555,40 +727,14 @@ update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
 // H-K3 b3h and H-K3fix b3h_fixup.  Replace kernels_packed.py:
 // b3h_packed_pallas / kernels.py:b3h_pallas (the split K3) and
 // kernels_packed.py:b3h_packed_fixup_pallas / kernels.py:b3h_fixup_pallas
-// (its post-exchange fixup): the limiter selection of
-// kernels_packed.py:337-344 for one edge e = (n1, n2) at one level z,
-//   ae = min(1, min(p1, m2)) if f >= 0 else min(1, min(m1, p2)),
-// the limited flux ae * f and the residual (1 - ae) * f on active levels
-// (z < nlev_edge), f and 0 elsewhere.  K3 covers every edge; K3fix only the
-// edges of an id list (those that touch a halo node), writing in place
-// into K3's outputs.  A duplicated id rewrites the same values.  Where the
-// TPU kernels gather both endpoints' factors through one-hot contractions
-// or packed pair shifts, each thread here reads them directly; the reads
-// of one level fall within a few node rows of each other.
+// (its post-exchange fixup): b3h_edge for one edge at one level.  K3 covers
+// every edge; K3fix only the edges of an id list (those that touch a halo
+// node), writing in place into K3's outputs.  A duplicated id rewrites the
+// same values.  Where the TPU kernels gather both endpoints' factors
+// through one-hot contractions or packed pair shifts, each thread here
+// reads them directly; the reads of one level fall within a few node rows
+// of each other.
 // ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ void b3h_edge(
-    const T* __restrict__ plus, const T* __restrict__ minus,
-    const T* __restrict__ adf_h, const int* __restrict__ edges,
-    const int* __restrict__ nlev_edge, T* __restrict__ adf_h_lim,
-    T* __restrict__ adf_h_res, int z, int e, int N, int Ed) {
-  const size_t idx = (size_t)z * Ed + e;
-  const T f = adf_h[idx];
-  if (z < nlev_edge[e]) {
-    const size_t row = (size_t)z * N;
-    const int n1 = edges[2 * (size_t)e];
-    const int n2 = edges[2 * (size_t)e + 1];
-    const T ae_pos = vmin(T(1), vmin(plus[row + n1], minus[row + n2]));
-    const T ae_neg = vmin(T(1), vmin(minus[row + n1], plus[row + n2]));
-    const T ae = f >= T(0) ? ae_pos : ae_neg;
-    adf_h_lim[idx] = ae * f;
-    if (adf_h_res != nullptr) adf_h_res[idx] = (T(1) - ae) * f;
-  } else {
-    adf_h_lim[idx] = f;
-    if (adf_h_res != nullptr) adf_h_res[idx] = T(0);
-  }
-}
 
 template <typename T, int THREADS>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
@@ -721,6 +867,26 @@ inline dim3 blocks_for(int n, int threads) {
   return dim3((n + threads - 1) / threads);
 }
 
+// grid of a tiled node kernel: node tiles x level chunks
+inline dim3 tile_grid(int N, int L, int levels) {
+  return dim3((N + kTileNodes - 1) / kTileNodes, (L + levels - 1) / levels);
+}
+
+// dynamic shared memory of H-K34: tile_edges limited fluxes a level
+template <typename T>
+size_t update_fused_smem(int tile_edges) {
+  return (size_t)tile_edges * kUpdateLevels * sizeof(T);
+}
+
+// Lets kernel fn take smem bytes of dynamic shared memory a block.  Without
+// the attribute a block may take 48 KB less its static shared memory (H-K34's
+// staged incidence rows), so it is set for every size; a size above what an
+// SM offers is refused here, before a launch.
+inline cudaError_t allow_dynamic_smem(const void* fn, size_t smem) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 // incidence rows wider than this are refused (the wrapper checks first)
 constexpr int kMaxDegree = 16;
 
@@ -745,7 +911,7 @@ int with_threads(int threads, F&& f) {
 // kMaxDegree, the least that holds KD) and the block size.  Rows of more
 // than 8 slots are instantiated for blocks of at most kMaxWideThreads:
 // their node kernels need more registers than a larger block leaves a
-// thread (H-K12 and H-K34 would spill), so such a launch is refused.
+// thread (H-K12 would spill), so such a launch is refused.
 constexpr int kMaxWideThreads = 128;
 
 template <typename F>
@@ -773,7 +939,7 @@ int launch_bounds(const void* lo, const void* ttf, const void* nd_other,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_config(KD, threads, [&](auto d, auto nt) {
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
-    bounds_kernel<T, D, TH><<<blocks_for(N, TH), TH, 0, s>>>(
+    bounds_kernel<T, D, TH><<<tile_grid(N, L, kBoundsLevels), TH, 0, s>>>(
         (const T*)lo, (const T*)ttf, (const int*)nd_other, (const int*)nd_lev,
         (const int*)nd_num, (const int*)nlev_nod, (T*)tmax, (T*)tmin, L, N,
         KD, vlimit);
@@ -836,33 +1002,38 @@ int launch_update_fused(const void* plus, const void* minus,
                         const void* ttf, const void* hnode,
                         const void* hnode_new, const void* lo,
                         const void* dvin, const void* dhin,
-                        const void* area_inv, const void* nd_idx,
-                        const void* nd_other, const void* nd_lev,
-                        const void* nd_sgn, const void* nd_wrt,
-                        const void* nd_num, const void* nlev_nod,
-                        const void* ed_free, void* o1, void* o2,
-                        void* adf_h_lim, void* adf_h_res, int L, int N,
-                        int Ed, int KD, int n_free, double dt, int iter_yn,
-                        int threads, int device, void* stream) {
-  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree || n_free < 0 ||
-      n_free > Ed)
+                        const void* area_inv, const void* edges,
+                        const void* nlev_edge, const void* ed_ptr,
+                        const void* nd_idx, const void* nd_other,
+                        const void* nd_lev, const void* nd_sgn,
+                        const void* nd_num, const void* nlev_nod, void* o1,
+                        void* o2, void* adf_h_lim, void* adf_h_res, int L,
+                        int N, int Ed, int KD, int tile_edges, double dt,
+                        int iter_yn, int threads, int device, void* stream) {
+  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree ||
+      tile_edges < 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_config(KD, threads, [&](auto d, auto nt) {
+  const size_t smem = update_fused_smem<T>(tile_edges);
+  cudaError_t attr = cudaSuccess;
+  const int rc = with_config(KD, threads, [&](auto d, auto nt) {
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
-    update_fused_kernel<T, D, TH><<<blocks_for(N > n_free ? N : n_free, TH),
-                                    TH, 0, s>>>(
+    auto* kernel = update_fused_kernel<T, D, TH>;
+    attr = allow_dynamic_smem((const void*)kernel, smem);
+    if (attr != cudaSuccess) return;
+    kernel<<<tile_grid(N, L, kUpdateLevels), TH, smem, s>>>(
         (const T*)plus, (const T*)minus, (const T*)adf_v_lim,
         (const T*)adf_h, (const T*)ttf, (const T*)hnode,
         (const T*)hnode_new, (const T*)lo, (const T*)dvin, (const T*)dhin,
-        (const T*)area_inv, (const int*)nd_idx, (const int*)nd_other,
-        (const int*)nd_lev, (const signed char*)nd_sgn,
-        (const signed char*)nd_wrt, (const int*)nd_num, (const int*)nlev_nod,
-        (const int*)ed_free, (T*)o1, (T*)o2, (T*)adf_h_lim, (T*)adf_h_res,
-        L, N, Ed, KD, n_free, (T)dt, iter_yn);
+        (const T*)area_inv, (const int*)edges, (const int*)nlev_edge,
+        (const int*)ed_ptr, (const int*)nd_idx, (const int*)nd_other,
+        (const int*)nd_lev, (const signed char*)nd_sgn, (const int*)nd_num,
+        (const int*)nlev_nod, (T*)o1, (T*)o2, (T*)adf_h_lim, (T*)adf_h_res,
+        L, N, Ed, KD, tile_edges, (T)dt, iter_yn);
   });
+  return attr != cudaSuccess ? attr : rc;
 }
 
 template <typename T>
@@ -946,6 +1117,66 @@ int launch_a2(const void* tmax, const void* tmin, const void* elem_nodes,
   });
 }
 
+// The kernels the occupancy query answers for (kernels.py:OCCUPANCY lists
+// them in this order): the default step's K1, K2, K34, and K3, K4.
+enum OccupancyKernel { kOccBounds, kOccLimit, kOccUpdateFused, kOccB3h,
+                       kOccUpdate };
+
+// out[0] = resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// and out[1] = grid blocks of the instance a launcher of kernel ``kernel``
+// launches at these shapes and this block size.
+template <typename T>
+int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
+              int* out, int threads, int device) {
+  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree ||
+      tile_edges < 0 || out == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const void* fn = nullptr;
+  dim3 grid;
+  size_t smem = 0;
+  cudaError_t query = cudaSuccess;
+  int rc = with_config(KD, threads, [&](auto d, auto nt) {
+    constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
+    switch (kernel) {
+      case kOccBounds:
+        fn = (const void*)bounds_kernel<T, D, TH>;
+        grid = tile_grid(N, L, kBoundsLevels);
+        break;
+      case kOccLimit:
+        fn = (const void*)limit_kernel<T, D, TH>;
+        grid = blocks_for(N, TH);
+        break;
+      case kOccUpdateFused:
+        fn = (const void*)update_fused_kernel<T, D, TH>;
+        grid = tile_grid(N, L, kUpdateLevels);
+        smem = update_fused_smem<T>(tile_edges);
+        break;
+      case kOccB3h:
+        fn = (const void*)b3h_kernel<T, TH>;
+        grid = dim3((Ed + TH - 1) / TH, L);
+        break;
+      case kOccUpdate:
+        fn = (const void*)update_kernel<T, D, TH>;
+        grid = blocks_for(N, TH);
+        break;
+      default:
+        return;
+    }
+    // as the launch does: H-K34 asks for its dynamic shared memory first
+    if (smem > 0) query = allow_dynamic_smem(fn, smem);
+    if (query == cudaSuccess)
+      query = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, TH,
+                                                            smem);
+  });
+  if (query != cudaSuccess) return query;
+  if (rc != cudaSuccess) return rc;
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  out[1] = (int)(grid.x * grid.y);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Plain C interface.  Every pointer is a device pointer (or null for an
@@ -1006,17 +1237,18 @@ int fct_limit_fused_f64(FCT_LIMIT_FUSED_ARGS) {
   const void *plus, const void *minus, const void *adf_v_lim,                \
       const void *adf_h, const void *ttf, const void *hnode,                 \
       const void *hnode_new, const void *lo, const void *dvin,               \
-      const void *dhin, const void *area_inv, const void *nd_idx,            \
+      const void *dhin, const void *area_inv, const void *edges,             \
+      const void *nlev_edge, const void *ed_ptr, const void *nd_idx,         \
       const void *nd_other, const void *nd_lev, const void *nd_sgn,          \
-      const void *nd_wrt, const void *nd_num, const void *nlev_nod,          \
-      const void *ed_free, void *o1, void *o2, void *adf_h_lim,              \
-      void *adf_h_res, int L, int N, int Ed, int KD, int n_free, double dt,  \
-      int iter_yn, int threads, int device, void *stream
+      const void *nd_num, const void *nlev_nod, void *o1, void *o2,          \
+      void *adf_h_lim, void *adf_h_res, int L, int N, int Ed, int KD,        \
+      int tile_edges, double dt, int iter_yn, int threads, int device,       \
+      void *stream
 #define FCT_UPDATE_CALL                                                     \
   plus, minus, adf_v_lim, adf_h, ttf, hnode, hnode_new, lo, dvin, dhin,     \
-      area_inv, nd_idx, nd_other, nd_lev, nd_sgn, nd_wrt, nd_num, nlev_nod, \
-      ed_free, o1, o2, adf_h_lim, adf_h_res, L, N, Ed, KD, n_free, dt,      \
-      iter_yn, threads, device, stream
+      area_inv, edges, nlev_edge, ed_ptr, nd_idx, nd_other, nd_lev, nd_sgn, \
+      nd_num, nlev_nod, o1, o2, adf_h_lim, adf_h_res, L, N, Ed, KD,         \
+      tile_edges, dt, iter_yn, threads, device, stream
 
 int fct_update_fused_f32(FCT_UPDATE_ARGS) {
   return launch_update_fused<float>(FCT_UPDATE_CALL);
@@ -1082,5 +1314,19 @@ int fct_update_f64(FCT_UPDATE_SPLIT_ARGS) {
 
 int fct_a2_f32(FCT_A2_ARGS) { return launch_a2<float>(FCT_A2_CALL); }
 int fct_a2_f64(FCT_A2_ARGS) { return launch_a2<double>(FCT_A2_CALL); }
+
+// Not a launcher: ``out`` is a host int[2] (see occupancy above).
+#define FCT_OCCUPANCY_ARGS                                                  \
+  int kernel, int L, int N, int Ed, int KD, int tile_edges, void *out,      \
+      int threads, int device
+#define FCT_OCCUPANCY_CALL \
+  kernel, L, N, Ed, KD, tile_edges, (int *)out, threads, device
+
+int fct_occupancy_f32(FCT_OCCUPANCY_ARGS) {
+  return occupancy<float>(FCT_OCCUPANCY_CALL);
+}
+int fct_occupancy_f64(FCT_OCCUPANCY_ARGS) {
+  return occupancy<double>(FCT_OCCUPANCY_CALL);
+}
 
 }  // extern "C"

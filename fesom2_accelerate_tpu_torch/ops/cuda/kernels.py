@@ -44,7 +44,8 @@ plain version ignores it; a value outside ``THREADS`` raises on any device.
 Tolerances against the plain versions, on the card: ``bounds``, ``a2``,
 ``b3h`` and ``b3h_fixup`` are bit-exact (max/min, selects, one subtraction
 or one product per output), and so are the edge outputs of
-``update_fused`` and the bounds that ``limit_fused`` returns.  ``limit``,
+``update_fused`` and the bounds that ``limit_fused`` returns; on the card
+``update_fused`` gives the bits of ``b3h`` then ``update``.  ``limit``,
 ``limit_fused``'s other outputs, ``update_fused``'s node outputs,
 ``update`` and ``stress2rhs`` agree to relerr <= 1e-6 in float32 and
 <= 1e-12 in float64, relerr =
@@ -53,6 +54,8 @@ the FCT kernels sum the incident edges in another order.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -303,8 +306,9 @@ def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
     Non-iterative: o1, o2 are the new ``del_ttf_advvert`` and
     ``del_ttf_advhoriz``, and the residual is None.  Iterative: o1 is the
     new ``fct_LO``, o2 is None, and the residual is [L, Ed].  Every edge
-    output is written once: from the slot ``md.nd_wrt`` marks, or passed
-    through for the edges of ``md.ed_free``."""
+    output is written once, by the block of the node tile in which the
+    edge starts (``md.ed_ptr``); the kernel keeps ``md.tile_edges``
+    limited fluxes a level in shared memory."""
     threads = check_threads(threads, md.nd_idx.shape[1])
     node_in = (fct_plus, fct_minus, ttf, hnode, hnode_new, fct_LO,
                del_ttf_advvert, del_ttf_advhoriz)
@@ -324,17 +328,17 @@ def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
     o2 = None if iter_yn else torch.empty_like(o1)
     adf_h_lim = torch.empty((L, Ed), dtype=md.dtype, device=dev)
     adf_h_res = torch.empty_like(adf_h_lim) if iter_yn else None
-    n_free = md.ed_free.shape[0]
     _launch("fct_update_fused", md, dev, threads, fct_plus.data_ptr(),
             fct_minus.data_ptr(), adf_v_lim.data_ptr(), fct_adf_h.data_ptr(),
             ttf.data_ptr(), hnode.data_ptr(), hnode_new.data_ptr(),
             fct_LO.data_ptr(), del_ttf_advvert.data_ptr(),
             del_ttf_advhoriz.data_ptr(),
-            *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_other", "nd_lev",
-                        "nd_sgn", "nd_wrt", "nd_num", "nlev_nod"),
-            md.ed_free.data_ptr() if n_free else None,
+            *_mesh_ptrs(md, "area_inv", "edges", "nlev_edge", "ed_ptr",
+                        "nd_idx", "nd_other", "nd_lev", "nd_sgn", "nd_num",
+                        "nlev_nod"),
             o1.data_ptr(), _ptr(o2), adf_h_lim.data_ptr(), _ptr(adf_h_res),
-            L, N, Ed, md.nd_idx.shape[1], n_free, float(dt), int(iter_yn))
+            L, N, Ed, md.nd_idx.shape[1], md.tile_edges, float(dt),
+            int(iter_yn))
     update_fused.launches += 1
     return o1, o2, adf_h_lim, adf_h_res
 
@@ -573,6 +577,34 @@ stress2rhs.launches = 0
 
 WRAPPERS = (bounds, limit, limit_fused, update_fused, b3h, b3h_fixup, update,
             a2, stress2rhs)
+
+
+# the kernels the occupancy query answers for, in the order of its ids
+# (OccupancyKernel in fct_ale.cu)
+OCCUPANCY = ("bounds", "limit", "update_fused", "b3h", "update")
+
+
+def occupancy(md: MeshData, name: str, *,
+              threads: int = DEFAULT_THREADS) -> dict:
+    """How kernel ``name`` (one of OCCUPANCY) fills the card of ``md`` when
+    launched at ``md``'s shapes: ``blocks_per_sm`` resident blocks
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), ``grid_blocks`` and
+    ``waves`` = grid blocks / (blocks per SM x SMs).  CUDA only."""
+    threads = check_threads(threads, md.nd_idx.shape[1])
+    dev = _check(md, {}, md.nd_idx.shape[1])
+    out = (ctypes.c_int * 2)()
+    fn = getattr(build.library(), "fct_occupancy" + _SUFFIX[md.dtype])
+    with torch.cuda.device(dev):
+        rc = fn(OCCUPANCY.index(name), md.n_layers, md.n_nodes, md.n_edges,
+                md.nd_idx.shape[1],
+                md.tile_edges if name == "update_fused" else 0,
+                ctypes.addressof(out), threads, dev.index or 0)
+    if rc != 0:
+        raise RuntimeError(f"occupancy of {name} failed: CUDA error {rc}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm, grid = out[0], out[1]
+    return dict(blocks_per_sm=per_sm, grid_blocks=grid,
+                waves=grid / (per_sm * sms) if per_sm else float("inf"))
 
 
 def reset_launch_counts() -> None:

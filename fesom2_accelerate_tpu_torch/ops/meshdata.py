@@ -4,28 +4,35 @@ Counterpart of ``fesom2_accelerate_tpu/ops/meshdata.py``: a frozen dataclass
 of tensors (connectivity, activity masks, inverse areas) built once per mesh
 on an explicit device.  The fields of the JAX ``MeshData`` keep their names
 and meaning; more carry what the FCT CUDA kernels read per node
-(``nlev_nod``, ``nd_num``, ``nd_lev``, ``nd_sgn``, ``nd_wrt``, with
-``nd_other`` shared), per edge (``nlev_edge``, ``ed_free``) and per
-element (``nlev_elem``, with ``elem_nodes`` shared), and ``ne_slot`` is the
-node->element incidence that the stress2rhs kernel reads, slot-major.
+(``nlev_nod``, ``nd_num``, ``nd_lev``, ``nd_sgn``, with ``nd_other``
+shared), per edge (``nlev_edge``, with ``edges`` shared), per node tile
+(``ed_ptr``) and per element (``nlev_elem``, with ``elem_nodes`` shared),
+and ``ne_slot`` is the node->element incidence that the stress2rhs kernel
+reads, slot-major.
 
-Edge outputs of the node-threaded H-K34 are written from incidence slots:
-``nd_wrt`` marks, for every edge, exactly one slot that writes it.  On a
-whole mesh that is the edge's first endpoint (sign +1).  On a part of a
-partitioned mesh the incidence rows of halo nodes are empty, so an edge
-from a low-side halo node to an owned node is written by its owned second
-endpoint instead.  Edges in no incidence row (a part's padding) are listed
-in ``ed_free`` and passed through by a separate edge loop.
+H-K34 writes every edge output from the block of the node tile in which
+the edge starts.  Edges are sorted by their first endpoint and oriented
+n0 < n1 (``mesh/topology.py:_build_edges``; a part keeps both,
+``parallel/partition.py:_build_local_mesh``), so the edges that start at
+node n are the index range ``ed_ptr[n] .. ed_ptr[n+1]``, and those of a
+tile of nodes one range.  A part's padding edges, (0, 0) with no active
+level, are the tail after ``ed_ptr[N]``; the last tile passes them
+through.  On a part an edge from a low-side halo column to an owned node
+is written by the tile of the halo column.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
+
+# nodes in one tile of H-K1 and H-K34 (kTileNodes in ops/cuda/csrc/fct_ale.cu)
+TILE_NODES = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +69,11 @@ class MeshData:
     nd_num: torch.Tensor  # [N] int32, valid slots of each nd_* row
     nd_lev: torch.Tensor  # [N, KD] int32, nlev_edge of the slot's edge (0 pad)
     nd_sgn: torch.Tensor  # [N, KD] int8, +1 first endpoint, -1 second (0 pad)
-    nd_wrt: torch.Tensor  # [N, KD] int8, 1 on the one slot that writes the edge
     nlev_edge: torch.Tensor  # [Ed] int32, active levels of each edge
     nlev_elem: torch.Tensor  # [E] int32, levels of each element (a2's mask)
-    ed_free: torch.Tensor  # [n_free] int32, edges no incidence slot writes
+    # [N+1] int32, the edges whose first endpoint is n are ed_ptr[n] ..
+    # ed_ptr[n+1]-1; a part's padding edges follow ed_ptr[N]
+    ed_ptr: torch.Tensor
     # [KE, N] int32, 3 * element + local position of each valid incidence
     # slot, -1 in padding; slot-major so that neighbouring node threads read
     # neighbouring words
@@ -94,6 +102,16 @@ class MeshData:
     @property
     def device(self) -> torch.device:
         return self.area_inv.device
+
+    @functools.cached_property
+    def tile_edges(self) -> int:
+        """The most edges that start in one tile of TILE_NODES nodes: the
+        limited fluxes a level that H-K34 keeps in shared memory.  Read
+        from ``ed_ptr`` on its device once per mesh data."""
+        starts = torch.arange(0, self.n_nodes, TILE_NODES,
+                              device=self.ed_ptr.device)
+        ends = (starts + TILE_NODES).clamp(max=self.n_nodes)
+        return int((self.ed_ptr[ends] - self.ed_ptr[starts]).max())
 
 
 def _masks(mesh: Mesh) -> dict:
@@ -129,40 +147,40 @@ def _masks(mesh: Mesh) -> dict:
     )
 
 
-def _writer_slots(nd_idx, nd_k, nd_sign, n_edges: int):
-    """(nd_wrt, ed_free): the slot that writes each edge (its first
-    endpoint's, else its second endpoint's) and the edges in no slot."""
-    first = nd_k & (nd_sign > 0)
-    has_first = np.zeros(n_edges, dtype=bool)
-    has_first[nd_idx[first]] = True
-    wrt = first | (nd_k & (nd_sign < 0) & ~has_first[nd_idx])
-    written = np.zeros(n_edges, dtype=bool)
-    written[nd_idx[wrt]] = True
-    return wrt, np.nonzero(~written)[0]
+def _edge_ptr(edges, n_nodes: int):
+    """ed_ptr [N+1] of the edges (see the module note).  Raises unless the
+    edges that are not padding come first, are oriented n0 < n1 and are
+    sorted by n0."""
+    first, second = edges[:, 0], edges[:, 1]
+    n_real = int(np.count_nonzero(first != second))
+    if (np.any(first[:n_real] >= second[:n_real])
+            or np.any(first[n_real:] != second[n_real:])
+            or np.any(np.diff(first[:n_real]) < 0)):
+        raise ValueError("H-K34 needs the edges oriented n0 < n1, sorted by "
+                         "n0, with the padding edges (n, n) last")
+    return np.searchsorted(first[:n_real], np.arange(n_nodes + 1))
 
 
-def _kernel_rows(nd_idx, nd_k, nd_sign, nlev_edge, nlev_nod, ne_idx,
+def _kernel_rows(edges, nd_idx, nd_k, nd_sign, nlev_edge, nlev_nod, ne_idx,
                  ne_pos, ne_k) -> dict:
     """The per-node and per-edge rows the CUDA kernels read, from the
     shared fields."""
-    nd_wrt, ed_free = _writer_slots(nd_idx, nd_k, nd_sign, len(nlev_edge))
     return dict(
         nlev_nod=nlev_nod,
         nd_num=nd_k.sum(axis=1),
         nd_lev=np.where(nd_k, nlev_edge[nd_idx], 0),
         nd_sgn=np.where(nd_k, np.sign(nd_sign), 0),
-        nd_wrt=nd_wrt,
         nlev_edge=nlev_edge,
-        ed_free=ed_free,
+        ed_ptr=_edge_ptr(edges, len(nlev_nod)),
         ne_slot=np.ascontiguousarray(
             np.where(ne_k, 3 * ne_idx.astype(np.int64) + ne_pos, -1).T),
     )
 
 
 _INT32 = ("elem_nodes", "edges", "ne_idx", "ne_pos", "nd_idx", "nd_other",
-          "nlev_nod", "nd_num", "nd_lev", "nlev_edge", "nlev_elem", "ed_free",
+          "nlev_nod", "nd_num", "nd_lev", "nlev_edge", "nlev_elem", "ed_ptr",
           "ne_slot")
-_INT8 = ("nd_sgn", "nd_wrt")
+_INT8 = ("nd_sgn",)
 _FLOAT = ("nd_sign", "area_inv")
 
 
@@ -220,7 +238,7 @@ def build_mesh_data(mesh: Mesh, dtype: torch.dtype,
         interior_row=interior_row,
         not_surface=not_surface,
         nlev_elem=mesh.nlev_elem,
-        **_kernel_rows(mk["nd_idx"], mk["nd_k"], mk["nd_sign"],
+        **_kernel_rows(mesh.edges, mk["nd_idx"], mk["nd_k"], mk["nd_sign"],
                        mesh.nlev_edge, mesh.nlev_nod, mk["ne_idx"], ne_pos,
                        mk["ne_k"]),
     )
@@ -241,9 +259,9 @@ def mesh_data_from_numpy(arrays: dict,
     nlev_edge = a["edge_mask"].sum(axis=0)
     nlev_nod = a["vint_mask"].sum(axis=0) + 1
     full = dict(a, nlev_elem=a["elem_mask"].sum(axis=0) + 1,
-                **_kernel_rows(a["nd_idx"], a["nd_k"], a["nd_sign"],
-                               nlev_edge, nlev_nod, a["ne_idx"], a["ne_pos"],
-                               a["ne_k"]))
+                **_kernel_rows(a["edges"], a["nd_idx"], a["nd_k"],
+                               a["nd_sign"], nlev_edge, nlev_nod, a["ne_idx"],
+                               a["ne_pos"], a["ne_k"]))
     dtype = {np.dtype(np.float32): torch.float32,
              np.dtype(np.float64): torch.float64}[a["area_inv"].dtype]
     return _to_tensors(full, dtype, torch.device(device))

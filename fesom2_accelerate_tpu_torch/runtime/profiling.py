@@ -186,7 +186,9 @@ def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
         inactive (``fct_adf_v`` in K2 and K12, ``fct_adf_h`` in K3 and K34,
         the increments ``del_ttf_adv*`` or ``fct_LO`` in stage c);
       * the live slots of the incidence rows (``nd_num`` per node), and the
-        per-node, per-edge and per-element rows;
+        per-node, per-edge and per-element rows; the connectivity once, in
+        one form (K34: the incidence rows of its node sum, not the edge
+        rows and ranges its tiling also reads);
       * ``b3h_fixup``: only its edges ``ids`` (a duplicated id read once);
       * ``stress2rhs``: the ``ea`` row of the element slab for every
         element and its other 10 rows for the elements with ice
@@ -234,9 +236,11 @@ def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
                 + inc8 + 2 * row + 4 * node + iface + res_v,
                 36 * nod + 8 * inc_lev)
     if name == "update_fused":
-        n_free = md.ed_free.shape[0]
-        return (2 * fac * f + edge + stage_c_in + 3 * inc32 + 2 * inc8
-                + 2 * row + 4 * n_free + stage_c_out + edge + res_h,
+        # the connectivity once, as the incidence rows the node sum needs;
+        # the kernel's edge rows (edges, nlev_edge, ed_ptr) repeat it for
+        # its tiling and are not the function's bytes
+        return (2 * fac * f + edge + stage_c_in + 3 * inc32 + inc8 + 2 * row
+                + stage_c_out + edge + res_h,
                 12 * nod + 12 * inc_lev)
     if name == "update":
         return (edge_act * f + stage_c_in + 2 * inc32 + inc8 + 2 * row

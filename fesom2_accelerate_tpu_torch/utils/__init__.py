@@ -1,2 +1,3 @@
-"""Tools around the port: the kernels' tuning harness (``tuning``) and its
-command line (``tune``)."""
+"""Tools around the port: the kernels' tuning harness (``tuning``), its
+command line (``tune``), and the ablation of the tiled kernels
+(``ablate``)."""

@@ -29,7 +29,7 @@ from fesom2_accelerate_tpu_torch.mesh import generate_planar_mesh, random_fields
 from fesom2_accelerate_tpu_torch.model.fct_ale import fct_ale_step
 from fesom2_accelerate_tpu_torch.ops.cuda import build, kernels
 from fesom2_accelerate_tpu_torch.ops.cuda.step import fct_ale_step_cuda
-from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
+from fesom2_accelerate_tpu_torch.ops.meshdata import TILE_NODES, build_mesh_data
 
 from conftest import masked_allclose
 
@@ -221,6 +221,40 @@ def test_library_name_is_keyed_by_source_hash(tmp_path, monkeypatch):
     assert before["stress2rhs.cu"] == after["stress2rhs.cu"]
 
 
+def _cu_int(src: str, name: str) -> int:
+    import re
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _cu_occupancy_ids(src: str) -> tuple:
+    """OccupancyKernel's enumerators in order, kOccUpdateFused ->
+    update_fused."""
+    import re
+    body = re.search(r"enum OccupancyKernel \{(.*?)\}", src, re.S).group(1)
+    names = [n.strip() for n in body.split(",") if n.strip()]
+    return tuple(re.sub(r"(?<!^)(?=[A-Z])", "_", n[len("kOcc"):]).lower()
+                 for n in names)
+
+
+# each Python copy of a constant of fct_ale.cu, and how to read the original
+CU_COPIES = {
+    "kTileNodes": (lambda: TILE_NODES, lambda s: _cu_int(s, "kTileNodes")),
+    "kMaxWideThreads": (lambda: kernels.MAX_WIDE_THREADS,
+                        lambda s: _cu_int(s, "kMaxWideThreads")),
+    "OccupancyKernel": (lambda: kernels.OCCUPANCY, _cu_occupancy_ids),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CU_COPIES))
+def test_python_copies_of_cuda_constants(name):
+    """TILE_NODES sizes H-K34's shared memory (MeshData.tile_edges),
+    MAX_WIDE_THREADS refuses what with_config refuses, and OCCUPANCY names
+    the occupancy query's kernel ids: each must equal fct_ale.cu's."""
+    copy, original = CU_COPIES[name]
+    src = (build.CSRC / "fct_ale.cu").read_text()
+    assert copy() == original(src)
+
+
 def test_launcher_argtypes_cover_every_launcher():
     """Each C launcher's ctypes signature: pointers and the stream as
     c_void_p (never a 32-bit int), as the launchers in csrc/ take, and
@@ -236,6 +270,7 @@ def test_launcher_argtypes_cover_every_launcher():
               "fct_b3h_fixup": "FCT_B3H_FIXUP_ARGS",
               "fct_update": "FCT_UPDATE_SPLIT_ARGS",
               "fct_a2": "FCT_A2_ARGS",
+              "fct_occupancy": "FCT_OCCUPANCY_ARGS",
               "stress2rhs": "S2R_ARGS"}
     named = [n for names in build.SOURCES.values() for n in names]
     assert sorted(named) == sorted(build.ARGTYPES) == sorted(macros)

@@ -1,17 +1,19 @@
 """PyTorch port: the copied numpy partitioner against the JAX original, the
 scatter/gather round trips, the exact fix-edge lists of the split sharded
-step, and the rule by which H-K34 writes each edge output once on every
-part of a partitioned mesh.
+step, and the edge ranges by which H-K34 writes each edge output once, on
+whole meshes and on every part of a partitioned mesh.
 
-H-K34 is node-threaded: each edge output is written from one incidence
-slot, the one ``MeshData.nd_wrt`` marks.  The rule of the first port wrote
-from the edge's first endpoint only; on a part the incidence rows of halo
-nodes are empty, so every edge from a low-side halo node to an owned node
-had no writer (31 per interior part of ``small`` at 8 parts, 605 per
-interior part of core2 at 4).  The CUDA kernel runs only on a GPU; here
-the writer slots it reads are counted."""
+H-K34 writes each edge output from the block of the node tile in which the
+edge starts: the range ``MeshData.ed_ptr[n0] .. ed_ptr[n1]`` of a tile of
+``TILE_NODES`` nodes, the last tile also taking a part's padding edges.  On
+a part the incidence rows of halo nodes are empty, and the edges from a
+low-side halo column to an owned node (31 per interior part of ``small``
+at 8 parts, 605 per interior part of core2 at 4) are the ones a rule tied
+to incidence rows once left unwritten.  The CUDA kernel runs only on a GPU;
+here the ranges it reads are checked."""
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,9 @@ from fesom2_accelerate_tpu_torch.mesh import (
     ordering,
     random_fields,
 )
+from fesom2_accelerate_tpu_torch.mesh.fesom_io import read_fesom_mesh
 from fesom2_accelerate_tpu_torch.ops.meshdata import (
+    TILE_NODES,
     MeshData,
     build_mesh_data,
     mesh_data_from_numpy,
@@ -39,6 +43,9 @@ from fesom2_accelerate_tpu_torch.ops.meshdata import (
 from fesom2_accelerate_tpu_torch.parallel import partition as part_mod
 from fesom2_accelerate_tpu_torch.parallel import partition_mesh
 from fesom2_accelerate_tpu_torch.parallel.step_sharded import fix_edge_ids
+
+
+POLAR_CAP = os.path.join(os.path.dirname(__file__), "data", "polar_cap")
 
 
 def _rcb(mesh_fn, order_mod, n_parts):
@@ -123,14 +130,64 @@ def _real_edges(pm, p):
     return int(np.sum(pm.local_edges_global[p] >= 0))
 
 
-@pytest.mark.parametrize("case", ["small-8", "multihop-8", "cylinder-rcb-4",
-                                  "core2-4"])
-def test_writer_slots_cover_every_real_local_edge_once(case):
-    """On each part's MeshData, the slots H-K34 writes from (``nd_wrt``)
-    cover every real local edge exactly once, and the edges of no slot
-    (``ed_free``, passed through by the kernel) are exactly the padding.
-    The first endpoint alone, the rule before the repair, leaves the edges
-    whose first endpoint is a low-side halo node unwritten."""
+def _assert_tile_ranges(mesh, md, n_real):
+    """The tiles' edge ranges of H-K34 on one mesh (or part) whose first
+    ``n_real`` edges are real and the rest padding: they cover [0, Ed)
+    exactly once, each real edge lies in the tile of its first endpoint,
+    the padding is the last tile's tail, and ``md.tile_edges`` (the
+    shared-memory rows the host sizes) holds every tile's real edges.
+    Returns the real edges whose endpoints lie in two tiles."""
+    ptr = md.ed_ptr.numpy().astype(np.int64)
+    N, Ed = md.n_nodes, md.n_edges
+    assert ptr.shape == (N + 1,) and ptr[0] == 0 and ptr[N] == n_real
+    first, second = mesh.edges[:, 0], mesh.edges[:, 1]
+    # ed_ptr[n]: the real edges whose first endpoint is below n
+    np.testing.assert_array_equal(
+        ptr, [(first[:n_real] < n).sum() for n in range(N + 1)])
+    starts = np.arange(0, N, TILE_NODES)
+    ends = np.minimum(starts + TILE_NODES, N)
+    lo = ptr[starts]
+    hi = np.where(ends == N, Ed, ptr[ends])  # the edges a block writes
+    cover = np.zeros(Ed, np.int64)
+    for a, b in zip(lo, hi):
+        cover[a:b] += 1
+    assert (cover == 1).all()
+    tile = np.repeat(np.arange(len(starts)), hi - lo)
+    np.testing.assert_array_equal(tile[:n_real],
+                                  first[:n_real] // TILE_NODES)
+    assert (mesh.nlev_edge[n_real:] == 0).all()
+    assert (first[n_real:] == second[n_real:]).all()
+
+    assert md.tile_edges == int((ptr[ends] - ptr[starts]).max())
+    # the edges a tile's nodes hold in their rows but do not write: each
+    # starts in an earlier tile, and the kernel limits it again
+    crossing = first[:n_real] // TILE_NODES != second[:n_real] // TILE_NODES
+    return int(crossing.sum())
+
+
+@pytest.mark.parametrize("name", ["small", "cylinder", "polar_cap",
+                                  "polar_cap_raw"])
+def test_edge_ranges_cover_a_whole_mesh(name):
+    """Whole meshes: planar, RCM cylinder (16-slot rows), and the FESOM2
+    mesh files of polar_cap, RCM-renumbered and in their own numbering."""
+    mesh = {"small": lambda: generate_planar_mesh(preset="small"),
+            "cylinder": lambda: generate_cylinder_mesh(24, 10, 6)[0],
+            "polar_cap": lambda: read_fesom_mesh(POLAR_CAP)[0],
+            "polar_cap_raw": lambda: read_fesom_mesh(POLAR_CAP,
+                                                     reorder=False)[0],
+            }[name]()
+    md = build_mesh_data(mesh, torch.float64, "cpu")
+    assert _assert_tile_ranges(mesh, md, mesh.n_edges) > 0, \
+        "some edges cross a tile boundary"
+    assert torch.equal(md.nlev_edge, torch.from_numpy(mesh.nlev_edge))
+
+
+@pytest.mark.parametrize("case", ["small-4", "small-8", "core2-4",
+                                  "multihop-8", "cylinder-rcb-4"])
+def test_edge_ranges_cover_every_part(case):
+    """Every part: the tile of a low-side halo column writes the edges
+    from it to owned nodes, and the padding passes through the last
+    tile."""
     if case == "core2-4":
         pm = partition_mesh(generate_planar_mesh(preset="core2"), 4)
     else:
@@ -138,20 +195,8 @@ def test_writer_slots_cover_every_real_local_edge_once(case):
     for p, mesh in enumerate(pm.local_meshes):
         md = build_mesh_data(mesh, torch.float32, "cpu")
         n_real = _real_edges(pm, p)
-        idx = md.nd_idx.numpy()
-        writes = np.bincount(idx[md.nd_wrt.numpy() != 0],
-                             minlength=md.n_edges)
-        assert (writes[:n_real] == 1).all(), f"part {p}"
-        assert (writes[n_real:] == 0).all(), f"part {p}"
-        np.testing.assert_array_equal(md.ed_free.numpy(),
-                                      np.arange(n_real, md.n_edges))
-        assert bool((md.nd_wrt.bool() <= md.nd_k).all())
-
-        first_only = np.bincount(idx[md.nd_sgn.numpy() > 0],
-                                 minlength=md.n_edges)
+        _assert_tile_ranges(mesh, md, n_real)
         low_halo_first = mesh.edges[:n_real, 0] < pm.H
-        np.testing.assert_array_equal(first_only[:n_real] == 0,
-                                      low_halo_first)
         if case == "small-8" and 0 < p < pm.n_parts - 1:
             assert low_halo_first.sum() == 31
         if case == "core2-4" and 0 < p < pm.n_parts - 1:
@@ -159,22 +204,20 @@ def test_writer_slots_cover_every_real_local_edge_once(case):
     assert low_halo_first.any(), "the last part has a low-side halo"
 
 
-@pytest.mark.parametrize("name", ["small", "cylinder"])
-def test_writer_slots_on_a_whole_mesh_are_the_first_endpoints(name):
-    """On a whole mesh the rule is the first port's (first endpoint writes,
-    no free edge), so single-device H-K34 outputs are unchanged."""
-    mesh = (generate_planar_mesh(preset="small") if name == "small"
-            else generate_cylinder_mesh(24, 10, 6)[0])
-    md = build_mesh_data(mesh, torch.float64, "cpu")
-    assert torch.equal(md.nd_wrt.bool(), md.nd_sgn > 0)
-    assert md.ed_free.numel() == 0
-    assert torch.equal(md.nlev_edge, torch.from_numpy(mesh.nlev_edge))
+def test_edge_ptr_refuses_edges_out_of_order():
+    """ed_ptr needs the edges sorted by first endpoint, oriented n0 < n1,
+    padding last; mesh data of any other order is refused."""
+    mesh = generate_planar_mesh(preset="toy")
+    for bad in (mesh.edges[::-1], mesh.edges[:, ::-1],
+                np.concatenate([[[0, 0]], mesh.edges[1:]])):
+        with pytest.raises(ValueError, match="sorted"):
+            build_mesh_data(dataclasses.replace(
+                mesh, edges=np.ascontiguousarray(bad)), torch.float32, "cpu")
 
 
 def test_mesh_data_from_numpy_on_parts():
     """The JAX MeshData of each part, carried across as numpy, is the
-    port's MeshData of the same part, the writer slots and free edges
-    included."""
+    port's MeshData of the same part, the edge ranges included."""
     pm, jpm = _build("small-8")
     for p in range(pm.n_parts):
         jmd = jax_mesh_data(jpm.local_meshes[p], dtype=jnp.float64)
