@@ -80,14 +80,36 @@ Phases (each raises on failure, so the script exits non-zero):
       step one by one (``runtime/tracing.time_stages``), with GB/s;
    c. a short run of the tuning harness (``utils/tuning.py``): ``tune_a2``
       and ``tune_step`` at 128 and 256 threads on core2, every
-      configuration validated against the float64 gate before it is timed.
+      configuration validated against the float64 gate before it is timed;
+8. the multi-tracer path (the tracer axis of H-K1, H-K2, H-K3, H-K3fix,
+   H-K4 and H-K34; tracer t from ``random_fields(seed=t)``, ``hnode`` and
+   ``hnode_new`` shared, as ``bench.py`` makes them):
+   a. each of the six kernels at 3 tracers on small and core2 (f32 vlimit
+      1 both ways and vlimit 3, f64 iterative) against 3 launches at
+      Tb = 1, bit for bit (largest difference printed), and against its
+      batched plain version at phase 3's tolerances;
+   b. 20 core2 f32 steps of ``FctAleSolver(backend="cuda").run_tracers`` at
+      4 tracers, ``fuse_k34`` both ways, against 20 single-tracer CUDA runs
+      of each tracer, bit for bit, with 3 (or 4) launches a step;
+   c. a float64 ``step_tracers`` on small (vlimit 1/3 x iter_yn x
+      ``fuse_k34``) against the plain step per tracer, 1e-12;
+   d. ``ShardedFctAleSolver(backend="cuda", devices=["cuda:0"] * 4,
+      tracers=4)`` on core2, split and fused, 20 steps, against the
+      single-device batched run within MAIN_RELERR, with 20 (split) and 12
+      (fused) launches and as many exchange ops a step as at Tb = 1;
+   e. ms a tracer a step at Tb = 1, 2, 4, 8 on core2 f32, single device and
+      4 parts split and fused (CUDA events, device time with the stream
+      held, host enqueue), and each kernel a tracer at Tb = 8 and at
+      Tb = 1 beside its bound (``profiling.kernel_io(tracers=8)``).
 Every kernel instance's ptxas report is printed, and a spill fails the
 build phase.  The last three lines are the per-kernel JSON summary (each
 kernel's launches on its path, max abs error, ms, plain ms, the byte bound
 at the H100 SXM data-sheet rate of ``runtime/profiling.py``, and
 ``library_ms``: null, since no single PyTorch call computes any of these
-functions), the card's name and power limit as nvidia-smi prints them,
-and ``{"ok": true, "device": ...}``.
+functions; the six kernels with a tracer axis also carry
+``ms_per_tracer_tb8`` and ``bound_ms_tb8``, a tracer's share of one launch
+at 8 tracers and of its bound), the card's name and power limit as
+nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -175,7 +197,8 @@ def phase_build() -> list:
         for r in build.ptxas_report(log.read_text()):
             reports.append(r)
             name = (f"{r['kernel']}<{r['dtype']},"
-                    f"{','.join(map(str, r['params']))}>")
+                    f"{','.join(map(str, r['params']))}"
+                    f"{',tracers' if r['tracers'] else ''}>")
             print(f"  ptxas: {name}: {r['registers']} registers, stack "
                   f"{r['stack']}, spill stores {r['spill_stores']}, spill "
                   f"loads {r['spill_loads']}")
@@ -588,7 +611,7 @@ def phase_main_path(card: str, meshes: dict, reports: list) -> tuple:
         occ = K.occupancy(md, name, threads=th)
         regs = [r["registers"] for r in reports
                 if r["kernel"] == name + "_kernel" and r["dtype"] == "float"
-                and r["params"] in ((8, th), (th,))]
+                and r["params"] in ((8, th), (th,)) and not r["tracers"]]
         extra = ""
         if name == "update_fused":
             # edges limited twice: they start in another tile than the one
@@ -1220,6 +1243,429 @@ def phase_tuner(meshes: dict) -> dict:
     return counts
 
 
+# the kernels with a tracer axis; phase 8's runs (4 tracers) and its sweep
+TRACER_KERNELS = ("bounds", "limit", "update_fused", "b3h", "b3h_fixup",
+                  "update")
+TRACERS = 4
+TB_SWEEP = (1, 2, 4, 8)
+# steps of each timed run of the sweep (phase 8e)
+TRACER_STEPS = 10
+# phase 8a's cases: (dtype, vlimit, iter_yn) at 3 tracers
+TRACER_CASES = ((torch.float32, 1, False), (torch.float32, 1, True),
+                (torch.float32, 3, False), (torch.float64, 1, True))
+
+
+class TracerFields:
+    """Phase 8's inputs, numpy float64, as bench.py makes them: tracer t of
+    a mesh from random_fields(seed=t), hnode and hnode_new from tracer 0
+    and shared.  ``counts[key]`` tracers of each mesh are made and stacked
+    once (random_fields takes 0.7 s a tracer on core2)."""
+
+    def __init__(self, meshes: dict, counts: dict):
+        from fesom2_accelerate_tpu_torch.mesh import random_fields
+        from fesom2_accelerate_tpu_torch.ops.cuda.step import BATCH_SHARED
+
+        self.meshes = meshes
+        self._per, self._stacked = {}, {}
+        for key, tb in counts.items():
+            per = [random_fields(meshes[key], seed=t, dtype=np.float64)
+                   for t in range(tb)]
+            for f in per[1:]:
+                f.update({k: per[0][k] for k in BATCH_SHARED})
+            self._per[key] = per
+            self._stacked[key] = {
+                k: v if k in BATCH_SHARED else np.stack([f[k] for f in per])
+                for k, v in per[0].items()}
+
+    def __call__(self, key: str, tb: int) -> tuple:
+        """(per-tracer fields, batched fields) of the first ``tb`` tracers
+        of mesh ``key``."""
+        from fesom2_accelerate_tpu_torch.ops.cuda.step import BATCH_SHARED
+
+        return self._per[key][:tb], {
+            k: v if k in BATCH_SHARED else v[:tb]
+            for k, v in self._stacked[key].items()}
+
+
+def tracer_calls(md, cfg, ids, plain: bool, copy: bool = True) -> dict:
+    """Each kernel with a tracer axis (or its plain version) as a function
+    of a state that holds its inputs, batched or one tracer's.  K3fix
+    writes into a copy of K3's outputs, or in place when not ``copy`` (to
+    time it alone: it rewrites the same values)."""
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    def fn(name):
+        return getattr(K, name + "_ref" if plain else name)
+
+    it = cfg.iter_yn
+
+    def node(x):
+        return (x["ttf"], x["hnode"], x["hnode_new"], x["fct_LO"],
+                x["del_ttf_advvert"], x["del_ttf_advhoriz"], cfg.dt, it)
+
+    return {
+        "bounds": lambda x: fn("bounds")(md, x["fct_LO"], x["ttf"],
+                                         cfg.vlimit),
+        "limit": lambda x: fn("limit")(md, x["fct_adf_v"], x["tmax"],
+                                       x["tmin"], x["fct_adf_h"], cfg.dt,
+                                       cfg.flux_eps, it),
+        "update_fused": lambda x: fn("update_fused")(
+            md, x["plus"], x["minus"], x["avl"], x["fct_adf_h"], *node(x)),
+        "b3h": lambda x: fn("b3h")(md, x["plus"], x["minus"], x["fct_adf_h"],
+                                   it),
+        "b3h_fixup": lambda x: fn("b3h_fixup")(
+            md, x["px"], x["mx"], x["fct_adf_h"],
+            x["lim"].clone() if copy else x["lim"],
+            (x["res"].clone() if copy else x["res"]) if it else None, ids,
+            it),
+        "update": lambda x: fn("update")(md, x["avl"], x["lim"], *node(x)),
+    }
+
+
+def tracer_inputs(md, state: dict, cfg) -> dict:
+    """A batched state with every kernel's inputs added, from the plain
+    versions: bounds, factors (and 3/4 of them, as after an exchange), the
+    limited vertical flux, K3's outputs."""
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    s = dict(state)
+    s["tmax"], s["tmin"] = K.bounds_ref(md, s["fct_LO"], s["ttf"],
+                                        cfg.vlimit)
+    s["plus"], s["minus"], s["avl"], _ = K.limit_ref(
+        md, s["fct_adf_v"], s["tmax"], s["tmin"], s["fct_adf_h"], cfg.dt,
+        cfg.flux_eps, cfg.iter_yn)
+    s["px"], s["mx"] = 0.75 * s["plus"], 0.75 * s["minus"]
+    s["lim"], s["res"] = K.b3h_ref(md, s["plus"], s["minus"], s["fct_adf_h"],
+                                   cfg.iter_yn)
+    return s
+
+
+def one_tracer(state: dict, t: int) -> dict:
+    """Tracer t's part of a batched state (shared fields and None as they
+    are)."""
+    from fesom2_accelerate_tpu_torch.ops.cuda.step import BATCH_SHARED
+
+    return {k: v if k in BATCH_SHARED or v is None else v[t]
+            for k, v in state.items()}
+
+
+def phase_tracer_kernels(errs: Errors, tf: TracerFields) -> None:
+    """Phase 8a: each kernel with a tracer axis at 3 tracers against 3
+    launches at Tb = 1 (bit-identical) and against its batched plain
+    version (phase 3's tolerances; edge outputs bit-exact), on small and
+    core2."""
+    from fesom2_accelerate_tpu_torch import FctAleConfig
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+    from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
+
+    tb = 3
+    for key in ("small", "core2"):
+        mesh = tf.meshes[key]
+        _, batched = tf(key, tb)
+        ids = torch.arange(0, mesh.n_edges, 3, dtype=torch.int32,
+                           device="cuda")
+        diff = {name: 0.0 for name in TRACER_KERNELS}
+        mds = {dt: build_mesh_data(mesh, dt, "cuda")
+               for dt in {case[0] for case in TRACER_CASES}}
+        for dtype, vlimit, iter_yn in TRACER_CASES:
+            cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=0.5,
+                               flux_eps=1e-7 if dtype == torch.float32
+                               else 1e-16, dtype=dtype)
+            md = mds[dtype]
+            s = tracer_inputs(md, {k: torch.tensor(v, dtype=dtype,
+                                                   device="cuda")
+                                   for k, v in batched.items()}, cfg)
+            kern = tracer_calls(md, cfg, ids, plain=False)
+            plain = tracer_calls(md, cfg, ids, plain=True)
+            tol = K.TOLERANCE[dtype]
+            case = f"{key} Tb={tb} {dtype} vlimit={vlimit} iter={iter_yn}"
+            for name in TRACER_KERNELS:
+                got = kern[name](s)
+                ref = plain[name](s)
+                for i, (g, r) in enumerate(zip(got, ref)):
+                    exact = name in ("bounds", "b3h", "b3h_fixup") or (
+                        name == "update_fused" and i >= 2)
+                    errs.check(name, f"out{i}", g, r, 0.0 if exact else tol,
+                               case)
+                for t in range(tb):
+                    for i, w in enumerate(kern[name](one_tracer(s, t))):
+                        if w is None:
+                            continue
+                        d = abserr(got[i][t], w)
+                        diff[name] = max(diff[name], d)
+                        if not torch.equal(got[i][t], w):
+                            raise AssertionError(
+                                f"{name} out{i} {case} tracer {t}: not "
+                                f"bit-identical to a Tb = 1 launch "
+                                f"(max abs diff {d:.3e})")
+        torch.cuda.synchronize()
+        print(f"tracer kernels: {key} ({mesh.n_nodes} nodes), Tb={tb}, "
+              f"{len(TRACER_CASES)} cases, each kernel against its batched "
+              f"plain version ok; max |Tb=3 - 3 launches at Tb=1|: "
+              + ", ".join(f"{n} {d:.3e}" for n, d in diff.items()),
+              flush=True)
+
+
+# the single-device forms of a batched step (fuse_k34) and their launches
+# per step
+TRACER_FORMS = {True: {"bounds": 1, "limit": 1, "update_fused": 1},
+                False: {"bounds": 1, "limit": 1, "b3h": 1, "update": 1}}
+
+
+def phase_tracer_runs(tf: TracerFields) -> None:
+    """Phase 8b: 20 core2 f32 steps of FctAleSolver(backend="cuda").
+    run_tracers at 4 tracers, in both single-device forms, against 20
+    single-tracer CUDA runs per tracer, bit for bit, with the launches of
+    the batched run (set to 0 just before it, read just after).  Phase 8c:
+    one float64 batched CUDA step on small against the plain step per
+    tracer (backend="torch"), 1e-12."""
+    from fesom2_accelerate_tpu_torch import FctAleConfig, FctAleSolver
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+    from fesom2_accelerate_tpu_torch.ops.cuda.step import BATCH_SHARED
+
+    mesh = tf.meshes["core2"]
+    per, batched = tf("core2", TRACERS)
+    cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
+                       dtype=torch.float32)
+    for fuse_k34, per_step in TRACER_FORMS.items():
+        sv = FctAleSolver(mesh, cfg, backend="cuda", device="cuda",
+                          fuse_k34=fuse_k34)
+        state = sv.init_state_tracers(batched)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = sv.run_tracers(state, MAIN_STEPS)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        label = f"run_tracers (core2, Tb={TRACERS}, fuse_k34={fuse_k34})"
+        check_counts(counts, {k: n * MAIN_STEPS for k, n in per_step.items()},
+                     label)
+        if set(out) != set(state):
+            raise AssertionError(f"{label}: run_tracers changed the keys")
+        for t in range(TRACERS):
+            ref = sv.run(sv.init_state(per[t]), MAIN_STEPS)
+            for k, v in ref.items():
+                got = out[k] if k in BATCH_SHARED else out[k][t]
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{label} {k}: non-finite")
+                if not torch.equal(got, v):
+                    raise AssertionError(
+                        f"{label} {k} tracer {t}: not bit-identical to the "
+                        f"single-tracer run (max abs diff "
+                        f"{abserr(got, v):.3e})")
+        print(f"{label}: {MAIN_STEPS} steps, launches "
+              f"{ {k: v for k, v in counts.items() if v} } "
+              f"({sum(per_step.values())} a step, as at Tb=1), every tracer "
+              f"bit-identical to its single-tracer run", flush=True)
+
+    mesh = tf.meshes["small"]
+    per, batched = tf("small", 3)
+    n = 0
+    for vlimit in (1, 3):
+        for iter_yn in (False, True):
+            cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=0.7,
+                               dtype=torch.float64)
+            st = FctAleSolver(mesh, cfg, backend="torch", device="cuda")
+            for fuse_k34 in TRACER_FORMS:
+                sc = FctAleSolver(mesh, cfg, backend="cuda", device="cuda",
+                                  fuse_k34=fuse_k34)
+                out = sc.step_tracers(sc.init_state_tracers(batched))
+                for t in range(3):
+                    ref = st.step(st.init_state(per[t]))
+                    if set(ref) != set(out):
+                        raise AssertionError("step_tracers keys differ")
+                    for k, v in ref.items():
+                        got = out[k] if k in BATCH_SHARED else out[k][t]
+                        e = relerr(got, v)
+                        if e > K.TOLERANCE[torch.float64]:
+                            raise AssertionError(
+                                f"f64 step_tracers vlimit={vlimit} "
+                                f"iter={iter_yn} fuse_k34={fuse_k34} {k} "
+                                f"tracer {t}: relerr {e:.3e}")
+                n += 1
+    print(f"step_tracers f64 on small, Tb=3: {n} cases (vlimit 1/3 x "
+          f"iter_yn x fuse_k34) within 1e-12 of the plain step per tracer",
+          flush=True)
+
+
+def exchange_ops(sh, state: dict) -> int:
+    """The halo fills' device ops in one step of the sharded solver ``sh``
+    (index_select and index_copy_ calls, counted by torch.profiler on the
+    host; the CUDA path calls neither elsewhere)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sh.step(state)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("aten::index_select", "aten::index_copy_"))
+
+
+def phase_tracer_sharded(tf: TracerFields) -> None:
+    """Phase 8d: ShardedFctAleSolver(backend="cuda", devices=["cuda:0"] *
+    4, tracers=4) on core2, split and fused, 20 steps, against the
+    single-device batched run within MAIN_RELERR, with the launches of each
+    run (20 split, 12 fused a step, as at Tb=1) and the exchange ops of a
+    step (as many as at Tb=1: 24)."""
+    from fesom2_accelerate_tpu_torch import (
+        FctAleConfig,
+        FctAleSolver,
+        ShardedFctAleSolver,
+    )
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    mesh = tf.meshes["core2"]
+    _, batched = tf("core2", TRACERS)
+    cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
+                       dtype=torch.float32)
+    single = FctAleSolver(mesh, cfg, backend="cuda", device="cuda")
+    ref = {k: v.cpu().numpy() for k, v in single.run_tracers(
+        single.init_state_tracers(batched), MAIN_STEPS).items()}
+    steps = MAIN_STEPS
+    one = ShardedFctAleSolver(mesh, cfg, backend="cuda",
+                              devices=["cuda:0"] * SHARD_PARTS)
+    ops1 = exchange_ops(one, one.init_state(tf("core2", 1)[0][0]))
+    per = {"split": ("bounds", "limit", "b3h", "b3h_fixup", "update"),
+           "fused": ("bounds", "limit", "update_fused")}
+    for mode, names in per.items():
+        sh = ShardedFctAleSolver(mesh, cfg, backend="cuda",
+                                 devices=["cuda:0"] * SHARD_PARTS,
+                                 tracers=TRACERS, fused=(mode == "fused"))
+        state = sh.init_state(batched)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = sh.run(state, steps)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        label = f"sharded {mode} (core2, {SHARD_PARTS} parts, Tb={TRACERS})"
+        check_counts(counts, {k: SHARD_PARTS * steps for k in names}, label)
+        ops = exchange_ops(sh, state)
+        if ops != ops1:
+            raise AssertionError(f"{label}: {ops} exchange ops a step, "
+                                 f"{ops1} at Tb=1")
+        got = sh.gather_state(out)
+        if set(got) != set(ref):
+            raise AssertionError(f"{label}: keys {set(got) ^ set(ref)}")
+        err = 0.0
+        for k, v in ref.items():
+            if got[k].shape != v.shape or not np.isfinite(got[k]).all():
+                raise AssertionError(f"{label} {k}: bad shape or non-finite")
+            e = float(np.abs(got[k].astype(np.float64) - v).max()
+                      / max(float(np.abs(v).max()), 1.0))
+            err = max(err, e)
+            if e > MAIN_RELERR:
+                raise AssertionError(f"{label} {k}: relerr {e:.3e} > "
+                                     f"{MAIN_RELERR:.0e}")
+        print(f"{label}: {steps} steps within relerr {MAIN_RELERR:.0e} of "
+              f"the single-device batched run (largest {err:.3e}); "
+              f"launches {len(names) * SHARD_PARTS} a step, {ops} exchange "
+              f"ops a step ({ops1} at Tb=1)", flush=True)
+
+
+def tracer_solvers(tf: TracerFields, cfg, tb: int) -> tuple:
+    """(form -> (one step, a run of TRACER_STEPS steps), (the split
+    solver, its state)) on core2 at ``tb`` tracers: the single-device
+    default form (the single-tracer entry points at tb = 1) and 4 parts on
+    the card, split and fused."""
+    from fesom2_accelerate_tpu_torch import FctAleSolver, ShardedFctAleSolver
+
+    mesh = tf.meshes["core2"]
+    per, batched = tf("core2", tb)
+    sv = FctAleSolver(mesh, cfg, backend="cuda", device="cuda")
+    if tb == 1:
+        s = sv.init_state(per[0])
+        forms = {"single": (lambda: sv.step(s),
+                            lambda: sv.run(s, TRACER_STEPS))}
+    else:
+        s = sv.init_state_tracers(batched)
+        forms = {"single": (lambda: sv.step_tracers(s),
+                            lambda: sv.run_tracers(s, TRACER_STEPS))}
+    for mode in ("split", "fused"):
+        sh = ShardedFctAleSolver(mesh, cfg, backend="cuda",
+                                 devices=["cuda:0"] * SHARD_PARTS,
+                                 tracers=tb, fused=(mode == "fused"))
+        st = sh.init_state(batched if tb > 1 else per[0])
+        forms[mode] = (lambda sh=sh, st=st: sh.step(st),
+                       lambda sh=sh, st=st: sh.run(st, TRACER_STEPS))
+        if mode == "split":
+            split = (sh, st)
+    return forms, split
+
+
+def phase_tracer_times(card: str, tf: TracerFields) -> dict:
+    """Phase 8e: ms a tracer a step at Tb = 1, 2, 4, 8 on core2 f32 for the
+    single-device default form and 4 parts split and fused (CUDA events
+    around 10 steps, best of 3; device time of a step with the stream
+    held; the host's enqueue of a step), then each kernel with a tracer
+    axis at Tb = 8 against Tb = 1, a tracer, beside its bound a tracer
+    (profiling.kernel_io(tracers=8)).  Returns {kernel: (ms a tracer at
+    Tb = 8, bound ms a tracer at Tb = 8)} at the shapes of each kernel's
+    timed path (whole core2 for K1, K2, K34; part 1 for K3, K3fix, K4)."""
+    from fesom2_accelerate_tpu_torch import FctAleConfig
+    from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
+
+    mesh = tf.meshes["core2"]
+    cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
+                       dtype=torch.float32)
+    for tb in TB_SWEEP:
+        forms, (sh, state) = tracer_solvers(tf, cfg, tb)
+        events = best_times({f: run for f, (_, run) in forms.items()}, 1,
+                            timer=cuda_time_ms)
+        dev = best_times({f: step for f, (step, _) in forms.items()}, 5)
+        enq = {f: float("inf") for f in forms}
+        for _ in range(TIMING_RUNS):
+            for f, (step, _) in forms.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    step()
+                enq[f] = min(enq[f], (time.perf_counter() - t0) * 1e3 / 5)
+                torch.cuda.synchronize()
+        for f in forms:
+            ms = events[f] / TRACER_STEPS
+            print(f"tracers Tb={tb} {f}: {ms / tb:.4f} ms a tracer a step "
+                  f"({ms:.4f} a step, CUDA events); device {dev[f] / tb:.4f} "
+                  f"a tracer ({dev[f]:.4f} a step, stream held); host "
+                  f"enqueue {enq[f]:.4f} ms a step (core2 f32"
+                  + ("" if f == "single" else f", {SHARD_PARTS} parts")
+                  + f"; card {card})", flush=True)
+        del forms
+        torch.cuda.empty_cache()
+
+    # each kernel at Tb = 8 and Tb = 1, a tracer, on the whole mesh and on
+    # part 1 of 4 (the last sweep's split solver, at Tb = 8)
+    tb = sh.tracers
+    _, batched = tf("core2", tb)
+    whole = build_mesh_data(mesh, torch.float32, "cuda")
+    targets = (
+        ("whole", whole, {k: torch.tensor(v, dtype=torch.float32,
+                                          device="cuda")
+                          for k, v in batched.items()},
+         torch.arange(0, mesh.n_edges, 3, dtype=torch.int32, device="cuda")),
+        ("part 1", sh.mds[1], {k: v[1] for k, v in state.items()},
+         sh.fix_ids[1]))
+    out = {}
+    for label, md, st, ids in targets:
+        sb = tracer_inputs(md, st, cfg)
+        s1 = one_tracer(sb, 0)
+        kern = tracer_calls(md, cfg, ids, plain=False, copy=False)
+        for name in TRACER_KERNELS:
+            t = best_times({tb: lambda: kern[name](sb),
+                            1: lambda: kern[name](s1)}, 5)
+            bb, ob = profiling.kernel_io(md, name, ids=ids, tracers=tb)
+            b1, o1 = profiling.kernel_io(md, name, ids=ids)
+            bound = profiling.bound_ms(bb, ob, md.dtype)[0] / tb
+            bound1 = profiling.bound_ms(b1, o1, md.dtype)[0]
+            print(f"kernel {name} on core2 {label}: Tb={tb} "
+                  f"{t[tb] / tb:.4f} ms a tracer ({t[tb]:.4f} a launch), "
+                  f"bound {bound:.4f} a tracer ({bb / tb / 1e6:.1f} MB); "
+                  f"Tb=1 {t[1]:.4f} ms, bound {bound1:.4f} "
+                  f"({b1 / 1e6:.1f} MB) (f32; card {card})", flush=True)
+            split = name in ("b3h", "b3h_fixup", "update")
+            if split == (label == "part 1"):
+                out[name] = (t[tb] / tb, bound)
+    return out
+
+
 SOURCE = "fesom2_accelerate_tpu_torch/ops/cuda/csrc/"
 KERNEL_SOURCES = {"bounds": "fct_ale.cu", "limit": "fct_ale.cu",
                   "update_fused": "fct_ale.cu", "stress2rhs": "stress2rhs.cu",
@@ -1240,6 +1686,15 @@ REPLACES = {
     "limit_fused": ("kernels_packed.py:895",),
     "a2": ("kernels.py:1015",),
 }
+
+
+def lap(name: str, run, t0: float) -> tuple:
+    """Runs ``run()`` and prints the seconds since ``t0`` -> (its result,
+    now)."""
+    out = run()
+    now = time.perf_counter()
+    print(f"phase {name} took {now - t0:.1f} s", flush=True)
+    return out, now
 
 
 def main() -> int:
@@ -1277,6 +1732,14 @@ def main() -> int:
     shapes.update(limit_fused=(md, {}), a2=(md, {}))
     print(f"phase 7 (K12, A2, step forms, tuner) took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tf = TracerFields(meshes, {"small": 3, "core2": max(TB_SWEEP)})
+    _, t1 = lap("8a", lambda: phase_tracer_kernels(errs, tf), t0)
+    _, t1 = lap("8b-c", lambda: phase_tracer_runs(tf), t1)
+    _, t1 = lap("8d", lambda: phase_tracer_sharded(tf), t1)
+    tb8, _ = lap("8e", lambda: phase_tracer_times(card, tf), t1)
+    print(f"phase 8 (multi-tracer path) took {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
     kernels = []
     for name, src in KERNEL_SOURCES.items():
         kmd, inputs = shapes[name]
@@ -1292,6 +1755,10 @@ def main() -> int:
             "bound_ms": bound, "bound_by": bound_by,
             # no single PyTorch call computes any of these functions
             "library_ms": None})
+        if name in tb8:
+            # a tracer's share of one launch at 8 tracers, and of its bound
+            kernels[-1].update(ms_per_tracer_tb8=tb8[name][0],
+                               bound_ms_tb8=tb8[name][1])
         print(f"kernel {name}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
               f"G operations, bound {bound:.4f} ms ({bound_by}; H100 SXM "
               f"data sheet), measured {times[name]['kernel']:.4f} ms "

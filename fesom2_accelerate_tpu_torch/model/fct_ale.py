@@ -14,6 +14,14 @@ functions over state tensors on that device:
   keywords ``fuse_k12`` and ``fuse_k34`` choose its form (K12 or K1 -> K2,
   K34 or K3 -> K4), the counterparts of the JAX package's
   ``build_pallas_data(fuse_k12=, fuse_k34=)``.
+
+Multi-tracer batching (``init_state_tracers`` / ``step_tracers`` /
+``run_tracers``, the JAX solver's methods of the same names) runs Tb
+tracers through one chain of kernel launches: each per-tracer field with a
+leading tracer axis, ``hnode``/``hnode_new`` shared.  As in the JAX
+package, where only ``backend="pallas"`` batches, it is ``backend="cuda"``
+only (:func:`~fesom2_accelerate_tpu_torch.ops.cuda.step.
+fct_ale_step_cuda_batched`).
 """
 
 from __future__ import annotations
@@ -26,8 +34,15 @@ import torch
 from fesom2_accelerate_tpu_torch.config import FctAleConfig
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 from fesom2_accelerate_tpu_torch.ops import stages
-from fesom2_accelerate_tpu_torch.ops.cuda.step import fct_ale_step_cuda
-from fesom2_accelerate_tpu_torch.ops.meshdata import MeshData, build_mesh_data
+from fesom2_accelerate_tpu_torch.ops.cuda.step import (
+    fct_ale_step_cuda,
+    fct_ale_step_cuda_batched,
+)
+from fesom2_accelerate_tpu_torch.ops.meshdata import (
+    MeshData,
+    build_mesh_data,
+    check_edge_order,
+)
 
 
 def pre_comm(md: MeshData, cfg: FctAleConfig, ttf, fct_LO, fct_adf_v,
@@ -130,12 +145,17 @@ class FctAleSolver:
         state = solver.init_state(fields)      # host numpy -> device
         state = solver.step(state)             # one FCT-ALE step
         state = solver.run(state, n_steps=10)  # Python loop of steps
+        # Tb tracers: per-tracer fields [Tb, ...], hnode/hnode_new [L, N]
+        batch = solver.run_tracers(solver.init_state_tracers(fields_tb), 10)
 
     backend: "torch" (plain PyTorch stages, any device and float dtype) or
     "cuda" (the CUDA kernels; ``device`` must be a CUDA device).  With
     "cuda", ``fuse_k12`` runs K1 and K2 as the one kernel K12 and
     ``fuse_k34=False`` runs K3 -> K4 in place of K34; "torch" refuses any
-    value but the default."""
+    value but the default.  A CUDA solver whose form runs K34 needs the
+    mesh's edges sorted by first endpoint (``MeshData.ed_ptr``) and raises
+    at construction otherwise.  The tracer methods need "cuda" and the
+    default ``fuse_k12=False``."""
 
     def __init__(self, mesh: Mesh, cfg: FctAleConfig = FctAleConfig(),
                  backend: str = "torch", *,
@@ -148,12 +168,16 @@ class FctAleSolver:
                     "fuse_k12 and fuse_k34 choose the form of "
                     "backend='cuda'; backend='torch' takes the defaults")
             self._step_fn = fct_ale_step
+            self._tracer_step_fn = None
         elif backend == "cuda":
             if device.type != "cuda":
                 raise ValueError(
                     f"backend='cuda' needs a CUDA device, got {device}")
             self._step_fn = functools.partial(
                 fct_ale_step_cuda, fuse_k12=fuse_k12, fuse_k34=fuse_k34)
+            self._tracer_step_fn = functools.partial(
+                fct_ale_step_cuda_batched, fuse_k12=fuse_k12,
+                fuse_k34=fuse_k34)
         else:
             raise ValueError(f"backend must be 'torch' or 'cuda', got "
                              f"{backend!r}")
@@ -164,6 +188,8 @@ class FctAleSolver:
         self.fuse_k34 = fuse_k34
         self.device = device
         self.md = build_mesh_data(mesh, cfg.dtype, device)
+        if backend == "cuda" and fuse_k34:
+            check_edge_order(self.md.edges)  # H-K34's edge ranges
 
     def init_state(self, fields: dict) -> dict:
         """Host numpy fields -> tensors of the config dtype on the device
@@ -182,5 +208,36 @@ class FctAleSolver:
         and drops the diagnostic ones, as the JAX solver's scan does."""
         for _ in range(n_steps):
             new = self._step_fn(self.md, self.cfg, state)
+            state = {k: new[k] for k in state}
+        return state
+
+    # ---- multi-tracer batching (backend="cuda") -------------------------
+
+    def init_state_tracers(self, fields: dict) -> dict:
+        """Host numpy multi-tracer fields -> tensors on the device, as
+        :meth:`init_state`: each per-tracer field [Tb, L, N] (or [Tb, L+1,
+        N], [Tb, L, Ed]), ``hnode`` and ``hnode_new`` shared [L, N]."""
+        return self.init_state(fields)
+
+    def _tracer_step(self):
+        if self._tracer_step_fn is None:
+            raise ValueError("tracer batching runs the CUDA kernels: "
+                             "backend='cuda', as the JAX package batches "
+                             "on backend='pallas' only")
+        return self._tracer_step_fn
+
+    def step_tracers(self, state: dict) -> dict:
+        """One step of every tracer of a multi-tracer state (per-tracer
+        fields [Tb, ...], ``hnode``/``hnode_new`` shared): Tb independent
+        :meth:`step` results, each per-tracer output [Tb, ...], in the
+        launches of one step."""
+        return self._tracer_step()(self.md, self.cfg, state)
+
+    def run_tracers(self, state: dict, n_steps: int) -> dict:
+        """n_steps of :meth:`step_tracers`; the carry keeps the input's
+        keys, as :meth:`run`'s does."""
+        step = self._tracer_step()
+        for _ in range(n_steps):
+            new = step(self.md, self.cfg, state)
             state = {k: new[k] for k in state}
         return state

@@ -44,16 +44,17 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# every launcher ends in (threads per block, device, stream); the occupancy
-# query in (threads per block, device)
+# every launcher ends in (threads per block, device, stream), those with a
+# tracer axis in (tracers, threads per block, device, stream); the
+# occupancy query in (threads per block, device)
 ARGTYPES = {
-    "fct_bounds": [_P] * 8 + [_I] * 6 + [_P],
-    "fct_limit": [_P] * 14 + [_I] * 4 + [_D, _D, _I, _I, _P],
+    "fct_bounds": [_P] * 8 + [_I] * 7 + [_P],
+    "fct_limit": [_P] * 14 + [_I] * 4 + [_D, _D, _I, _I, _I, _P],
     "fct_limit_fused": [_P] * 17 + [_I] * 5 + [_D, _D, _I, _I, _P],
-    "fct_update_fused": [_P] * 24 + [_I] * 5 + [_D, _I, _I, _I, _P],
-    "fct_b3h": [_P] * 7 + [_I] * 5 + [_P],
-    "fct_b3h_fixup": [_P] * 8 + [_I] * 6 + [_P],
-    "fct_update": [_P] * 16 + [_I] * 4 + [_D, _I, _I, _I, _P],
+    "fct_update_fused": [_P] * 24 + [_I] * 5 + [_D, _I, _I, _I, _I, _P],
+    "fct_b3h": [_P] * 7 + [_I] * 6 + [_P],
+    "fct_b3h_fixup": [_P] * 8 + [_I] * 7 + [_P],
+    "fct_update": [_P] * 16 + [_I] * 4 + [_D, _I, _I, _I, _I, _P],
     "fct_a2": [_P] * 6 + [_I] * 3 + [_D, _I, _I, _P],
     "fct_occupancy": [_I] * 6 + [_P, _I, _I],
     "stress2rhs": [_P] * 7 + [_I] * 5 + [_P],
@@ -162,16 +163,18 @@ KERNELS = ("limit_fused", "limit", "update_fused", "update", "b3h_fixup",
 
 # an entry line of ``ptxas -v``: the mangled kernel name, with its template
 # arguments (dtype, then the int parameters: incidence slots where the
-# kernel has them, block size last)
+# kernel has them, block size last; then the tracer-axis flag of the
+# kernels that have one)
 _ENTRY = re.compile(r"Compiling entry function '\w*?(" + "|".join(KERNELS)
-                    + r")_kernelI([fd])((?:Li\d+E)+)")
+                    + r")_kernelI([fd])((?:Li\d+E)+)(?:Lb([01])E)?")
 
 
 def ptxas_report(log: str) -> list[dict]:
     """One dict per kernel instance in an nvcc log: ``kernel``, ``dtype``
     (float or double), ``params`` (the int template arguments, block size
-    last), ``registers``, ``stack``, ``spill_stores`` and ``spill_loads``
-    (bytes)."""
+    last), ``tracers`` (the instance with the tracer axis, which Tb > 1
+    launches take), ``registers``, ``stack``, ``spill_stores`` and
+    ``spill_loads`` (bytes)."""
     out, cur = [], None
     for line in log.splitlines():
         m = _ENTRY.search(line)
@@ -179,7 +182,8 @@ def ptxas_report(log: str) -> list[dict]:
             cur = dict(kernel=m.group(1) + "_kernel",
                        dtype="float" if m.group(2) == "f" else "double",
                        params=tuple(int(v) for v in
-                                    re.findall(r"Li(\d+)E", m.group(3))))
+                                    re.findall(r"Li(\d+)E", m.group(3))),
+                       tracers=m.group(4) == "1")
             continue
         if cur is None:
             continue
@@ -203,7 +207,8 @@ def main() -> None:
     for path in paths:
         for r in ptxas_report(path.with_suffix(".log").read_text()):
             print(f"{r['kernel']}<{r['dtype']},"
-                  f"{','.join(map(str, r['params']))}>: {r['registers']} "
+                  f"{','.join(map(str, r['params']))}"
+                  f"{',tracers' if r['tracers'] else ''}>: {r['registers']} "
                   f"registers, stack {r.get('stack')}, spill stores "
                   f"{r.get('spill_stores')}, spill loads "
                   f"{r.get('spill_loads')}")

@@ -46,6 +46,28 @@
 // edge->node sum is a gather over the node's incident edges in slot order:
 // no atomics, so results are identical from run to run.
 //
+// The tracer axis.  K1, K2, K3, K3fix, K4 and K34 take Tb tracers in one
+// launch, as their Pallas kernels take a (tiles, tracers) grid: each
+// per-tracer field is tracer-major ([Tb, L, N], [Tb, L+1, N], [Tb, L, Ed],
+// tracer t at t times one tracer's size), while hnode, hnode_new, area_inv
+// and every mesh row are shared.  The blocks are ordered tracer-minor on
+// gridDim.x (tracer_block): block b of tracer t is b * Tb + t, so the Tb
+// blocks of one tile, node block or edge block run together and read its
+// incidence rows from L2 after the first.  K3, K3fix and K34 move their
+// per-tracer pointers to the tracer's fields; K1 adds the tracer's offset
+// to its indices, and K2 and K4 index the tracer's fields by row (its
+// first node row t * L, its first interface row t * (L+1)), since a moved
+// pointer held across their level loops takes two registers of its own
+// (eight of them pushed the f64 H-K2 into spills).  Either way the
+// single-tracer body runs unchanged, so each tracer's outputs are
+// bit-identical to a Tb = 1 launch on its slice.  Each of the six is
+// compiled twice (template flag TRACERS): a Tb = 1 launch takes the
+// instance without the axis, in which the tracer is 0 at compile time and
+// every offset folds away, so the single-tracer path runs the code it ran
+// before the axis (with the axis in every instance, the Tb = 1 launches
+// ran slower).  K12 and A2 (and H-S2R) take no tracer axis, as their
+// Pallas kernels take none.
+//
 // Launch configuration: every launcher takes the threads per block (64,
 // 128, 256 or 512; 128 is the default the wrappers pass) and every kernel
 // is instantiated once per block size with __launch_bounds__ of that size
@@ -93,6 +115,31 @@ __device__ __forceinline__ double mul_rn(double a, double b) {
   return __dmul_rn(a, b);
 }
 
+// The tracer of this block and the block's index within that tracer's
+// grid: blocks are ordered tracer-minor (see the note at the top).  In an
+// instance without the tracer axis (TRACERS false, the Tb = 1 launches)
+// the tracer is 0 at compile time, so every tracer offset folds away.
+struct TracerBlock {
+  int t;       // tracer
+  unsigned b;  // block within the tracer's grid (unsigned, as blockIdx.x)
+};
+
+template <bool TRACERS>
+__device__ __forceinline__ TracerBlock tracer_block(int Tb) {
+  if constexpr (TRACERS) {
+    return {(int)(blockIdx.x % (unsigned)Tb), blockIdx.x / (unsigned)Tb};
+  } else {
+    return {0, blockIdx.x};
+  }
+}
+
+// Tracer t's part of a per-tracer field of `size` entries a tracer (an
+// absent optional output stays null).
+template <typename T>
+__device__ __forceinline__ T* at_tracer(T* p, int t, size_t size) {
+  return p == nullptr ? p : p + (size_t)t * size;
+}
+
 // The tile of the tiled node kernels (K1, K34): nodes of one block, and the
 // levels of one block of each.  ops/meshdata.py:TILE_NODES is its copy
 // (tests/test_torch_kernels.py holds the two equal, as it does for
@@ -117,12 +164,14 @@ struct Level {
   T lo;          // fct_LO at the node
 };
 
+// (toff: the tracer's offset into lo and ttf, 0 for a single tracer)
 template <typename T, int MAXD>
 __device__ __forceinline__ Level<T> cluster_level(
     const T* __restrict__ lo, const T* __restrict__ ttf, int z, int n,
-    int N, int nlev, const int (&oth)[MAXD], const int (&lev)[MAXD]) {
+    int N, int nlev, const int (&oth)[MAXD], const int (&lev)[MAXD],
+    size_t toff = 0) {
   const T big = T(1e30);
-  const size_t row = (size_t)z * N;
+  const size_t row = toff + (size_t)z * N;
   const T l = lo[row + n];
   const T t = ttf[row + n];
   const bool act = z < nlev - 1;
@@ -198,14 +247,15 @@ __device__ __forceinline__ void bounds_window(
 // ablation (utils/ablate.py, core2 f32 on an H100), the neighbour gathers
 // of fct_LO and ttf take about 40% of the time; without them the kernel
 // still runs at about 60% of its bound.
-template <typename T, int MAXD, int THREADS>
+template <typename T, int MAXD, int THREADS, bool TRACERS>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
               const int* __restrict__ nd_other,
               const int* __restrict__ nd_lev,
               const int* __restrict__ nd_num,
               const int* __restrict__ nlev_nod, T* __restrict__ tmax_out,
-              T* __restrict__ tmin_out, int L, int N, int KD, int vlimit) {
+              T* __restrict__ tmin_out, int L, int N, int KD, int vlimit,
+              int Tb) {
   constexpr int kWarps = THREADS / kTileNodes;
   constexpr int LC = kBoundsLevels;
   // row r holds level z0 - 1 + r
@@ -213,9 +263,11 @@ bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
   __shared__ T s_cmin[LC + 2][kTileNodes];
   __shared__ T s_a1[LC + 2][kTileNodes];
   __shared__ T s_lo[LC + 2][kTileNodes];
+  const TracerBlock tb = tracer_block<TRACERS>(Tb);
+  const size_t toff = (size_t)tb.t * L * N;  // the tracer's fields
   const int lane = threadIdx.x % kTileNodes;
   const int warp = threadIdx.x / kTileNodes;
-  const int n = blockIdx.x * kTileNodes + lane;
+  const int n = tb.b * kTileNodes + lane;
   const int z0 = blockIdx.y * LC;
   const int nlev = n < N ? nlev_nod[n] : 0;
   if (n < N) {
@@ -231,7 +283,7 @@ bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
       const int z = z0 - 1 + r;
       if (z < 0 || z >= L) continue;
       const Level<T> c = cluster_level<T, MAXD>(lo, ttf, z, n, N, nlev, oth,
-                                                lev);
+                                                lev, toff);
       s_cmax[r][lane] = c.cmax;
       s_cmin[r][lane] = c.cmin;
       s_a1[r][lane] = c.a1max;
@@ -261,7 +313,7 @@ bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
     T tx, tn;
     bounds_window(pmax, pmin, pa_hi, pa_lo, cur, xmax, xmin, xa_hi, xa_lo, z,
                   nlev, vlimit, tx, tn);
-    const size_t idx = (size_t)z * N + n;
+    const size_t idx = toff + (size_t)z * N + n;
     tmax_out[idx] = tx;
     tmin_out[idx] = tn;
   }
@@ -362,21 +414,23 @@ __device__ __forceinline__ bool is_first(unsigned first, int k) {
 // K2 at level z of node n, from the bounds of that node and level (read
 // only on active rows) and the vertical fluxes up (interface z) and dn
 // (interface z+1); the b3v factors of level z-1 are carried in fp_prev /
-// fm_prev.  Shared by K2 and K12, so both compute the same bits.
+// fm_prev.  idx indexes the shared rows (area_inv) at (z, n), tidx the
+// tracer's node fields (its factors), vidx its interface fields, erow
+// starts its edge row z (all of one field for a single tracer).  Shared by
+// K2 and K12, so both compute the same bits.
 template <typename T, int MAXD, typename First, typename Bounds>
 __device__ __forceinline__ void limit_level(
     const T* __restrict__ adf_h, const T* __restrict__ area_inv,
     const int (&eidx)[MAXD], const int (&lev)[MAXD], const First& first,
-    int z, size_t idx, int Ed, bool act, const Bounds& bnd, T up, T dn,
-    T dt, T eps, T& fp_prev, T& fm_prev, T* __restrict__ plus_out,
-    T* __restrict__ minus_out, T* __restrict__ adf_v_lim,
-    T* __restrict__ adf_v_res) {
+    int z, size_t idx, size_t tidx, size_t vidx, size_t erow, bool act,
+    const Bounds& bnd, T up, T dn, T dt, T eps, T& fp_prev, T& fm_prev,
+    T* __restrict__ plus_out, T* __restrict__ minus_out,
+    T* __restrict__ adf_v_lim, T* __restrict__ adf_v_res) {
   // b1 vertical (kernels/fct_ale_b1_vertical.cu:13-14)
   const T pv = vmax(T(0), up) + vmax(T(0), -dn);
   const T mv = vmin(T(0), up) + vmin(T(0), -dn);
   // b1 horizontal: signed incident-edge fluxes
   T gp = T(0), gm = T(0);
-  const size_t erow = (size_t)z * Ed;
 #pragma unroll
   for (int k = 0; k < MAXD; ++k) {
     if (z < lev[k]) {
@@ -392,22 +446,22 @@ __device__ __forceinline__ void limit_level(
   const T fminus = (mv + gm) * dt * ai - eps;
   const T fp = act ? vmin(T(1), bnd.max() / fplus) : T(0);
   const T fm = act ? vmin(T(1), bnd.min() / fminus) : T(0);
-  plus_out[idx] = fp;
-  minus_out[idx] = fm;
+  plus_out[tidx] = fp;
+  minus_out[tidx] = fm;
   // b3 vertical (kernels/fct_ale_b3_vertical.cu:17-45)
   const T flux = up;
   const T ae_pos = vmin(T(1), vmin(fm_prev, fp));
   const T ae_neg = vmin(T(1), vmin(fp_prev, fm));
   const T ae = flux >= T(0) ? ae_pos : ae_neg;
-  adf_v_lim[idx] = act ? ae * flux : flux;
+  adf_v_lim[vidx] = act ? ae * flux : flux;
   if (adf_v_res != nullptr) {
-    adf_v_res[idx] = (act && z >= 1) ? (T(1) - ae) * flux : T(0);
+    adf_v_res[vidx] = (act && z >= 1) ? (T(1) - ae) * flux : T(0);
   }
   fp_prev = fp;
   fm_prev = fm;
 }
 
-template <typename T, int MAXD, int THREADS>
+template <typename T, int MAXD, int THREADS, bool TRACERS>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 limit_kernel(const T* __restrict__ adf_v, const T* __restrict__ tmax,
              const T* __restrict__ tmin, const T* __restrict__ adf_h,
@@ -418,9 +472,13 @@ limit_kernel(const T* __restrict__ adf_v, const T* __restrict__ tmax,
              const int* __restrict__ nlev_nod, T* __restrict__ plus_out,
              T* __restrict__ minus_out, T* __restrict__ adf_v_lim,
              T* __restrict__ adf_v_res, int L, int N, int Ed, int KD, T dt,
-             T eps) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+             T eps, int Tb) {
+  const TracerBlock tb = tracer_block<TRACERS>(Tb);
+  const int n = tb.b * blockDim.x + threadIdx.x;
   if (n >= N) return;
+  // the tracer's first row of its node and edge fields ([Tb * L, N],
+  // [Tb * L, Ed]) and of its interface fields ([Tb * (L+1), N])
+  const int tl = tb.t * L, tv = tb.t * (L + 1);
   const int nlev = nlev_nod[n];
   const int num = nd_num[n];
   int eidx[MAXD], lev[MAXD];
@@ -434,17 +492,20 @@ limit_kernel(const T* __restrict__ adf_v, const T* __restrict__ tmax,
   }
 
   T fp_prev = T(1), fm_prev = T(1);  // b3v factors at z-1 (1 above z=0)
-  T up = adf_v[n];
+  T up = adf_v[(size_t)tv * N + n];
   for (int z = 0; z < L; ++z) {
     const size_t idx = (size_t)z * N + n;
-    const T dn = adf_v[idx + N];
-    limit_level<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx, Ed,
-                         z < nlev - 1, BoundsInMemory<T>{tmax, tmin, idx}, up,
-                         dn, dt, eps, fp_prev, fm_prev, plus_out, minus_out,
+    const size_t tidx = (size_t)(tl + z) * N + n;
+    const size_t vidx = (size_t)(tv + z) * N + n;
+    const T dn = adf_v[vidx + N];
+    limit_level<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx, tidx,
+                         vidx, (size_t)(tl + z) * Ed, z < nlev - 1,
+                         BoundsInMemory<T>{tmax, tmin, tidx}, up, dn, dt,
+                         eps, fp_prev, fm_prev, plus_out, minus_out,
                          adf_v_lim, adf_v_res);
     up = dn;
   }
-  const size_t last = (size_t)L * N + n;
+  const size_t last = (size_t)(tv + L) * N + n;
   adf_v_lim[last] = up;
   if (adf_v_res != nullptr) adf_v_res[last] = T(0);
 }
@@ -508,10 +569,11 @@ limit_fused_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
     tmax_out[idx] = tx;
     tmin_out[idx] = tn;
     const T dn = adf_v[idx + N];
-    limit_level<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx, Ed,
-                         z < nlev - 1, BoundsInRegisters<T>{tx, tn}, up, dn,
-                         dt, eps, fp_prev, fm_prev, plus_out, minus_out,
-                         adf_v_lim, adf_v_res);
+    limit_level<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx, idx,
+                         idx, (size_t)z * Ed, z < nlev - 1,
+                         BoundsInRegisters<T>{tx, tn}, up, dn, dt, eps,
+                         fp_prev, fm_prev, plus_out, minus_out, adf_v_lim,
+                         adf_v_res);
     up = dn;
   }
   const size_t last = (size_t)L * N + n;
@@ -520,9 +582,11 @@ limit_fused_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
 }
 
 // ---------------------------------------------------------------------------
-// Stage c (docs/refactoring.md:269-314) at node idx, from the signed sum acc
-// of its limited incident edge fluxes and its limited vertical fluxes up
-// (interface z) and dn (interface z+1).  Shared by K34 and K4.
+// Stage c (docs/refactoring.md:269-314) at a node and level, from the signed
+// sum acc of its limited incident edge fluxes and its limited vertical
+// fluxes up (interface z) and dn (interface z+1): idx indexes the shared
+// rows (hnode, hnode_new, area_inv), tidx the tracer's node fields (the
+// same for a single tracer).  Shared by K34 and K4.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -531,19 +595,20 @@ __device__ __forceinline__ void stage_c(
     const T* __restrict__ hnode_new, const T* __restrict__ lo,
     const T* __restrict__ dvin, const T* __restrict__ dhin,
     const T* __restrict__ area_inv, T* __restrict__ o1, T* __restrict__ o2,
-    size_t idx, bool act, T up, T dn, T acc, T dt, int iter_yn) {
+    size_t idx, size_t tidx, bool act, T up, T dn, T acc, T dt,
+    int iter_yn) {
   const T ai = area_inv[idx];
   const T ddiv = (up - dn) * dt * ai;
   const T dh = acc * dt * ai;
-  const T l = lo[idx];
+  const T l = lo[tidx];
   if (iter_yn) {
     const T hnn = hnode_new[idx];
-    o1[idx] = (act ? l + ddiv / hnn : l) + dh / hnn;
+    o1[tidx] = (act ? l + ddiv / hnn : l) + dh / hnn;
   } else {
-    const T dv = -ttf[idx] * hnode[idx] + l * hnode_new[idx] + ddiv;
-    const T d = dvin[idx];
-    o1[idx] = act ? d + dv : d;
-    o2[idx] = dhin[idx] + dh;
+    const T dv = -ttf[tidx] * hnode[idx] + l * hnode_new[idx] + ddiv;
+    const T d = dvin[tidx];
+    o1[tidx] = act ? d + dv : d;
+    o2[tidx] = dhin[tidx] + dh;
   }
 }
 
@@ -628,7 +693,7 @@ __device__ __forceinline__ T b3h_edge(
 // gather of those edges, one scattered value per slot and level, takes
 // about 40% of the time; limiting them again costs about 2% over reading
 // them back.
-template <typename T, int MAXD, int THREADS>
+template <typename T, int MAXD, int THREADS, bool TRACERS>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
                     const T* __restrict__ adf_v_lim,
@@ -649,7 +714,7 @@ update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
                     const int* __restrict__ nlev_nod, T* __restrict__ o1,
                     T* __restrict__ o2, T* __restrict__ adf_h_lim,
                     T* __restrict__ adf_h_res, int L, int N, int Ed, int KD,
-                    int tile_edges, T dt, int iter_yn) {
+                    int tile_edges, T dt, int iter_yn, int Tb) {
   constexpr int kWarps = THREADS / kTileNodes;
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_lim = reinterpret_cast<T*>(smem);  // [levels][ns]
@@ -659,7 +724,23 @@ update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
   __shared__ int s_oth[MAXD][kTileNodes];
   __shared__ int s_lev[MAXD][kTileNodes];
   __shared__ int s_sgn[MAXD][kTileNodes];
-  const int n0 = blockIdx.x * kTileNodes;
+  const TracerBlock tb = tracer_block<TRACERS>(Tb);
+  if constexpr (TRACERS) {
+    const size_t node = (size_t)L * N, edge = (size_t)L * Ed;
+    plus = at_tracer(plus, tb.t, node);
+    minus = at_tracer(minus, tb.t, node);
+    adf_v_lim = at_tracer(adf_v_lim, tb.t, node + N);
+    adf_h = at_tracer(adf_h, tb.t, edge);
+    ttf = at_tracer(ttf, tb.t, node);
+    lo = at_tracer(lo, tb.t, node);
+    dvin = at_tracer(dvin, tb.t, node);
+    dhin = at_tracer(dhin, tb.t, node);
+    o1 = at_tracer(o1, tb.t, node);
+    o2 = at_tracer(o2, tb.t, node);
+    adf_h_lim = at_tracer(adf_h_lim, tb.t, edge);
+    adf_h_res = at_tracer(adf_h_res, tb.t, edge);
+  }
+  const int n0 = tb.b * kTileNodes;
   const int n1 = min(n0 + kTileNodes, N);
   const int z0 = blockIdx.y * kUpdateLevels;
   const int nz = min(kUpdateLevels, L - z0);
@@ -718,7 +799,7 @@ update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
       }
     }
     stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, o2, idx,
-            z < nlev - 1, adf_v_lim[idx], adf_v_lim[idx + N], acc, dt,
+            idx, z < nlev - 1, adf_v_lim[idx], adf_v_lim[idx + N], acc, dt,
             iter_yn);
   }
 }
@@ -736,32 +817,41 @@ update_fused_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
 // of each other.
 // ---------------------------------------------------------------------------
 
-template <typename T, int THREADS>
+template <typename T, int THREADS, bool TRACERS>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 b3h_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
            const T* __restrict__ adf_h, const int* __restrict__ edges,
            const int* __restrict__ nlev_edge, T* __restrict__ adf_h_lim,
-           T* __restrict__ adf_h_res, int N, int Ed) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+           T* __restrict__ adf_h_res, int L, int N, int Ed, int Tb) {
+  const TracerBlock tb = tracer_block<TRACERS>(Tb);
+  const int e = tb.b * blockDim.x + threadIdx.x;
   if (e >= Ed) return;
-  b3h_edge(plus, minus, adf_h, edges, nlev_edge, adf_h_lim, adf_h_res,
+  const size_t node = (size_t)L * N, edge = (size_t)L * Ed;
+  b3h_edge(at_tracer(plus, tb.t, node), at_tracer(minus, tb.t, node),
+           at_tracer(adf_h, tb.t, edge), edges, nlev_edge,
+           at_tracer(adf_h_lim, tb.t, edge), at_tracer(adf_h_res, tb.t, edge),
            (int)blockIdx.y, e, N, Ed);
 }
 
-template <typename T, int THREADS>
+template <typename T, int THREADS, bool TRACERS>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 b3h_fixup_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
                  const T* __restrict__ adf_h, const int* __restrict__ edges,
                  const int* __restrict__ nlev_edge,
                  const int* __restrict__ ids, T* __restrict__ adf_h_lim,
-                 T* __restrict__ adf_h_res, int N, int Ed, int n_ids) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                 T* __restrict__ adf_h_res, int L, int N, int Ed, int n_ids,
+                 int Tb) {
+  const TracerBlock tb = tracer_block<TRACERS>(Tb);
+  const int i = tb.b * blockDim.x + threadIdx.x;
   if (i >= n_ids) return;
   const int e = ids[i];
   // ids come from the part's own edges (step_sharded.fix_edge_ids); an id
   // out of range must still not write outside the edge arrays
   if (e < 0 || e >= Ed) return;
-  b3h_edge(plus, minus, adf_h, edges, nlev_edge, adf_h_lim, adf_h_res,
+  const size_t node = (size_t)L * N, edge = (size_t)L * Ed;
+  b3h_edge(at_tracer(plus, tb.t, node), at_tracer(minus, tb.t, node),
+           at_tracer(adf_h, tb.t, edge), edges, nlev_edge,
+           at_tracer(adf_h_lim, tb.t, edge), at_tracer(adf_h_res, tb.t, edge),
            (int)blockIdx.y, e, N, Ed);
 }
 
@@ -774,7 +864,7 @@ b3h_fixup_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
 // level where K34 reads the flux and the other endpoint's two factors.
 // ---------------------------------------------------------------------------
 
-template <typename T, int MAXD, int THREADS>
+template <typename T, int MAXD, int THREADS, bool TRACERS>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 update_kernel(const T* __restrict__ adf_v_lim,
               const T* __restrict__ adf_h_lim, const T* __restrict__ ttf,
@@ -786,9 +876,13 @@ update_kernel(const T* __restrict__ adf_v_lim,
               const int* __restrict__ nd_num,
               const int* __restrict__ nlev_nod, T* __restrict__ o1,
               T* __restrict__ o2, int L, int N, int Ed, int KD, T dt,
-              int iter_yn) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+              int iter_yn, int Tb) {
+  const TracerBlock tb = tracer_block<TRACERS>(Tb);
+  const int n = tb.b * blockDim.x + threadIdx.x;
   if (n >= N) return;
+  // the tracer's first row of its node and edge fields and of its
+  // interface fields, as in K2
+  const int tl = tb.t * L, tv = tb.t * (L + 1);
   const int nlev = nlev_nod[n];
   const int num = nd_num[n];
   int eidx[MAXD], lev[MAXD];
@@ -801,10 +895,10 @@ update_kernel(const T* __restrict__ adf_v_lim,
     first[k] = ok && nd_sgn[(size_t)n * KD + k] > 0;
   }
 
-  T up = adf_v_lim[n];
+  T up = adf_v_lim[(size_t)tv * N + n];
   for (int z = 0; z < L; ++z) {
     const size_t idx = (size_t)z * N + n;
-    const size_t erow = (size_t)z * Ed;
+    const size_t erow = (size_t)(tl + z) * Ed;
     T acc = T(0);
 #pragma unroll
     for (int k = 0; k < MAXD; ++k) {
@@ -814,9 +908,10 @@ update_kernel(const T* __restrict__ adf_v_lim,
         acc += first[k] ? f : -f;
       }
     }
-    const T dn = adf_v_lim[idx + N];
+    const T dn = adf_v_lim[(size_t)(tv + z) * N + n + N];
     stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, o2, idx,
-            z < nlev - 1, up, dn, acc, dt, iter_yn);
+            (size_t)(tl + z) * N + n, z < nlev - 1, up, dn, acc, dt,
+            iter_yn);
     up = dn;
   }
 }
@@ -863,13 +958,28 @@ a2_kernel(const T* __restrict__ tmax, const T* __restrict__ tmin,
 // Launch helpers
 // ---------------------------------------------------------------------------
 
-inline dim3 blocks_for(int n, int threads) {
-  return dim3((n + threads - 1) / threads);
+// Every grid below has Tb blocks for each block of one tracer, on
+// gridDim.x (tracer_block); tracers_fit is the launchers' check that this
+// stays within gridDim.x's 2^31 - 1.
+inline dim3 blocks_for(int n, int threads, int Tb = 1) {
+  return dim3((n + threads - 1) / threads * Tb);
 }
 
 // grid of a tiled node kernel: node tiles x level chunks
-inline dim3 tile_grid(int N, int L, int levels) {
-  return dim3((N + kTileNodes - 1) / kTileNodes, (L + levels - 1) / levels);
+inline dim3 tile_grid(int N, int L, int levels, int Tb = 1) {
+  return dim3((N + kTileNodes - 1) / kTileNodes * Tb,
+              (L + levels - 1) / levels);
+}
+
+// the least threads a block of a launcher takes (THREADS in kernels.py)
+constexpr int kMinThreads = 64;
+
+// Whether Tb tracers of `per_tracer` blocks each (at the smallest block
+// size) fit on gridDim.x, and the rows of Tb tracers' fields of L levels
+// (L + 1 interfaces) in an int (K2 and K4 index by row).
+inline bool tracers_fit(long long per_tracer, int Tb, int L) {
+  return Tb >= 1 && per_tracer * Tb <= 2147483647LL &&
+         (long long)(L + 1) * Tb <= 2147483647LL;
 }
 
 // dynamic shared memory of H-K34: tile_edges limited fluxes a level
@@ -907,6 +1017,18 @@ int with_threads(int threads, F&& f) {
   return cudaGetLastError();
 }
 
+// Calls f(std::true_type) for a launch over Tb > 1 tracers, which takes
+// the instances with the tracer axis, else f(std::false_type): a Tb = 1
+// launch runs the instances in which the axis folds away.
+template <typename F>
+void with_tracers(int Tb, F&& f) {
+  if (Tb > 1) {
+    f(std::true_type{});
+  } else {
+    f(std::false_type{});
+  }
+}
+
 // Calls f(Int<MAXD>, Int<THREADS>): the incidence slots in registers (8 or
 // kMaxDegree, the least that holds KD) and the block size.  Rows of more
 // than 8 slots are instantiated for blocks of at most kMaxWideThreads:
@@ -932,17 +1054,23 @@ template <typename T>
 int launch_bounds(const void* lo, const void* ttf, const void* nd_other,
                   const void* nd_lev, const void* nd_num,
                   const void* nlev_nod, void* tmax, void* tmin, int L, int N,
-                  int KD, int vlimit, int threads, int device, void* stream) {
-  if (L < 1 || N < 1 || KD < 1 || KD > kMaxDegree) return cudaErrorInvalidValue;
+                  int KD, int vlimit, int Tb, int threads, int device,
+                  void* stream) {
+  if (L < 1 || N < 1 || KD < 1 || KD > kMaxDegree ||
+      !tracers_fit((N + kTileNodes - 1) / kTileNodes, Tb, L))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_config(KD, threads, [&](auto d, auto nt) {
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
-    bounds_kernel<T, D, TH><<<tile_grid(N, L, kBoundsLevels), TH, 0, s>>>(
-        (const T*)lo, (const T*)ttf, (const int*)nd_other, (const int*)nd_lev,
-        (const int*)nd_num, (const int*)nlev_nod, (T*)tmax, (T*)tmin, L, N,
-        KD, vlimit);
+    with_tracers(Tb, [&](auto tr) {
+      bounds_kernel<T, D, TH, decltype(tr)::value>
+          <<<tile_grid(N, L, kBoundsLevels, Tb), TH, 0, s>>>(
+              (const T*)lo, (const T*)ttf, (const int*)nd_other,
+              (const int*)nd_lev, (const int*)nd_num, (const int*)nlev_nod,
+              (T*)tmax, (T*)tmin, L, N, KD, vlimit, Tb);
+    });
   });
 }
 
@@ -952,21 +1080,25 @@ int launch_limit(const void* adf_v, const void* tmax, const void* tmin,
                  const void* nd_lev, const void* nd_sgn, const void* nd_num,
                  const void* nlev_nod, void* plus, void* minus,
                  void* adf_v_lim, void* adf_v_res, int L, int N, int Ed,
-                 int KD, double dt, double eps, int threads, int device,
-                 void* stream) {
-  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree)
+                 int KD, double dt, double eps, int Tb, int threads,
+                 int device, void* stream) {
+  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree ||
+      !tracers_fit((N + kMinThreads - 1) / kMinThreads, Tb, L))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_config(KD, threads, [&](auto d, auto nt) {
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
-    limit_kernel<T, D, TH><<<blocks_for(N, TH), TH, 0, s>>>(
-        (const T*)adf_v, (const T*)tmax, (const T*)tmin, (const T*)adf_h,
-        (const T*)area_inv, (const int*)nd_idx, (const int*)nd_lev,
-        (const signed char*)nd_sgn, (const int*)nd_num, (const int*)nlev_nod,
-        (T*)plus, (T*)minus, (T*)adf_v_lim, (T*)adf_v_res, L, N, Ed, KD,
-        (T)dt, (T)eps);
+    with_tracers(Tb, [&](auto tr) {
+      limit_kernel<T, D, TH, decltype(tr)::value>
+          <<<blocks_for(N, TH, Tb), TH, 0, s>>>(
+              (const T*)adf_v, (const T*)tmax, (const T*)tmin,
+              (const T*)adf_h, (const T*)area_inv, (const int*)nd_idx,
+              (const int*)nd_lev, (const signed char*)nd_sgn,
+              (const int*)nd_num, (const int*)nlev_nod, (T*)plus, (T*)minus,
+              (T*)adf_v_lim, (T*)adf_v_res, L, N, Ed, KD, (T)dt, (T)eps, Tb);
+    });
   });
 }
 
@@ -1009,9 +1141,11 @@ int launch_update_fused(const void* plus, const void* minus,
                         const void* nd_num, const void* nlev_nod, void* o1,
                         void* o2, void* adf_h_lim, void* adf_h_res, int L,
                         int N, int Ed, int KD, int tile_edges, double dt,
-                        int iter_yn, int threads, int device, void* stream) {
+                        int iter_yn, int Tb, int threads, int device,
+                        void* stream) {
   if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree ||
-      tile_edges < 0)
+      tile_edges < 0 ||
+      !tracers_fit((N + kTileNodes - 1) / kTileNodes, Tb, L))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -1020,18 +1154,20 @@ int launch_update_fused(const void* plus, const void* minus,
   cudaError_t attr = cudaSuccess;
   const int rc = with_config(KD, threads, [&](auto d, auto nt) {
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
-    auto* kernel = update_fused_kernel<T, D, TH>;
-    attr = allow_dynamic_smem((const void*)kernel, smem);
-    if (attr != cudaSuccess) return;
-    kernel<<<tile_grid(N, L, kUpdateLevels), TH, smem, s>>>(
-        (const T*)plus, (const T*)minus, (const T*)adf_v_lim,
-        (const T*)adf_h, (const T*)ttf, (const T*)hnode,
-        (const T*)hnode_new, (const T*)lo, (const T*)dvin, (const T*)dhin,
-        (const T*)area_inv, (const int*)edges, (const int*)nlev_edge,
-        (const int*)ed_ptr, (const int*)nd_idx, (const int*)nd_other,
-        (const int*)nd_lev, (const signed char*)nd_sgn, (const int*)nd_num,
-        (const int*)nlev_nod, (T*)o1, (T*)o2, (T*)adf_h_lim, (T*)adf_h_res,
-        L, N, Ed, KD, tile_edges, (T)dt, iter_yn);
+    with_tracers(Tb, [&](auto tr) {
+      auto* kernel = update_fused_kernel<T, D, TH, decltype(tr)::value>;
+      attr = allow_dynamic_smem((const void*)kernel, smem);
+      if (attr != cudaSuccess) return;
+      kernel<<<tile_grid(N, L, kUpdateLevels, Tb), TH, smem, s>>>(
+          (const T*)plus, (const T*)minus, (const T*)adf_v_lim,
+          (const T*)adf_h, (const T*)ttf, (const T*)hnode,
+          (const T*)hnode_new, (const T*)lo, (const T*)dvin, (const T*)dhin,
+          (const T*)area_inv, (const int*)edges, (const int*)nlev_edge,
+          (const int*)ed_ptr, (const int*)nd_idx, (const int*)nd_other,
+          (const int*)nd_lev, (const signed char*)nd_sgn, (const int*)nd_num,
+          (const int*)nlev_nod, (T*)o1, (T*)o2, (T*)adf_h_lim,
+          (T*)adf_h_res, L, N, Ed, KD, tile_edges, (T)dt, iter_yn, Tb);
+    });
   });
   return attr != cudaSuccess ? attr : rc;
 }
@@ -1039,18 +1175,23 @@ int launch_update_fused(const void* plus, const void* minus,
 template <typename T>
 int launch_b3h(const void* plus, const void* minus, const void* adf_h,
                const void* edges, const void* nlev_edge, void* adf_h_lim,
-               void* adf_h_res, int L, int N, int Ed, int threads, int device,
-               void* stream) {
-  if (L < 1 || L > 65535 || N < 1 || Ed < 1) return cudaErrorInvalidValue;
+               void* adf_h_res, int L, int N, int Ed, int Tb, int threads,
+               int device, void* stream) {
+  if (L < 1 || L > 65535 || N < 1 || Ed < 1 ||
+      !tracers_fit((Ed + kMinThreads - 1) / kMinThreads, Tb, L))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_threads(threads, [&](auto nt) {
     constexpr int TH = decltype(nt)::value;
-    const dim3 grid((Ed + TH - 1) / TH, L);
-    b3h_kernel<T, TH><<<grid, TH, 0, s>>>(
-        (const T*)plus, (const T*)minus, (const T*)adf_h, (const int*)edges,
-        (const int*)nlev_edge, (T*)adf_h_lim, (T*)adf_h_res, N, Ed);
+    const dim3 grid(blocks_for(Ed, TH, Tb).x, L);
+    with_tracers(Tb, [&](auto tr) {
+      b3h_kernel<T, TH, decltype(tr)::value><<<grid, TH, 0, s>>>(
+          (const T*)plus, (const T*)minus, (const T*)adf_h,
+          (const int*)edges, (const int*)nlev_edge, (T*)adf_h_lim,
+          (T*)adf_h_res, L, N, Ed, Tb);
+    });
   });
 }
 
@@ -1058,20 +1199,23 @@ template <typename T>
 int launch_b3h_fixup(const void* plus, const void* minus, const void* adf_h,
                      const void* edges, const void* nlev_edge,
                      const void* ids, void* adf_h_lim, void* adf_h_res,
-                     int L, int N, int Ed, int n_ids, int threads, int device,
-                     void* stream) {
-  if (L < 1 || L > 65535 || N < 1 || Ed < 1 || n_ids < 1)
+                     int L, int N, int Ed, int n_ids, int Tb, int threads,
+                     int device, void* stream) {
+  if (L < 1 || L > 65535 || N < 1 || Ed < 1 || n_ids < 1 ||
+      !tracers_fit((n_ids + kMinThreads - 1) / kMinThreads, Tb, L))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_threads(threads, [&](auto nt) {
     constexpr int TH = decltype(nt)::value;
-    const dim3 grid((n_ids + TH - 1) / TH, L);
-    b3h_fixup_kernel<T, TH><<<grid, TH, 0, s>>>(
-        (const T*)plus, (const T*)minus, (const T*)adf_h, (const int*)edges,
-        (const int*)nlev_edge, (const int*)ids, (T*)adf_h_lim,
-        (T*)adf_h_res, N, Ed, n_ids);
+    const dim3 grid(blocks_for(n_ids, TH, Tb).x, L);
+    with_tracers(Tb, [&](auto tr) {
+      b3h_fixup_kernel<T, TH, decltype(tr)::value><<<grid, TH, 0, s>>>(
+          (const T*)plus, (const T*)minus, (const T*)adf_h,
+          (const int*)edges, (const int*)nlev_edge, (const int*)ids,
+          (T*)adf_h_lim, (T*)adf_h_res, L, N, Ed, n_ids, Tb);
+    });
   });
 }
 
@@ -1082,21 +1226,27 @@ int launch_update(const void* adf_v_lim, const void* adf_h_lim,
                   const void* area_inv, const void* nd_idx,
                   const void* nd_lev, const void* nd_sgn, const void* nd_num,
                   const void* nlev_nod, void* o1, void* o2, int L, int N,
-                  int Ed, int KD, double dt, int iter_yn, int threads,
-                  int device, void* stream) {
-  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree)
+                  int Ed, int KD, double dt, int iter_yn, int Tb,
+                  int threads, int device, void* stream) {
+  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree ||
+      !tracers_fit((N + kMinThreads - 1) / kMinThreads, Tb, L))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_config(KD, threads, [&](auto d, auto nt) {
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
-    update_kernel<T, D, TH><<<blocks_for(N, TH), TH, 0, s>>>(
-        (const T*)adf_v_lim, (const T*)adf_h_lim, (const T*)ttf,
-        (const T*)hnode, (const T*)hnode_new, (const T*)lo, (const T*)dvin,
-        (const T*)dhin, (const T*)area_inv, (const int*)nd_idx,
-        (const int*)nd_lev, (const signed char*)nd_sgn, (const int*)nd_num,
-        (const int*)nlev_nod, (T*)o1, (T*)o2, L, N, Ed, KD, (T)dt, iter_yn);
+    with_tracers(Tb, [&](auto tr) {
+      update_kernel<T, D, TH, decltype(tr)::value>
+          <<<blocks_for(N, TH, Tb), TH, 0, s>>>(
+              (const T*)adf_v_lim, (const T*)adf_h_lim, (const T*)ttf,
+              (const T*)hnode, (const T*)hnode_new, (const T*)lo,
+              (const T*)dvin, (const T*)dhin, (const T*)area_inv,
+              (const int*)nd_idx, (const int*)nd_lev,
+              (const signed char*)nd_sgn, (const int*)nd_num,
+              (const int*)nlev_nod, (T*)o1, (T*)o2, L, N, Ed, KD, (T)dt,
+              iter_yn, Tb);
+    });
   });
 }
 
@@ -1124,7 +1274,7 @@ enum OccupancyKernel { kOccBounds, kOccLimit, kOccUpdateFused, kOccB3h,
 
 // out[0] = resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 // and out[1] = grid blocks of the instance a launcher of kernel ``kernel``
-// launches at these shapes and this block size.
+// launches at these shapes and this block size, for one tracer.
 template <typename T>
 int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
               int* out, int threads, int device) {
@@ -1141,24 +1291,24 @@ int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
     switch (kernel) {
       case kOccBounds:
-        fn = (const void*)bounds_kernel<T, D, TH>;
+        fn = (const void*)bounds_kernel<T, D, TH, false>;
         grid = tile_grid(N, L, kBoundsLevels);
         break;
       case kOccLimit:
-        fn = (const void*)limit_kernel<T, D, TH>;
+        fn = (const void*)limit_kernel<T, D, TH, false>;
         grid = blocks_for(N, TH);
         break;
       case kOccUpdateFused:
-        fn = (const void*)update_fused_kernel<T, D, TH>;
+        fn = (const void*)update_fused_kernel<T, D, TH, false>;
         grid = tile_grid(N, L, kUpdateLevels);
         smem = update_fused_smem<T>(tile_edges);
         break;
       case kOccB3h:
-        fn = (const void*)b3h_kernel<T, TH>;
+        fn = (const void*)b3h_kernel<T, TH, false>;
         grid = dim3((Ed + TH - 1) / TH, L);
         break;
       case kOccUpdate:
-        fn = (const void*)update_kernel<T, D, TH>;
+        fn = (const void*)update_kernel<T, D, TH, false>;
         grid = blocks_for(N, TH);
         break;
       default:
@@ -1180,8 +1330,10 @@ int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
 }  // namespace
 
 // Plain C interface.  Every pointer is a device pointer (or null for an
-// absent optional output); ``threads`` is the block size (64, 128, 256 or
-// 512, else cudaErrorInvalidValue and no launch); ``stream`` is a
+// absent optional output); ``Tb`` (the launchers of K1, K2, K3, K3fix, K4
+// and K34) is the number of tracers, 1 or more, whose per-tracer fields
+// lie tracer-major behind each pointer; ``threads`` is the block size (64,
+// 128, 256 or 512, else cudaErrorInvalidValue and no launch); ``stream`` is a
 // cudaStream_t.  Each launcher returns cudaGetLastError() after its launch
 // (0 on success) and does not synchronise.
 extern "C" {
@@ -1189,11 +1341,11 @@ extern "C" {
 #define FCT_BOUNDS_ARGS                                                     \
   const void *lo, const void *ttf, const void *nd_other, const void *nd_lev, \
       const void *nd_num, const void *nlev_nod, void *tmax, void *tmin,     \
-      int L, int N, int KD, int vlimit, int threads, int device,            \
+      int L, int N, int KD, int vlimit, int Tb, int threads, int device,    \
       void *stream
 #define FCT_BOUNDS_CALL \
   lo, ttf, nd_other, nd_lev, nd_num, nlev_nod, tmax, tmin, L, N, KD, vlimit, \
-      threads, device, stream
+      Tb, threads, device, stream
 
 int fct_bounds_f32(FCT_BOUNDS_ARGS) { return launch_bounds<float>(FCT_BOUNDS_CALL); }
 int fct_bounds_f64(FCT_BOUNDS_ARGS) { return launch_bounds<double>(FCT_BOUNDS_CALL); }
@@ -1203,12 +1355,12 @@ int fct_bounds_f64(FCT_BOUNDS_ARGS) { return launch_bounds<double>(FCT_BOUNDS_CA
       const void *area_inv, const void *nd_idx, const void *nd_lev,          \
       const void *nd_sgn, const void *nd_num, const void *nlev_nod,          \
       void *plus, void *minus, void *adf_v_lim, void *adf_v_res, int L,      \
-      int N, int Ed, int KD, double dt, double eps, int threads, int device, \
-      void *stream
+      int N, int Ed, int KD, double dt, double eps, int Tb, int threads,    \
+      int device, void *stream
 #define FCT_LIMIT_CALL                                                      \
   adf_v, tmax, tmin, adf_h, area_inv, nd_idx, nd_lev, nd_sgn, nd_num,       \
       nlev_nod, plus, minus, adf_v_lim, adf_v_res, L, N, Ed, KD, dt, eps,   \
-      threads, device, stream
+      Tb, threads, device, stream
 
 int fct_limit_f32(FCT_LIMIT_ARGS) { return launch_limit<float>(FCT_LIMIT_CALL); }
 int fct_limit_f64(FCT_LIMIT_ARGS) { return launch_limit<double>(FCT_LIMIT_CALL); }
@@ -1242,13 +1394,13 @@ int fct_limit_fused_f64(FCT_LIMIT_FUSED_ARGS) {
       const void *nd_other, const void *nd_lev, const void *nd_sgn,          \
       const void *nd_num, const void *nlev_nod, void *o1, void *o2,          \
       void *adf_h_lim, void *adf_h_res, int L, int N, int Ed, int KD,        \
-      int tile_edges, double dt, int iter_yn, int threads, int device,       \
-      void *stream
+      int tile_edges, double dt, int iter_yn, int Tb, int threads,           \
+      int device, void *stream
 #define FCT_UPDATE_CALL                                                     \
   plus, minus, adf_v_lim, adf_h, ttf, hnode, hnode_new, lo, dvin, dhin,     \
       area_inv, edges, nlev_edge, ed_ptr, nd_idx, nd_other, nd_lev, nd_sgn, \
       nd_num, nlev_nod, o1, o2, adf_h_lim, adf_h_res, L, N, Ed, KD,         \
-      tile_edges, dt, iter_yn, threads, device, stream
+      tile_edges, dt, iter_yn, Tb, threads, device, stream
 
 int fct_update_fused_f32(FCT_UPDATE_ARGS) {
   return launch_update_fused<float>(FCT_UPDATE_CALL);
@@ -1260,10 +1412,10 @@ int fct_update_fused_f64(FCT_UPDATE_ARGS) {
 #define FCT_B3H_ARGS                                                        \
   const void *plus, const void *minus, const void *adf_h, const void *edges, \
       const void *nlev_edge, void *adf_h_lim, void *adf_h_res, int L, int N, \
-      int Ed, int threads, int device, void *stream
+      int Ed, int Tb, int threads, int device, void *stream
 #define FCT_B3H_CALL                                                        \
   plus, minus, adf_h, edges, nlev_edge, adf_h_lim, adf_h_res, L, N, Ed,     \
-      threads, device, stream
+      Tb, threads, device, stream
 
 int fct_b3h_f32(FCT_B3H_ARGS) { return launch_b3h<float>(FCT_B3H_CALL); }
 int fct_b3h_f64(FCT_B3H_ARGS) { return launch_b3h<double>(FCT_B3H_CALL); }
@@ -1271,11 +1423,11 @@ int fct_b3h_f64(FCT_B3H_ARGS) { return launch_b3h<double>(FCT_B3H_CALL); }
 #define FCT_B3H_FIXUP_ARGS                                                  \
   const void *plus, const void *minus, const void *adf_h, const void *edges, \
       const void *nlev_edge, const void *ids, void *adf_h_lim,              \
-      void *adf_h_res, int L, int N, int Ed, int n_ids, int threads,        \
+      void *adf_h_res, int L, int N, int Ed, int n_ids, int Tb, int threads, \
       int device, void *stream
 #define FCT_B3H_FIXUP_CALL                                                  \
   plus, minus, adf_h, edges, nlev_edge, ids, adf_h_lim, adf_h_res, L, N,    \
-      Ed, n_ids, threads, device, stream
+      Ed, n_ids, Tb, threads, device, stream
 
 int fct_b3h_fixup_f32(FCT_B3H_FIXUP_ARGS) {
   return launch_b3h_fixup<float>(FCT_B3H_FIXUP_CALL);
@@ -1290,12 +1442,12 @@ int fct_b3h_fixup_f64(FCT_B3H_FIXUP_ARGS) {
       const void *dvin, const void *dhin, const void *area_inv,             \
       const void *nd_idx, const void *nd_lev, const void *nd_sgn,           \
       const void *nd_num, const void *nlev_nod, void *o1, void *o2, int L,  \
-      int N, int Ed, int KD, double dt, int iter_yn, int threads,           \
+      int N, int Ed, int KD, double dt, int iter_yn, int Tb, int threads,   \
       int device, void *stream
 #define FCT_UPDATE_SPLIT_CALL                                               \
   adf_v_lim, adf_h_lim, ttf, hnode, hnode_new, lo, dvin, dhin, area_inv,    \
       nd_idx, nd_lev, nd_sgn, nd_num, nlev_nod, o1, o2, L, N, Ed, KD, dt,   \
-      iter_yn, threads, device, stream
+      iter_yn, Tb, threads, device, stream
 
 int fct_update_f32(FCT_UPDATE_SPLIT_ARGS) {
   return launch_update<float>(FCT_UPDATE_SPLIT_CALL);

@@ -41,6 +41,18 @@ Every wrapper takes ``threads``, the CUDA block size (one of ``THREADS``,
 default 128): the launch configuration the tuning harness sweeps.  The
 plain version ignores it; a value outside ``THREADS`` raises on any device.
 
+The tracer axis: ``bounds``, ``limit``, ``update_fused``, ``b3h``,
+``b3h_fixup`` and ``update`` take their per-tracer fields either 2-D (one
+tracer: [L, N], [L+1, N], [L, Ed]) or 3-D with a leading tracer axis
+([Tb, L, N], ...), as the Pallas kernels they replace take ``Tb``; their
+outputs then carry the same axis.  ``hnode``, ``hnode_new`` and the mesh
+data are shared by all tracers and stay 2-D.  One launch covers every
+tracer and counts once; each tracer's outputs are bit-identical to a
+launch on that tracer alone.  ``limit_fused``, ``a2`` and ``stress2rhs``
+take no tracer axis, as their Pallas kernels take none.  Every wrapper
+checks its inputs' shapes on the CPU as well, so a wrong shape raises
+there too.
+
 Tolerances against the plain versions, on the card: ``bounds``, ``a2``,
 ``b3h`` and ``b3h_fixup`` are bit-exact (max/min, selects, one subtraction
 or one product per output), and so are the edge outputs of
@@ -97,6 +109,37 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def _tracers(x: torch.Tensor) -> int | None:
+    """Tb of a call from one of its per-tracer inputs: the leading axis of
+    a 3-D input, None for a 2-D one (a single tracer, no axis)."""
+    if x.dim() != 3:
+        return None
+    if x.shape[0] < 1:
+        raise ValueError(f"a tracer axis needs at least one tracer, got "
+                         f"shape {tuple(x.shape)}")
+    return int(x.shape[0])
+
+
+def _rows(tb: int | None, *shape: int) -> tuple:
+    """The shape of a per-tracer field of one tracer's ``shape``."""
+    return shape if tb is None else (tb, *shape)
+
+
+def _shapes(named: dict) -> None:
+    """Raise unless every tensor has the shape given (None: absent)."""
+    for name, (t, shape) in named.items():
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+
+
+def _stack(outs) -> tuple:
+    """Per-tracer output tuples -> one tuple of [Tb, ...] tensors (an
+    output that is None for every tracer stays None)."""
+    return tuple(None if o[0] is None else torch.stack(o)
+                 for o in zip(*outs))
+
+
 def _check(md: MeshData, named: dict, slots: int) -> torch.device:
     """Raise unless every tensor is a contiguous CUDA tensor of the mesh
     data's dtype, on the mesh data's device, with the shape given, and the
@@ -149,7 +192,10 @@ def _mesh_ptrs(md: MeshData, *names) -> list:
 def bounds_ref(md: MeshData, fct_LO, ttf, vlimit: int):
     """a1, the element-cluster bounds through the edge-neighbour identity
     (for every vlimit, as the kernel computes them), then the vlimit window
-    and ``- fct_LO``."""
+    and ``- fct_LO``.  3-D inputs: each tracer on its own, stacked."""
+    if fct_LO.dim() == 3:
+        return _stack(bounds_ref(md, lo, t, vlimit)
+                      for lo, t in zip(fct_LO, ttf))
     tmax, tmin = stages.a1(md, fct_LO, ttf)
     cmax, cmin = stages._cluster_reduce_via_edges(md, tmax, tmin)
     if vlimit == 1:
@@ -160,22 +206,26 @@ def bounds_ref(md: MeshData, fct_LO, ttf, vlimit: int):
 
 def bounds(md: MeshData, fct_LO, ttf, vlimit: int, *,
            threads: int = DEFAULT_THREADS):
-    """K1 -> (fct_ttf_max, fct_ttf_min), each [L, N]."""
+    """K1 -> (fct_ttf_max, fct_ttf_min), each [L, N] (or [Tb, L, N] for
+    inputs with a tracer axis)."""
     threads = check_threads(threads, md.nd_idx.shape[1])
+    L, N = md.n_layers, md.n_nodes
+    tb = _tracers(fct_LO)
+    checks = dict(fct_LO=(fct_LO, _rows(tb, L, N)),
+                  ttf=(ttf, _rows(tb, L, N)))
     if _on_cpu(fct_LO, ttf, md.area_inv):
+        _shapes(checks)
         return bounds_ref(md, fct_LO, ttf, vlimit)
     if vlimit not in (1, 2, 3):
         raise ValueError(f"vlimit must be 1, 2 or 3, got {vlimit}")
-    L, N = md.n_layers, md.n_nodes
-    dev = _check(md, dict(fct_LO=(fct_LO, (L, N)), ttf=(ttf, (L, N))),
-                 md.nd_idx.shape[1])
-    tmax = torch.empty((L, N), dtype=md.dtype, device=dev)
+    dev = _check(md, checks, md.nd_idx.shape[1])
+    tmax = torch.empty(_rows(tb, L, N), dtype=md.dtype, device=dev)
     tmin = torch.empty_like(tmax)
     _launch("fct_bounds", md, dev, threads, fct_LO.data_ptr(),
             ttf.data_ptr(),
             *_mesh_ptrs(md, "nd_other", "nd_lev", "nd_num", "nlev_nod"),
             tmax.data_ptr(), tmin.data_ptr(), L, N, md.nd_idx.shape[1],
-            vlimit)
+            vlimit, tb or 1)
     bounds.launches += 1
     return tmax, tmin
 
@@ -190,6 +240,10 @@ bounds.launches = 0
 
 def limit_ref(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
               flux_eps: float, iter_yn: bool):
+    if fct_adf_v.dim() == 3:
+        return _stack(limit_ref(md, av, tx, tn, ah, dt, flux_eps, iter_yn)
+                      for av, tx, tn, ah in zip(fct_adf_v, tmax, tmin,
+                                                fct_adf_h))
     plus, minus = stages.b1_vertical(md, fct_adf_v)
     plus, minus = stages.b1_horizontal(md, plus, minus, fct_adf_h)
     plus, minus = stages.b2(md, plus, minus, tmax, tmin, dt, flux_eps)
@@ -201,19 +255,22 @@ def limit_ref(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
 def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
           flux_eps: float, iter_yn: bool, *, threads: int = DEFAULT_THREADS):
     """K2 -> (fct_plus [L, N], fct_minus [L, N], limited fct_adf_v
-    [L+1, N], its residual [L+1, N] when ``iter_yn`` else None)."""
+    [L+1, N], its residual [L+1, N] when ``iter_yn`` else None), each with
+    the inputs' tracer axis when they have one."""
     threads = check_threads(threads, md.nd_idx.shape[1])
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    tb = _tracers(fct_adf_v)
+    checks = dict(fct_adf_v=(fct_adf_v, _rows(tb, L + 1, N)),
+                  tmax=(tmax, _rows(tb, L, N)), tmin=(tmin, _rows(tb, L, N)),
+                  fct_adf_h=(fct_adf_h, _rows(tb, L, Ed)))
     if _on_cpu(fct_adf_v, tmax, tmin, fct_adf_h, md.area_inv):
+        _shapes(checks)
         return limit_ref(md, fct_adf_v, tmax, tmin, fct_adf_h, dt, flux_eps,
                          iter_yn)
-    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
-    dev = _check(md, dict(fct_adf_v=(fct_adf_v, (L + 1, N)),
-                          tmax=(tmax, (L, N)), tmin=(tmin, (L, N)),
-                          fct_adf_h=(fct_adf_h, (L, Ed))),
-                 md.nd_idx.shape[1])
-    plus = torch.empty((L, N), dtype=md.dtype, device=dev)
+    dev = _check(md, checks, md.nd_idx.shape[1])
+    plus = torch.empty(_rows(tb, L, N), dtype=md.dtype, device=dev)
     minus = torch.empty_like(plus)
-    adf_v_lim = torch.empty((L + 1, N), dtype=md.dtype, device=dev)
+    adf_v_lim = torch.empty(_rows(tb, L + 1, N), dtype=md.dtype, device=dev)
     adf_v_res = torch.empty_like(adf_v_lim) if iter_yn else None
     _launch("fct_limit", md, dev, threads, fct_adf_v.data_ptr(),
             tmax.data_ptr(),
@@ -222,7 +279,7 @@ def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
                         "nd_num", "nlev_nod"),
             plus.data_ptr(), minus.data_ptr(), adf_v_lim.data_ptr(),
             _ptr(adf_v_res), L, N, Ed, md.nd_idx.shape[1], float(dt),
-            float(flux_eps))
+            float(flux_eps), tb or 1)
     limit.launches += 1
     return plus, minus, adf_v_lim, adf_v_res
 
@@ -248,18 +305,20 @@ def limit_fused(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
                 threads: int = DEFAULT_THREADS):
     """K12 -> (fct_ttf_max, fct_ttf_min, fct_plus, fct_minus, limited
     fct_adf_v, its residual or None): :func:`bounds` and :func:`limit` in
-    one launch, without the bounds' round trip through device memory."""
+    one launch, without the bounds' round trip through device memory.
+    One tracer only: H-K12 has no tracer axis."""
     threads = check_threads(threads, md.nd_idx.shape[1])
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    checks = dict(fct_LO=(fct_LO, (L, N)), ttf=(ttf, (L, N)),
+                  fct_adf_v=(fct_adf_v, (L + 1, N)),
+                  fct_adf_h=(fct_adf_h, (L, Ed)))
     if _on_cpu(fct_LO, ttf, fct_adf_v, fct_adf_h, md.area_inv):
+        _shapes(checks)
         return limit_fused_ref(md, fct_LO, ttf, fct_adf_v, fct_adf_h, vlimit,
                                dt, flux_eps, iter_yn)
     if vlimit not in (1, 2, 3):
         raise ValueError(f"vlimit must be 1, 2 or 3, got {vlimit}")
-    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
-    dev = _check(md, dict(fct_LO=(fct_LO, (L, N)), ttf=(ttf, (L, N)),
-                          fct_adf_v=(fct_adf_v, (L + 1, N)),
-                          fct_adf_h=(fct_adf_h, (L, Ed))),
-                 md.nd_idx.shape[1])
+    dev = _check(md, checks, md.nd_idx.shape[1])
     tmax = torch.empty((L, N), dtype=md.dtype, device=dev)
     tmin = torch.empty_like(tmax)
     plus = torch.empty_like(tmax)
@@ -297,36 +356,52 @@ def update_fused_ref(md: MeshData, fct_plus, fct_minus, adf_v_lim,
     return o1, o2, adf_h_lim, adf_h_res
 
 
+def _stage_c_checks(tb, L: int, N: int, ttf, hnode, hnode_new, fct_LO,
+                    del_ttf_advvert, del_ttf_advhoriz) -> dict:
+    """Shapes of stage c's node inputs: per-tracer ones with the call's
+    tracer axis, ``hnode`` and ``hnode_new`` shared [L, N]."""
+    return dict(ttf=(ttf, _rows(tb, L, N)), hnode=(hnode, (L, N)),
+                hnode_new=(hnode_new, (L, N)),
+                fct_LO=(fct_LO, _rows(tb, L, N)),
+                del_ttf_advvert=(del_ttf_advvert, _rows(tb, L, N)),
+                del_ttf_advhoriz=(del_ttf_advhoriz, _rows(tb, L, N)))
+
+
 def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
                  ttf, hnode, hnode_new, fct_LO, del_ttf_advvert,
                  del_ttf_advhoriz, dt: float, iter_yn: bool, *,
                  threads: int = DEFAULT_THREADS):
-    """K34 -> (o1, o2, limited fct_adf_h [L, Ed], its residual).
+    """K34 -> (o1, o2, limited fct_adf_h [L, Ed], its residual), each with
+    the inputs' tracer axis when they have one.
 
     Non-iterative: o1, o2 are the new ``del_ttf_advvert`` and
     ``del_ttf_advhoriz``, and the residual is None.  Iterative: o1 is the
     new ``fct_LO``, o2 is None, and the residual is [L, Ed].  Every edge
     output is written once, by the block of the node tile in which the
-    edge starts (``md.ed_ptr``); the kernel keeps ``md.tile_edges``
-    limited fluxes a level in shared memory."""
+    edge starts (``md.ed_ptr``, which raises unless the mesh's edges are
+    sorted so); the kernel keeps ``md.tile_edges`` limited fluxes a level
+    in shared memory."""
     threads = check_threads(threads, md.nd_idx.shape[1])
-    node_in = (fct_plus, fct_minus, ttf, hnode, hnode_new, fct_LO,
-               del_ttf_advvert, del_ttf_advhoriz)
-    if _on_cpu(adf_v_lim, fct_adf_h, md.area_inv, *node_in):
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    tb = _tracers(fct_plus)
+    checks = dict(fct_plus=(fct_plus, _rows(tb, L, N)),
+                  fct_minus=(fct_minus, _rows(tb, L, N)),
+                  adf_v_lim=(adf_v_lim, _rows(tb, L + 1, N)),
+                  fct_adf_h=(fct_adf_h, _rows(tb, L, Ed)),
+                  **_stage_c_checks(tb, L, N, ttf, hnode, hnode_new, fct_LO,
+                                    del_ttf_advvert, del_ttf_advhoriz))
+    if _on_cpu(fct_plus, fct_minus, adf_v_lim, fct_adf_h, ttf, hnode,
+               hnode_new, fct_LO, del_ttf_advvert, del_ttf_advhoriz,
+               md.area_inv):
+        _shapes(checks)
         return update_fused_ref(md, fct_plus, fct_minus, adf_v_lim,
                                 fct_adf_h, ttf, hnode, hnode_new, fct_LO,
                                 del_ttf_advvert, del_ttf_advhoriz, dt,
                                 iter_yn)
-    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
-    names = ("fct_plus", "fct_minus", "ttf", "hnode", "hnode_new", "fct_LO",
-             "del_ttf_advvert", "del_ttf_advhoriz")
-    checks = {n: (t, (L, N)) for n, t in zip(names, node_in)}
-    checks.update(adf_v_lim=(adf_v_lim, (L + 1, N)),
-                  fct_adf_h=(fct_adf_h, (L, Ed)))
     dev = _check(md, checks, md.nd_idx.shape[1])
-    o1 = torch.empty((L, N), dtype=md.dtype, device=dev)
+    o1 = torch.empty(_rows(tb, L, N), dtype=md.dtype, device=dev)
     o2 = None if iter_yn else torch.empty_like(o1)
-    adf_h_lim = torch.empty((L, Ed), dtype=md.dtype, device=dev)
+    adf_h_lim = torch.empty(_rows(tb, L, Ed), dtype=md.dtype, device=dev)
     adf_h_res = torch.empty_like(adf_h_lim) if iter_yn else None
     _launch("fct_update_fused", md, dev, threads, fct_plus.data_ptr(),
             fct_minus.data_ptr(), adf_v_lim.data_ptr(), fct_adf_h.data_ptr(),
@@ -338,7 +413,7 @@ def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
                         "nlev_nod"),
             o1.data_ptr(), _ptr(o2), adf_h_lim.data_ptr(), _ptr(adf_h_res),
             L, N, Ed, md.nd_idx.shape[1], md.tile_edges, float(dt),
-            int(iter_yn))
+            int(iter_yn), tb or 1)
     update_fused.launches += 1
     return o1, o2, adf_h_lim, adf_h_res
 
@@ -353,26 +428,33 @@ update_fused.launches = 0
 
 
 def b3h_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool):
+    if fct_plus.dim() == 3:
+        return _stack(b3h_ref(md, p, m, ah, iter_yn)
+                      for p, m, ah in zip(fct_plus, fct_minus, fct_adf_h))
     return stages.b3_horizontal(md, fct_plus, fct_minus, fct_adf_h, iter_yn)
 
 
 def b3h(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool, *,
         threads: int = DEFAULT_THREADS):
     """K3 -> (limited fct_adf_h [L, Ed], its residual [L, Ed] when
-    ``iter_yn`` else None), for every edge."""
+    ``iter_yn`` else None), for every edge, each with the inputs' tracer
+    axis when they have one."""
     threads = check_threads(threads)
-    if _on_cpu(fct_plus, fct_minus, fct_adf_h, md.area_inv):
-        return b3h_ref(md, fct_plus, fct_minus, fct_adf_h, iter_yn)
     L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
-    dev = _check(md, dict(fct_plus=(fct_plus, (L, N)),
-                          fct_minus=(fct_minus, (L, N)),
-                          fct_adf_h=(fct_adf_h, (L, Ed))), 0)
-    adf_h_lim = torch.empty((L, Ed), dtype=md.dtype, device=dev)
+    tb = _tracers(fct_plus)
+    checks = dict(fct_plus=(fct_plus, _rows(tb, L, N)),
+                  fct_minus=(fct_minus, _rows(tb, L, N)),
+                  fct_adf_h=(fct_adf_h, _rows(tb, L, Ed)))
+    if _on_cpu(fct_plus, fct_minus, fct_adf_h, md.area_inv):
+        _shapes(checks)
+        return b3h_ref(md, fct_plus, fct_minus, fct_adf_h, iter_yn)
+    dev = _check(md, checks, 0)
+    adf_h_lim = torch.empty(_rows(tb, L, Ed), dtype=md.dtype, device=dev)
     adf_h_res = torch.empty_like(adf_h_lim) if iter_yn else None
     _launch("fct_b3h", md, dev, threads, fct_plus.data_ptr(),
             fct_minus.data_ptr(),
             fct_adf_h.data_ptr(), *_mesh_ptrs(md, "edges", "nlev_edge"),
-            adf_h_lim.data_ptr(), _ptr(adf_h_res), L, N, Ed)
+            adf_h_lim.data_ptr(), _ptr(adf_h_res), L, N, Ed, tb or 1)
     b3h.launches += 1
     return adf_h_lim, adf_h_res
 
@@ -382,6 +464,13 @@ b3h.launches = 0
 
 def b3h_fixup_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
                   adf_h_res, fix_ids, iter_yn: bool):
+    if fct_plus.dim() == 3:
+        # each tracer in place into its slice of the outputs
+        for t in range(fct_plus.shape[0]):
+            b3h_fixup_ref(md, fct_plus[t], fct_minus[t], fct_adf_h[t],
+                          adf_h_lim[t], adf_h_res[t] if iter_yn else None,
+                          fix_ids, iter_yn)
+        return adf_h_lim, adf_h_res
     ids = fix_ids.long()
     lim, res = stages.b3_limit_edges(
         fct_plus, fct_minus, fct_adf_h.index_select(1, ids),
@@ -396,21 +485,24 @@ def b3h_fixup_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
 def b3h_fixup(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
               adf_h_res, fix_ids, iter_yn: bool, *,
               threads: int = DEFAULT_THREADS):
-    """K3fix: b3 horizontal again on the edges ``fix_ids`` (int32 [F]),
-    written in place into K3's outputs ``adf_h_lim`` (and ``adf_h_res``
-    when ``iter_yn``), which it returns.  An empty id list launches
-    nothing."""
+    """K3fix: b3 horizontal again on the edges ``fix_ids`` (int32 [F], the
+    same for every tracer), written in place into K3's outputs
+    ``adf_h_lim`` (and ``adf_h_res`` when ``iter_yn``), which it returns.
+    An empty id list launches nothing."""
     threads = check_threads(threads)
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    tb = _tracers(fct_plus)
+    checks = dict(fct_plus=(fct_plus, _rows(tb, L, N)),
+                  fct_minus=(fct_minus, _rows(tb, L, N)),
+                  fct_adf_h=(fct_adf_h, _rows(tb, L, Ed)),
+                  adf_h_lim=(adf_h_lim, _rows(tb, L, Ed)))
+    if iter_yn:
+        checks["adf_h_res"] = (adf_h_res, _rows(tb, L, Ed))
     if _on_cpu(fct_plus, fct_minus, fct_adf_h, adf_h_lim, fix_ids,
                md.area_inv):
+        _shapes(checks)
         return b3h_fixup_ref(md, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
                              adf_h_res, fix_ids, iter_yn)
-    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
-    checks = dict(fct_plus=(fct_plus, (L, N)), fct_minus=(fct_minus, (L, N)),
-                  fct_adf_h=(fct_adf_h, (L, Ed)),
-                  adf_h_lim=(adf_h_lim, (L, Ed)))
-    if iter_yn:
-        checks["adf_h_res"] = (adf_h_res, (L, Ed))
     dev = _check(md, checks, 0)
     if (fix_ids.device != dev or fix_ids.dtype != torch.int32
             or fix_ids.dim() != 1 or not fix_ids.is_contiguous()):
@@ -422,7 +514,7 @@ def b3h_fixup(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
                 fct_minus.data_ptr(), fct_adf_h.data_ptr(),
                 *_mesh_ptrs(md, "edges", "nlev_edge"), fix_ids.data_ptr(),
                 adf_h_lim.data_ptr(), _ptr(adf_h_res if iter_yn else None),
-                L, N, Ed, n_ids)
+                L, N, Ed, n_ids, tb or 1)
         b3h_fixup.launches += 1
     return adf_h_lim, adf_h_res
 
@@ -438,6 +530,13 @@ b3h_fixup.launches = 0
 def update_ref(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
                fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt: float,
                iter_yn: bool):
+    if ttf.dim() == 3:
+        return _stack(
+            update_ref(md, av, ah, t, hnode, hnode_new, lo, dv, dh, dt,
+                       iter_yn)
+            for av, ah, t, lo, dv, dh in zip(adf_v_lim, adf_h_lim, ttf,
+                                             fct_LO, del_ttf_advvert,
+                                             del_ttf_advhoriz))
     if iter_yn:
         return stages.c_update_LO(md, fct_LO, adf_v_lim, adf_h_lim,
                                   hnode_new, dt), None
@@ -450,22 +549,23 @@ def update(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
            fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt: float,
            iter_yn: bool, *, threads: int = DEFAULT_THREADS):
     """K4 -> (o1, o2) from the limited fluxes ``adf_v_lim`` [L+1, N] and
-    ``adf_h_lim`` [L, Ed]; o1, o2 as in :func:`update_fused`."""
+    ``adf_h_lim`` [L, Ed]; o1, o2 as in :func:`update_fused`, with the
+    inputs' tracer axis when they have one."""
     threads = check_threads(threads, md.nd_idx.shape[1])
-    node_in = (ttf, hnode, hnode_new, fct_LO, del_ttf_advvert,
-               del_ttf_advhoriz)
-    if _on_cpu(adf_v_lim, adf_h_lim, md.area_inv, *node_in):
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    tb = _tracers(ttf)
+    checks = dict(adf_v_lim=(adf_v_lim, _rows(tb, L + 1, N)),
+                  adf_h_lim=(adf_h_lim, _rows(tb, L, Ed)),
+                  **_stage_c_checks(tb, L, N, ttf, hnode, hnode_new, fct_LO,
+                                    del_ttf_advvert, del_ttf_advhoriz))
+    if _on_cpu(adf_v_lim, adf_h_lim, ttf, hnode, hnode_new, fct_LO,
+               del_ttf_advvert, del_ttf_advhoriz, md.area_inv):
+        _shapes(checks)
         return update_ref(md, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
                           fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt,
                           iter_yn)
-    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
-    names = ("ttf", "hnode", "hnode_new", "fct_LO", "del_ttf_advvert",
-             "del_ttf_advhoriz")
-    checks = {n: (t, (L, N)) for n, t in zip(names, node_in)}
-    checks.update(adf_v_lim=(adf_v_lim, (L + 1, N)),
-                  adf_h_lim=(adf_h_lim, (L, Ed)))
     dev = _check(md, checks, md.nd_idx.shape[1])
-    o1 = torch.empty((L, N), dtype=md.dtype, device=dev)
+    o1 = torch.empty(_rows(tb, L, N), dtype=md.dtype, device=dev)
     o2 = None if iter_yn else torch.empty_like(o1)
     _launch("fct_update", md, dev, threads, adf_v_lim.data_ptr(),
             adf_h_lim.data_ptr(), ttf.data_ptr(), hnode.data_ptr(),
@@ -474,7 +574,7 @@ def update(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
             *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn",
                         "nd_num", "nlev_nod"),
             o1.data_ptr(), _ptr(o2), L, N, Ed, md.nd_idx.shape[1],
-            float(dt), int(iter_yn))
+            float(dt), int(iter_yn), tb or 1)
     update.launches += 1
     return o1, o2
 
@@ -497,10 +597,12 @@ def a2(md: MeshData, tmax, tmin, bignumber: float, *,
     ``tmin`` [L, N] over each element's 3 nodes on its active levels
     (z < nlev_elem - 1), -bignumber / +bignumber below."""
     threads = check_threads(threads)
-    if _on_cpu(tmax, tmin, md.area_inv):
-        return a2_ref(md, tmax, tmin, bignumber)
     L, N, E = md.n_layers, md.n_nodes, md.n_elems
-    dev = _check(md, dict(tmax=(tmax, (L, N)), tmin=(tmin, (L, N))), 0)
+    checks = dict(tmax=(tmax, (L, N)), tmin=(tmin, (L, N)))
+    if _on_cpu(tmax, tmin, md.area_inv):
+        _shapes(checks)
+        return a2_ref(md, tmax, tmin, bignumber)
+    dev = _check(md, checks, 0)
     uv_max = torch.empty((L, E), dtype=md.dtype, device=dev)
     uv_min = torch.empty_like(uv_max)
     _launch("fct_a2", md, dev, threads, tmax.data_ptr(), tmin.data_ptr(),
@@ -555,15 +657,16 @@ def stress2rhs(md: MeshData, slab, inv_areamass, rhs_a, rhs_m, *,
     s11, s12, s22, area * (ice_strength > 0), metric_factor / 3,
     gradient_sca 0..5) and the node rows [N]."""
     threads = check_threads(threads)
-    if _on_cpu(slab, inv_areamass, rhs_a, rhs_m, md.area_inv):
-        return stress2rhs_ref(md, slab, inv_areamass, rhs_a, rhs_m)
     N, E = md.n_nodes, md.n_elems
+    checks = dict(slab=(slab, (SLAB_ROWS, E)),
+                  inv_areamass=(inv_areamass, (N,)), rhs_a=(rhs_a, (N,)),
+                  rhs_m=(rhs_m, (N,)))
+    if _on_cpu(slab, inv_areamass, rhs_a, rhs_m, md.area_inv):
+        _shapes(checks)
+        return stress2rhs_ref(md, slab, inv_areamass, rhs_a, rhs_m)
     if 3 * E + 2 > torch.iinfo(torch.int32).max:
         raise ValueError(f"{E} elements overflow the int32 slot codes")
-    dev = _check(md, dict(slab=(slab, (SLAB_ROWS, E)),
-                          inv_areamass=(inv_areamass, (N,)),
-                          rhs_a=(rhs_a, (N,)), rhs_m=(rhs_m, (N,))),
-                 md.ne_slot.shape[0])
+    dev = _check(md, checks, md.ne_slot.shape[0])
     out = torch.empty((2, N), dtype=md.dtype, device=dev)
     _launch("stress2rhs", md, dev, threads, slab.data_ptr(),
             md.ne_slot.data_ptr(),
@@ -587,9 +690,9 @@ OCCUPANCY = ("bounds", "limit", "update_fused", "b3h", "update")
 def occupancy(md: MeshData, name: str, *,
               threads: int = DEFAULT_THREADS) -> dict:
     """How kernel ``name`` (one of OCCUPANCY) fills the card of ``md`` when
-    launched at ``md``'s shapes: ``blocks_per_sm`` resident blocks
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), ``grid_blocks`` and
-    ``waves`` = grid blocks / (blocks per SM x SMs).  CUDA only."""
+    launched at ``md``'s shapes for one tracer: ``blocks_per_sm`` resident
+    blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor), ``grid_blocks``
+    and ``waves`` = grid blocks / (blocks per SM x SMs).  CUDA only."""
     threads = check_threads(threads, md.nd_idx.shape[1])
     dev = _check(md, {}, md.nd_idx.shape[1])
     out = (ctypes.c_int * 2)()

@@ -27,6 +27,14 @@ forms the JAX package selects with ``build_pallas_data(fuse_k12=,
 fuse_k34=)``: K1 -> K2 or K12, then K34 or K3 -> K4.  On one device there
 is no halo, so K3 needs no fixup.  The default is K1 -> K2 -> K34.
 Every phase takes ``threads``, the kernels' block size.
+
+Every phase also takes a batched state, the layout of the JAX package's
+``fct_ale_step_pallas_batched``: each per-tracer field with a leading
+tracer axis ([Tb, L, N], [Tb, L+1, N], [Tb, L, Ed]) and ``hnode``,
+``hnode_new`` (``BATCH_SHARED``) shared [L, N].  The kernels take the
+tracer axis in one launch each, so a batched step launches what a
+single-tracer step does, whatever Tb is; :func:`fct_ale_step_cuda_batched`
+is that step.  K12 has no tracer axis, so it takes one tracer only.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ from fesom2_accelerate_tpu_torch.config import FctAleConfig
 from fesom2_accelerate_tpu_torch.ops.cuda import kernels
 from fesom2_accelerate_tpu_torch.ops.cuda.kernels import DEFAULT_THREADS
 from fesom2_accelerate_tpu_torch.ops.meshdata import MeshData
+
+# the fields of a batched state that every tracer shares ([L, N], no axis)
+BATCH_SHARED = frozenset({"hnode", "hnode_new"})
 
 
 def pre_exchange(md: MeshData, cfg: FctAleConfig, state: dict, *,
@@ -137,3 +148,24 @@ def fct_ale_step_cuda(md: MeshData, cfg: FctAleConfig, state: dict, *,
         return post_exchange_fused(md, cfg, state, pre, threads=threads)
     edges = limit_edges(md, cfg, state, pre, threads=threads)
     return _update(md, cfg, state, pre, edges, threads)
+
+
+def fct_ale_step_cuda_batched(md: MeshData, cfg: FctAleConfig, state: dict,
+                              *, fuse_k12: bool = False,
+                              fuse_k34: bool = True,
+                              threads: int = DEFAULT_THREADS) -> dict:
+    """The multi-tracer step, counterpart of the JAX package's
+    ``fct_ale_step_pallas_batched``: ``state`` holds each per-tracer field
+    [Tb, ...] and ``hnode``/``hnode_new`` shared [L, N]; the output has the
+    keys of :func:`fct_ale_step_cuda`, each per-tracer one [Tb, ...].  Tb
+    independent single-tracer steps, in the launches of one (K1 -> K2 ->
+    K34, or K3 -> K4 when not ``fuse_k34``).  ``fuse_k12`` raises: the
+    batched step runs K1 -> K2, as the JAX package's does."""
+    if fuse_k12:
+        raise ValueError("fuse_k12: H-K12 has no tracer axis; a batched "
+                         "step runs K1 -> K2")
+    if state["ttf"].dim() != 3:
+        raise ValueError(f"a batched state holds ttf as [Tb, L, N], got "
+                         f"shape {tuple(state['ttf'].shape)}")
+    return fct_ale_step_cuda(md, cfg, state, fuse_k34=fuse_k34,
+                             threads=threads)

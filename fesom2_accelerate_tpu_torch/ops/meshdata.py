@@ -11,14 +11,18 @@ and ``ne_slot`` is the node->element incidence that the stress2rhs kernel
 reads, slot-major.
 
 H-K34 writes every edge output from the block of the node tile in which
-the edge starts.  Edges are sorted by their first endpoint and oriented
-n0 < n1 (``mesh/topology.py:_build_edges``; a part keeps both,
-``parallel/partition.py:_build_local_mesh``), so the edges that start at
-node n are the index range ``ed_ptr[n] .. ed_ptr[n+1]``, and those of a
-tile of nodes one range.  A part's padding edges, (0, 0) with no active
-level, are the tail after ``ed_ptr[N]``; the last tile passes them
-through.  On a part an edge from a low-side halo column to an owned node
-is written by the tile of the halo column.
+the edge starts.  The meshes the repo builds have their edges sorted by
+their first endpoint and oriented n0 < n1 (``mesh/topology.py:
+_build_edges``; a part keeps both, ``parallel/partition.py:
+_build_local_mesh``), so the edges that start at node n are the index
+range ``ed_ptr[n] .. ed_ptr[n+1]``, and those of a tile of nodes one range.
+A part's padding edges, (0, 0) with no active level, are the tail after
+``ed_ptr[N]``; the last tile passes them through.  On a part an edge from a
+low-side halo column to an owned node is written by the tile of the halo
+column.  ``ed_ptr`` is computed on first read, and reading it raises for
+edges in any other order: only H-K34 needs it, so mesh data of any edge
+order serves every other kernel and the plain stages, as the JAX package's
+does.
 """
 
 from __future__ import annotations
@@ -71,9 +75,6 @@ class MeshData:
     nd_sgn: torch.Tensor  # [N, KD] int8, +1 first endpoint, -1 second (0 pad)
     nlev_edge: torch.Tensor  # [Ed] int32, active levels of each edge
     nlev_elem: torch.Tensor  # [E] int32, levels of each element (a2's mask)
-    # [N+1] int32, the edges whose first endpoint is n are ed_ptr[n] ..
-    # ed_ptr[n+1]-1; a part's padding edges follow ed_ptr[N]
-    ed_ptr: torch.Tensor
     # [KE, N] int32, 3 * element + local position of each valid incidence
     # slot, -1 in padding; slot-major so that neighbouring node threads read
     # neighbouring words
@@ -104,6 +105,16 @@ class MeshData:
         return self.area_inv.device
 
     @functools.cached_property
+    def ed_ptr(self) -> torch.Tensor:
+        """[N+1] int32 on the mesh data's device: the edges whose first
+        endpoint is n are ``ed_ptr[n] .. ed_ptr[n+1]-1``, a part's padding
+        edges follow ``ed_ptr[N]`` (see the module note).  Computed from
+        ``edges`` on first read; raises as :func:`check_edge_order`."""
+        head = self.edges[:check_edge_order(self.edges), 0].long()
+        nodes = torch.arange(self.n_nodes + 1, device=head.device)
+        return torch.searchsorted(head.contiguous(), nodes).to(torch.int32)
+
+    @functools.cached_property
     def tile_edges(self) -> int:
         """The most edges that start in one tile of TILE_NODES nodes: the
         limited fluxes a level that H-K34 keeps in shared memory.  Read
@@ -112,6 +123,22 @@ class MeshData:
                               device=self.ed_ptr.device)
         ends = (starts + TILE_NODES).clamp(max=self.n_nodes)
         return int((self.ed_ptr[ends] - self.ed_ptr[starts]).max())
+
+
+def check_edge_order(edges: torch.Tensor) -> int:
+    """The number of edges that are not padding ((n, n)), after checking
+    the order that ``MeshData.ed_ptr`` (H-K34's edge ranges) needs: those
+    edges first, each oriented n0 < n1, sorted by n0.  Raises ValueError
+    otherwise."""
+    first, second = edges[:, 0].long(), edges[:, 1].long()
+    n_real = int((first != second).sum())
+    head = first[:n_real]
+    if (bool((head >= second[:n_real]).any())
+            or bool((first[n_real:] != second[n_real:]).any())
+            or bool((head[1:] < head[:-1]).any())):
+        raise ValueError("H-K34 needs the edges oriented n0 < n1, sorted by "
+                         "n0, with the padding edges (n, n) last")
+    return n_real
 
 
 def _masks(mesh: Mesh) -> dict:
@@ -147,22 +174,8 @@ def _masks(mesh: Mesh) -> dict:
     )
 
 
-def _edge_ptr(edges, n_nodes: int):
-    """ed_ptr [N+1] of the edges (see the module note).  Raises unless the
-    edges that are not padding come first, are oriented n0 < n1 and are
-    sorted by n0."""
-    first, second = edges[:, 0], edges[:, 1]
-    n_real = int(np.count_nonzero(first != second))
-    if (np.any(first[:n_real] >= second[:n_real])
-            or np.any(first[n_real:] != second[n_real:])
-            or np.any(np.diff(first[:n_real]) < 0)):
-        raise ValueError("H-K34 needs the edges oriented n0 < n1, sorted by "
-                         "n0, with the padding edges (n, n) last")
-    return np.searchsorted(first[:n_real], np.arange(n_nodes + 1))
-
-
-def _kernel_rows(edges, nd_idx, nd_k, nd_sign, nlev_edge, nlev_nod, ne_idx,
-                 ne_pos, ne_k) -> dict:
+def _kernel_rows(nd_idx, nd_k, nd_sign, nlev_edge, nlev_nod, ne_idx, ne_pos,
+                 ne_k) -> dict:
     """The per-node and per-edge rows the CUDA kernels read, from the
     shared fields."""
     return dict(
@@ -171,15 +184,13 @@ def _kernel_rows(edges, nd_idx, nd_k, nd_sign, nlev_edge, nlev_nod, ne_idx,
         nd_lev=np.where(nd_k, nlev_edge[nd_idx], 0),
         nd_sgn=np.where(nd_k, np.sign(nd_sign), 0),
         nlev_edge=nlev_edge,
-        ed_ptr=_edge_ptr(edges, len(nlev_nod)),
         ne_slot=np.ascontiguousarray(
             np.where(ne_k, 3 * ne_idx.astype(np.int64) + ne_pos, -1).T),
     )
 
 
 _INT32 = ("elem_nodes", "edges", "ne_idx", "ne_pos", "nd_idx", "nd_other",
-          "nlev_nod", "nd_num", "nd_lev", "nlev_edge", "nlev_elem", "ed_ptr",
-          "ne_slot")
+          "nlev_nod", "nd_num", "nd_lev", "nlev_edge", "nlev_elem", "ne_slot")
 _INT8 = ("nd_sgn",)
 _FLOAT = ("nd_sign", "area_inv")
 
@@ -238,7 +249,7 @@ def build_mesh_data(mesh: Mesh, dtype: torch.dtype,
         interior_row=interior_row,
         not_surface=not_surface,
         nlev_elem=mesh.nlev_elem,
-        **_kernel_rows(mesh.edges, mk["nd_idx"], mk["nd_k"], mk["nd_sign"],
+        **_kernel_rows(mk["nd_idx"], mk["nd_k"], mk["nd_sign"],
                        mesh.nlev_edge, mesh.nlev_nod, mk["ne_idx"], ne_pos,
                        mk["ne_k"]),
     )
@@ -259,9 +270,9 @@ def mesh_data_from_numpy(arrays: dict,
     nlev_edge = a["edge_mask"].sum(axis=0)
     nlev_nod = a["vint_mask"].sum(axis=0) + 1
     full = dict(a, nlev_elem=a["elem_mask"].sum(axis=0) + 1,
-                **_kernel_rows(a["edges"], a["nd_idx"], a["nd_k"],
-                               a["nd_sign"], nlev_edge, nlev_nod, a["ne_idx"],
-                               a["ne_pos"], a["ne_k"]))
+                **_kernel_rows(a["nd_idx"], a["nd_k"], a["nd_sign"],
+                               nlev_edge, nlev_nod, a["ne_idx"], a["ne_pos"],
+                               a["ne_k"]))
     dtype = {np.dtype(np.float32): torch.float32,
              np.dtype(np.float64): torch.float64}[a["area_inv"].dtype]
     return _to_tensors(full, dtype, torch.device(device))

@@ -36,6 +36,13 @@ devices:
 Halo columns that hold no node keep what the kernels wrote there; no
 gather reads them.  In iterative mode the new ``fct_LO`` is exchanged after
 stage c, so the next iteration's K1 sees current halo values.
+
+Tracers (``tracers=Tb``, cuda only, as the JAX package batches on its
+Pallas backend only): each per-tracer field of a part is [Tb, rows, cols]
+and ``hnode``/``hnode_new`` are shared [L, 2H+B]; every phase runs its
+kernels once for all tracers, and one halo fill per field moves every
+tracer's halo columns, as the JAX package's one exchange does.  The
+launches and exchange ops of a step do not depend on Tb.
 """
 
 from __future__ import annotations
@@ -49,7 +56,11 @@ from fesom2_accelerate_tpu_torch.config import FctAleConfig
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 from fesom2_accelerate_tpu_torch.model import fct_ale as single
 from fesom2_accelerate_tpu_torch.ops.cuda import step as cstep
-from fesom2_accelerate_tpu_torch.ops.meshdata import MeshData, build_mesh_data
+from fesom2_accelerate_tpu_torch.ops.meshdata import (
+    MeshData,
+    build_mesh_data,
+    check_edge_order,
+)
 from fesom2_accelerate_tpu_torch.parallel import partition as part_mod
 from fesom2_accelerate_tpu_torch.parallel.partition import PartitionedMesh
 
@@ -158,7 +169,9 @@ def sharded_fct_ale_step_cuda(mds: list, cfg: FctAleConfig, halo_fill,
     """One step of the CUDA kernels on every part: split mode when
     ``fix_ids`` (per part, int32 on the part's device) is given, fused
     mode when it is None.  Launch order, each phase over all parts: K1, K2
-    -> [K3] -> exchange -> K3fix, K4 | K34 -> [fct_LO exchange]."""
+    -> [K3] -> exchange -> K3fix, K4 | K34 -> [fct_LO exchange].  A batched
+    state (per-tracer fields [Tb, ...]) takes the same launches and
+    exchanges, each over every tracer."""
     parts = list(zip(mds, states))
     pres = [cstep.pre_exchange(md, cfg, s) for md, s in parts]
     if fix_ids is not None:
@@ -190,28 +203,35 @@ class ShardedFctAleSolver:
 
     The state is a dict of lists: ``state[k][p]`` is part p's tensor,
     [rows, 2H+B] for node fields and [L, Ed_loc] for edge fields, on
-    ``devices[p]``.
+    ``devices[p]``; with ``tracers=Tb`` > 1 each per-tracer field has a
+    leading tracer axis ([Tb, rows, 2H+B], [Tb, L, Ed_loc]) and ``hnode``,
+    ``hnode_new`` stay [L, 2H+B].
 
     backend: "torch" (plain stages, any devices and float dtype) or "cuda"
     (the CUDA kernels; every device must be a CUDA device).  fused
     (cuda only): exchange, then K34, instead of the split K3 -> exchange ->
-    K3fix -> K4.  exchange: "auto" (ppermute when P > 1, else allgather),
-    "ppermute" or "allgather".  part_counts: per-part owned-node counts
-    (an RCB partition, ``mesh.ordering.rcb_order``)."""
+    K3fix -> K4; it needs each part's edges sorted by first endpoint
+    (``MeshData.ed_ptr``).  exchange: "auto" (ppermute when P > 1, else
+    allgather), "ppermute" or "allgather".  part_counts: per-part
+    owned-node counts (an RCB partition, ``mesh.ordering.rcb_order``).
+    tracers (cuda only): Tb tracers a step, the global fields of
+    :meth:`init_state` then [Tb, rows, N] (``hnode``, ``hnode_new``
+    [L, N])."""
 
     def __init__(self, mesh: Mesh, cfg: FctAleConfig = FctAleConfig(),
                  backend: str = "torch", *, devices: list,
                  exchange: str = "auto",
                  part_counts: np.ndarray | None = None, tracers: int = 1,
                  fused: bool = False):
-        if tracers != 1:
-            raise NotImplementedError(
-                "tracers > 1: tracer batching is not ported yet (ROADMAP "
-                "Queue A item 5)")
+        if tracers < 1:
+            raise ValueError(f"tracers must be >= 1, got {tracers}")
         devices = [torch.device(d) for d in devices]
         if backend == "torch":
             if fused:
                 raise ValueError("fused sharded mode is cuda-only")
+            if tracers != 1:
+                raise ValueError("tracer batching is cuda-only: the CUDA "
+                                 "kernels take the tracer axis")
         elif backend == "cuda":
             if any(d.type != "cuda" for d in devices):
                 raise ValueError(f"backend='cuda' needs CUDA devices, got "
@@ -228,15 +248,27 @@ class ShardedFctAleSolver:
         self.cfg = cfg
         self.backend = backend
         self.fused = fused
+        self.tracers = tracers
         self.devices = devices
         self.n_parts = len(devices)
         self.exchange_mode = exchange
         self.pm: PartitionedMesh = part_mod.partition_mesh(
             mesh, self.n_parts, counts=part_counts)
         pm = self.pm
+        # each part's global node / edge ids (clamped) and which are real,
+        # to scatter global fields: index_select, where the numpy
+        # scatter_*_field takes seconds for a [Tb, L, N] field
+        self._cols = {
+            edge: [(torch.from_numpy(np.maximum(g, 0).astype(np.int64)),
+                    torch.from_numpy(g >= 0)) for g in ids]
+            for edge, ids in ((False, pm.local_nodes_global),
+                              (True, pm.local_edges_global))}
         self.mds: list[MeshData] = [
             build_mesh_data(m, cfg.dtype, d)
             for m, d in zip(pm.local_meshes, devices)]
+        if backend == "cuda" and fused:
+            for md in self.mds:
+                check_edge_order(md.edges)  # H-K34's edge ranges
         maps = _exchange_maps(pm, exchange, devices)
         if exchange == "ppermute":
             self.halo_fill = functools.partial(_halo_fill_nbr, smaps=maps)
@@ -259,7 +291,9 @@ class ShardedFctAleSolver:
     # ---- state movement -------------------------------------------------
     def init_state(self, fields: dict) -> dict:
         """Global numpy fields -> per-part tensors of the config dtype on
-        each part's device (pad columns 0)."""
+        each part's device (pad columns 0).  With ``tracers`` > 1 each
+        per-tracer field is [Tb, rows, N] (or [Tb, L, Ed]) and ``hnode``,
+        ``hnode_new`` are [L, N]."""
         out = {}
         for k, v in fields.items():
             v = np.asarray(v)
@@ -268,20 +302,30 @@ class ShardedFctAleSolver:
             if v.shape[-1] != want:
                 raise ValueError(f"{k} has shape {v.shape}, expected "
                                  f"[..., {want}]")
-            loc = (part_mod.scatter_edge_field if edge
-                   else part_mod.scatter_node_field)(self.pm, v)
-            out[k] = [torch.tensor(loc[p], dtype=self.cfg.dtype, device=d)
-                      for p, d in enumerate(self.devices)]
+            if self.tracers > 1 and (
+                    v.shape[:-2] != (() if k in cstep.BATCH_SHARED
+                                     else (self.tracers,))):
+                raise ValueError(
+                    f"{k} has shape {v.shape}: with {self.tracers} tracers "
+                    f"a per-tracer field is [{self.tracers}, rows, cols], "
+                    f"hnode and hnode_new are shared [rows, cols]")
+            # part_mod.scatter_*_field's values: each part's columns, 0 in
+            # the pad columns
+            src = torch.from_numpy(np.require(v, requirements=["C", "W"]))
+            out[k] = [(src.index_select(-1, cols) * live).to(
+                dtype=self.cfg.dtype, device=d)
+                for (cols, live), d in zip(self._cols[edge], self.devices)]
         return out
 
     def gather_node(self, tensors: list) -> np.ndarray:
         """Per-part node tensors -> the global [.., N] numpy field, from
-        the owned columns."""
+        the owned columns (a tracer axis stays in front)."""
         return part_mod.gather_node_field(
             self.pm, np.stack([t.detach().cpu().numpy() for t in tensors]))
 
     def gather_state(self, state: dict) -> dict:
-        """Per-part state -> global natural-layout numpy dict."""
+        """Per-part state -> global natural-layout numpy dict (per-tracer
+        fields [Tb, ...] when the state has a tracer axis)."""
         out = {}
         for k, v in state.items():
             local = np.stack([t.detach().cpu().numpy() for t in v])
@@ -292,12 +336,12 @@ class ShardedFctAleSolver:
     def save_checkpoint(self, path, state: dict, step: int = 0) -> None:
         raise NotImplementedError(
             "checkpoints: runtime/checkpoint.py is not ported yet (ROADMAP "
-            "Queue A item 8)")
+            "Queue A item 3, Checkpoints)")
 
     def load_checkpoint(self, path):
         raise NotImplementedError(
             "checkpoints: runtime/checkpoint.py is not ported yet (ROADMAP "
-            "Queue A item 8)")
+            "Queue A item 3, Checkpoints)")
 
     # ---- stepping -------------------------------------------------------
     def step(self, state: dict) -> dict:

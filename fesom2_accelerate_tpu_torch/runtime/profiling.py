@@ -168,11 +168,12 @@ def _gathered_levels(n_nodes: int, ends, depth) -> int:
 
 
 def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
-              slab=None, inv_areamass=None) -> tuple[int, int]:
+              slab=None, inv_areamass=None,
+              tracers: int = 1) -> tuple[int, int]:
     """(bytes, operations) of one call of the CUDA kernel ``name`` (a
-    wrapper of ``ops/cuda/kernels.py``) on mesh data ``md``: what the
-    kernel's function needs on this mesh and, where the work depends on
-    the data, on these inputs.
+    wrapper of ``ops/cuda/kernels.py``) on mesh data ``md`` for ``tracers``
+    tracers: what the kernel's function needs on this mesh and, where the
+    work depends on the data, on these inputs.
 
     Bytes: each output written once at its full size (they are written
     densely), and each input read once where the function needs it:
@@ -194,10 +195,17 @@ def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
         element and its other 10 rows for the elements with ice
         (``slab[3] != 0``), and ``rhs_a`` / ``rhs_m`` where
         ``inv_areamass > 0``; both tensors must be given.
+    Tracers: the per-tracer inputs and outputs count ``tracers`` times;
+    what every tracer shares (the connectivity and per-node, per-edge
+    rows, ``area_inv``, ``hnode``, ``hnode_new``, the fix-edge ids) once.
+    Only the six kernels with a tracer axis take ``tracers`` > 1.
     Operations: the arithmetic and comparisons of the kernel's loop body
     per active (node, level), (incident edge, level), (edge, level),
-    (element, level) or incidence; far below the bytes' time on an H100
-    for every kernel."""
+    (element, level) or incidence, per tracer; far below the bytes' time
+    on an H100 for every kernel."""
+    if tracers < 1 or (tracers > 1 and name in ("limit_fused", "a2",
+                                                "stress2rhs")):
+        raise ValueError(f"{name} takes no {tracers} tracers")
     f = torch.empty((), dtype=md.dtype).element_size()
     L, N, Ed, E = md.n_layers, md.n_nodes, md.n_edges, md.n_elems
     node, iface, edge, elem = L * N * f, (L + 1) * N * f, L * Ed * f, L * E * f
@@ -215,42 +223,46 @@ def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
         N, torch.cat([owner[live], md.nd_other[live]]),
         torch.cat([md.nd_lev[live], md.nd_lev[live]]))
     inc32, inc8, row = n_live * 4, n_live, N * 4
-    # stage c: node inputs read on active rows, and the inputs the outputs
-    # copy on inactive rows; the limited vertical flux on its interfaces
+    # stage c: node inputs read on active rows (hnode, hnode_new, area_inv
+    # shared), and the inputs the outputs copy on inactive rows; the
+    # limited vertical flux on its interfaces
     if iter_yn:
-        stage_c_in = 2 * nod * f + node + vint * f  # hnode_new, area_inv; LO
-        stage_c_out = node
+        c_shared = 2 * nod * f  # hnode_new, area_inv
+        c_in = node + vint * f  # fct_LO; the limited vertical flux
+        c_out = node
     else:
-        stage_c_in = 5 * nod * f + 2 * node + vint * f
-        stage_c_out = 2 * node
+        c_shared = 3 * nod * f  # hnode, hnode_new, area_inv
+        c_in = 2 * nod * f + 2 * node + vint * f  # ttf, fct_LO; del_*
+        c_out = 2 * node
     res_v = iface if iter_yn else 0
     res_h = edge if iter_yn else 0
+    # (shared bytes, bytes a tracer, operations a tracer)
     if name == "bounds":
-        return (2 * nod * f + 2 * inc32 + 2 * row + 2 * node,
-                12 * nod + 4 * inc_lev)
-    if name == "limit":
-        return (iface + 3 * nod * f + edge_act * f + 2 * inc32 + inc8
-                + 2 * row + 2 * node + iface + res_v, 24 * nod + 4 * inc_lev)
-    if name == "limit_fused":
-        return (2 * nod * f + iface + nod * f + edge_act * f + 3 * inc32
-                + inc8 + 2 * row + 4 * node + iface + res_v,
-                36 * nod + 8 * inc_lev)
-    if name == "update_fused":
+        io = (2 * inc32 + 2 * row, 2 * nod * f + 2 * node,
+              12 * nod + 4 * inc_lev)
+    elif name == "limit":
+        io = (nod * f + 2 * inc32 + inc8 + 2 * row,
+              iface + 2 * nod * f + edge_act * f + 2 * node + iface + res_v,
+              24 * nod + 4 * inc_lev)
+    elif name == "limit_fused":
+        io = (nod * f + 3 * inc32 + inc8 + 2 * row,
+              2 * nod * f + iface + edge_act * f + 4 * node + iface + res_v,
+              36 * nod + 8 * inc_lev)
+    elif name == "update_fused":
         # the connectivity once, as the incidence rows the node sum needs;
         # the kernel's edge rows (edges, nlev_edge, ed_ptr) repeat it for
         # its tiling and are not the function's bytes
-        return (2 * fac * f + edge + stage_c_in + 3 * inc32 + inc8 + 2 * row
-                + stage_c_out + edge + res_h,
-                12 * nod + 12 * inc_lev)
-    if name == "update":
-        return (edge_act * f + stage_c_in + 2 * inc32 + inc8 + 2 * row
-                + stage_c_out, 12 * nod + 2 * inc_lev)
-    if name == "b3h":
+        io = (c_shared + 3 * inc32 + inc8 + 2 * row,
+              2 * fac * f + edge + c_in + c_out + edge + res_h,
+              12 * nod + 12 * inc_lev)
+    elif name == "update":
+        io = (c_shared + 2 * inc32 + inc8 + 2 * row,
+              edge_act * f + c_in + c_out, 12 * nod + 2 * inc_lev)
+    elif name == "b3h":
         ends = md.edges.reshape(Ed, 2)
         gath = _gathered_levels(N, ends, md.nlev_edge[:, None].expand(Ed, 2))
-        return (2 * gath * f + edge + 12 * Ed + edge + res_h,
-                8 * edge_act)
-    if name == "b3h_fixup":
+        io = (12 * Ed, 2 * gath * f + edge + edge + res_h, 8 * edge_act)
+    elif name == "b3h_fixup":
         if ids is None:
             raise ValueError("b3h_fixup needs the edge ids it runs on")
         u = torch.unique(ids.long())
@@ -258,23 +270,26 @@ def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
         lev = md.nlev_edge[u]
         gath = _gathered_levels(N, ends, lev[:, None].expand(-1, 2))
         per = (2 if iter_yn else 1) * L * len(u) * f
-        return (4 * len(ids) + 12 * len(u) + 2 * gath * f + L * len(u) * f
-                + per, 8 * int(lev.sum()))
-    if name == "a2":
+        io = (4 * len(ids) + 12 * len(u),
+              2 * gath * f + L * len(u) * f + per, 8 * int(lev.sum()))
+    elif name == "a2":
         depth = (md.nlev_elem - 1).clamp(min=0)
         gath = _gathered_levels(N, md.elem_nodes,
                                 depth[:, None].expand(-1, 3))
-        return 2 * gath * f + 16 * E + 2 * elem, 4 * int(depth.sum())
-    if name == "stress2rhs":
+        io = (16 * E, 2 * gath * f + 2 * elem, 4 * int(depth.sum()))
+    elif name == "stress2rhs":
         if slab is None or inv_areamass is None:
             raise ValueError("stress2rhs needs its slab and inv_areamass")
         iced = slab[3] != 0  # the ea row (ops/cuda/kernels.py SLAB_ROWS)
         codes = md.ne_slot[md.ne_slot >= 0].long()
         n_inc = int(iced[codes // 3].sum())  # incidences of iced elements
         n_mass = int((inv_areamass > 0).sum())
-        return (E * f + 10 * int(iced.sum()) * f + 4 * codes.numel()
-                + N * f + 2 * n_mass * f + 2 * N * f, 14 * n_inc + 6 * N)
-    raise ValueError(f"no model for kernel {name!r}")
+        io = (0, E * f + 10 * int(iced.sum()) * f + 4 * codes.numel()
+              + N * f + 2 * n_mass * f + 2 * N * f, 14 * n_inc + 6 * N)
+    else:
+        raise ValueError(f"no model for kernel {name!r}")
+    shared, per_tracer, ops = io
+    return shared + tracers * per_tracer, tracers * ops
 
 
 def bound_ms(nbytes: int, ops: int = 0, dtype: torch.dtype = torch.float32,

@@ -68,8 +68,8 @@ _READ_BACK = ("const int o = s_oth[k][lane]; "
               "lim = mul_rn(ae, f);",
               "lim = adf_h[(size_t)z * Ed + e];")
 _NO_STAGE_C = ("stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, "
-               "o2, idx, z < nlev - 1, adf_v_lim[idx], adf_v_lim[idx + N], "
-               "acc, dt, iter_yn);",
+               "o2, idx, idx, z < nlev - 1, adf_v_lim[idx], "
+               "adf_v_lim[idx + N], acc, dt, iter_yn);",
                "o1[idx] = acc;")
 _NO_NODE_PHASE = ("if (n >= N) return;", "return;")
 
@@ -153,7 +153,7 @@ def launching_from(lib):
 def _ptxas(log: str, kernel: str, slots: int, threads: int) -> dict:
     for r in build.ptxas_report(log):
         if (r["kernel"] == f"{kernel}_kernel" and r["dtype"] == "float"
-                and r["params"] == (slots, threads)):
+                and r["params"] == (slots, threads) and not r["tracers"]):
             return dict(registers=r["registers"],
                         spill_bytes=r["spill_stores"] + r["spill_loads"])
     raise ValueError(f"no ptxas entry for {kernel}<float, {slots}, "

@@ -495,8 +495,9 @@ def test_solver_form_keywords():
 
 
 def test_ptxas_report_reads_each_instance():
-    """build.ptxas_report reads the kernel, dtype, template ints,
-    registers and spills of each instance from an nvcc -Xptxas -v log."""
+    """build.ptxas_report reads the kernel, dtype, template ints, the
+    tracer-axis flag, registers and spills of each instance from an nvcc
+    -Xptxas -v log."""
     log = "\n".join([
         "ptxas info    : Compiling entry function '_ZN36_GLOBAL__N__f6935f"
         "_10_fct_ale_cu_7df9e15018limit_fused_kernelIdLi8ELi512EEEvPKT_'"
@@ -512,10 +513,22 @@ def test_ptxas_report_reads_each_instance():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 20 registers, used 0 barriers, 392 bytes "
         "cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN36_GLOBAL__N__f6935f"
+        "_10_fct_ale_cu_7df9e15016b3h_fixup_kernelIfLi128ELb1EEEvPKT_' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _ZN36_GLOBAL__N__z",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 22 registers, used 0 barriers, 400 bytes "
+        "cmem[0]",
     ])
     assert build.ptxas_report(log) == [
         dict(kernel="limit_fused_kernel", dtype="double", params=(8, 512),
-             stack=16, spill_stores=8, spill_loads=24, registers=64),
-        dict(kernel="a2_kernel", dtype="float", params=(128,), stack=0,
-             spill_stores=0, spill_loads=0, registers=20),
+             tracers=False, stack=16, spill_stores=8, spill_loads=24,
+             registers=64),
+        dict(kernel="a2_kernel", dtype="float", params=(128,),
+             tracers=False, stack=0, spill_stores=0, spill_loads=0,
+             registers=20),
+        dict(kernel="b3h_fixup_kernel", dtype="float", params=(128,),
+             tracers=True, stack=0, spill_stores=0, spill_loads=0,
+             registers=22),
     ]

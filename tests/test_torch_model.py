@@ -140,7 +140,8 @@ def test_port_imports_no_jax():
     (the stress2rhs solver, the mesh ordering and file reader, the byte
     models, the partitioner, the sharded solver, the timing helpers and
     the tuning harness included), runs one toy FCT step, one toy
-    stress2rhs call, one sharded toy step on two parts, and the tuner's
+    stress2rhs call, one sharded toy step on two parts, one batched toy
+    step of two tracers, and the tuner's
     validation of a2 and of the K12 -> K3 -> K4 step."""
     code = (
         "import sys\n"
@@ -173,6 +174,14 @@ def test_port_imports_no_jax():
         "                           devices=['cpu'] * 2)\n"
         "st = sh.step(sh.init_state(random_fields(mesh, seed=0)))\n"
         "assert sh.gather_node(st['del_ttf_advhoriz']).shape[-1] == N\n"
+        "import numpy as np\n"
+        "from fesom2_accelerate_tpu_torch.ops.cuda.step import (\n"
+        "    BATCH_SHARED, fct_ale_step_cuda_batched)\n"
+        "fl = random_fields(mesh, seed=0, dtype=np.float32)\n"
+        "b = {k: torch.tensor(v if k in BATCH_SHARED else np.stack([v, v]))\n"
+        "     for k, v in fl.items()}\n"
+        "o = fct_ale_step_cuda_batched(s.md, s.cfg, b)\n"
+        "assert o['del_ttf_advhoriz'].shape == (2, mesh.n_layers, N)\n"
         "assert f.partition_mesh(mesh, 2).n_parts == 2\n"
         "import fesom2_accelerate_tpu_torch.runtime.tracing\n"
         "from fesom2_accelerate_tpu_torch.utils import tune, tuning\n"

@@ -1,7 +1,8 @@
 """PyTorch port: the copied numpy partitioner against the JAX original, the
 scatter/gather round trips, the exact fix-edge lists of the split sharded
 step, and the edge ranges by which H-K34 writes each edge output once, on
-whole meshes and on every part of a partitioned mesh.
+whole meshes and on every part of a partitioned mesh; a mesh whose edges
+are in another order runs everywhere but H-K34.
 
 H-K34 writes each edge output from the block of the node tile in which the
 edge starts: the range ``MeshData.ed_ptr[n0] .. ed_ptr[n1]`` of a tile of
@@ -20,13 +21,21 @@ import numpy as np
 import pytest
 import torch
 
+from fesom2_accelerate_tpu.config import FctAleConfig as JaxConfig
 from fesom2_accelerate_tpu.mesh import generate_planar_mesh as jax_planar_mesh
 from fesom2_accelerate_tpu.mesh import ordering as jax_ordering
 from fesom2_accelerate_tpu.mesh.generate import (
     generate_cylinder_mesh as jax_cylinder_mesh,
 )
+from fesom2_accelerate_tpu.mesh.topology import Mesh as JaxMesh
+from fesom2_accelerate_tpu.model.fct_ale import fct_ale_step as jax_fct_ale_step
 from fesom2_accelerate_tpu.ops.meshdata import build_mesh_data as jax_mesh_data
 from fesom2_accelerate_tpu.parallel import partition as jax_partition
+from fesom2_accelerate_tpu_torch import (
+    FctAleConfig,
+    FctAleSolver,
+    Stress2RhsSolver,
+)
 from fesom2_accelerate_tpu_torch.mesh import (
     generate_cylinder_mesh,
     generate_planar_mesh,
@@ -44,6 +53,7 @@ from fesom2_accelerate_tpu_torch.parallel import partition as part_mod
 from fesom2_accelerate_tpu_torch.parallel import partition_mesh
 from fesom2_accelerate_tpu_torch.parallel.step_sharded import fix_edge_ids
 
+from conftest import masked_allclose
 
 POLAR_CAP = os.path.join(os.path.dirname(__file__), "data", "polar_cap")
 
@@ -206,13 +216,99 @@ def test_edge_ranges_cover_every_part(case):
 
 def test_edge_ptr_refuses_edges_out_of_order():
     """ed_ptr needs the edges sorted by first endpoint, oriented n0 < n1,
-    padding last; mesh data of any other order is refused."""
+    padding last.  Mesh data of any other order builds (only H-K34 reads
+    ed_ptr); reading its ed_ptr, or its tile_edges, raises."""
     mesh = generate_planar_mesh(preset="toy")
     for bad in (mesh.edges[::-1], mesh.edges[:, ::-1],
                 np.concatenate([[[0, 0]], mesh.edges[1:]])):
+        md = build_mesh_data(dataclasses.replace(
+            mesh, edges=np.ascontiguousarray(bad)), torch.float32, "cpu")
+        assert md.n_edges == mesh.n_edges
         with pytest.raises(ValueError, match="sorted"):
-            build_mesh_data(dataclasses.replace(
-                mesh, edges=np.ascontiguousarray(bad)), torch.float32, "cpu")
+            md.ed_ptr
+        with pytest.raises(ValueError, match="sorted"):
+            md.tile_edges
+
+
+def _permute_edges(mesh, seed: int):
+    """The same mesh with its edges in a random order and every third one
+    reversed: ``edges``, ``edge_tri`` and ``nlev_edge`` permuted,
+    ``node_edges`` remapped through the inverse permutation (each node keeps
+    its slot order) and ``node_edges_sign`` flipped where an edge is
+    reversed.  Returns (mesh, permutation, reversed): new edge i is old
+    edge perm[i]."""
+    Ed = mesh.n_edges
+    perm = np.random.default_rng(seed).permutation(Ed)
+    inv = np.empty(Ed, np.int64)
+    inv[perm] = np.arange(Ed)
+    rev = np.zeros(Ed, bool)
+    rev[::3] = True
+    edges = mesh.edges[perm].copy()
+    edges[rev] = edges[rev, ::-1]
+    live = mesh.node_edges >= 0
+    node_edges = np.where(live, inv[np.where(live, mesh.node_edges, 0)], -1)
+    sign = np.where(live & rev[np.where(live, node_edges, 0)],
+                    -mesh.node_edges_sign, mesh.node_edges_sign)
+    return dataclasses.replace(
+        mesh, edges=edges, edge_tri=mesh.edge_tri[perm].copy(),
+        nlev_edge=mesh.nlev_edge[perm].copy(),
+        node_edges=node_edges.astype(mesh.node_edges.dtype),
+        node_edges_sign=sign.astype(mesh.node_edges_sign.dtype)), perm, rev
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_unsorted_edges_run_on_torch_backend_and_stress2rhs(iter_yn):
+    """A consistent edge-permuted mesh: FctAleSolver(backend="torch") runs
+    on it and matches the JAX XLA step on the same mesh (f64, 1e-12), and
+    the step on the sorted mesh with its edge fluxes carried along (the
+    same physics); Stress2RhsSolver(backend="torch"), which reads no edges,
+    gives the sorted mesh's bits.  Only H-K34's ed_ptr refuses the mesh."""
+    mesh = generate_planar_mesh(preset="small")
+    pmesh, perm, rev = _permute_edges(mesh, seed=4)
+    pmesh.validate()
+    assert not (np.diff(pmesh.edges[:, 0]) >= 0).all()
+    fields = random_fields(mesh, seed=8)
+    pfields = dict(fields)
+    pfields["fct_adf_h"] = np.where(rev, -1.0, 1.0) * fields["fct_adf_h"][
+        :, perm]
+
+    cfg = FctAleConfig(dt=0.7, iter_yn=iter_yn, dtype=torch.float64)
+    solver = FctAleSolver(pmesh, cfg, backend="torch", device="cpu")
+    with pytest.raises(ValueError, match="sorted"):
+        solver.md.ed_ptr
+    out = solver.step(solver.init_state(pfields))
+
+    jmesh = JaxMesh(**{f.name: getattr(pmesh, f.name)
+                       for f in dataclasses.fields(pmesh)})
+    jmd = jax_mesh_data(jmesh, dtype=jnp.float64)
+    jout = jax_fct_ale_step(
+        jmd, JaxConfig(dt=0.7, iter_yn=iter_yn, dtype=jnp.float64),
+        {k: jnp.asarray(v) for k, v in pfields.items()})
+    assert out.keys() == jout.keys()
+    for k, v in jout.items():
+        masked_allclose(out[k].numpy(), np.asarray(v), msg=f"jax[{k}]")
+
+    sorted_solver = FctAleSolver(mesh, cfg, backend="torch", device="cpu")
+    ref = sorted_solver.step(sorted_solver.init_state(fields))
+    for k, v in ref.items():
+        want = v.numpy()
+        if want.shape[-1] == mesh.n_edges:
+            want = np.where(rev, -1.0, 1.0) * want[:, perm]
+        masked_allclose(out[k].numpy(), want, msg=f"sorted[{k}]")
+
+    rng = np.random.default_rng(2)
+    E, N = mesh.n_elems, mesh.n_nodes
+    args = [torch.from_numpy(a) for a in (
+        np.abs(rng.standard_normal(E)) + 0.1, rng.standard_normal(E),
+        *rng.standard_normal((3, E)), rng.standard_normal((6, E)),
+        rng.standard_normal(E), rng.standard_normal(N),
+        *rng.standard_normal((2, N)))]
+    got = Stress2RhsSolver(pmesh, torch.float64, backend="torch",
+                           device="cpu")(*args)
+    want = Stress2RhsSolver(mesh, torch.float64, backend="torch",
+                            device="cpu")(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_mesh_data_from_numpy_on_parts():
@@ -225,9 +321,10 @@ def test_mesh_data_from_numpy_on_parts():
             {f.name: np.asarray(getattr(jmd, f.name))
              for f in dataclasses.fields(jmd)}, "cpu")
         ref = build_mesh_data(pm.local_meshes[p], torch.float64, "cpu")
-        for f in dataclasses.fields(MeshData):
-            assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), \
-                f"part {p}: {f.name}"
+        for name in [f.name for f in dataclasses.fields(MeshData)] + [
+                "ed_ptr"]:
+            assert torch.equal(getattr(got, name), getattr(ref, name)), \
+                f"part {p}: {name}"
 
 
 @pytest.mark.parametrize("case", ["small-4", "small-8", "multihop-8"])

@@ -372,13 +372,15 @@ def test_solver_rules(small):
         ShardedFctAleSolver(mesh, cfg, devices=["cpu"] * 2, fused=True)
     with pytest.raises(ValueError, match="exchange"):
         ShardedFctAleSolver(mesh, cfg, devices=["cpu"] * 2, exchange="nccl")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    with pytest.raises(ValueError, match="cuda-only"):
         ShardedFctAleSolver(mesh, cfg, devices=["cpu"] * 2, tracers=2)
+    with pytest.raises(ValueError, match="tracers"):
+        ShardedFctAleSolver(mesh, cfg, devices=["cpu"] * 2, tracers=0)
     sh = ShardedFctAleSolver(mesh, cfg, devices=["cpu"] * 2)
     assert sh.exchange_mode == "ppermute" and sh.fix_ids is None
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3, Checkpoints"):
         sh.save_checkpoint("x", {})
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3, Checkpoints"):
         sh.load_checkpoint("x")
     with pytest.raises(ValueError, match="fct_adf_h"):
         sh.init_state({"fct_adf_h": fields["ttf"]})
