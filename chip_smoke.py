@@ -8,7 +8,8 @@ Phases (each raises on failure, so the script exits non-zero):
    limit; no CUDA device is a failure (there is no CPU fallback);
 2. build the CUDA kernels from ``ops/cuda/csrc`` with nvcc (sm_90a), one
    nvcc per source, in parallel, and print each kernel instance's
-   registers and spills;
+   registers and spills, then those of the last redesigned kernels (H-K12,
+   H-S2R) at 8 slots and 128 threads, f32 and f64;
 3. hold each FCT kernel against its plain PyTorch version on the card, on
    the ``small`` and ``core2`` meshes: vlimit 1/2/3 x iter_yn in float32,
    vlimit 1 x iter_yn in float64, and one K2 case with a nonzero vertical
@@ -20,26 +21,29 @@ Phases (each raises on failure, so the script exits non-zero):
    ``core2`` planar meshes, the core2-size RCM cylinder and the FESOM2
    mesh files of ``tests/data/polar_cap`` (RCM-renumbered and as read), in
    float32 and float64, plus an all-ice-free case (exactly rhs where
-   inv_areamass > 0) and an all-massless case (exact zeros);
+   inv_areamass > 0) and an all-massless case (exact zeros); a second
+   launch on the same inputs must give the same bits (no atomics);
 3c. the FCT kernels on the RCM cylinder and polar_cap, the orderings on
    which the JAX package runs its one-hot kernels: the checks of phase 3
    (vlimit 1/2/3 x iter_yn in float32, vlimit 1 in float64, H-K34 against
-   H-K3 -> H-K4), then 20 steps of ``FctAleSolver(backend="cuda")``
+   H-K3 -> H-K4), then 20 steps of ``FctAleSolver(device="cuda")``
    against ``backend="torch"``;
-4. the FCT main path: 20 steps of ``FctAleSolver(backend="cuda")`` on
-   core2, float32, dt=0.5, flux_eps=1e-7, vlimit 1, against the same 20
-   steps of ``backend="torch"`` on the card, with each kernel's launch
-   count, and the time per step of both paths (CUDA events, best of 3);
-   one line per kernel of the default step and of the split chain (H-K1,
-   H-K2, H-K34, H-K3, H-K4) at core2's shapes and 128 threads: registers
+4. the FCT main path: 20 steps of ``FctAleSolver(device="cuda")`` (no
+   backend: the default on a CUDA device, which must be "cuda") on core2,
+   float32, dt=0.5, flux_eps=1e-7, vlimit 1, against the same 20 steps of
+   ``backend="torch"`` on the card, with each kernel's launch count, and
+   the time per step of both paths (CUDA events, best of 3); one line per
+   kernel of the default step, of the split chain and H-K12 (H-K1, H-K2,
+   H-K34, H-K3, H-K4, H-K12) at core2's shapes and 128 threads: registers
    (ptxas), resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMulti-
    processor), grid blocks and waves over the card's SMs, and for H-K34
    the edges that cross a node tile (each limited twice);
 5. the stress2rhs path: ``Stress2RhsSolver`` packs the element inputs once
    and runs a 120-substep EVP loop of ``call_packed`` on core2, float32,
-   with ``backend="cuda"`` and ``backend="torch"``; the launch count, the
-   final U, V against each other, device and host time per substep,
-   nodes/s and modeled GB/s; then the same loop on the RCM cylinder;
+   with the default backend on the card ("cuda") and ``backend="torch"``;
+   the launch count, the final U, V against each other, device and host
+   time per substep, nodes/s and modeled GB/s; then the same loop on the
+   RCM cylinder;
 6. the sharded path, 4 parts of one mesh on the one card:
    a. H-K3 (b3h), H-K3fix (b3h_fixup) and H-K4 (update) against their plain
       versions on ``small`` and core2, as one mesh and on each of its 4
@@ -50,10 +54,11 @@ Phases (each raises on failure, so the script exits non-zero):
       every output bit-identical to H-K3 -> H-K4 on the same factors, for
       vlimit 1/2/3 x iter_yn in float32 and vlimit 1 in float64 on
       core2's parts;
-   b. 20 steps of ``ShardedFctAleSolver(backend="cuda", devices=["cuda:0"]
-      * 4)`` on core2 (float32, dt=0.5, flux_eps=1e-7, vlimit 1, seed 0),
-      split and fused, each against 20 steps of ``FctAleSolver(backend=
-      "cuda")``: gathered node fields and ``fct_adf_h`` within MAIN_RELERR,
+   b. 20 steps of ``ShardedFctAleSolver(devices=["cuda:0"] * 4)`` (the
+      default backend, "cuda") on core2 (float32, dt=0.5, flux_eps=1e-7,
+      vlimit 1, seed 0), split and fused, each against 20 steps of
+      ``FctAleSolver(device="cuda")``: gathered node fields and
+      ``fct_adf_h`` within MAIN_RELERR,
       and the launch counts (split 4 x K1, K2, K3, K3fix, K4 per step,
       fused 4 x K1, K2, K34); the time per step of split, fused and the
       single-device run (CUDA events, device time with the stream held,
@@ -66,9 +71,12 @@ Phases (each raises on failure, so the script exits non-zero):
       split and fused, both exchange forms;
 7. the last two kernels, the step's forms and the tuner:
    a. H-K12 (limit_fused) against its plain version (bounds_ref then
-      limit_ref) on small, core2, the cylinder and polar_cap, the cases of
-      phase 3 and its b3v-mask case (bounds bit-exact, the rest 1e-6 /
-      1e-12), and its largest difference from H-K1 -> H-K2 on the card;
+      limit_ref) on planar meshes whose layer counts straddle its level
+      chunk LC (L = 2, LC - 1, LC, LC + 1, 2 LC + 1) and on small, core2,
+      the cylinder and polar_cap: vlimit 1/2/3 x iter_yn in float32 and
+      float64 and a b3v-mask case (bounds bit-exact, the rest 1e-6 /
+      1e-12), and every output bit-identical to H-K1 -> H-K2 on the same
+      inputs (largest difference printed);
       H-A2 (a2) against a2_ref on core2 and the cylinder, f32 and f64,
       bit-exact;
    b. 20 core2 f32 steps of ``FctAleSolver(backend="cuda")`` in each of the
@@ -132,6 +140,8 @@ from fesom2_accelerate_tpu_torch.runtime.tracing import (
 )
 
 MAIN_STEPS = 20
+# the kernels whose registers phase 2 sums up (the latest redesigns)
+REDESIGNED = ("limit_fused", "stress2rhs")
 # after 20 steps the two paths have limited their fluxes 20 times in f32
 # with different summation orders and FMA contraction; rounding differences
 # (~1e-7 per step) accumulate in del_ttf_* but stay far below this bound
@@ -182,7 +192,7 @@ def phase_env() -> str:
 
 def phase_build() -> list:
     """Builds the kernels; returns every instance's ptxas report."""
-    from fesom2_accelerate_tpu_torch.ops.cuda import build
+    from fesom2_accelerate_tpu_torch.ops.cuda import build, kernels
 
     paths, seconds = build.build()
     build.library()
@@ -204,6 +214,14 @@ def phase_build() -> list:
                   f"loads {r['spill_loads']}")
             if r["spill_stores"] or r["spill_loads"]:
                 spills.append(name)
+    # the kernels redesigned last, at the default block size and 8 slots
+    th = kernels.DEFAULT_THREADS
+    for name in REDESIGNED:
+        for r in reports:
+            if r["kernel"] == name + "_kernel" and r["params"] == (8, th):
+                print(f"registers {name}<{r['dtype']},8,{th}>: "
+                      f"{r['registers']}, stack {r['stack']}, spill stores "
+                      f"{r['spill_stores']}, spill loads {r['spill_loads']}")
     sys.stdout.flush()
     if spills:
         raise AssertionError(f"kernel instances spill registers: {spills}")
@@ -417,16 +435,19 @@ def check_counts(counts: dict, expect: dict, what: str) -> None:
 
 
 def fct_cuda_vs_torch(mesh, fields, cfg, steps: int, label: str):
-    """``steps`` steps of ``FctAleSolver(backend="cuda")`` against
-    ``backend="torch"`` on the card: the cuda run's launch counts (set to 0
-    just before it, read just after), and both final states within
-    MAIN_RELERR.  Returns the counts, both solvers and their initial
-    states."""
+    """``steps`` steps of ``FctAleSolver(device="cuda")`` (no backend: the
+    default, which must resolve to "cuda") against ``backend="torch"`` on
+    the card: the cuda run's launch counts (set to 0 just before it, read
+    just after), and both final states within MAIN_RELERR.  Returns the
+    counts, both solvers and their initial states."""
     from fesom2_accelerate_tpu_torch import FctAleSolver
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
 
-    sc = FctAleSolver(mesh, cfg, backend="cuda", device="cuda")
+    # no backend: on a CUDA device the default runs the kernels
+    sc = FctAleSolver(mesh, cfg, device="cuda")
     st = FctAleSolver(mesh, cfg, backend="torch", device="cuda")
+    if sc.backend != "cuda":
+        raise AssertionError(f"{label}: default backend {sc.backend!r}")
     state_c = sc.init_state(fields)
     state_t = st.init_state(fields)
     torch.cuda.synchronize()
@@ -484,9 +505,13 @@ def phase_s2r_checks(errs: Errors, meshes: dict) -> None:
             slab = solver.pack_elem_inputs(*host[:7])
             ref = K.stress2rhs_ref(md, slab, iam, ra, rm)
             got = K.stress2rhs(md, slab, iam, ra, rm)
+            again = K.stress2rhs(md, slab, iam, ra, rm)
             for i, name in enumerate("UV"):
                 errs.check("stress2rhs", name, got[i], ref[i],
                            K.TOLERANCE[dtype], case)
+                # no atomics: a second launch gives the same bits
+                errs.check("stress2rhs", name, again[i], got[i], 0.0,
+                           f"{case} second launch")
             # every element ice-free: exactly rhs where inv_areamass > 0
             ice_free = solver.pack_elem_inputs(host[0], -np.abs(host[1]),
                                                *host[2:7])
@@ -508,8 +533,9 @@ def phase_s2r_checks(errs: Errors, meshes: dict) -> None:
         print(f"stress2rhs vs plain: {key} ({mesh.n_nodes} nodes, "
               f"{mesh.n_elems} elements): f32 and f64 ok (relerr <= "
               f"{K.TOLERANCE[torch.float32]:.0e} f32, "
-              f"{K.TOLERANCE[torch.float64]:.0e} f64; ice-free and "
-              f"massless cases exact)", flush=True)
+              f"{K.TOLERANCE[torch.float64]:.0e} f64; a second launch "
+              f"bit-identical; ice-free and massless cases exact)",
+              flush=True)
 
 
 def phase_fct_on_rcm(errs: Errors, meshes: dict) -> None:
@@ -651,9 +677,12 @@ def s2r_path(card: str, mesh, label: str) -> tuple:
     )
 
     host = s2r_inputs(mesh)
-    sc = Stress2RhsSolver(mesh, torch.float32, backend="cuda", device="cuda")
+    # no backend: on a CUDA device the default runs H-S2R
+    sc = Stress2RhsSolver(mesh, torch.float32, device="cuda")
     st = Stress2RhsSolver(mesh, torch.float32, backend="torch",
                           device="cuda")
+    if sc.backend != "cuda":
+        raise AssertionError(f"{label}: default backend {sc.backend!r}")
     pc = sc.pack_elem_inputs(*host[:7])
     pt = st.pack_elem_inputs(*host[:7])
     node = [torch.tensor(a, dtype=torch.float32, device="cuda")
@@ -857,22 +886,25 @@ def phase_sharded_checks(errs: Errors, meshes: dict) -> None:
 
 def sharded_vs_single(mesh, fields, cfg, n_parts: int, steps: int,
                       label: str, tol: float, **kw) -> tuple:
-    """``steps`` steps of ShardedFctAleSolver(backend="cuda") on n_parts
-    parts of the card, split and fused, each against the same steps of
-    FctAleSolver(backend="cuda"): every gathered field within ``tol``.
+    """``steps`` steps of ShardedFctAleSolver(devices=["cuda:0"] * n_parts)
+    (the default backend, "cuda"), split and fused, each against the same
+    steps of FctAleSolver(device="cuda"): every gathered field within
+    ``tol``.
     Returns the launch counts of each mode's run, the solvers and their
     initial states."""
     from fesom2_accelerate_tpu_torch import FctAleSolver, ShardedFctAleSolver
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
 
-    single = FctAleSolver(mesh, cfg, backend="cuda", device="cuda")
+    single = FctAleSolver(mesh, cfg, device="cuda")
     s0 = single.init_state(fields)
     ref = {k: v.cpu().numpy() for k, v in single.run(s0, steps).items()}
     counts, solvers = {}, {"single": (single, s0)}
     for mode in ("split", "fused"):
-        sh = ShardedFctAleSolver(mesh, cfg, backend="cuda",
-                                 devices=["cuda:0"] * n_parts,
+        # no backend: on CUDA devices the default runs the kernels
+        sh = ShardedFctAleSolver(mesh, cfg, devices=["cuda:0"] * n_parts,
                                  fused=(mode == "fused"), **kw)
+        if sh.backend != "cuda":
+            raise AssertionError(f"{label}: default backend {sh.backend!r}")
         state = sh.init_state(fields)
         torch.cuda.synchronize()
         K.reset_launch_counts()
@@ -1057,8 +1089,9 @@ def form_name(fuse_k12: bool, fuse_k34: bool) -> str:
 
 def check_limit_fused(md, state, cfg, errs: Errors, case: str) -> float:
     """H-K12 against its plain version (bounds_ref then limit_ref): the
-    bounds bit-exact, the other outputs within TOLERANCE.  Returns the
-    largest absolute difference from H-K1 -> H-K2 on the same inputs."""
+    bounds bit-exact, the other outputs within TOLERANCE; and against
+    H-K1 -> H-K2 on the same inputs, every output bit-identical.  Returns
+    the largest absolute difference from H-K1 -> H-K2 (0.0)."""
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
 
     s = state
@@ -1066,31 +1099,78 @@ def check_limit_fused(md, state, cfg, errs: Errors, case: str) -> float:
             cfg.vlimit, cfg.dt, cfg.flux_eps, cfg.iter_yn)
     ref = K.limit_fused_ref(*args)
     got = K.limit_fused(*args)
-    for i, name in enumerate(("fct_ttf_max", "fct_ttf_min", "fct_plus",
-                              "fct_minus", "adf_v_lim", "adf_v_res")):
+    for i, name in enumerate(K12_OUTPUTS):
         errs.check("limit_fused", name, got[i], ref[i],
                    0.0 if i < 2 else K.TOLERANCE[cfg.dtype], case)
     chain = K.bounds(md, s["fct_LO"], s["ttf"], cfg.vlimit)
     chain += K.limit(md, s["fct_adf_v"], *chain, s["fct_adf_h"], cfg.dt,
                      cfg.flux_eps, cfg.iter_yn)
-    return max(abserr(g, c) for g, c in zip(got, chain) if c is not None)
+    diff = 0.0
+    for name, g, c in zip(K12_OUTPUTS, got, chain):
+        if c is None:
+            continue
+        d = abserr(g, c)
+        diff = max(diff, d)
+        if not torch.equal(g, c):
+            raise AssertionError(f"K12 {name} {case}: not bit-identical to "
+                                 f"K1 -> K2 (max abs diff {d:.3e})")
+    return diff
+
+
+K12_OUTPUTS = ("fct_ttf_max", "fct_ttf_min", "fct_plus", "fct_minus",
+               "adf_v_lim", "adf_v_res")
+# H-K12's cases: (dtype, vlimit, iter_yn), every vlimit both ways in f32
+# and f64
+K12_CASES = [(dtype, v, it) for dtype in (torch.float32, torch.float64)
+             for v in (1, 2, 3) for it in (False, True)]
+
+
+def chunk_meshes() -> dict:
+    """Planar meshes of small's 24 x 16 nodes whose layer counts straddle
+    H-K12's level chunk LC: L = 2, LC - 1, LC, LC + 1 and 2 LC + 1 (the
+    generator's synthetic bathymetry; L = 2, below what the generator
+    takes, from small's elements with every element 3 levels deep)."""
+    from fesom2_accelerate_tpu_torch.mesh import (
+        build_mesh_from_elements,
+        generate_planar_mesh,
+    )
+    from fesom2_accelerate_tpu_torch.ops.meshdata import LIMIT_FUSED_LEVELS
+
+    lc = LIMIT_FUSED_LEVELS
+    small = generate_planar_mesh(preset="small")
+    out = {}
+    for n_layers in (2, lc - 1, lc, lc + 1, 2 * lc + 1):
+        nl = n_layers + 1
+        out[f"L={n_layers}"] = (
+            generate_planar_mesh(nx=24, ny=16, nl=nl) if nl >= 4 else
+            build_mesh_from_elements(small.elem_nodes,
+                                     np.full(small.n_elems, nl), nl,
+                                     small.node_xy))
+    return out
 
 
 def phase_new_kernel_checks(errs: Errors, meshes: dict) -> None:
-    """H-K12 on small, core2, the cylinder and polar_cap (the cases of
-    phase 3 and its b3v-mask case); H-A2 on core2 and the cylinder."""
+    """H-K12 on meshes whose layer counts straddle its level chunk, and on
+    small, core2, the cylinder and polar_cap: vlimit 1/2/3 x iter_yn in
+    f32 and f64 and a b3v-mask case, each against its plain version and
+    bit for bit against H-K1 -> H-K2; H-A2 on core2 and the cylinder."""
     from fesom2_accelerate_tpu_torch import FctAleConfig
     from fesom2_accelerate_tpu_torch.mesh import random_fields
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
-    from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
+    from fesom2_accelerate_tpu_torch.ops.meshdata import (
+        LIMIT_FUSED_LEVELS,
+        build_mesh_data,
+    )
 
-    for key in ("small", "core2", "cylinder", "polar_cap"):
-        mesh = meshes[key]
+    k12_meshes = chunk_meshes()
+    k12_meshes.update((k, meshes[k])
+                      for k in ("small", "core2", "cylinder", "polar_cap"))
+    for key, mesh in k12_meshes.items():
         fields = random_fields(mesh, seed=3, dtype=np.float64)
         md = {dt: build_mesh_data(mesh, dt, "cuda")
               for dt in (torch.float32, torch.float64)}
         diff = 0.0
-        for dtype, vlimit, iter_yn in FCT_CASES:
+        for dtype, vlimit, iter_yn in K12_CASES:
             cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=0.5,
                                flux_eps=1e-7 if dtype == torch.float32
                                else 1e-16, dtype=dtype)
@@ -1118,10 +1198,12 @@ def phase_new_kernel_checks(errs: Errors, meshes: dict) -> None:
             raise AssertionError("limit_fused b3v-mask: bottom interface "
                                  "flux changed")
         torch.cuda.synchronize()
-        print(f"limit_fused vs plain: {key} ({mesh.n_nodes} nodes): "
-              f"{len(FCT_CASES) + 1} cases ok (bounds bit-exact, the rest "
-              f"relerr <= 1e-6 f32, 1e-12 f64); max |K12 - (K1 -> K2)| on "
-              f"the card: {diff:.3e}", flush=True)
+        chunks = -(-mesh.n_layers // LIMIT_FUSED_LEVELS)
+        print(f"limit_fused vs plain: {key} ({mesh.n_nodes} nodes, "
+              f"{mesh.n_layers} layers, {chunks} level chunk(s) of "
+              f"{LIMIT_FUSED_LEVELS}): {len(K12_CASES) + 1} cases ok (bounds "
+              f"bit-exact, the rest relerr <= 1e-6 f32, 1e-12 f64); max "
+              f"|K12 - (K1 -> K2)| on the card: {diff:.3e}", flush=True)
 
     for key in ("core2", "cylinder"):
         mesh = meshes[key]

@@ -4,6 +4,8 @@ Counterpart of ``fesom2_accelerate_tpu/config.py``: the same fields and
 checks, with ``dtype`` a ``torch.dtype``.  The reference threads these
 switches through every call as bare scalars (``vlimit`` 1/2/3, ``iter_yn``,
 ``flux_eps``, ``bignumber``, ``dt``; reference docs/refactoring.md:32-35).
+:func:`resolve_backend` is the solvers' choice of backend from their
+devices.
 """
 
 from __future__ import annotations
@@ -52,3 +54,36 @@ class FctAleConfig:
     @property
     def np_dtype(self):
         return np.dtype(_DTYPES[self.dtype])
+
+
+BACKENDS = ("torch", "cuda")
+
+
+def resolve_backend(backend: str | None, devices) -> str:
+    """The backend a solver on ``devices`` (one device or a list) runs.
+
+    ``None``, the solvers' default, follows the devices the caller gave:
+    "cuda" (the hand-written kernels) when every device is a CUDA device,
+    "torch" (the plain PyTorch stages) when every one is the CPU; a mix, or
+    any other device type, raises.  Nothing probes for a card.  An explicit
+    "torch" runs on any device; an explicit "cuda" needs CUDA devices."""
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devices = [torch.device(d) for d in devices]
+    kinds = {d.type for d in devices}
+    if backend is None:
+        if kinds == {"cuda"}:
+            return "cuda"
+        if kinds == {"cpu"}:
+            return "torch"
+        raise ValueError(
+            f"backend=None follows the devices, which must be all CUDA or "
+            f"all CPU, got {[str(d) for d in devices]}; pass backend= to "
+            f"choose")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be 'torch' or 'cuda' (or None), got "
+                         f"{backend!r}")
+    if backend == "cuda" and kinds != {"cuda"}:
+        raise ValueError(f"backend='cuda' needs CUDA devices, got "
+                         f"{[str(d) for d in devices]}")
+    return backend

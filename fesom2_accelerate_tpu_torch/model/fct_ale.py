@@ -7,13 +7,18 @@ run inserts its halo exchange (docs/refactoring.md:200,235).  The solver
 keeps the mesh tensors on one explicit device and runs one of two step
 functions over state tensors on that device:
 
-* ``backend="torch"``: :func:`fct_ale_step`, plain PyTorch stages, any
-  device, float32 or float64 (the correctness gate);
 * ``backend="cuda"``: :func:`~fesom2_accelerate_tpu_torch.ops.cuda.step.
   fct_ale_step_cuda`, hand-written CUDA kernels; CUDA devices only.  The
   keywords ``fuse_k12`` and ``fuse_k34`` choose its form (K12 or K1 -> K2,
   K34 or K3 -> K4), the counterparts of the JAX package's
-  ``build_pallas_data(fuse_k12=, fuse_k34=)``.
+  ``build_pallas_data(fuse_k12=, fuse_k34=)``;
+* ``backend="torch"``: :func:`fct_ale_step`, plain PyTorch stages, any
+  device, float32 or float64 (the correctness gate).
+
+The default, ``backend=None``, follows ``device``: "cuda" on a CUDA
+device, "torch" on the CPU (:func:`~fesom2_accelerate_tpu_torch.config.
+resolve_backend`), as the JAX solver's default "xla" is compiled for the
+device it runs on.
 
 Multi-tracer batching (``init_state_tracers`` / ``step_tracers`` /
 ``run_tracers``, the JAX solver's methods of the same names) runs Tb
@@ -31,7 +36,7 @@ import functools
 import numpy as np
 import torch
 
-from fesom2_accelerate_tpu_torch.config import FctAleConfig
+from fesom2_accelerate_tpu_torch.config import FctAleConfig, resolve_backend
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 from fesom2_accelerate_tpu_torch.ops import stages
 from fesom2_accelerate_tpu_torch.ops.cuda.step import (
@@ -140,16 +145,16 @@ class FctAleSolver:
 
     Usage::
 
-        solver = FctAleSolver(mesh, FctAleConfig(), backend="cuda",
-                              device="cuda")
+        solver = FctAleSolver(mesh, FctAleConfig(), device="cuda")
         state = solver.init_state(fields)      # host numpy -> device
         state = solver.step(state)             # one FCT-ALE step
         state = solver.run(state, n_steps=10)  # Python loop of steps
         # Tb tracers: per-tracer fields [Tb, ...], hnode/hnode_new [L, N]
         batch = solver.run_tracers(solver.init_state_tracers(fields_tb), 10)
 
-    backend: "torch" (plain PyTorch stages, any device and float dtype) or
-    "cuda" (the CUDA kernels; ``device`` must be a CUDA device).  With
+    backend: None (the default: "cuda" on a CUDA ``device``, "torch" on
+    the CPU), "torch" (plain PyTorch stages, any device and float dtype)
+    or "cuda" (the CUDA kernels; ``device`` must be a CUDA device).  With
     "cuda", ``fuse_k12`` runs K1 and K2 as the one kernel K12 and
     ``fuse_k34=False`` runs K3 -> K4 in place of K34; "torch" refuses any
     value but the default.  A CUDA solver whose form runs K34 needs the
@@ -158,10 +163,11 @@ class FctAleSolver:
     default ``fuse_k12=False``."""
 
     def __init__(self, mesh: Mesh, cfg: FctAleConfig = FctAleConfig(),
-                 backend: str = "torch", *,
+                 backend: str | None = None, *,
                  device: torch.device | str, fuse_k12: bool = False,
                  fuse_k34: bool = True):
         device = torch.device(device)
+        backend = resolve_backend(backend, device)
         if backend == "torch":
             if (fuse_k12, fuse_k34) != (False, True):
                 raise ValueError(
@@ -169,18 +175,12 @@ class FctAleSolver:
                     "backend='cuda'; backend='torch' takes the defaults")
             self._step_fn = fct_ale_step
             self._tracer_step_fn = None
-        elif backend == "cuda":
-            if device.type != "cuda":
-                raise ValueError(
-                    f"backend='cuda' needs a CUDA device, got {device}")
+        else:
             self._step_fn = functools.partial(
                 fct_ale_step_cuda, fuse_k12=fuse_k12, fuse_k34=fuse_k34)
             self._tracer_step_fn = functools.partial(
                 fct_ale_step_cuda_batched, fuse_k12=fuse_k12,
                 fuse_k34=fuse_k34)
-        else:
-            raise ValueError(f"backend must be 'torch' or 'cuda', got "
-                             f"{backend!r}")
         self.mesh = mesh
         self.cfg = cfg
         self.backend = backend

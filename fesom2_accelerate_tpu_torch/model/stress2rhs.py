@@ -7,11 +7,15 @@ element stresses change every substep, the node rows (``inv_areamass``,
 tensors on one explicit device and runs one of two functions over an
 element slab:
 
-* ``backend="torch"``: :func:`~fesom2_accelerate_tpu_torch.ops.cuda.kernels.
-  stress2rhs_ref`, plain PyTorch, any device, float32 or float64;
 * ``backend="cuda"``: the hand-written H-S2R kernel
   (:func:`~fesom2_accelerate_tpu_torch.ops.cuda.kernels.stress2rhs`,
-  ``ops/cuda/csrc/stress2rhs.cu``); CUDA devices only.
+  ``ops/cuda/csrc/stress2rhs.cu``); CUDA devices only;
+* ``backend="torch"``: :func:`~fesom2_accelerate_tpu_torch.ops.cuda.kernels.
+  stress2rhs_ref`, plain PyTorch, any device, float32 or float64.
+
+The default, ``backend=None``, follows ``device``: "cuda" on a CUDA
+device, "torch" on the CPU (:func:`~fesom2_accelerate_tpu_torch.config.
+resolve_backend`).
 
 The slab (:meth:`Stress2RhsSolver.pack_elem_inputs`) is SoA
 ``[11, E]`` in natural element order, rows s11, s12, s22,
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from fesom2_accelerate_tpu_torch.config import resolve_backend
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 from fesom2_accelerate_tpu_torch.ops.cuda import kernels
 from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
@@ -43,8 +48,7 @@ class Stress2RhsSolver:
 
     Usage::
 
-        solver = Stress2RhsSolver(mesh, torch.float32, backend="cuda",
-                                  device="cuda")
+        solver = Stress2RhsSolver(mesh, torch.float32, device="cuda")
         U, V = solver(elem_area, ice_strength, sigma11, sigma12, sigma22,
                       gradient_sca, metric_factor, inv_areamass, rhs_a,
                       rhs_m)
@@ -56,24 +60,22 @@ class Stress2RhsSolver:
 
     Inputs are numpy arrays or tensors: element rows ``[E]``,
     ``gradient_sca`` ``[6, E]``, node rows ``[N]``; they are converted to
-    the solver's dtype and device.  Outputs are ``[N]`` tensors."""
+    the solver's dtype and device.  Outputs are ``[N]`` tensors.
+
+    backend: None (the default: "cuda" on a CUDA ``device``, "torch" on
+    the CPU), "torch" (plain PyTorch, any device) or "cuda" (H-S2R;
+    ``device`` must be a CUDA device)."""
 
     def __init__(self, mesh: Mesh, dtype: torch.dtype = torch.float32,
-                 backend: str = "torch", *, device: torch.device | str):
+                 backend: str | None = None, *,
+                 device: torch.device | str):
         device = torch.device(device)
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be torch.float32 or "
                              f"torch.float64, got {dtype}")
-        if backend == "torch":
-            self._fn = kernels.stress2rhs_ref
-        elif backend == "cuda":
-            if device.type != "cuda":
-                raise ValueError(
-                    f"backend='cuda' needs a CUDA device, got {device}")
-            self._fn = kernels.stress2rhs
-        else:
-            raise ValueError(f"backend must be 'torch' or 'cuda', got "
-                             f"{backend!r}")
+        backend = resolve_backend(backend, device)
+        self._fn = (kernels.stress2rhs if backend == "cuda"
+                    else kernels.stress2rhs_ref)
         self.mesh = mesh
         self.dtype = dtype
         self.backend = backend

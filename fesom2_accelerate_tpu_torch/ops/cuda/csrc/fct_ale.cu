@@ -20,24 +20,25 @@
 // Design of the kernels.  All are bound by device-memory traffic (a few
 // flops per byte); the neighbour gathers at each level hit L2/L1 because
 // the mesh numbering keeps neighbours within about min(nx, ny) node indices.
-//   * Tiled node kernels (K1, K34).  A block covers a tile of kTileNodes
-//     consecutive nodes (one warp's width) and a chunk of consecutive
-//     levels (K1 32, K34 16); lane l of every warp holds node n0 + l, and
-//     the warps take the chunk's levels in turn.  No thread walks the whole
-//     column, and the grid has many blocks per SM (core2: 3,977 tiles x 2
-//     chunks for K1, x 3 for K34: 6 and 9 waves), so the card fills
-//     whatever each thread's registers.  K1 computes the cluster bounds of
-//     the chunk and one level either side into shared memory, then applies
-//     the vertical window from there.  K34 limits the edges that start in
-//     its tile (an index range, ed_ptr of ops/meshdata.py: edges are sorted
-//     by their first endpoint) one thread per (edge, level), writing them
-//     coalesced and keeping them in shared memory, then sums each node's
-//     incident fluxes from there.
-//   * Node-threaded kernels (K2, K12, K4): one thread per node, looping over
-//     the levels z with the node's incidence row (up to MAXD slots of
-//     nd_idx / nd_other / nd_lev / nd_sgn) in registers and the vertical
-//     stencils (a3's z-1..z+1 window, b3v's z-1 factors, stage c's z+1
-//     interface) carried across the loop.
+//   * Tiled node kernels (K1, K12, K34).  A block covers a tile of
+//     kTileNodes consecutive nodes (one warp's width) and a chunk of
+//     consecutive levels (K1 32, K12 24, K34 16); lane l of every warp
+//     holds node n0 + l, and the warps take the chunk's levels in turn.  No
+//     thread walks the whole column, and the grid has many blocks per SM
+//     (core2: 3,977 tiles x 2 chunks for K1 and K12, x 3 for K34: 6 to 9
+//     waves), so the card fills whatever each thread's registers.  K1 computes the
+//     cluster bounds of the chunk and one level either side into shared
+//     memory, then applies the vertical window from there.  K12 does the
+//     same one level further up, then K2's factors of the chunk and the
+//     level above it into shared memory, and b3v from there.  K34 limits
+//     the edges that start in its tile (an index range, ed_ptr of
+//     ops/meshdata.py: edges are sorted by their first endpoint) one thread
+//     per (edge, level), writing them coalesced and keeping them in shared
+//     memory, then sums each node's incident fluxes from there.
+//   * Node-threaded kernels (K2, K4): one thread per node, looping over the
+//     levels z with the node's incidence row (up to MAXD slots of nd_idx /
+//     nd_lev / nd_sgn) in registers and the vertical stencils (b3v's z-1
+//     factors, stage c's z+1 interface) carried across the loop.
 //   * Edge and element kernels (K3, K3fix, A2): one thread per (edge or
 //     element, level), consecutive threads on consecutive entities of one
 //     level.
@@ -140,12 +141,13 @@ __device__ __forceinline__ T* at_tracer(T* p, int t, size_t size) {
   return p == nullptr ? p : p + (size_t)t * size;
 }
 
-// The tile of the tiled node kernels (K1, K34): nodes of one block, and the
-// levels of one block of each.  ops/meshdata.py:TILE_NODES is its copy
-// (tests/test_torch_kernels.py holds the two equal, as it does for
-// kMaxWideThreads and OccupancyKernel).
+// The tile of the tiled node kernels (K1, K12, K34): nodes of one block,
+// and the levels of one block of each.  ops/meshdata.py:TILE_NODES and
+// LIMIT_FUSED_LEVELS are copies (tests/test_torch_kernels.py holds them
+// equal, as it does for kMaxWideThreads and OccupancyKernel).
 constexpr int kTileNodes = 32;
 constexpr int kBoundsLevels = 32;
+constexpr int kLimitFusedLevels = 24;
 constexpr int kUpdateLevels = 16;
 
 // ---------------------------------------------------------------------------
@@ -319,60 +321,6 @@ bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
   }
 }
 
-// H-K12's vertical window, carried down its level loop: the cluster bounds
-// and a1 at level z-1 (padded at the surface) and the whole of level z.
-template <typename T>
-struct Window {
-  T pmax, pmin;    // cluster bounds at z-1
-  T pa_hi, pa_lo;  // a1max at z-1 (max / min window pads)
-  Level<T> cur;    // level z
-};
-
-template <typename T, int MAXD>
-__device__ __forceinline__ Window<T> window_start(
-    const T* __restrict__ lo, const T* __restrict__ ttf, int n, int N,
-    int nlev, const int (&oth)[MAXD], const int (&lev)[MAXD]) {
-  const T big = T(1e30);
-  Window<T> w;
-  w.pmax = -big;
-  w.pmin = big;
-  w.pa_hi = -big;
-  w.pa_lo = big;
-  w.cur = cluster_level<T, MAXD>(lo, ttf, 0, n, N, nlev, oth, lev);
-  return w;
-}
-
-// K1 at level z of node n in H-K12's level loop: fct_ttf_max / fct_ttf_min
-// into tx / tn, then the window moved down to z+1.
-template <typename T, int MAXD>
-__device__ __forceinline__ void bounds_level(
-    const T* __restrict__ lo, const T* __restrict__ ttf, int z, int n,
-    int L, int N, int nlev, int vlimit, const int (&oth)[MAXD],
-    const int (&lev)[MAXD], Window<T>& w, T& tx, T& tn) {
-  const T big = T(1e30);
-  Level<T> nxt;
-  T na_hi, na_lo;
-  if (z + 1 < L) {
-    nxt = cluster_level<T, MAXD>(lo, ttf, z + 1, n, N, nlev, oth, lev);
-    na_hi = nxt.a1max;
-    na_lo = nxt.a1max;
-  } else {
-    nxt.cmax = -big;
-    nxt.cmin = big;
-    nxt.a1max = T(0);
-    nxt.lo = T(0);
-    na_hi = -big;
-    na_lo = big;
-  }
-  bounds_window(w.pmax, w.pmin, w.pa_hi, w.pa_lo, w.cur, nxt.cmax, nxt.cmin,
-                na_hi, na_lo, z, nlev, vlimit, tx, tn);
-  w.pmax = w.cur.cmax;
-  w.pmin = w.cur.cmin;
-  w.pa_hi = w.cur.a1max;
-  w.pa_lo = w.cur.a1max;
-  w.cur = nxt;
-}
-
 // ---------------------------------------------------------------------------
 // H-K2 limit.  Replaces kernels_packed.py:limit_packed_pallas (the
 // computation of _limit_body): b1 vertical, the b1 horizontal signed +/-
@@ -411,21 +359,18 @@ __device__ __forceinline__ bool is_first(unsigned first, int k) {
   return (first >> k) & 1u;
 }
 
-// K2 at level z of node n, from the bounds of that node and level (read
-// only on active rows) and the vertical fluxes up (interface z) and dn
-// (interface z+1); the b3v factors of level z-1 are carried in fp_prev /
-// fm_prev.  idx indexes the shared rows (area_inv) at (z, n), tidx the
-// tracer's node fields (its factors), vidx its interface fields, erow
-// starts its edge row z (all of one field for a single tracer).  Shared by
-// K2 and K12, so both compute the same bits.
+// K2's factors at level z of node n (b1 vertical, b1 horizontal, b2) into
+// fp / fm, from the bounds of that node and level (read only on active
+// rows) and the vertical fluxes up (interface z) and dn (interface z+1).
+// idx indexes the shared rows (area_inv) at (z, n), erow starts the
+// tracer's edge row z.  Shared by K2 and K12, so both compute the same
+// bits.
 template <typename T, int MAXD, typename First, typename Bounds>
-__device__ __forceinline__ void limit_level(
+__device__ __forceinline__ void limit_factors(
     const T* __restrict__ adf_h, const T* __restrict__ area_inv,
     const int (&eidx)[MAXD], const int (&lev)[MAXD], const First& first,
-    int z, size_t idx, size_t tidx, size_t vidx, size_t erow, bool act,
-    const Bounds& bnd, T up, T dn, T dt, T eps, T& fp_prev, T& fm_prev,
-    T* __restrict__ plus_out, T* __restrict__ minus_out,
-    T* __restrict__ adf_v_lim, T* __restrict__ adf_v_res) {
+    int z, size_t idx, size_t erow, bool act, const Bounds& bnd, T up, T dn,
+    T dt, T eps, T& fp, T& fm) {
   // b1 vertical (kernels/fct_ale_b1_vertical.cu:13-14)
   const T pv = vmax(T(0), up) + vmax(T(0), -dn);
   const T mv = vmin(T(0), up) + vmin(T(0), -dn);
@@ -444,12 +389,17 @@ __device__ __forceinline__ void limit_level(
   const T ai = area_inv[idx];
   const T fplus = (pv + gp) * dt * ai + eps;
   const T fminus = (mv + gm) * dt * ai - eps;
-  const T fp = act ? vmin(T(1), bnd.max() / fplus) : T(0);
-  const T fm = act ? vmin(T(1), bnd.min() / fminus) : T(0);
-  plus_out[tidx] = fp;
-  minus_out[tidx] = fm;
-  // b3 vertical (kernels/fct_ale_b3_vertical.cu:17-45)
-  const T flux = up;
+  fp = act ? vmin(T(1), bnd.max() / fplus) : T(0);
+  fm = act ? vmin(T(1), bnd.min() / fminus) : T(0);
+}
+
+// b3 vertical (kernels/fct_ale_b3_vertical.cu:17-45) of the flux at
+// interface z, from the factors of level z (fp, fm) and z-1 (fp_prev,
+// fm_prev; 1 above z = 0), written at vidx.  Shared by K2 and K12.
+template <typename T>
+__device__ __forceinline__ void limit_vertical(
+    T flux, T fp_prev, T fm_prev, T fp, T fm, bool act, int z, size_t vidx,
+    T* __restrict__ adf_v_lim, T* __restrict__ adf_v_res) {
   const T ae_pos = vmin(T(1), vmin(fm_prev, fp));
   const T ae_neg = vmin(T(1), vmin(fp_prev, fm));
   const T ae = flux >= T(0) ? ae_pos : ae_neg;
@@ -457,6 +407,27 @@ __device__ __forceinline__ void limit_level(
   if (adf_v_res != nullptr) {
     adf_v_res[vidx] = (act && z >= 1) ? (T(1) - ae) * flux : T(0);
   }
+}
+
+// K2 at level z of node n: limit_factors, both factors written at tidx
+// (the tracer's node fields), then limit_vertical with the factors of
+// level z-1 carried in fp_prev / fm_prev; vidx indexes the tracer's
+// interface fields (all of one field for a single tracer).
+template <typename T, int MAXD, typename First, typename Bounds>
+__device__ __forceinline__ void limit_level(
+    const T* __restrict__ adf_h, const T* __restrict__ area_inv,
+    const int (&eidx)[MAXD], const int (&lev)[MAXD], const First& first,
+    int z, size_t idx, size_t tidx, size_t vidx, size_t erow, bool act,
+    const Bounds& bnd, T up, T dn, T dt, T eps, T& fp_prev, T& fm_prev,
+    T* __restrict__ plus_out, T* __restrict__ minus_out,
+    T* __restrict__ adf_v_lim, T* __restrict__ adf_v_res) {
+  T fp, fm;
+  limit_factors<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx, erow,
+                         act, bnd, up, dn, dt, eps, fp, fm);
+  plus_out[tidx] = fp;
+  minus_out[tidx] = fm;
+  limit_vertical(up, fp_prev, fm_prev, fp, fm, act, z, vidx, adf_v_lim,
+                 adf_v_res);
   fp_prev = fp;
   fm_prev = fm;
 }
@@ -512,20 +483,43 @@ limit_kernel(const T* __restrict__ adf_v, const T* __restrict__ tmax,
 
 // ---------------------------------------------------------------------------
 // H-K12 limit_fused.  Replaces kernels_packed.py:limit_fused_pallas (the
-// computation of _limit_fused_kernel): K1 and K2 in one level loop of one
-// thread per node.  At each z the K1 window gives the node's bounds
-// (bounds_level), which are written out and fed, as values, to K2's body
-// at the same z (limit_level): b2 needs the bounds of its own node and
-// level only, and the a3 window's z+1 look-ahead is already carried in
-// registers, so the fusion recomputes nothing.  It saves the write and
-// re-read of fct_ttf_max/min through device memory (the bounds are still
-// written once, as outputs of the step) and one launch.  b3v follows the
-// oracle's mask z < nlev_nod - 1, as K2 does; the Pallas kernel calls
-// _limit_body, whose mask is z < nlev_nod (ROADMAP Queue C).
-// Bound by memory traffic.  Registers are the risk: the thread holds both
-// kernels' incidence rows (nd_other and nd_idx, with nd_lev loaded once
-// for both and the first-endpoint flags in one bit mask), K1's three-level
-// window and K2's carried b3v factors.
+// computation of _limit_fused_kernel): K1 (a1, the cluster bounds, the
+// vlimit window, "- fct_LO") and K2 (b1v, b1h, b2, b3v) in one launch on a
+// tile of kTileNodes nodes x kLimitFusedLevels levels [z0, z0+LC).  It
+// saves the write and re-read of fct_ttf_max/min through device memory
+// (the bounds are still written once, as outputs of the step) and one
+// launch: 261.8 MB on core2 f32 against K1's 90.5 + K2's 210.9, 0.078 ms
+// at 3.35 TB/s.  b3v follows the oracle's mask z < nlev_nod - 1, as K2
+// does; the Pallas kernel calls _limit_body, whose mask is z < nlev_nod
+// (ROADMAP Queue C).
+//
+// A thread that held both incidence rows (nd_other for K1, nd_idx for K2)
+// and K1's three-level window at once would need over 100 registers and
+// leave few blocks an SM.  So the block runs three phases, each with one
+// row live, and passes what the levels share through shared memory:
+//   * phase A: lane l of each warp computes node n0+l's cluster bounds and
+//     a1 (cluster_level, nd_other and nd_lev live) at levels z0-2 ..
+//     z0+LC into shared memory.  b3v at z0 needs K2's factors at z0-1,
+//     those need the bounds at z0-1, and those the cluster at z0-2: one
+//     level more above the chunk than K1 computes;
+//   * phase B: at levels z0-1 .. z0+LC-1 the window (bounds_window) from
+//     the shared rows and the node's own fct_LO, then K2's factors
+//     (limit_factors, nd_idx, nd_lev and the first-endpoint bits live) from
+//     those bounds, which stay in the thread's registers (the warp that
+//     computes a level's bounds computes its factors too).  The chunk's own
+//     levels write both bounds and both factors coalesced; every level
+//     keeps its factors in shared memory;
+//   * phase C: b3v (limit_vertical) at the chunk's levels, its z-1 factors
+//     from shared memory.  The last chunk passes the bottom interface row L
+//     through, as K2 does.
+// The grid is ceil(N/32) x ceil(L/24) blocks (7,954 on core2, chunks of 24
+// and 23 levels).  The levels above the chunk are computed twice (by this
+// chunk and the one above): 1/24 more edge gathers and 3/24 more cluster
+// gathers.  On core2 f32 (an H100) chunks of 24 beat 16 (more recompute)
+// and 32 (chunks of 32 and 15), and phase B reading the node's fct_LO from
+// memory beat a fourth shared row (16.8 KB a block against 20.2 KB at f32,
+// which leaves the gathers more L1).  The device functions are K1's and
+// K2's, so the outputs are the bits of K1 -> K2.
 // ---------------------------------------------------------------------------
 
 template <typename T, int MAXD, int THREADS>
@@ -543,42 +537,113 @@ limit_fused_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
                    T* __restrict__ plus_out, T* __restrict__ minus_out,
                    T* __restrict__ adf_v_lim, T* __restrict__ adf_v_res,
                    int L, int N, int Ed, int KD, int vlimit, T dt, T eps) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int nlev = nlev_nod[n];
-  const int num = nd_num[n];
-  int oth[MAXD], eidx[MAXD], lev[MAXD];
-  unsigned first = 0u;
+  constexpr int kWarps = THREADS / kTileNodes;
+  constexpr int LC = kLimitFusedLevels;
+  // phase A: row r holds level z0 - 2 + r
+  __shared__ T s_cmax[LC + 3][kTileNodes];
+  __shared__ T s_cmin[LC + 3][kTileNodes];
+  __shared__ T s_a1[LC + 3][kTileNodes];
+  // phase B: row r holds K2's factors at level z0 - 1 + r
+  __shared__ T s_fp[LC + 1][kTileNodes];
+  __shared__ T s_fm[LC + 1][kTileNodes];
+  const int lane = threadIdx.x % kTileNodes;
+  const int warp = threadIdx.x / kTileNodes;
+  const int n = blockIdx.x * kTileNodes + lane;
+  const int z0 = blockIdx.y * LC;
+  const bool node = n < N;
+  const int nlev = node ? nlev_nod[n] : 0;
+  const int num = node ? nd_num[n] : 0;
+  int lev[MAXD];  // 0 on padding slots, live in phases A and B
 #pragma unroll
-  for (int k = 0; k < MAXD; ++k) {
-    const bool ok = k < num;
-    oth[k] = ok ? nd_other[(size_t)n * KD + k] : n;
-    eidx[k] = ok ? nd_idx[(size_t)n * KD + k] : 0;
-    lev[k] = ok ? nd_lev[(size_t)n * KD + k] : 0;
-    if (ok && nd_sgn[(size_t)n * KD + k] > 0) first |= 1u << k;
-  }
+  for (int k = 0; k < MAXD; ++k)
+    lev[k] = k < num ? nd_lev[(size_t)n * KD + k] : 0;
 
-  Window<T> w = window_start<T, MAXD>(lo, ttf, n, N, nlev, oth, lev);
-  T fp_prev = T(1), fm_prev = T(1);
-  T up = adf_v[n];
-  for (int z = 0; z < L; ++z) {
-    const size_t idx = (size_t)z * N + n;
-    T tx, tn;
-    bounds_level<T, MAXD>(lo, ttf, z, n, L, N, nlev, vlimit, oth, lev, w,
-                          tx, tn);
-    tmax_out[idx] = tx;
-    tmin_out[idx] = tn;
-    const T dn = adf_v[idx + N];
-    limit_level<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx, idx,
-                         idx, (size_t)z * Ed, z < nlev - 1,
-                         BoundsInRegisters<T>{tx, tn}, up, dn, dt, eps,
-                         fp_prev, fm_prev, plus_out, minus_out, adf_v_lim,
-                         adf_v_res);
-    up = dn;
+  if (node) {
+    int oth[MAXD];
+#pragma unroll
+    for (int k = 0; k < MAXD; ++k)
+      oth[k] = k < num ? nd_other[(size_t)n * KD + k] : n;
+    for (int r = warp; r < LC + 3; r += kWarps) {
+      const int z = z0 - 2 + r;
+      if (z < 0 || z >= L) continue;
+      const Level<T> c = cluster_level<T, MAXD>(lo, ttf, z, n, N, nlev, oth,
+                                                lev);
+      s_cmax[r][lane] = c.cmax;
+      s_cmin[r][lane] = c.cmin;
+      s_a1[r][lane] = c.a1max;
+    }
   }
-  const size_t last = (size_t)L * N + n;
-  adf_v_lim[last] = up;
-  if (adf_v_res != nullptr) adf_v_res[last] = T(0);
+  __syncthreads();
+
+  if (node) {
+    int eidx[MAXD];
+    unsigned first = 0u;
+#pragma unroll
+    for (int k = 0; k < MAXD; ++k) {
+      const bool ok = k < num;
+      eidx[k] = ok ? nd_idx[(size_t)n * KD + k] : 0;
+      if (ok && nd_sgn[(size_t)n * KD + k] > 0) first |= 1u << k;
+    }
+    const T big = T(1e30);
+    for (int r = warp; r <= LC; r += kWarps) {
+      const int z = z0 - 1 + r;
+      if (z < 0) continue;
+      if (z >= L) break;
+      const int c = r + 1;  // level z's row of phase A
+      const size_t idx = (size_t)z * N + n;
+      const Level<T> cur{s_cmax[c][lane], s_cmin[c][lane], s_a1[c][lane],
+                         lo[idx]};
+      T pmax = -big, pmin = big, pa_hi = -big, pa_lo = big;
+      if (z >= 1) {
+        pmax = s_cmax[c - 1][lane];
+        pmin = s_cmin[c - 1][lane];
+        pa_hi = pa_lo = s_a1[c - 1][lane];
+      }
+      T xmax = -big, xmin = big, xa_hi = -big, xa_lo = big;
+      if (z + 1 < L) {
+        xmax = s_cmax[c + 1][lane];
+        xmin = s_cmin[c + 1][lane];
+        xa_hi = xa_lo = s_a1[c + 1][lane];
+      }
+      T tx, tn;
+      bounds_window(pmax, pmin, pa_hi, pa_lo, cur, xmax, xmin, xa_hi, xa_lo,
+                    z, nlev, vlimit, tx, tn);
+      T fp, fm;
+      limit_factors<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx,
+                             (size_t)z * Ed, z < nlev - 1,
+                             BoundsInRegisters<T>{tx, tn}, adf_v[idx],
+                             adf_v[idx + N], dt, eps, fp, fm);
+      s_fp[r][lane] = fp;
+      s_fm[r][lane] = fm;
+      if (r >= 1) {  // the chunk's own level
+        tmax_out[idx] = tx;
+        tmin_out[idx] = tn;
+        plus_out[idx] = fp;
+        minus_out[idx] = fm;
+      }
+    }
+  }
+  __syncthreads();
+  if (!node) return;
+
+  for (int r = 1 + warp; r <= LC; r += kWarps) {
+    const int z = z0 - 1 + r;
+    if (z >= L) break;
+    const size_t vidx = (size_t)z * N + n;
+    T fp_prev = T(1), fm_prev = T(1);  // 1 above z = 0
+    if (z >= 1) {
+      fp_prev = s_fp[r - 1][lane];
+      fm_prev = s_fm[r - 1][lane];
+    }
+    limit_vertical(adf_v[vidx], fp_prev, fm_prev, s_fp[r][lane],
+                   s_fm[r][lane], z < nlev - 1, z, vidx, adf_v_lim,
+                   adf_v_res);
+    if (z == L - 1) {
+      const size_t last = (size_t)L * N + n;
+      adf_v_lim[last] = adf_v[last];
+      if (adf_v_res != nullptr) adf_v_res[last] = T(0);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1033,7 +1098,7 @@ void with_tracers(int Tb, F&& f) {
 // kMaxDegree, the least that holds KD) and the block size.  Rows of more
 // than 8 slots are instantiated for blocks of at most kMaxWideThreads:
 // their node kernels need more registers than a larger block leaves a
-// thread (H-K12 would spill), so such a launch is refused.
+// thread, so such a launch is refused.
 constexpr int kMaxWideThreads = 128;
 
 template <typename F>
@@ -1119,7 +1184,8 @@ int launch_limit_fused(const void* lo, const void* ttf, const void* adf_v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_config(KD, threads, [&](auto d, auto nt) {
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
-    limit_fused_kernel<T, D, TH><<<blocks_for(N, TH), TH, 0, s>>>(
+    limit_fused_kernel<T, D, TH>
+        <<<tile_grid(N, L, kLimitFusedLevels), TH, 0, s>>>(
         (const T*)lo, (const T*)ttf, (const T*)adf_v, (const T*)adf_h,
         (const T*)area_inv, (const int*)nd_idx, (const int*)nd_other,
         (const int*)nd_lev, (const signed char*)nd_sgn, (const int*)nd_num,
@@ -1268,9 +1334,9 @@ int launch_a2(const void* tmax, const void* tmin, const void* elem_nodes,
 }
 
 // The kernels the occupancy query answers for (kernels.py:OCCUPANCY lists
-// them in this order): the default step's K1, K2, K34, and K3, K4.
+// them in this order): the default step's K1, K2, K34, then K3, K4, K12.
 enum OccupancyKernel { kOccBounds, kOccLimit, kOccUpdateFused, kOccB3h,
-                       kOccUpdate };
+                       kOccUpdate, kOccLimitFused };
 
 // out[0] = resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 // and out[1] = grid blocks of the instance a launcher of kernel ``kernel``
@@ -1310,6 +1376,10 @@ int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
       case kOccUpdate:
         fn = (const void*)update_kernel<T, D, TH, false>;
         grid = blocks_for(N, TH);
+        break;
+      case kOccLimitFused:
+        fn = (const void*)limit_fused_kernel<T, D, TH>;
+        grid = tile_grid(N, L, kLimitFusedLevels);
         break;
       default:
         return;

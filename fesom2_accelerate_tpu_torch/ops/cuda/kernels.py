@@ -57,12 +57,15 @@ Tolerances against the plain versions, on the card: ``bounds``, ``a2``,
 ``b3h`` and ``b3h_fixup`` are bit-exact (max/min, selects, one subtraction
 or one product per output), and so are the edge outputs of
 ``update_fused`` and the bounds that ``limit_fused`` returns; on the card
-``update_fused`` gives the bits of ``b3h`` then ``update``.  ``limit``,
+``update_fused`` gives the bits of ``b3h`` then ``update``, and
+``limit_fused`` those of ``bounds`` then ``limit``.  ``limit``,
 ``limit_fused``'s other outputs, ``update_fused``'s node outputs,
 ``update`` and ``stress2rhs`` agree to relerr <= 1e-6 in float32 and
 <= 1e-12 in float64, relerr =
 max|a-b| / max(max|b|, 1): nvcc contracts a*b+c into one FMA rounding, and
-the FCT kernels sum the incident edges in another order.
+the kernels sum the incident edges (or elements) in another order.  Every
+kernel sums in a fixed order, without atomics: two launches on the same
+inputs give the same bits.
 """
 
 from __future__ import annotations
@@ -305,8 +308,9 @@ def limit_fused(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
                 threads: int = DEFAULT_THREADS):
     """K12 -> (fct_ttf_max, fct_ttf_min, fct_plus, fct_minus, limited
     fct_adf_v, its residual or None): :func:`bounds` and :func:`limit` in
-    one launch, without the bounds' round trip through device memory.
-    One tracer only: H-K12 has no tracer axis."""
+    one launch on tiles of TILE_NODES nodes x LIMIT_FUSED_LEVELS levels
+    (``ops/meshdata.py``), without the bounds' round trip through device
+    memory.  One tracer only: H-K12 has no tracer axis."""
     threads = check_threads(threads, md.nd_idx.shape[1])
     L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
     checks = dict(fct_LO=(fct_LO, (L, N)), ttf=(ttf, (L, N)),
@@ -623,13 +627,18 @@ a2.launches = 0
 # gradient_sca 0..5 from row _GRAD (kS11..kGrad in stress2rhs.cu)
 SLAB_ROWS = 11
 _GRAD = 5
+# threads of H-S2R that share one node's incidence slots (kLanesPerNode in
+# stress2rhs.cu): the kernel launches N * S2R_LANES threads
+S2R_LANES = 2
 
 
 def stress2rhs_ref(md: MeshData, slab, inv_areamass, rhs_a, rhs_m):
-    """The kernel's sums, in its order: for each node, its incidence slots
-    in slot order, each adding the corner contribution of
-    :func:`stages.stress2rhs` read from the slab, masked where the slot is
-    padding or the element is ice-free (``ea == 0``)."""
+    """The kernel's function: for each node, its incidence slots in slot
+    order, each adding the corner contribution of :func:`stages.stress2rhs`
+    read from the slab, masked where the slot is padding or the element is
+    ice-free (``ea == 0``).  The kernel sums the same terms in another
+    order (S2R_LANES partial sums, slots k, k + S2R_LANES, ..., combined
+    by warp shuffles)."""
     E = slab.shape[1]
     flat = slab.reshape(-1)
     U = torch.zeros_like(inv_areamass)
@@ -684,7 +693,8 @@ WRAPPERS = (bounds, limit, limit_fused, update_fused, b3h, b3h_fixup, update,
 
 # the kernels the occupancy query answers for, in the order of its ids
 # (OccupancyKernel in fct_ale.cu)
-OCCUPANCY = ("bounds", "limit", "update_fused", "b3h", "update")
+OCCUPANCY = ("bounds", "limit", "update_fused", "b3h", "update",
+             "limit_fused")
 
 
 def occupancy(md: MeshData, name: str, *,

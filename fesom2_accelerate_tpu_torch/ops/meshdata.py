@@ -35,8 +35,11 @@ import torch
 
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 
-# nodes in one tile of H-K1 and H-K34 (kTileNodes in ops/cuda/csrc/fct_ale.cu)
+# nodes in one tile of H-K1, H-K12 and H-K34 (kTileNodes in
+# ops/cuda/csrc/fct_ale.cu), and the levels of one H-K12 block
+# (kLimitFusedLevels there)
 TILE_NODES = 32
+LIMIT_FUSED_LEVELS = 24
 
 
 @dataclasses.dataclass(frozen=True)

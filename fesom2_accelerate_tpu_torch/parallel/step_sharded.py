@@ -14,15 +14,19 @@ the one exchange, then every part's post-exchange phase.
 
 Two backends:
 
-* ``torch``: :func:`sharded_fct_ale_step`, the plain stages per part (any
-  device and float dtype; the f64 correctness gate);
 * ``cuda``: :func:`sharded_fct_ale_step_cuda`, the CUDA kernels per part
   (``ops/cuda/step.py``), in one of two modes:
 
   - split (the default): K1, K2 and K3 (every edge limited on the
     pre-exchange factors) on every part, the exchange, then K3fix (only
     the edges that touch a halo node, with the exchanged factors) and K4;
-  - fused: K1 and K2 on every part, the exchange, then K34.
+  - fused: K1 and K2 on every part, the exchange, then K34;
+* ``torch``: :func:`sharded_fct_ale_step`, the plain stages per part (any
+  device and float dtype; the f64 correctness gate).
+
+The default, ``backend=None``, follows ``devices``: "cuda" when every
+device is a CUDA device, "torch" when every one is the CPU, and a mix
+raises (:func:`~fesom2_accelerate_tpu_torch.config.resolve_backend`).
 
 Two exchange forms (SURVEY §2.6), both index ops that write the halo
 columns in place, with ``.to(device)`` where parts sit on different
@@ -52,7 +56,7 @@ import functools
 import numpy as np
 import torch
 
-from fesom2_accelerate_tpu_torch.config import FctAleConfig
+from fesom2_accelerate_tpu_torch.config import FctAleConfig, resolve_backend
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 from fesom2_accelerate_tpu_torch.model import fct_ale as single
 from fesom2_accelerate_tpu_torch.ops.cuda import step as cstep
@@ -195,7 +199,7 @@ class ShardedFctAleSolver:
 
     Usage::
 
-        sh = ShardedFctAleSolver(mesh, FctAleConfig(), backend="cuda",
+        sh = ShardedFctAleSolver(mesh, FctAleConfig(),
                                  devices=["cuda:0"] * 4)
         state = sh.init_state(fields)       # global numpy -> per-part lists
         state = sh.run(state, n_steps=10)
@@ -207,8 +211,10 @@ class ShardedFctAleSolver:
     leading tracer axis ([Tb, rows, 2H+B], [Tb, L, Ed_loc]) and ``hnode``,
     ``hnode_new`` stay [L, 2H+B].
 
-    backend: "torch" (plain stages, any devices and float dtype) or "cuda"
-    (the CUDA kernels; every device must be a CUDA device).  fused
+    backend: None (the default: "cuda" when every device is a CUDA
+    device, "torch" when every one is the CPU, a mix raises), "torch"
+    (plain stages, any devices and float dtype) or "cuda" (the CUDA
+    kernels; every device must be a CUDA device).  fused
     (cuda only): exchange, then K34, instead of the split K3 -> exchange ->
     K3fix -> K4; it needs each part's edges sorted by first endpoint
     (``MeshData.ed_ptr``).  exchange: "auto" (ppermute when P > 1, else
@@ -219,26 +225,20 @@ class ShardedFctAleSolver:
     [L, N])."""
 
     def __init__(self, mesh: Mesh, cfg: FctAleConfig = FctAleConfig(),
-                 backend: str = "torch", *, devices: list,
+                 backend: str | None = None, *, devices: list,
                  exchange: str = "auto",
                  part_counts: np.ndarray | None = None, tracers: int = 1,
                  fused: bool = False):
         if tracers < 1:
             raise ValueError(f"tracers must be >= 1, got {tracers}")
         devices = [torch.device(d) for d in devices]
+        backend = resolve_backend(backend, devices)
         if backend == "torch":
             if fused:
                 raise ValueError("fused sharded mode is cuda-only")
             if tracers != 1:
                 raise ValueError("tracer batching is cuda-only: the CUDA "
                                  "kernels take the tracer axis")
-        elif backend == "cuda":
-            if any(d.type != "cuda" for d in devices):
-                raise ValueError(f"backend='cuda' needs CUDA devices, got "
-                                 f"{[str(d) for d in devices]}")
-        else:
-            raise ValueError(f"backend must be 'torch' or 'cuda', got "
-                             f"{backend!r}")
         if exchange == "auto":
             exchange = "ppermute" if len(devices) > 1 else "allgather"
         if exchange not in ("ppermute", "allgather"):

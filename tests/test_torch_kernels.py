@@ -29,7 +29,11 @@ from fesom2_accelerate_tpu_torch.mesh import generate_planar_mesh, random_fields
 from fesom2_accelerate_tpu_torch.model.fct_ale import fct_ale_step
 from fesom2_accelerate_tpu_torch.ops.cuda import build, kernels
 from fesom2_accelerate_tpu_torch.ops.cuda.step import fct_ale_step_cuda
-from fesom2_accelerate_tpu_torch.ops.meshdata import TILE_NODES, build_mesh_data
+from fesom2_accelerate_tpu_torch.ops.meshdata import (
+    LIMIT_FUSED_LEVELS,
+    TILE_NODES,
+    build_mesh_data,
+)
 
 from conftest import masked_allclose
 
@@ -236,22 +240,31 @@ def _cu_occupancy_ids(src: str) -> tuple:
                  for n in names)
 
 
-# each Python copy of a constant of fct_ale.cu, and how to read the original
+# each Python copy of a constant of a kernel source: the copy, the source,
+# and how to read the original there
 CU_COPIES = {
-    "kTileNodes": (lambda: TILE_NODES, lambda s: _cu_int(s, "kTileNodes")),
-    "kMaxWideThreads": (lambda: kernels.MAX_WIDE_THREADS,
+    "kTileNodes": (lambda: TILE_NODES, "fct_ale.cu",
+                   lambda s: _cu_int(s, "kTileNodes")),
+    "kLimitFusedLevels": (lambda: LIMIT_FUSED_LEVELS, "fct_ale.cu",
+                          lambda s: _cu_int(s, "kLimitFusedLevels")),
+    "kMaxWideThreads": (lambda: kernels.MAX_WIDE_THREADS, "fct_ale.cu",
                         lambda s: _cu_int(s, "kMaxWideThreads")),
-    "OccupancyKernel": (lambda: kernels.OCCUPANCY, _cu_occupancy_ids),
+    "OccupancyKernel": (lambda: kernels.OCCUPANCY, "fct_ale.cu",
+                        _cu_occupancy_ids),
+    "kLanesPerNode": (lambda: kernels.S2R_LANES, "stress2rhs.cu",
+                      lambda s: _cu_int(s, "kLanesPerNode")),
 }
 
 
 @pytest.mark.parametrize("name", sorted(CU_COPIES))
 def test_python_copies_of_cuda_constants(name):
     """TILE_NODES sizes H-K34's shared memory (MeshData.tile_edges),
-    MAX_WIDE_THREADS refuses what with_config refuses, and OCCUPANCY names
-    the occupancy query's kernel ids: each must equal fct_ale.cu's."""
-    copy, original = CU_COPIES[name]
-    src = (build.CSRC / "fct_ale.cu").read_text()
+    LIMIT_FUSED_LEVELS is H-K12's level chunk (chip_smoke.py's layer
+    counts straddle it), MAX_WIDE_THREADS refuses what with_config
+    refuses, OCCUPANCY names the occupancy query's kernel ids, and
+    S2R_LANES is H-S2R's lanes per node: each must equal its source's."""
+    copy, source, original = CU_COPIES[name]
+    src = (build.CSRC / source).read_text()
     assert copy() == original(src)
 
 
@@ -474,8 +487,9 @@ def test_new_wrappers_refuse_other_devices_and_block_sizes():
 
 def test_solver_form_keywords():
     """fuse_k12 and fuse_k34 choose the form of backend='cuda';
-    backend='torch' refuses any value but the default, and 'cuda' still
-    needs a CUDA device.  The block size is no keyword of the solver."""
+    backend='torch' (also the default on the CPU) refuses any value but
+    the default, and 'cuda' still needs a CUDA device.  The block size is
+    no keyword of the solver."""
     from fesom2_accelerate_tpu_torch import FctAleSolver
 
     mesh = generate_planar_mesh(preset="toy")
@@ -490,6 +504,8 @@ def test_solver_form_keywords():
     with pytest.raises(ValueError, match="CUDA device"):
         FctAleSolver(mesh, FctAleConfig(), backend="cuda", device="cpu",
                      fuse_k12=True)
+    with pytest.raises(ValueError, match="backend='torch'"):
+        FctAleSolver(mesh, FctAleConfig(), device="cpu", fuse_k12=True)
     sv = FctAleSolver(mesh, FctAleConfig(), backend="torch", device="cpu")
     assert (sv.fuse_k12, sv.fuse_k34) == (False, True)
 

@@ -97,8 +97,8 @@ def test_f64_matches_jax_xla_and_oracle(case):
 
 
 def test_plain_kernel_matches_stages_gate(case):
-    """stress2rhs_ref on the packed slab (the kernel's order and masks)
-    against the gather form stages.stress2rhs, f64."""
+    """stress2rhs_ref on the packed slab (the kernel's masks) against the
+    gather form stages.stress2rhs, f64."""
     name, mesh, _, host = case
     solver = Stress2RhsSolver(mesh, torch.float64, device="cpu")
     slab = solver.pack_elem_inputs(*host[:7])
