@@ -8,12 +8,13 @@ Phases (each raises on failure, so the script exits non-zero):
    limit; no CUDA device is a failure (there is no CPU fallback);
 2. build the CUDA kernels from ``ops/cuda/csrc`` with nvcc (sm_90a), one
    nvcc per source, in parallel, and print each kernel instance's
-   registers and spills, then those of the last redesigned kernels (H-K12,
-   H-S2R) at 8 slots and 128 threads, f32 and f64;
+   registers and spills, then those of the redesigned kernels (H-K2,
+   H-K4, H-K12, H-S2R) at 8 slots and 128 threads, f32 and f64;
 3. hold each FCT kernel against its plain PyTorch version on the card, on
    the ``small`` and ``core2`` meshes: vlimit 1/2/3 x iter_yn in float32,
    vlimit 1 x iter_yn in float64, and one K2 case with a nonzero vertical
    flux at each node's bottom interface z = nlev_nod - 1 (the b3v mask);
+   a second launch of H-K2 must give the same bits;
    in every case H-K34 must also be bit-identical to H-K3 -> H-K4 on the
    same factors (max difference printed); then the full CUDA step against
    the plain step in float64 on ``small``;
@@ -34,9 +35,11 @@ Phases (each raises on failure, so the script exits non-zero):
    ``backend="torch"`` on the card, with each kernel's launch count, and
    the time per step of both paths (CUDA events, best of 3); one line per
    kernel of the default step, of the split chain and H-K12 (H-K1, H-K2,
-   H-K34, H-K3, H-K4, H-K12) at core2's shapes and 128 threads: registers
+   H-K34, H-K3, H-K4, H-K12) at 128 threads, at core2's shapes and at
+   those of its part 1 of 4 (the sharded step's): registers
    (ptxas), resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMulti-
-   processor), grid blocks and waves over the card's SMs, and for H-K34
+   processor), grid blocks and waves over the card's SMs, the warps each
+   SM holds while the first wave runs, and for H-K34
    the edges that cross a node tile (each limited twice);
 5. the stress2rhs path: ``Stress2RhsSolver`` packs the element inputs once
    and runs a 120-substep EVP loop of ``call_packed`` on core2, float32,
@@ -49,7 +52,8 @@ Phases (each raises on failure, so the script exits non-zero):
       versions on ``small`` and core2, as one mesh and on each of its 4
       parts with the part's fix-edge list, iter_yn both ways, float32 and
       float64 (H-K3 and H-K3fix bit-exact, also with a duplicated id list;
-      H-K4 to relerr 1e-6 / 1e-12); H-K34 on each part, every edge output
+      H-K4 to relerr 1e-6 / 1e-12, a second launch bit-identical); H-K34
+      on each part, every edge output
       bit-exact against its plain version (the tiles' edge ranges), and
       every output bit-identical to H-K3 -> H-K4 on the same factors, for
       vlimit 1/2/3 x iter_yn in float32 and vlimit 1 in float64 on
@@ -63,8 +67,9 @@ Phases (each raises on failure, so the script exits non-zero):
       fused 4 x K1, K2, K34); the time per step of split, fused and the
       single-device run (CUDA events, device time with the stream held,
       host wall and the host's enqueue time), the exchange alone, and each
-      new kernel beside its plain version at one part's shapes and at the
-      whole mesh's;
+      kernel of the split step (H-K1, H-K2, H-K3, H-K3fix, H-K4) and H-K34
+      beside its plain version and its bound at one part's shapes and at
+      the whole mesh's;
    c. float64 against the single-device CUDA step at 1e-12: the multi-hop
       mesh ``generate_planar_mesh(nx=4, ny=7, nl=5)`` at 8 parts (exchange
       radius >= 2) and ``small`` at 8 parts in iterative mode, 3 steps,
@@ -78,7 +83,10 @@ Phases (each raises on failure, so the script exits non-zero):
       1e-12), and every output bit-identical to H-K1 -> H-K2 on the same
       inputs (largest difference printed);
       H-A2 (a2) against a2_ref on core2 and the cylinder, f32 and f64,
-      bit-exact;
+      bit-exact; H-K2 (limit) and H-K4 (update) against their plain
+      versions on planar meshes whose layer counts straddle their level
+      chunks (L = 2, LC - 1, LC, LC + 1, 2 LC + 1 for each), vlimit 1/2/3
+      x iter_yn in float32 and float64, a second launch bit-identical;
    b. 20 core2 f32 steps of ``FctAleSolver(backend="cuda")`` in each of the
       four forms (``fuse_k12`` x ``fuse_k34``) against the default
       K1 -> K2 -> K34, within MAIN_RELERR, with 2, 3 or 4 launches per
@@ -141,7 +149,7 @@ from fesom2_accelerate_tpu_torch.runtime.tracing import (
 
 MAIN_STEPS = 20
 # the kernels whose registers phase 2 sums up (the latest redesigns)
-REDESIGNED = ("limit_fused", "stress2rhs")
+REDESIGNED = ("limit", "update", "limit_fused", "stress2rhs")
 # after 20 steps the two paths have limited their fluxes 20 times in f32
 # with different summation orders and FMA contraction; rounding differences
 # (~1e-7 per step) accumulate in del_ttf_* but stay far below this bound
@@ -219,7 +227,8 @@ def phase_build() -> list:
     for name in REDESIGNED:
         for r in reports:
             if r["kernel"] == name + "_kernel" and r["params"] == (8, th):
-                print(f"registers {name}<{r['dtype']},8,{th}>: "
+                tr = ",tracers" if r["tracers"] else ""
+                print(f"registers {name}<{r['dtype']},8,{th}{tr}>: "
                       f"{r['registers']}, stack {r['stack']}, spill stores "
                       f"{r['spill_stores']}, spill loads {r['spill_loads']}")
     sys.stdout.flush()
@@ -299,9 +308,11 @@ def check_kernels(md, state, cfg, errs: Errors, case: str) -> float:
             cfg.flux_eps, cfg.iter_yn)
     ref_l = K.limit_ref(*args)
     got_l = K.limit(*args)
-    for i, name in enumerate(("fct_plus", "fct_minus", "adf_v_lim",
-                              "adf_v_res")):
+    again = K.limit(*args)
+    for i, name in enumerate(LIMIT_OUTPUTS):
         errs.check("limit", name, got_l[i], ref_l[i], tol, case)
+        errs.check("limit", name, again[i], got_l[i], 0.0,
+                   f"{case} second launch")
 
     args = (md, ref_l[0], ref_l[1], ref_l[2], s["fct_adf_h"], s["ttf"],
             s["hnode"], s["hnode_new"], s["fct_LO"], s["del_ttf_advvert"],
@@ -314,6 +325,7 @@ def check_kernels(md, state, cfg, errs: Errors, case: str) -> float:
 
 
 FCT_KERNELS = ("bounds", "limit", "update_fused")
+LIMIT_OUTPUTS = ("fct_plus", "fct_minus", "adf_v_lim", "adf_v_res")
 # phase 3 / 3c cases: (dtype, vlimit, iter_yn)
 FCT_CASES = ([(torch.float32, v, it) for v in (1, 2, 3)
               for it in (False, True)]
@@ -576,7 +588,11 @@ def phase_main_path(card: str, meshes: dict, reports: list) -> tuple:
     from fesom2_accelerate_tpu_torch import FctAleConfig
     from fesom2_accelerate_tpu_torch.mesh import random_fields
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
-    from fesom2_accelerate_tpu_torch.ops.meshdata import TILE_NODES
+    from fesom2_accelerate_tpu_torch.ops.meshdata import (
+        TILE_NODES,
+        build_mesh_data,
+    )
+    from fesom2_accelerate_tpu_torch.parallel.partition import partition_mesh
 
     mesh = meshes["core2"]
     fields = random_fields(mesh, seed=0, dtype=np.float64)
@@ -630,29 +646,40 @@ def phase_main_path(card: str, meshes: dict, reports: list) -> tuple:
               f"{t['plain']:.4f} ms (core2 f32; card {card})")
 
     # how each kernel of the default step and of the split chain fills the
-    # card at these shapes and the default block size
+    # card at the default block size, at core2's shapes and at those of
+    # part 1 of SHARD_PARTS (the sharded step's)
+    pm = partition_mesh(mesh, SHARD_PARTS)
+    part = build_mesh_data(pm.local_meshes[1], torch.float32, "cuda")
     th = K.DEFAULT_THREADS
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name in K.OCCUPANCY:
-        occ = K.occupancy(md, name, threads=th)
-        regs = [r["registers"] for r in reports
-                if r["kernel"] == name + "_kernel" and r["dtype"] == "float"
-                and r["params"] in ((8, th), (th,)) and not r["tracers"]]
-        extra = ""
-        if name == "update_fused":
-            # edges limited twice: they start in another tile than the one
-            # of their second endpoint, which sums them
-            e = md.edges.long()
-            real = e[:, 0] != e[:, 1]
-            cross = (e[:, 0] // TILE_NODES != e[:, 1] // TILE_NODES) & real
-            extra = (f", {md.tile_edges} edges in the largest tile, "
-                     f"{int(cross.sum())} of {int(real.sum())} edges "
-                     f"({100 * float(cross.sum()) / float(real.sum()):.1f}%)"
-                     f" cross a tile and are limited twice")
-        print(f"occupancy {name}: {regs[0]} registers, "
-              f"{occ['blocks_per_sm']} blocks of {th} a SM, "
-              f"{occ['grid_blocks']} blocks, {occ['waves']:.2f} waves on "
-              f"{sms} SMs{extra} (core2 f32; card {card})", flush=True)
+    for where, omd in (("core2", md), ("core2 part 1", part)):
+        for name in K.OCCUPANCY:
+            occ = K.occupancy(omd, name, threads=th)
+            regs = [r["registers"] for r in reports
+                    if r["kernel"] == name + "_kernel"
+                    and r["dtype"] == "float"
+                    and r["params"] in ((8, th), (th,)) and not r["tracers"]]
+            extra = ""
+            if name == "update_fused":
+                # edges limited twice: they start in another tile than the
+                # one of their second endpoint, which sums them
+                e = omd.edges.long()
+                real = e[:, 0] != e[:, 1]
+                cross = ((e[:, 0] // TILE_NODES != e[:, 1] // TILE_NODES)
+                         & real)
+                extra = (f", {omd.tile_edges} edges in the largest tile, "
+                         f"{int(cross.sum())} of {int(real.sum())} edges "
+                         f"({100 * float(cross.sum()) / float(real.sum()):.1f}"
+                         f"%) cross a tile and are limited twice")
+            # warps each SM holds while the first wave runs
+            warps = (min(occ["grid_blocks"], occ["blocks_per_sm"] * sms)
+                     * th / 32 / sms)
+            print(f"occupancy {name}: {regs[0]} registers, "
+                  f"{occ['blocks_per_sm']} blocks of {th} a SM, "
+                  f"{occ['grid_blocks']} blocks, {occ['waves']:.2f} waves on "
+                  f"{sms} SMs, {warps:.1f} warps an SM at launch{extra} "
+                  f"({where}, {omd.n_nodes} nodes, f32; card {card})",
+                  flush=True)
     return counts, times, md
 
 
@@ -832,8 +859,11 @@ def check_split_kernels(md, s, fix_ids, cfg, errs: Errors,
             s["del_ttf_advvert"], s["del_ttf_advhoriz"], cfg.dt, it)
     ref_u = K.update_ref(md, avl, ref_f[0], *node)
     got_u = K.update(md, avl, ref_f[0], *node)
+    again = K.update(md, avl, ref_f[0], *node)
     for i, name in enumerate(("o1", "o2")):
         errs.check("update", name, got_u[i], ref_u[i], tol, case)
+        errs.check("update", name, again[i], got_u[i], 0.0,
+                   f"{case} second launch")
 
     args = (md, plus, minus, avl, ah, *node)
     ref_k = K.update_fused_ref(*args)
@@ -1024,8 +1054,9 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
           f"{SHARD_PARTS} parts, H={sh.pm.H}, B={sh.pm.B}): "
           f"{t['exchange']:.4f} ms (card {card})")
 
-    # each new kernel beside its plain version: at the shapes of part 1 (an
-    # interior part, the main path's) and of the whole mesh
+    # each kernel of the split step, and H-K34, beside its plain version and
+    # its bound: at the shapes of part 1 (an interior part, the main path's)
+    # and of the whole mesh
     times = {}
     whole = solvers["single"]
     for label, md, s, ids in (
@@ -1043,6 +1074,13 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
         node = (s["ttf"], s["hnode"], s["hnode_new"], s["fct_LO"],
                 s["del_ttf_advvert"], s["del_ttf_advhoriz"], cfg.dt, False)
         calls = {
+            "bounds": (lambda: K.bounds(md, s["fct_LO"], s["ttf"], 1),
+                       lambda: K.bounds_ref(md, s["fct_LO"], s["ttf"], 1)),
+            "limit": (
+                lambda: K.limit(md, s["fct_adf_v"], tmax, tmin, ah, cfg.dt,
+                                cfg.flux_eps, False),
+                lambda: K.limit_ref(md, s["fct_adf_v"], tmax, tmin, ah,
+                                    cfg.dt, cfg.flux_eps, False)),
             "b3h": (lambda: K.b3h(md, plus, minus, ah, False),
                     lambda: K.b3h_ref(md, plus, minus, ah, False)),
             "b3h_fixup": (
@@ -1059,7 +1097,7 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
         }
         for name, (kern, plain) in calls.items():
             tk = best_times({"kernel": kern, "plain": plain}, 5)
-            if label == "part 1" and name != "update_fused":
+            if label == "part 1" and name in ("b3h", "b3h_fixup", "update"):
                 times[name] = tk
             nbytes, ops = profiling.kernel_io(md, name, ids=ids)
             bound, _ = profiling.bound_ms(nbytes, ops, md.dtype)
@@ -1125,21 +1163,21 @@ K12_CASES = [(dtype, v, it) for dtype in (torch.float32, torch.float64)
              for v in (1, 2, 3) for it in (False, True)]
 
 
-def chunk_meshes() -> dict:
+def chunk_meshes(*chunks: int) -> dict:
     """Planar meshes of small's 24 x 16 nodes whose layer counts straddle
-    H-K12's level chunk LC: L = 2, LC - 1, LC, LC + 1 and 2 LC + 1 (the
-    generator's synthetic bathymetry; L = 2, below what the generator
-    takes, from small's elements with every element 3 levels deep)."""
+    each level chunk LC of ``chunks``: L = 2, LC - 1, LC, LC + 1 and
+    2 LC + 1 (the generator's synthetic bathymetry; L = 2, below what the
+    generator takes, from small's elements with every element 3 levels
+    deep)."""
     from fesom2_accelerate_tpu_torch.mesh import (
         build_mesh_from_elements,
         generate_planar_mesh,
     )
-    from fesom2_accelerate_tpu_torch.ops.meshdata import LIMIT_FUSED_LEVELS
 
-    lc = LIMIT_FUSED_LEVELS
     small = generate_planar_mesh(preset="small")
     out = {}
-    for n_layers in (2, lc - 1, lc, lc + 1, 2 * lc + 1):
+    layers = {n for lc in chunks for n in (2, lc - 1, lc, lc + 1, 2 * lc + 1)}
+    for n_layers in sorted(layers):
         nl = n_layers + 1
         out[f"L={n_layers}"] = (
             generate_planar_mesh(nx=24, ny=16, nl=nl) if nl >= 4 else
@@ -1147,6 +1185,64 @@ def chunk_meshes() -> dict:
                                      np.full(small.n_elems, nl), nl,
                                      small.node_xy))
     return out
+
+
+def phase_chunk_checks(errs: Errors) -> None:
+    """H-K2 and H-K4 on planar meshes whose layer counts straddle their
+    level chunks (LIMIT_LEVELS, UPDATE_SPLIT_LEVELS): vlimit 1/2/3 x
+    iter_yn in f32 and f64, each against its plain version (K4 fed the
+    plain K2 and K3 outputs) at phase 3's tolerances, and a second launch
+    bit-identical."""
+    from fesom2_accelerate_tpu_torch import FctAleConfig
+    from fesom2_accelerate_tpu_torch.mesh import random_fields
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+    from fesom2_accelerate_tpu_torch.ops.meshdata import (
+        LIMIT_LEVELS,
+        UPDATE_SPLIT_LEVELS,
+        build_mesh_data,
+    )
+
+    for key, mesh in chunk_meshes(LIMIT_LEVELS, UPDATE_SPLIT_LEVELS).items():
+        fields = random_fields(mesh, seed=3, dtype=np.float64)
+        md = {dt: build_mesh_data(mesh, dt, "cuda")
+              for dt in (torch.float32, torch.float64)}
+        for dtype, vlimit, iter_yn in K12_CASES:
+            cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=0.5,
+                               flux_eps=1e-7 if dtype == torch.float32
+                               else 1e-16, dtype=dtype)
+            s = {k: torch.tensor(v, dtype=dtype, device="cuda")
+                 for k, v in fields.items()}
+            m = md[dtype]
+            tol = K.TOLERANCE[dtype]
+            case = f"{key} {dtype} vlimit={vlimit} iter={iter_yn}"
+            tmax, tmin = K.bounds_ref(m, s["fct_LO"], s["ttf"], vlimit)
+            args = (m, s["fct_adf_v"], tmax, tmin, s["fct_adf_h"], cfg.dt,
+                    cfg.flux_eps, iter_yn)
+            ref_l = K.limit_ref(*args)
+            got, again = K.limit(*args), K.limit(*args)
+            for i, name in enumerate(LIMIT_OUTPUTS):
+                errs.check("limit", name, got[i], ref_l[i], tol, case)
+                errs.check("limit", name, again[i], got[i], 0.0,
+                           f"{case} second launch")
+            lim, _ = K.b3h_ref(m, ref_l[0], ref_l[1], s["fct_adf_h"],
+                               iter_yn)
+            args = (m, ref_l[2], lim, s["ttf"], s["hnode"], s["hnode_new"],
+                    s["fct_LO"], s["del_ttf_advvert"], s["del_ttf_advhoriz"],
+                    cfg.dt, iter_yn)
+            ref_u = K.update_ref(*args)
+            got, again = K.update(*args), K.update(*args)
+            for i, name in enumerate(("o1", "o2")):
+                errs.check("update", name, got[i], ref_u[i], tol, case)
+                errs.check("update", name, again[i], got[i], 0.0,
+                           f"{case} second launch")
+        torch.cuda.synchronize()
+        print(f"limit, update vs plain: {key} ({mesh.n_nodes} nodes, "
+              f"{mesh.n_layers} layers, {-(-mesh.n_layers // LIMIT_LEVELS)} "
+              f"level chunk(s) of {LIMIT_LEVELS} for H-K2, "
+              f"{-(-mesh.n_layers // UPDATE_SPLIT_LEVELS)} of "
+              f"{UPDATE_SPLIT_LEVELS} for H-K4): {len(K12_CASES)} cases ok "
+              f"(relerr <= 1e-6 f32, 1e-12 f64; a second launch "
+              f"bit-identical)", flush=True)
 
 
 def phase_new_kernel_checks(errs: Errors, meshes: dict) -> None:
@@ -1162,7 +1258,7 @@ def phase_new_kernel_checks(errs: Errors, meshes: dict) -> None:
         build_mesh_data,
     )
 
-    k12_meshes = chunk_meshes()
+    k12_meshes = chunk_meshes(LIMIT_FUSED_LEVELS)
     k12_meshes.update((k, meshes[k])
                       for k in ("small", "core2", "cylinder", "polar_cap"))
     for key, mesh in k12_meshes.items():
@@ -1807,6 +1903,7 @@ def main() -> int:
         shapes[name] = part
     t0 = time.perf_counter()
     phase_new_kernel_checks(errs, meshes)
+    phase_chunk_checks(errs)
     k12_counts, new_times, md = phase_forms(card, meshes)
     counts["limit_fused"] = k12_counts["limit_fused"]
     counts["a2"] = phase_tuner(meshes)["a2"]

@@ -20,25 +20,27 @@
 // Design of the kernels.  All are bound by device-memory traffic (a few
 // flops per byte); the neighbour gathers at each level hit L2/L1 because
 // the mesh numbering keeps neighbours within about min(nx, ny) node indices.
-//   * Tiled node kernels (K1, K12, K34).  A block covers a tile of
+//   * Tiled node kernels (K1, K2, K12, K34, K4).  A block covers a tile of
 //     kTileNodes consecutive nodes (one warp's width) and a chunk of
-//     consecutive levels (K1 32, K12 24, K34 16); lane l of every warp
-//     holds node n0 + l, and the warps take the chunk's levels in turn.  No
-//     thread walks the whole column, and the grid has many blocks per SM
-//     (core2: 3,977 tiles x 2 chunks for K1 and K12, x 3 for K34: 6 to 9
-//     waves), so the card fills whatever each thread's registers.  K1 computes the
-//     cluster bounds of the chunk and one level either side into shared
-//     memory, then applies the vertical window from there.  K12 does the
-//     same one level further up, then K2's factors of the chunk and the
-//     level above it into shared memory, and b3v from there.  K34 limits
-//     the edges that start in its tile (an index range, ed_ptr of
-//     ops/meshdata.py: edges are sorted by their first endpoint) one thread
-//     per (edge, level), writing them coalesced and keeping them in shared
-//     memory, then sums each node's incident fluxes from there.
-//   * Node-threaded kernels (K2, K4): one thread per node, looping over the
-//     levels z with the node's incidence row (up to MAXD slots of nd_idx /
-//     nd_lev / nd_sgn) in registers and the vertical stencils (b3v's z-1
-//     factors, stage c's z+1 interface) carried across the loop.
+//     consecutive levels (K1 32, K2 32, K12 24, K34 16, K4 32); lane l of
+//     every warp holds node n0 + l, and the warps take the chunk's levels
+//     in turn.  No thread walks the whole column, and the grid has many
+//     blocks per SM (core2: 3,977 tiles x 2 or 3 chunks, 5 to 9 waves; a
+//     part of a 4-part core2 step, 1,014 tiles x 2 or 3, more than one
+//     wave), so the card fills whatever each thread's registers.  Where a
+//     level needs its neighbour's values (the vertical window, b3v's z-1
+//     factors), the block computes them into shared memory first, one
+//     level past the chunk where needed, and reads them from there.  K1
+//     computes the cluster bounds of the chunk and one level either side,
+//     then applies the window.  K2 computes its factors of the chunk and
+//     the level above it, then b3v.  K12 does both, one level further up.
+//     K34 limits the edges that start in its tile (an index range, ed_ptr
+//     of ops/meshdata.py: edges are sorted by their first endpoint) one
+//     thread per (edge, level), writing them coalesced and keeping them in
+//     shared memory, then sums each node's incident fluxes from there.  K4
+//     sums each node's limited fluxes (its tile's incidence rows staged in
+//     shared memory, as K34's) and applies stage c, every level on its
+//     own.  No node kernel walks a column any more.
 //   * Edge and element kernels (K3, K3fix, A2): one thread per (edge or
 //     element, level), consecutive threads on consecutive entities of one
 //     level.
@@ -53,13 +55,13 @@
 // tracer t at t times one tracer's size), while hnode, hnode_new, area_inv
 // and every mesh row are shared.  The blocks are ordered tracer-minor on
 // gridDim.x (tracer_block): block b of tracer t is b * Tb + t, so the Tb
-// blocks of one tile, node block or edge block run together and read its
-// incidence rows from L2 after the first.  K3, K3fix and K34 move their
+// blocks of one tile or edge block run together and read its incidence
+// rows from L2 after the first.  K3, K3fix and K34 move their
 // per-tracer pointers to the tracer's fields; K1 adds the tracer's offset
 // to its indices, and K2 and K4 index the tracer's fields by row (its
 // first node row t * L, its first interface row t * (L+1)), since a moved
-// pointer held across their level loops takes two registers of its own
-// (eight of them pushed the f64 H-K2 into spills).  Either way the
+// pointer held across their loops takes two registers of its own (eight
+// of them pushed the f64 node-threaded H-K2 into spills).  Either way the
 // single-tracer body runs unchanged, so each tracer's outputs are
 // bit-identical to a Tb = 1 launch on its slice.  Each of the six is
 // compiled twice (template flag TRACERS): a Tb = 1 launch takes the
@@ -76,9 +78,9 @@
 // In a tiled kernel the block size sets how many warps share a tile's
 // levels; the tile itself does not change.  The node kernels' 16-slot
 // instances (meshes of node degree > 8) exist for 64 and 128 threads only:
-// at 256 or 512 the node-threaded ones would spill.  The tuning harness
-// (utils/tuning.py) sweeps this, as the JAX harness sweeps the Pallas tile
-// and chunk sizes.
+// at 256 or 512 those that hold a row in registers would spill.  The
+// tuning harness (utils/tuning.py) sweeps this, as the JAX harness sweeps
+// the Pallas tile and chunk sizes.
 //
 // Built without --use_fast_math: b2's divisions and every limiter
 // selection stay IEEE.  nvcc still contracts a*b+c into FMA, one reason
@@ -141,14 +143,17 @@ __device__ __forceinline__ T* at_tracer(T* p, int t, size_t size) {
   return p == nullptr ? p : p + (size_t)t * size;
 }
 
-// The tile of the tiled node kernels (K1, K12, K34): nodes of one block,
-// and the levels of one block of each.  ops/meshdata.py:TILE_NODES and
-// LIMIT_FUSED_LEVELS are copies (tests/test_torch_kernels.py holds them
-// equal, as it does for kMaxWideThreads and OccupancyKernel).
+// The tile of the node kernels (K1, K2, K12, K34, K4): nodes of one block,
+// and the levels of one block of each.  ops/meshdata.py:TILE_NODES,
+// LIMIT_LEVELS, LIMIT_FUSED_LEVELS and UPDATE_SPLIT_LEVELS are copies
+// (tests/test_torch_kernels.py holds them equal, as it does for
+// kMaxWideThreads and OccupancyKernel).
 constexpr int kTileNodes = 32;
 constexpr int kBoundsLevels = 32;
+constexpr int kLimitLevels = 32;
 constexpr int kLimitFusedLevels = 24;
 constexpr int kUpdateLevels = 16;
+constexpr int kUpdateSplitLevels = 32;
 
 // ---------------------------------------------------------------------------
 // H-K1 bounds.  Replaces kernels.py:bounds_dia_dma_pallas (with the
@@ -331,8 +336,7 @@ bounds_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
 // ---------------------------------------------------------------------------
 
 // The node's bounds at one level, as K2 reads them (from device memory,
-// where b2 uses them, as the parent kernel did) and as K12 holds them (in
-// registers).
+// where b2 uses them) and as K12 holds them (in registers).
 template <typename T>
 struct BoundsInMemory {
   const T* __restrict__ tmax;
@@ -349,28 +353,19 @@ struct BoundsInRegisters {
   __device__ __forceinline__ T min() const { return tn; }
 };
 
-// Whether incidence slot k is the edge's first endpoint: K2 keeps one flag
-// per slot (as K34 and K4 do), K12 one bit per slot, to save registers.
-template <int MAXD>
-__device__ __forceinline__ bool is_first(const bool (&first)[MAXD], int k) {
-  return first[k];
-}
-__device__ __forceinline__ bool is_first(unsigned first, int k) {
-  return (first >> k) & 1u;
-}
-
 // K2's factors at level z of node n (b1 vertical, b1 horizontal, b2) into
 // fp / fm, from the bounds of that node and level (read only on active
 // rows) and the vertical fluxes up (interface z) and dn (interface z+1).
-// idx indexes the shared rows (area_inv) at (z, n), erow starts the
-// tracer's edge row z.  Shared by K2 and K12, so both compute the same
+// Bit k of first is set where incidence slot k is the edge's first
+// endpoint.  idx indexes the shared rows (area_inv) at (z, n), erow starts
+// the tracer's edge row z.  Shared by K2 and K12, so both compute the same
 // bits.
-template <typename T, int MAXD, typename First, typename Bounds>
+template <typename T, int MAXD, typename Bounds>
 __device__ __forceinline__ void limit_factors(
     const T* __restrict__ adf_h, const T* __restrict__ area_inv,
-    const int (&eidx)[MAXD], const int (&lev)[MAXD], const First& first,
-    int z, size_t idx, size_t erow, bool act, const Bounds& bnd, T up, T dn,
-    T dt, T eps, T& fp, T& fm) {
+    const int (&eidx)[MAXD], const int (&lev)[MAXD], unsigned first, int z,
+    size_t idx, size_t erow, bool act, const Bounds& bnd, T up, T dn, T dt,
+    T eps, T& fp, T& fm) {
   // b1 vertical (kernels/fct_ale_b1_vertical.cu:13-14)
   const T pv = vmax(T(0), up) + vmax(T(0), -dn);
   const T mv = vmin(T(0), up) + vmin(T(0), -dn);
@@ -380,7 +375,7 @@ __device__ __forceinline__ void limit_factors(
   for (int k = 0; k < MAXD; ++k) {
     if (z < lev[k]) {
       const T f = adf_h[erow + eidx[k]];
-      const T x = is_first(first, k) ? f : -f;
+      const T x = (first >> k) & 1u ? f : -f;
       gp += vmax(T(0), x);
       gm += vmin(T(0), x);
     }
@@ -409,29 +404,55 @@ __device__ __forceinline__ void limit_vertical(
   }
 }
 
-// K2 at level z of node n: limit_factors, both factors written at tidx
-// (the tracer's node fields), then limit_vertical with the factors of
-// level z-1 carried in fp_prev / fm_prev; vidx indexes the tracer's
-// interface fields (all of one field for a single tracer).
-template <typename T, int MAXD, typename First, typename Bounds>
-__device__ __forceinline__ void limit_level(
-    const T* __restrict__ adf_h, const T* __restrict__ area_inv,
-    const int (&eidx)[MAXD], const int (&lev)[MAXD], const First& first,
-    int z, size_t idx, size_t tidx, size_t vidx, size_t erow, bool act,
-    const Bounds& bnd, T up, T dn, T dt, T eps, T& fp_prev, T& fm_prev,
-    T* __restrict__ plus_out, T* __restrict__ minus_out,
-    T* __restrict__ adf_v_lim, T* __restrict__ adf_v_res) {
-  T fp, fm;
-  limit_factors<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx, erow,
-                         act, bnd, up, dn, dt, eps, fp, fm);
-  plus_out[tidx] = fp;
-  minus_out[tidx] = fm;
-  limit_vertical(up, fp_prev, fm_prev, fp, fm, act, z, vidx, adf_v_lim,
-                 adf_v_res);
-  fp_prev = fp;
-  fm_prev = fm;
+// The incidence rows of the tile of kTileNodes nodes from n0, one
+// contiguous run of [N, KD], read coalesced into shared memory slot-major
+// (lane l reads column l, no bank conflict); padding slots, and nodes past
+// N, get level bound 0.  Shared by K2 and K4; visible after a barrier.
+template <int MAXD, int THREADS>
+__device__ __forceinline__ void stage_tile_rows(
+    const int* __restrict__ nd_idx, const int* __restrict__ nd_lev,
+    const signed char* __restrict__ nd_sgn, const int* __restrict__ nd_num,
+    int n0, int N, int KD, int (&s_eidx)[MAXD][kTileNodes],
+    int (&s_lev)[MAXD][kTileNodes], int (&s_sgn)[MAXD][kTileNodes]) {
+  for (int w = threadIdx.x; w < MAXD * kTileNodes; w += THREADS) {
+    const int l = w / MAXD, k = w - l * MAXD;
+    const bool ok = n0 + l < N && k < KD && k < nd_num[n0 + l];
+    const size_t g = (size_t)(n0 + l) * KD + k;
+    s_eidx[k][l] = ok ? nd_idx[g] : 0;
+    s_lev[k][l] = ok ? nd_lev[g] : 0;
+    s_sgn[k][l] = ok ? nd_sgn[g] : 0;
+  }
 }
 
+// H-K2 on a tile of kTileNodes nodes x kLimitLevels levels [z0, z0+LC).
+// Bound by its bytes on the H100 (the fluxes, both bounds and area_inv
+// read on active rows, the factors and the limited vertical flux written:
+// 210.9 MB on core2 f32, 0.063 ms at 3.35 TB/s; 55.4 MB on a part of a
+// 4-part core2 step).  A node-threaded form, one thread per node down all
+// 47 levels, left a part of a sharded step with 254 blocks of 128 (0.24
+// waves, 8 warps an SM), each thread a serial chain of 47 levels of
+// gathers whose latency so few warps cannot hide: 16% of its bound there.
+// Here, as in H-K12's phases B and C without its phase A, lane l of each
+// warp holds node n0+l and the warps take the levels in turn, so a block's
+// levels run in parallel:
+//   * the tile's incidence rows are read coalesced into shared memory
+//     (stage_tile_rows), and each level takes its slots from there;
+//   * phase B: at levels z0-1 .. z0+LC-1, limit_factors (the bounds read
+//     from memory); the chunk's own levels write both factors coalesced,
+//     and every level keeps them in shared memory;
+//   * phase C: b3v (limit_vertical) at the chunk's levels, the z-1 factors
+//     from shared memory.  The last chunk passes the bottom interface row L
+//     through.
+// The level above the chunk is computed twice (by this chunk and the one
+// above): 1/LC more edge gathers.  Chunks of 32 levels (core2's 47 as 32
+// and 15, the deep, mostly inactive chunk the short one) ran faster on a
+// part than 16, 24, 40 and 48, and as fast as the node-threaded form on
+// the whole mesh (core2 f32 on an H100); rows in shared memory held the
+// f32 kernel to 40 registers against 48 with rows in registers, for the
+// same time on a part and less on the whole mesh.  The device functions
+// are those of H-K12, and the factors of each level, the fluxes and the
+// order of the sums are the node-threaded form's, so the outputs are its
+// bits.
 template <typename T, int MAXD, int THREADS, bool TRACERS>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 limit_kernel(const T* __restrict__ adf_v, const T* __restrict__ tmax,
@@ -444,41 +465,79 @@ limit_kernel(const T* __restrict__ adf_v, const T* __restrict__ tmax,
              T* __restrict__ minus_out, T* __restrict__ adf_v_lim,
              T* __restrict__ adf_v_res, int L, int N, int Ed, int KD, T dt,
              T eps, int Tb) {
+  constexpr int kWarps = THREADS / kTileNodes;
+  constexpr int LC = kLimitLevels;
+  __shared__ int s_eidx[MAXD][kTileNodes];
+  __shared__ int s_lev[MAXD][kTileNodes];
+  __shared__ int s_sgn[MAXD][kTileNodes];
+  // row r holds the factors of level z0 - 1 + r
+  __shared__ T s_fp[LC + 1][kTileNodes];
+  __shared__ T s_fm[LC + 1][kTileNodes];
   const TracerBlock tb = tracer_block<TRACERS>(Tb);
-  const int n = tb.b * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  const int tile = tb.b, chunk = blockIdx.y;
   // the tracer's first row of its node and edge fields ([Tb * L, N],
   // [Tb * L, Ed]) and of its interface fields ([Tb * (L+1), N])
   const int tl = tb.t * L, tv = tb.t * (L + 1);
-  const int nlev = nlev_nod[n];
-  const int num = nd_num[n];
-  int eidx[MAXD], lev[MAXD];
-  bool first[MAXD];
+  const int lane = threadIdx.x % kTileNodes;
+  const int warp = threadIdx.x / kTileNodes;
+  const int n = tile * kTileNodes + lane;
+  const int z0 = chunk * LC;
+  const bool node = n < N;
+  const int nlev = node ? nlev_nod[n] : 0;
+  stage_tile_rows<MAXD, THREADS>(nd_idx, nd_lev, nd_sgn, nd_num,
+                                 tile * kTileNodes, N, KD, s_eidx, s_lev,
+                                 s_sgn);
+  __syncthreads();
+  if (node) {
+    for (int r = warp; r <= LC; r += kWarps) {
+      const int z = z0 - 1 + r;
+      if (z < 0) continue;
+      if (z >= L) break;
+      int eidx[MAXD], lev[MAXD];
+      unsigned first = 0u;
 #pragma unroll
-  for (int k = 0; k < MAXD; ++k) {
-    const bool ok = k < num;
-    eidx[k] = ok ? nd_idx[(size_t)n * KD + k] : 0;
-    lev[k] = ok ? nd_lev[(size_t)n * KD + k] : 0;
-    first[k] = ok && nd_sgn[(size_t)n * KD + k] > 0;
+      for (int k = 0; k < MAXD; ++k) {
+        eidx[k] = s_eidx[k][lane];
+        lev[k] = s_lev[k][lane];
+        if (s_sgn[k][lane] > 0) first |= 1u << k;
+      }
+      const size_t tidx = (size_t)(tl + z) * N + n;
+      const size_t vidx = (size_t)(tv + z) * N + n;
+      T fp, fm;
+      limit_factors<T, MAXD>(adf_h, area_inv, eidx, lev, first, z,
+                             (size_t)z * N + n, (size_t)(tl + z) * Ed,
+                             z < nlev - 1,
+                             BoundsInMemory<T>{tmax, tmin, tidx}, adf_v[vidx],
+                             adf_v[vidx + N], dt, eps, fp, fm);
+      s_fp[r][lane] = fp;
+      s_fm[r][lane] = fm;
+      if (r >= 1) {  // the chunk's own level
+        plus_out[tidx] = fp;
+        minus_out[tidx] = fm;
+      }
+    }
   }
+  __syncthreads();
+  if (!node) return;
 
-  T fp_prev = T(1), fm_prev = T(1);  // b3v factors at z-1 (1 above z=0)
-  T up = adf_v[(size_t)tv * N + n];
-  for (int z = 0; z < L; ++z) {
-    const size_t idx = (size_t)z * N + n;
-    const size_t tidx = (size_t)(tl + z) * N + n;
+  for (int r = 1 + warp; r <= LC; r += kWarps) {
+    const int z = z0 - 1 + r;
+    if (z >= L) break;
     const size_t vidx = (size_t)(tv + z) * N + n;
-    const T dn = adf_v[vidx + N];
-    limit_level<T, MAXD>(adf_h, area_inv, eidx, lev, first, z, idx, tidx,
-                         vidx, (size_t)(tl + z) * Ed, z < nlev - 1,
-                         BoundsInMemory<T>{tmax, tmin, tidx}, up, dn, dt,
-                         eps, fp_prev, fm_prev, plus_out, minus_out,
-                         adf_v_lim, adf_v_res);
-    up = dn;
+    T fp_prev = T(1), fm_prev = T(1);  // 1 above z = 0
+    if (z >= 1) {
+      fp_prev = s_fp[r - 1][lane];
+      fm_prev = s_fm[r - 1][lane];
+    }
+    limit_vertical(adf_v[vidx], fp_prev, fm_prev, s_fp[r][lane],
+                   s_fm[r][lane], z < nlev - 1, z, vidx, adf_v_lim,
+                   adf_v_res);
+    if (z == L - 1) {
+      const size_t last = vidx + N;
+      adf_v_lim[last] = adf_v[last];
+      if (adf_v_res != nullptr) adf_v_res[last] = T(0);
+    }
   }
-  const size_t last = (size_t)(tv + L) * N + n;
-  adf_v_lim[last] = up;
-  if (adf_v_res != nullptr) adf_v_res[last] = T(0);
 }
 
 // ---------------------------------------------------------------------------
@@ -923,10 +982,32 @@ b3h_fixup_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
 // ---------------------------------------------------------------------------
 // H-K4 update.  Replaces kernels_packed.py:update_packed_pallas and
 // kernels.py:update_pallas (the split K4): stage c from edge fluxes that
-// are already limited.  K34's node gather and epilogue without the
-// limiting: the signed sum of the limited fluxes over the node's incidence
-// slots in slot order, then stage_c.  It reads one edge value per slot and
-// level where K34 reads the flux and the other endpoint's two factors.
+// are already limited.  K34's node phase without the limiting: the signed
+// sum of the limited fluxes over the node's incidence slots in slot order,
+// then stage_c.  It reads one edge value per slot and level where K34
+// reads the flux and the other endpoint's two factors.
+//
+// Bound by its bytes on the H100: the node fields of stage c, both
+// vertical interfaces and the limited edge flux of each live slot read,
+// one or two outputs written (263.7 MB on core2 f32, 0.079 ms at 3.35
+// TB/s; 69.7 MB on a part of a 4-part core2 step).  A node-threaded form,
+// one thread per node down all 47 levels, left a part with 254 blocks of
+// 128 (0.21 waves, 8 warps an SM), each thread a serial chain of 47
+// levels, each waiting on its slots' gathers: 29% of its bound there.
+// Here a block takes a tile of kTileNodes nodes [n0, n0+32) and
+// kUpdateSplitLevels levels, as H-K34's node phase does: the tile's
+// incidence rows are read coalesced once into shared memory
+// (stage_tile_rows), then lane l of each warp sums node n0+l's fluxes at
+// the warp's levels and applies stage c, with up and dn read from the
+// limited vertical flux at interfaces z and z+1.  Nothing carries from one
+// level to the next, so every (node, level) is independent.  Chunks of 32
+// levels ran faster on the whole mesh than 8, 12, 16 and 24, and at least
+// as fast on a part (core2 f32 on an H100); warps that each take a run of
+// consecutive levels and carry up from one to the next ran slower.  (Each
+// chunk reads the tile's rows again, and more chunks read them more
+// often.)  The slot order,
+// the signs and stage_c are the node-threaded form's, so the outputs are
+// its bits, and H-K34 still gives the bits of H-K3 -> H-K4.
 // ---------------------------------------------------------------------------
 
 template <typename T, int MAXD, int THREADS, bool TRACERS>
@@ -942,42 +1023,41 @@ update_kernel(const T* __restrict__ adf_v_lim,
               const int* __restrict__ nlev_nod, T* __restrict__ o1,
               T* __restrict__ o2, int L, int N, int Ed, int KD, T dt,
               int iter_yn, int Tb) {
+  constexpr int kWarps = THREADS / kTileNodes;
+  constexpr int LC = kUpdateSplitLevels;
+  __shared__ int s_eidx[MAXD][kTileNodes];
+  __shared__ int s_lev[MAXD][kTileNodes];
+  __shared__ int s_sgn[MAXD][kTileNodes];
   const TracerBlock tb = tracer_block<TRACERS>(Tb);
-  const int n = tb.b * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  const int tile = tb.b, chunk = blockIdx.y;
   // the tracer's first row of its node and edge fields and of its
   // interface fields, as in K2
   const int tl = tb.t * L, tv = tb.t * (L + 1);
-  const int nlev = nlev_nod[n];
-  const int num = nd_num[n];
-  int eidx[MAXD], lev[MAXD];
-  bool first[MAXD];
-#pragma unroll
-  for (int k = 0; k < MAXD; ++k) {
-    const bool ok = k < num;
-    eidx[k] = ok ? nd_idx[(size_t)n * KD + k] : 0;
-    lev[k] = ok ? nd_lev[(size_t)n * KD + k] : 0;
-    first[k] = ok && nd_sgn[(size_t)n * KD + k] > 0;
-  }
+  stage_tile_rows<MAXD, THREADS>(nd_idx, nd_lev, nd_sgn, nd_num,
+                                 tile * kTileNodes, N, KD, s_eidx, s_lev,
+                                 s_sgn);
+  __syncthreads();
 
-  T up = adf_v_lim[(size_t)tv * N + n];
-  for (int z = 0; z < L; ++z) {
-    const size_t idx = (size_t)z * N + n;
+  const int lane = threadIdx.x % kTileNodes;
+  const int n = tile * kTileNodes + lane;
+  if (n >= N) return;
+  const int nlev = nlev_nod[n];
+  const int z1 = min((chunk + 1) * LC, L);
+  for (int z = chunk * LC + threadIdx.x / kTileNodes; z < z1;
+       z += kWarps) {
     const size_t erow = (size_t)(tl + z) * Ed;
     T acc = T(0);
 #pragma unroll
     for (int k = 0; k < MAXD; ++k) {
-      // lev[k] is 0 on padding slots
-      if (z < lev[k]) {
-        const T f = adf_h_lim[erow + eidx[k]];
-        acc += first[k] ? f : -f;
+      if (z < s_lev[k][lane]) {
+        const T f = adf_h_lim[erow + s_eidx[k][lane]];
+        acc += s_sgn[k][lane] > 0 ? f : -f;
       }
     }
-    const T dn = adf_v_lim[(size_t)(tv + z) * N + n + N];
-    stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, o2, idx,
-            (size_t)(tl + z) * N + n, z < nlev - 1, up, dn, acc, dt,
-            iter_yn);
-    up = dn;
+    const size_t vidx = (size_t)(tv + z) * N + n;
+    stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, o2,
+            (size_t)z * N + n, (size_t)(tl + z) * N + n, z < nlev - 1,
+            adf_v_lim[vidx], adf_v_lim[vidx + N], acc, dt, iter_yn);
   }
 }
 
@@ -1148,7 +1228,7 @@ int launch_limit(const void* adf_v, const void* tmax, const void* tmin,
                  int KD, double dt, double eps, int Tb, int threads,
                  int device, void* stream) {
   if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree ||
-      !tracers_fit((N + kMinThreads - 1) / kMinThreads, Tb, L))
+      !tracers_fit((N + kTileNodes - 1) / kTileNodes, Tb, L))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -1157,7 +1237,7 @@ int launch_limit(const void* adf_v, const void* tmax, const void* tmin,
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
     with_tracers(Tb, [&](auto tr) {
       limit_kernel<T, D, TH, decltype(tr)::value>
-          <<<blocks_for(N, TH, Tb), TH, 0, s>>>(
+          <<<tile_grid(N, L, kLimitLevels, Tb), TH, 0, s>>>(
               (const T*)adf_v, (const T*)tmax, (const T*)tmin,
               (const T*)adf_h, (const T*)area_inv, (const int*)nd_idx,
               (const int*)nd_lev, (const signed char*)nd_sgn,
@@ -1295,7 +1375,7 @@ int launch_update(const void* adf_v_lim, const void* adf_h_lim,
                   int Ed, int KD, double dt, int iter_yn, int Tb,
                   int threads, int device, void* stream) {
   if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree ||
-      !tracers_fit((N + kMinThreads - 1) / kMinThreads, Tb, L))
+      !tracers_fit((N + kTileNodes - 1) / kTileNodes, Tb, L))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -1304,7 +1384,7 @@ int launch_update(const void* adf_v_lim, const void* adf_h_lim,
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
     with_tracers(Tb, [&](auto tr) {
       update_kernel<T, D, TH, decltype(tr)::value>
-          <<<blocks_for(N, TH, Tb), TH, 0, s>>>(
+          <<<tile_grid(N, L, kUpdateSplitLevels, Tb), TH, 0, s>>>(
               (const T*)adf_v_lim, (const T*)adf_h_lim, (const T*)ttf,
               (const T*)hnode, (const T*)hnode_new, (const T*)lo,
               (const T*)dvin, (const T*)dhin, (const T*)area_inv,
@@ -1362,7 +1442,7 @@ int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
         break;
       case kOccLimit:
         fn = (const void*)limit_kernel<T, D, TH, false>;
-        grid = blocks_for(N, TH);
+        grid = tile_grid(N, L, kLimitLevels);
         break;
       case kOccUpdateFused:
         fn = (const void*)update_fused_kernel<T, D, TH, false>;
@@ -1375,7 +1455,7 @@ int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
         break;
       case kOccUpdate:
         fn = (const void*)update_kernel<T, D, TH, false>;
-        grid = blocks_for(N, TH);
+        grid = tile_grid(N, L, kUpdateSplitLevels);
         break;
       case kOccLimitFused:
         fn = (const void*)limit_fused_kernel<T, D, TH>;

@@ -35,11 +35,14 @@ import torch
 
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 
-# nodes in one tile of H-K1, H-K12 and H-K34 (kTileNodes in
-# ops/cuda/csrc/fct_ale.cu), and the levels of one H-K12 block
-# (kLimitFusedLevels there)
+# nodes in one tile of the node kernels H-K1, H-K2, H-K12, H-K34 and H-K4
+# (kTileNodes in ops/cuda/csrc/fct_ale.cu), and the levels of one block of
+# H-K2 (kLimitLevels there), H-K12 (kLimitFusedLevels) and H-K4
+# (kUpdateSplitLevels)
 TILE_NODES = 32
+LIMIT_LEVELS = 32
 LIMIT_FUSED_LEVELS = 24
+UPDATE_SPLIT_LEVELS = 32
 
 
 @dataclasses.dataclass(frozen=True)

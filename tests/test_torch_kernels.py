@@ -31,7 +31,9 @@ from fesom2_accelerate_tpu_torch.ops.cuda import build, kernels
 from fesom2_accelerate_tpu_torch.ops.cuda.step import fct_ale_step_cuda
 from fesom2_accelerate_tpu_torch.ops.meshdata import (
     LIMIT_FUSED_LEVELS,
+    LIMIT_LEVELS,
     TILE_NODES,
+    UPDATE_SPLIT_LEVELS,
     build_mesh_data,
 )
 
@@ -245,8 +247,12 @@ def _cu_occupancy_ids(src: str) -> tuple:
 CU_COPIES = {
     "kTileNodes": (lambda: TILE_NODES, "fct_ale.cu",
                    lambda s: _cu_int(s, "kTileNodes")),
+    "kLimitLevels": (lambda: LIMIT_LEVELS, "fct_ale.cu",
+                     lambda s: _cu_int(s, "kLimitLevels")),
     "kLimitFusedLevels": (lambda: LIMIT_FUSED_LEVELS, "fct_ale.cu",
                           lambda s: _cu_int(s, "kLimitFusedLevels")),
+    "kUpdateSplitLevels": (lambda: UPDATE_SPLIT_LEVELS, "fct_ale.cu",
+                           lambda s: _cu_int(s, "kUpdateSplitLevels")),
     "kMaxWideThreads": (lambda: kernels.MAX_WIDE_THREADS, "fct_ale.cu",
                         lambda s: _cu_int(s, "kMaxWideThreads")),
     "OccupancyKernel": (lambda: kernels.OCCUPANCY, "fct_ale.cu",
@@ -259,10 +265,12 @@ CU_COPIES = {
 @pytest.mark.parametrize("name", sorted(CU_COPIES))
 def test_python_copies_of_cuda_constants(name):
     """TILE_NODES sizes H-K34's shared memory (MeshData.tile_edges),
-    LIMIT_FUSED_LEVELS is H-K12's level chunk (chip_smoke.py's layer
-    counts straddle it), MAX_WIDE_THREADS refuses what with_config
-    refuses, OCCUPANCY names the occupancy query's kernel ids, and
-    S2R_LANES is H-S2R's lanes per node: each must equal its source's."""
+    LIMIT_LEVELS, LIMIT_FUSED_LEVELS and UPDATE_SPLIT_LEVELS are the level
+    chunks of H-K2, H-K12 and H-K4 (chip_smoke.py's layer counts straddle
+    each, as the chunk tests below do), MAX_WIDE_THREADS refuses what
+    with_config refuses, OCCUPANCY names the occupancy query's kernel ids,
+    and S2R_LANES is H-S2R's lanes per node: each must equal its
+    source's."""
     copy, source, original = CU_COPIES[name]
     src = (build.CSRC / source).read_text()
     assert copy() == original(src)
@@ -548,3 +556,106 @@ def test_ptxas_report_reads_each_instance():
              tracers=True, stack=0, spill_stores=0, spill_loads=0,
              registers=22),
     ]
+
+
+# --------------------------------------------------------------------------
+# H-K2 limit and H-K4 update: the plain versions at layer counts that
+# straddle each kernel's level chunk
+# --------------------------------------------------------------------------
+
+
+def _straddling(lc: int) -> tuple:
+    """Layer counts around a level chunk of lc: L = 2, lc - 1, lc, lc + 1
+    and 2 lc + 1 (chip_smoke.py holds each kernel against its plain version
+    at these)."""
+    return (2, lc - 1, lc, lc + 1, 2 * lc + 1)
+
+
+CHUNK_CASES = ([("limit", n) for n in _straddling(LIMIT_LEVELS)]
+               + [("update", n) for n in _straddling(UPDATE_SPLIT_LEVELS)])
+
+
+def _layered_meshes(n_layers: int) -> tuple:
+    """(port mesh, JAX mesh) of n_layers layers on tiny's 8 x 6 lattice:
+    the generator's bathymetry, or, below the 3 layers it takes, tiny's
+    elements with every element n_layers deep."""
+    from fesom2_accelerate_tpu.mesh import (
+        build_mesh_from_elements as jax_build_mesh,
+    )
+    from fesom2_accelerate_tpu_torch.mesh import build_mesh_from_elements
+
+    nl = n_layers + 1
+    if nl >= 4:
+        return (generate_planar_mesh(nx=8, ny=6, nl=nl),
+                jax_planar_mesh(nx=8, ny=6, nl=nl))
+    tiny = generate_planar_mesh(preset="tiny")
+    args = (tiny.elem_nodes, np.full(tiny.n_elems, nl), nl, tiny.node_xy)
+    return build_mesh_from_elements(*args), jax_build_mesh(*args)
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+@pytest.mark.parametrize("kernel,n_layers", CHUNK_CASES)
+def test_limit_and_update_plain_straddling_chunks(kernel, n_layers, iter_yn):
+    """limit_ref (b1v, b1h, b2, b3v) and update_ref (stage c) against the
+    JAX package's stages and the numpy oracle, f64, 1e-12, on meshes whose
+    layer counts straddle the level chunk of H-K2 (LIMIT_LEVELS) or H-K4
+    (UPDATE_SPLIT_LEVELS)."""
+    from fesom2_accelerate_tpu.ops import oracle
+
+    mesh, jmesh = _layered_meshes(n_layers)
+    assert mesh.n_layers == jmesh.n_layers == n_layers
+    fields = random_fields(mesh, seed=n_layers)
+    md = build_mesh_data(mesh, torch.float64, "cpu")
+    jmd = jax_mesh_data(jmesh, dtype=jnp.float64)
+    mk = oracle.masks(jmesh)
+    t = {k: torch.from_numpy(v) for k, v in fields.items()}
+    j = {k: jnp.asarray(v) for k, v in fields.items()}
+    f = fields
+    if kernel == "limit":
+        rng = np.random.default_rng(n_layers)
+        tmax = np.abs(rng.standard_normal(f["ttf"].shape))
+        tmin = -np.abs(rng.standard_normal(f["ttf"].shape))
+        got = kernels.limit_ref(md, t["fct_adf_v"], torch.from_numpy(tmax),
+                                torch.from_numpy(tmin), t["fct_adf_h"], DT,
+                                EPS, iter_yn)
+        jp, jm = jax_stages.b1_vertical(jmd, j["fct_adf_v"])
+        jp, jm = jax_stages.b1_horizontal(jmd, jp, jm, j["fct_adf_h"])
+        jp, jm = jax_stages.b2(jmd, jp, jm, jnp.asarray(tmax),
+                               jnp.asarray(tmin), DT, EPS)
+        jax_out = (jp, jm) + tuple(jax_stages.b3_vertical(
+            jmd, jp, jm, j["fct_adf_v"], iter_yn))
+        op, om = oracle.b1_vertical(jmesh, mk, f["fct_adf_v"])
+        op, om = oracle.b1_horizontal(jmesh, mk, op, om, f["fct_adf_h"])
+        op, om = oracle.b2(jmesh, mk, op, om, tmax, tmin, DT, EPS)
+        ov = oracle.b3_vertical(jmesh, mk, op, om, f["fct_adf_v"], iter_yn)
+        oracle_out = (op, om) + (ov if iter_yn else (ov, None))
+        names = ("fct_plus", "fct_minus", "adf_v_lim", "adf_v_res")
+    else:
+        node = (f["ttf"], f["hnode"], f["hnode_new"], f["fct_LO"],
+                f["del_ttf_advvert"], f["del_ttf_advhoriz"])
+        got = kernels.update_ref(md, t["fct_adf_v"], t["fct_adf_h"],
+                                 *(torch.from_numpy(a) for a in node), DT,
+                                 iter_yn)
+        if iter_yn:
+            jax_out = (jax_stages.c_update_LO(
+                jmd, j["fct_LO"], j["fct_adf_v"], j["fct_adf_h"],
+                j["hnode_new"], DT), None)
+            oracle_out = (oracle.c_update_LO(
+                jmesh, mk, f["fct_LO"], f["fct_adf_v"], f["fct_adf_h"],
+                f["hnode_new"], DT), None)
+        else:
+            jax_out = jax_stages.c_update_solution(
+                jmd, *(jnp.asarray(a) for a in node[:4]), j["fct_adf_v"],
+                j["fct_adf_h"], *(jnp.asarray(a) for a in node[4:]), DT)
+            oracle_out = oracle.c_update_solution(
+                jmesh, mk, *node[:4], f["fct_adf_v"], f["fct_adf_h"],
+                *node[4:], DT)
+        names = ("o1", "o2")
+    assert len(got) == len(jax_out) == len(oracle_out) == len(names)
+    for name, g, jx, o in zip(names, got, jax_out, oracle_out):
+        if o is None:
+            assert g is None and jx is None, name
+            continue
+        assert g.dtype == torch.float64, name
+        masked_allclose(g.numpy(), np.asarray(jx), msg=f"{name} vs stages")
+        masked_allclose(g.numpy(), o, msg=f"{name} vs oracle")
