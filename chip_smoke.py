@@ -9,7 +9,8 @@ Phases (each raises on failure, so the script exits non-zero):
 2. build the CUDA kernels from ``ops/cuda/csrc`` with nvcc (sm_90a), one
    nvcc per source, in parallel, and print each kernel instance's
    registers and spills, then those of the redesigned kernels (H-K2,
-   H-K4, H-K12, H-S2R) at 8 slots and 128 threads, f32 and f64;
+   H-K4 in both forms, the FIX form being K4-fix, H-K12, H-S2R) at 8
+   slots and 128 threads, f32 and f64;
 3. hold each FCT kernel against its plain PyTorch version on the card, on
    the ``small`` and ``core2`` meshes: vlimit 1/2/3 x iter_yn in float32,
    vlimit 1 x iter_yn in float64, and one K2 case with a nonzero vertical
@@ -35,7 +36,7 @@ Phases (each raises on failure, so the script exits non-zero):
    ``backend="torch"`` on the card, with each kernel's launch count, and
    the time per step of both paths (CUDA events, best of 3); one line per
    kernel of the default step, of the split chain and H-K12 (H-K1, H-K2,
-   H-K34, H-K3, H-K4, H-K12) at 128 threads, at core2's shapes and at
+   H-K34, H-K3, H-K4, H-K12, K4-fix) at 128 threads, at core2's shapes and at
    those of its part 1 of 4 (the sharded step's): registers
    (ptxas), resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMulti-
    processor), grid blocks and waves over the card's SMs, the warps each
@@ -57,19 +58,28 @@ Phases (each raises on failure, so the script exits non-zero):
       bit-exact against its plain version (the tiles' edge ranges), and
       every output bit-identical to H-K3 -> H-K4 on the same factors, for
       vlimit 1/2/3 x iter_yn in float32 and vlimit 1 in float64 on
-      core2's parts;
+      core2's parts; K4-fix (update_fixup, H-K4's FIX form: K3fix folded
+      into K4) on every part of core2 and small at 4 parts and of small
+      and the multi-hop mesh at 8, after K1 -> K2 -> K3 and the exchange
+      at 3 tracers, vlimit 1/2/3 x iter_yn, float32 and float64: every
+      output, the full limited-flux arrays included, bit-identical to
+      H-K3fix -> H-K4 (largest difference printed), to a second launch
+      and, tracer by tracer, to 3 launches at Tb = 1; within 1e-6 / 1e-12
+      of update_fixup_ref (edge outputs bit-exact).  H-K3fix runs in no
+      path any more: it is the fold's witness;
    b. 20 steps of ``ShardedFctAleSolver(devices=["cuda:0"] * 4)`` (the
       default backend, "cuda") on core2 (float32, dt=0.5, flux_eps=1e-7,
       vlimit 1, seed 0), split and fused, each against 20 steps of
       ``FctAleSolver(device="cuda")``: gathered node fields and
       ``fct_adf_h`` within MAIN_RELERR,
-      and the launch counts (split 4 x K1, K2, K3, K3fix, K4 per step,
-      fused 4 x K1, K2, K34); the time per step of split, fused and the
-      single-device run (CUDA events, device time with the stream held,
-      host wall and the host's enqueue time), the exchange alone, and each
-      kernel of the split step (H-K1, H-K2, H-K3, H-K3fix, H-K4) and H-K34
-      beside its plain version and its bound at one part's shapes and at
-      the whole mesh's;
+      and the launch counts (split 4 x K1, K2, K3, K4-fix per step: 16,
+      no K3fix and no plain K4; fused 4 x K1, K2, K34); the time per step
+      of split, fused and the single-device run (CUDA events, device time
+      with the stream held, host wall and the host's enqueue time), the
+      exchange alone, and each kernel of the split step (H-K1, H-K2, H-K3,
+      K4-fix), the witness H-K3fix and H-K4, and H-K34 beside its plain
+      version and its bound at one part's shapes and at the whole mesh's
+      (K4-fix at part 1's only), and K4-fix beside H-K3fix + H-K4;
    c. float64 against the single-device CUDA step at 1e-12: the multi-hop
       mesh ``generate_planar_mesh(nx=4, ny=7, nl=5)`` at 8 parts (exchange
       radius >= 2) and ``small`` at 8 parts in iterative mode, 3 steps,
@@ -98,12 +108,13 @@ Phases (each raises on failure, so the script exits non-zero):
       and ``tune_step`` at 128 and 256 threads on core2, every
       configuration validated against the float64 gate before it is timed;
 8. the multi-tracer path (the tracer axis of H-K1, H-K2, H-K3, H-K3fix,
-   H-K4 and H-K34; tracer t from ``random_fields(seed=t)``, ``hnode`` and
-   ``hnode_new`` shared, as ``bench.py`` makes them):
-   a. each of the six kernels at 3 tracers on small and core2 (f32 vlimit
-      1 both ways and vlimit 3, f64 iterative) against 3 launches at
-      Tb = 1, bit for bit (largest difference printed), and against its
-      batched plain version at phase 3's tolerances;
+   H-K4 in both forms and H-K34; tracer t from ``random_fields(seed=t)``,
+   ``hnode`` and ``hnode_new`` shared, as ``bench.py`` makes them):
+   a. each of the seven wrappers at 3 tracers on small and core2 (f32
+      vlimit 1 both ways and vlimit 3, f64 iterative; K4-fix with every
+      column owned, a whole mesh's case, where it is K4) against 3
+      launches at Tb = 1, bit for bit (largest difference printed), and
+      against its batched plain version at phase 3's tolerances;
    b. 20 core2 f32 steps of ``FctAleSolver(backend="cuda").run_tracers`` at
       4 tracers, ``fuse_k34`` both ways, against 20 single-tracer CUDA runs
       of each tracer, bit for bit, with 3 (or 4) launches a step;
@@ -111,7 +122,7 @@ Phases (each raises on failure, so the script exits non-zero):
       ``fuse_k34``) against the plain step per tracer, 1e-12;
    d. ``ShardedFctAleSolver(backend="cuda", devices=["cuda:0"] * 4,
       tracers=4)`` on core2, split and fused, 20 steps, against the
-      single-device batched run within MAIN_RELERR, with 20 (split) and 12
+      single-device batched run within MAIN_RELERR, with 16 (split) and 12
       (fused) launches and as many exchange ops a step as at Tb = 1;
    e. ms a tracer a step at Tb = 1, 2, 4, 8 on core2 f32, single device and
       4 parts split and fused (CUDA events, device time with the stream
@@ -119,10 +130,12 @@ Phases (each raises on failure, so the script exits non-zero):
       Tb = 1 beside its bound (``profiling.kernel_io(tracers=8)``).
 Every kernel instance's ptxas report is printed, and a spill fails the
 build phase.  The last three lines are the per-kernel JSON summary (each
-kernel's launches on its path, max abs error, ms, plain ms, the byte bound
+kernel's launches on its path (H-K3fix's in phase 6a's witness checks,
+H-K4's in phase 7b's K1 -> K2 -> K3 -> K4 form, H-A2's in the tuner), max
+abs error, ms, plain ms, the byte bound
 at the H100 SXM data-sheet rate of ``runtime/profiling.py``, and
 ``library_ms``: null, since no single PyTorch call computes any of these
-functions; the six kernels with a tracer axis also carry
+functions; the seven with a tracer axis also carry
 ``ms_per_tracer_tb8`` and ``bound_ms_tb8``, a tracer's share of one launch
 at 8 tracers and of its bound), the card's name and power limit as
 nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
@@ -148,7 +161,8 @@ from fesom2_accelerate_tpu_torch.runtime.tracing import (
 )
 
 MAIN_STEPS = 20
-# the kernels whose registers phase 2 sums up (the latest redesigns)
+# the kernels whose registers phase 2 sums up (the latest redesigns; the
+# update lines include H-K4's FIX form, K4-fix)
 REDESIGNED = ("limit", "update", "limit_fused", "stress2rhs")
 # after 20 steps the two paths have limited their fluxes 20 times in f32
 # with different summation orders and FMA contraction; rounding differences
@@ -216,7 +230,8 @@ def phase_build() -> list:
             reports.append(r)
             name = (f"{r['kernel']}<{r['dtype']},"
                     f"{','.join(map(str, r['params']))}"
-                    f"{',tracers' if r['tracers'] else ''}>")
+                    f"{',tracers' if r['tracers'] else ''}"
+                    f"{',fix' if r['fix'] else ''}>")
             print(f"  ptxas: {name}: {r['registers']} registers, stack "
                   f"{r['stack']}, spill stores {r['spill_stores']}, spill "
                   f"loads {r['spill_loads']}")
@@ -227,7 +242,8 @@ def phase_build() -> list:
     for name in REDESIGNED:
         for r in reports:
             if r["kernel"] == name + "_kernel" and r["params"] == (8, th):
-                tr = ",tracers" if r["tracers"] else ""
+                tr = ((",tracers" if r["tracers"] else "")
+                      + (",fix" if r["fix"] else ""))
                 print(f"registers {name}<{r['dtype']},8,{th}{tr}>: "
                       f"{r['registers']}, stack {r['stack']}, spill stores "
                       f"{r['spill_stores']}, spill loads {r['spill_loads']}")
@@ -655,9 +671,10 @@ def phase_main_path(card: str, meshes: dict, reports: list) -> tuple:
     for where, omd in (("core2", md), ("core2 part 1", part)):
         for name in K.OCCUPANCY:
             occ = K.occupancy(omd, name, threads=th)
+            fix = name == "update_fixup"  # H-K4's FIX form
             regs = [r["registers"] for r in reports
-                    if r["kernel"] == name + "_kernel"
-                    and r["dtype"] == "float"
+                    if r["kernel"] == ("update" if fix else name) + "_kernel"
+                    and r["dtype"] == "float" and r["fix"] == fix
                     and r["params"] in ((8, th), (th,)) and not r["tracers"]]
             extra = ""
             if name == "update_fused":
@@ -914,6 +931,149 @@ def phase_sharded_checks(errs: Errors, meshes: dict) -> None:
               f"2/3)", flush=True)
 
 
+# phase 6a's fold checks: (mesh, parts), every part of each
+FOLD_MESHES = (("core2", 4), ("small", 4), ("small", 8), ("multihop", 8))
+FOLD_TRACERS = 3
+
+
+def fold_vs_witness(md, s, pre, edges, owned, ids, cfg, errs: Errors,
+                    case: str) -> float:
+    """K4-fix (update_fixup) on one part at FOLD_TRACERS tracers, after the
+    exchange: bit-identical to H-K3fix -> H-K4 (b3h_fixup on the part's
+    fix-edge ids, then update) on the same inputs in every output, the
+    full adf_h_lim / adf_h_res arrays included; a second launch
+    bit-identical; each tracer bit-identical to a Tb = 1 launch; within
+    TOLERANCE of update_fixup_ref (edge outputs bit-exact).  Returns the
+    largest difference from the witness (0.0)."""
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    it = cfg.iter_yn
+    node = (pre["adf_v_lim"], s["ttf"], s["hnode"], s["hnode_new"],
+            s["fct_LO"], s["del_ttf_advvert"], s["del_ttf_advhoriz"],
+            cfg.dt, it)
+
+    def k3(x):  # a copy of K3's outputs, written in place
+        return x[0].clone(), x[1].clone() if it else None
+
+    def fold(fn, p, k3_out, n):
+        return fn(md, p["fct_plus"], p["fct_minus"], n[0], *k3(k3_out),
+                  owned, p["adf_v_lim"], *n[1:])
+
+    lim, res = K.b3h_fixup(md, pre["fct_plus"], pre["fct_minus"],
+                           s["fct_adf_h"], *k3(edges), ids, it)
+    witness = K.update(md, node[0], lim, *node[1:]) + (lim, res)
+    n = (s["fct_adf_h"],) + node[1:]
+    got = fold(K.update_fixup, pre, edges, n)
+    again = fold(K.update_fixup, pre, edges, n)
+    ref = fold(K.update_fixup_ref, pre, edges, n)
+    tol = K.TOLERANCE[cfg.dtype]
+    diff = 0.0
+    for i, name in enumerate(("o1", "o2", "adf_h_lim", "adf_h_res")):
+        errs.check("update_fixup", name, got[i], ref[i],
+                   tol if i < 2 else 0.0, case)
+        errs.check("update_fixup", name, again[i], got[i], 0.0,
+                   f"{case} second launch")
+        if witness[i] is None:
+            continue
+        d = abserr(got[i], witness[i])
+        diff = max(diff, d)
+        if not torch.equal(got[i], witness[i]):
+            raise AssertionError(f"K4-fix {name} {case}: not bit-identical "
+                                 f"to K3fix -> K4 (max abs diff {d:.3e})")
+    for t in range(got[0].shape[0]):
+        one = one_tracer(s, t)
+        pt = {k: None if v is None else v[t] for k, v in pre.items()}
+        et = tuple(None if x is None else x[t] for x in edges)
+        for i, w in enumerate(fold(K.update_fixup, pt, et,
+                                   (one["fct_adf_h"], one["ttf"],
+                                    s["hnode"], s["hnode_new"],
+                                    one["fct_LO"], one["del_ttf_advvert"],
+                                    one["del_ttf_advhoriz"], cfg.dt, it))):
+            if w is not None and not torch.equal(got[i][t], w):
+                raise AssertionError(
+                    f"K4-fix out{i} {case} tracer {t}: not bit-identical to "
+                    f"a Tb = 1 launch (max abs diff "
+                    f"{abserr(got[i][t], w):.3e})")
+    return diff
+
+
+def phase_fold_checks(errs: Errors, meshes: dict) -> dict:
+    """Phase 6a: K4-fix against H-K3fix -> H-K4 and its plain version on
+    every part of FOLD_MESHES (core2 and small at 4 parts, small and the
+    multi-hop mesh at 8), vlimit 1/2/3 x iter_yn in float32 and float64,
+    FOLD_TRACERS tracers (tracer t from random_fields(seed=t), hnode and
+    hnode_new shared), with K1 -> K2 -> K3 -> exchange run by the kernels
+    of a ShardedFctAleSolver's parts.  Returns the launch counts of these
+    checks, where H-K3fix's are counted: no path runs it any more, it is
+    the witness."""
+    from fesom2_accelerate_tpu_torch import FctAleConfig, ShardedFctAleSolver
+    from fesom2_accelerate_tpu_torch.mesh import (
+        generate_planar_mesh,
+        random_fields,
+    )
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+    from fesom2_accelerate_tpu_torch.ops.cuda.step import (
+        BATCH_SHARED,
+        pre_exchange,
+    )
+    from fesom2_accelerate_tpu_torch.parallel.step_sharded import (
+        fix_edge_ids,
+    )
+
+    # exchange radius >= 2 at 8 parts, as in phase 6c
+    meshes = dict(meshes, multihop=generate_planar_mesh(nx=4, ny=7, nl=5))
+    K.reset_launch_counts()
+    for key, n_parts in FOLD_MESHES:
+        mesh = meshes[key]
+        per = [random_fields(mesh, seed=t, dtype=np.float64)
+               for t in range(FOLD_TRACERS)]
+        batched = {k: per[0][k] if k in BATCH_SHARED
+                   else np.stack([f[k] for f in per]) for k in per[0]}
+        diff, n = 0.0, 0
+        for dtype in (torch.float32, torch.float64):
+            sh = ShardedFctAleSolver(mesh, FctAleConfig(dtype=dtype),
+                                     devices=["cuda:0"] * n_parts,
+                                     tracers=FOLD_TRACERS)
+            state = sh.init_state(batched)
+            # columns that hold no node get hnode_new = 1, so that
+            # iterative stage c is finite there and every output can be
+            # checked (in a run they hold 0/0, which no gather reads)
+            for p, h in enumerate(state["hnode_new"]):
+                h[..., sh.pm.local_nodes_global[p] < 0] = 1.0
+            parts = [{k: v[p] for k, v in state.items()}
+                     for p in range(n_parts)]
+            ids = [torch.tensor(fix_edge_ids(sh.pm, p), device="cuda")
+                   for p in range(n_parts)]
+            for vlimit in (1, 2, 3):
+                for iter_yn in (False, True):
+                    cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn,
+                                       dt=0.5, dtype=dtype,
+                                       flux_eps=1e-7 if dtype == torch.float32
+                                       else 1e-16)
+                    pres = [pre_exchange(md, cfg, st)
+                            for md, st in zip(sh.mds, parts)]
+                    edges = [K.b3h(md, pre["fct_plus"], pre["fct_minus"],
+                                   st["fct_adf_h"], iter_yn)
+                             for md, st, pre in zip(sh.mds, parts, pres)]
+                    sh.halo_fill([pre["fct_plus"] for pre in pres])
+                    sh.halo_fill([pre["fct_minus"] for pre in pres])
+                    for p in range(n_parts):
+                        diff = max(diff, fold_vs_witness(
+                            sh.mds[p], parts[p], pres[p], edges[p],
+                            sh.owned, ids[p], cfg, errs,
+                            f"{key}/{n_parts} part {p} {dtype} "
+                            f"vlimit={vlimit} iter={iter_yn}"))
+                        n += 1
+        torch.cuda.synchronize()
+        print(f"K4-fix vs K3fix -> K4: {key} at {n_parts} parts "
+              f"(radius {sh.pm.neighbor_radius}), {n} part cases (vlimit "
+              f"1/2/3 x iter_yn x f32/f64, Tb={FOLD_TRACERS} against "
+              f"{FOLD_TRACERS} launches at Tb=1, a second launch, the plain "
+              f"version at 1e-6 / 1e-12, edge outputs bit-exact) ok; max "
+              f"|K4-fix - (K3fix -> K4)| {diff:.3e}", flush=True)
+    return K.launch_counts()
+
+
 def sharded_vs_single(mesh, fields, cfg, n_parts: int, steps: int,
                       label: str, tol: float, **kw) -> tuple:
     """``steps`` steps of ShardedFctAleSolver(devices=["cuda:0"] * n_parts)
@@ -991,6 +1151,9 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
     from fesom2_accelerate_tpu_torch import FctAleConfig
     from fesom2_accelerate_tpu_torch.mesh import random_fields
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+    from fesom2_accelerate_tpu_torch.parallel.step_sharded import (
+        fix_edge_ids,
+    )
 
     mesh = meshes["core2"]
     fields = random_fields(mesh, seed=0, dtype=np.float64)
@@ -1002,9 +1165,12 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
         MAIN_RELERR)
     per = {k: SHARD_PARTS * steps for k in ("bounds", "limit")}
     check_counts(counts["split"], dict(per, b3h=SHARD_PARTS * steps,
-                                       b3h_fixup=SHARD_PARTS * steps,
-                                       update=SHARD_PARTS * steps),
+                                       update_fixup=SHARD_PARTS * steps),
                  "sharded split")
+    print(f"sharded split: {sum(counts['split'].values()) // steps} "
+          f"launches a step (K1, K2, K3, K4-fix on each of {SHARD_PARTS} "
+          f"parts; no K3fix, no plain K4); fused: "
+          f"{sum(counts['fused'].values()) // steps}", flush=True)
     check_counts(counts["fused"], dict(per, update_fused=SHARD_PARTS * steps),
                  "sharded fused")
 
@@ -1054,14 +1220,16 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
           f"{SHARD_PARTS} parts, H={sh.pm.H}, B={sh.pm.B}): "
           f"{t['exchange']:.4f} ms (card {card})")
 
-    # each kernel of the split step, and H-K34, beside its plain version and
-    # its bound: at the shapes of part 1 (an interior part, the main path's)
-    # and of the whole mesh
+    # each kernel of the split step, the witness H-K3fix and H-K4, and H-K34,
+    # beside its plain version and its bound: at the shapes of part 1 (an
+    # interior part, the main path's) and of the whole mesh (K4-fix on part
+    # 1 only: on a whole mesh it is K4)
     times = {}
     whole = solvers["single"]
+    ids1 = torch.tensor(fix_edge_ids(sh.pm, 1), device="cuda")
     for label, md, s, ids in (
             ("part 1", sh.mds[1], {k: v[1] for k, v in state.items()},
-             sh.fix_ids[1]),
+             ids1),
             ("whole", whole[0].md, whole[1],
              torch.arange(0, mesh.n_edges, 3, dtype=torch.int32,
                           device="cuda"))):
@@ -1095,18 +1263,44 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
                 lambda: K.update_fused_ref(md, plus, minus, avl, ah,
                                            *node)),
         }
+        if label == "part 1":
+            # in place into lim: it rewrites the same values each call
+            calls["update_fixup"] = (
+                lambda: K.update_fixup(md, plus, minus, ah, lim, None,
+                                       sh.owned, avl, *node),
+                lambda: K.update_fixup_ref(md, plus, minus, ah, lim, None,
+                                           sh.owned, avl, *node))
         for name, (kern, plain) in calls.items():
             tk = best_times({"kernel": kern, "plain": plain}, 5)
-            if label == "part 1" and name in ("b3h", "b3h_fixup", "update"):
+            if label == "part 1":
                 times[name] = tk
-            nbytes, ops = profiling.kernel_io(md, name, ids=ids)
+            nbytes, ops = profiling.kernel_io(md, name, ids=ids,
+                                              owned=sh.owned)
             bound, _ = profiling.bound_ms(nbytes, ops, md.dtype)
             print(f"kernel {name} on core2 {label} ({md.n_nodes} nodes, "
                   f"{md.n_edges} edges, {len(ids)} fix ids): "
                   f"{tk['kernel']:.4f} ms, plain {tk['plain']:.4f} ms, "
                   f"{nbytes / 1e6:.1f} MB, bound {bound:.4f} ms "
                   f"(f32; card {card})", flush=True)
-    return counts["split"], times, (sh.mds[1], dict(ids=sh.fix_ids[1]))
+        if label != "part 1":
+            continue
+        # the fold beside the two launches it replaces, timed in turns
+        t = best_times({"K4-fix": calls["update_fixup"][0],
+                        "K3fix + K4": lambda: (calls["b3h_fixup"][0](),
+                                               calls["update"][0]())}, 5)
+        nbytes, ops = profiling.kernel_io(md, "update_fixup",
+                                          owned=sh.owned)
+        bound, _ = profiling.bound_ms(nbytes, ops, md.dtype)
+        alone = (times["b3h_fixup"]["kernel"], times["update"]["kernel"])
+        print(f"K4-fix on core2 part 1: {t['K4-fix']:.4f} ms against "
+              f"K3fix + K4 {t['K3fix + K4']:.4f} ms back to back "
+              f"({alone[0]:.4f} + {alone[1]:.4f} alone); bound "
+              f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB; f32; card {card})",
+              flush=True)
+    md = sh.mds[1]
+    shapes = {"b3h": (md, {}), "b3h_fixup": (md, dict(ids=ids1)),
+              "update": (md, {}), "update_fixup": (md, dict(owned=sh.owned))}
+    return counts["split"], times, shapes
 
 
 # the four single-device forms (fuse_k12, fuse_k34), the default first, and
@@ -1322,8 +1516,8 @@ def phase_forms(card: str, meshes: dict) -> tuple:
     """20 core2 f32 steps of FctAleSolver(backend="cuda") in each of the
     four forms against the default form (MAIN_RELERR, launches per step),
     the step time of each form, and H-K12 and H-A2 beside their plain
-    versions.  Returns the K12 -> K34 run's launch counts, the kernel
-    times and the mesh data they were taken on."""
+    versions.  Returns each form's launch counts (by form_name), the
+    kernel times and the mesh data they were taken on."""
     from fesom2_accelerate_tpu_torch import FctAleConfig, FctAleSolver
     from fesom2_accelerate_tpu_torch.mesh import random_fields
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
@@ -1391,8 +1585,7 @@ def phase_forms(card: str, meshes: dict) -> tuple:
     for stage, r in time_stages(mesh, fields, "cuda").items():
         print(f"plain stage {stage}: {r['ms']:.4f} ms, {r['GBps']} GB/s "
               f"modeled (core2 f32, time_stages; card {card})")
-    return counts[form_name(True, True)], {"limit_fused": t12,
-                                           "a2": ta2}, md
+    return counts, {"limit_fused": t12, "a2": ta2}, md
 
 
 def phase_tuner(meshes: dict) -> dict:
@@ -1421,9 +1614,10 @@ def phase_tuner(meshes: dict) -> dict:
     return counts
 
 
-# the kernels with a tracer axis; phase 8's runs (4 tracers) and its sweep
+# the kernels with a tracer axis (K4-fix: H-K4's FIX form); phase 8's runs
+# (4 tracers) and its sweep
 TRACER_KERNELS = ("bounds", "limit", "update_fused", "b3h", "b3h_fixup",
-                  "update")
+                  "update", "update_fixup")
 TRACERS = 4
 TB_SWEEP = (1, 2, 4, 8)
 # steps of each timed run of the sweep (phase 8e)
@@ -1465,11 +1659,13 @@ class TracerFields:
             for k, v in self._stacked[key].items()}
 
 
-def tracer_calls(md, cfg, ids, plain: bool, copy: bool = True) -> dict:
+def tracer_calls(md, cfg, ids, owned, plain: bool,
+                 copy: bool = True) -> dict:
     """Each kernel with a tracer axis (or its plain version) as a function
     of a state that holds its inputs, batched or one tracer's.  K3fix
-    writes into a copy of K3's outputs, or in place when not ``copy`` (to
-    time it alone: it rewrites the same values)."""
+    (on the edges ``ids``) and K4-fix (owned columns ``owned``) write into
+    a copy of K3's outputs, or in place when not ``copy`` (to time them
+    alone: they rewrite the same values)."""
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
 
     def fn(name):
@@ -1480,6 +1676,10 @@ def tracer_calls(md, cfg, ids, plain: bool, copy: bool = True) -> dict:
     def node(x):
         return (x["ttf"], x["hnode"], x["hnode_new"], x["fct_LO"],
                 x["del_ttf_advvert"], x["del_ttf_advhoriz"], cfg.dt, it)
+
+    def k3(x):
+        return (x["lim"].clone() if copy else x["lim"],
+                (x["res"].clone() if copy else x["res"]) if it else None)
 
     return {
         "bounds": lambda x: fn("bounds")(md, x["fct_LO"], x["ttf"],
@@ -1492,11 +1692,11 @@ def tracer_calls(md, cfg, ids, plain: bool, copy: bool = True) -> dict:
         "b3h": lambda x: fn("b3h")(md, x["plus"], x["minus"], x["fct_adf_h"],
                                    it),
         "b3h_fixup": lambda x: fn("b3h_fixup")(
-            md, x["px"], x["mx"], x["fct_adf_h"],
-            x["lim"].clone() if copy else x["lim"],
-            (x["res"].clone() if copy else x["res"]) if it else None, ids,
-            it),
+            md, x["px"], x["mx"], x["fct_adf_h"], *k3(x), ids, it),
         "update": lambda x: fn("update")(md, x["avl"], x["lim"], *node(x)),
+        "update_fixup": lambda x: fn("update_fixup")(
+            md, x["px"], x["mx"], x["fct_adf_h"], *k3(x), owned, x["avl"],
+            *node(x)),
     }
 
 
@@ -1553,8 +1753,11 @@ def phase_tracer_kernels(errs: Errors, tf: TracerFields) -> None:
             s = tracer_inputs(md, {k: torch.tensor(v, dtype=dtype,
                                                    device="cuda")
                                    for k, v in batched.items()}, cfg)
-            kern = tracer_calls(md, cfg, ids, plain=False)
-            plain = tracer_calls(md, cfg, ids, plain=True)
+            # a whole mesh: every node has a row, so K4-fix takes all
+            # columns as owned and is K4
+            own = (0, mesh.n_nodes)
+            kern = tracer_calls(md, cfg, ids, own, plain=False)
+            plain = tracer_calls(md, cfg, ids, own, plain=True)
             tol = K.TOLERANCE[dtype]
             case = f"{key} Tb={tb} {dtype} vlimit={vlimit} iter={iter_yn}"
             for name in TRACER_KERNELS:
@@ -1562,7 +1765,8 @@ def phase_tracer_kernels(errs: Errors, tf: TracerFields) -> None:
                 ref = plain[name](s)
                 for i, (g, r) in enumerate(zip(got, ref)):
                     exact = name in ("bounds", "b3h", "b3h_fixup") or (
-                        name == "update_fused" and i >= 2)
+                        name in ("update_fused", "update_fixup")
+                        and i >= 2)
                     errs.check(name, f"out{i}", g, r, 0.0 if exact else tol,
                                case)
                 for t in range(tb):
@@ -1682,7 +1886,7 @@ def phase_tracer_sharded(tf: TracerFields) -> None:
     """Phase 8d: ShardedFctAleSolver(backend="cuda", devices=["cuda:0"] *
     4, tracers=4) on core2, split and fused, 20 steps, against the
     single-device batched run within MAIN_RELERR, with the launches of each
-    run (20 split, 12 fused a step, as at Tb=1) and the exchange ops of a
+    run (16 split, 12 fused a step, as at Tb=1) and the exchange ops of a
     step (as many as at Tb=1: 24)."""
     from fesom2_accelerate_tpu_torch import (
         FctAleConfig,
@@ -1702,7 +1906,7 @@ def phase_tracer_sharded(tf: TracerFields) -> None:
     one = ShardedFctAleSolver(mesh, cfg, backend="cuda",
                               devices=["cuda:0"] * SHARD_PARTS)
     ops1 = exchange_ops(one, one.init_state(tf("core2", 1)[0][0]))
-    per = {"split": ("bounds", "limit", "b3h", "b3h_fixup", "update"),
+    per = {"split": ("bounds", "limit", "b3h", "update_fixup"),
            "fused": ("bounds", "limit", "update_fused")}
     for mode, names in per.items():
         sh = ShardedFctAleSolver(mesh, cfg, backend="cuda",
@@ -1777,9 +1981,13 @@ def phase_tracer_times(card: str, tf: TracerFields) -> dict:
     axis at Tb = 8 against Tb = 1, a tracer, beside its bound a tracer
     (profiling.kernel_io(tracers=8)).  Returns {kernel: (ms a tracer at
     Tb = 8, bound ms a tracer at Tb = 8)} at the shapes of each kernel's
-    timed path (whole core2 for K1, K2, K34; part 1 for K3, K3fix, K4)."""
+    timed path (whole core2 for K1, K2, K34; part 1 for K3, K3fix, K4,
+    K4-fix)."""
     from fesom2_accelerate_tpu_torch import FctAleConfig
     from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
+    from fesom2_accelerate_tpu_torch.parallel.step_sharded import (
+        fix_edge_ids,
+    )
 
     mesh = tf.meshes["core2"]
     cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
@@ -1818,19 +2026,21 @@ def phase_tracer_times(card: str, tf: TracerFields) -> dict:
         ("whole", whole, {k: torch.tensor(v, dtype=torch.float32,
                                           device="cuda")
                           for k, v in batched.items()},
-         torch.arange(0, mesh.n_edges, 3, dtype=torch.int32, device="cuda")),
+         torch.arange(0, mesh.n_edges, 3, dtype=torch.int32, device="cuda"),
+         (0, mesh.n_nodes)),
         ("part 1", sh.mds[1], {k: v[1] for k, v in state.items()},
-         sh.fix_ids[1]))
+         torch.tensor(fix_edge_ids(sh.pm, 1), device="cuda"), sh.owned))
     out = {}
-    for label, md, st, ids in targets:
+    for label, md, st, ids, own in targets:
         sb = tracer_inputs(md, st, cfg)
         s1 = one_tracer(sb, 0)
-        kern = tracer_calls(md, cfg, ids, plain=False, copy=False)
+        kern = tracer_calls(md, cfg, ids, own, plain=False, copy=False)
         for name in TRACER_KERNELS:
             t = best_times({tb: lambda: kern[name](sb),
                             1: lambda: kern[name](s1)}, 5)
-            bb, ob = profiling.kernel_io(md, name, ids=ids, tracers=tb)
-            b1, o1 = profiling.kernel_io(md, name, ids=ids)
+            bb, ob = profiling.kernel_io(md, name, ids=ids, owned=own,
+                                         tracers=tb)
+            b1, o1 = profiling.kernel_io(md, name, ids=ids, owned=own)
             bound = profiling.bound_ms(bb, ob, md.dtype)[0] / tb
             bound1 = profiling.bound_ms(b1, o1, md.dtype)[0]
             print(f"kernel {name} on core2 {label}: Tb={tb} "
@@ -1838,7 +2048,7 @@ def phase_tracer_times(card: str, tf: TracerFields) -> dict:
                   f"bound {bound:.4f} a tracer ({bb / tb / 1e6:.1f} MB); "
                   f"Tb=1 {t[1]:.4f} ms, bound {bound1:.4f} "
                   f"({b1 / 1e6:.1f} MB) (f32; card {card})", flush=True)
-            split = name in ("b3h", "b3h_fixup", "update")
+            split = name in ("b3h", "b3h_fixup", "update", "update_fixup")
             if split == (label == "part 1"):
                 out[name] = (t[tb] / tb, bound)
     return out
@@ -1848,10 +2058,12 @@ SOURCE = "fesom2_accelerate_tpu_torch/ops/cuda/csrc/"
 KERNEL_SOURCES = {"bounds": "fct_ale.cu", "limit": "fct_ale.cu",
                   "update_fused": "fct_ale.cu", "stress2rhs": "stress2rhs.cu",
                   "b3h": "fct_ale.cu", "b3h_fixup": "fct_ale.cu",
-                  "update": "fct_ale.cu", "limit_fused": "fct_ale.cu",
-                  "a2": "fct_ale.cu"}
+                  "update": "fct_ale.cu", "update_fixup": "fct_ale.cu",
+                  "limit_fused": "fct_ale.cu", "a2": "fct_ale.cu"}
 # every Pallas function (file:line of its def) that each kernel covers:
 # between them, the 16 functions of the repo that reach pl.pallas_call
+# (K4-fix: the split chain's fixup and K4, which it does in one launch on
+# the sharded split step)
 PALLAS = "fesom2_accelerate_tpu/ops/pallas/"
 REPLACES = {
     "bounds": ("kernels.py:545", "kernels.py:348", "kernels.py:465"),
@@ -1861,6 +2073,8 @@ REPLACES = {
     "b3h": ("kernels_packed.py:359", "kernels.py:769"),
     "b3h_fixup": ("kernels_packed.py:410", "kernels.py:820"),
     "update": ("kernels_packed.py:537", "kernels.py:940"),
+    "update_fixup": ("kernels_packed.py:410", "kernels.py:820",
+                     "kernels_packed.py:537", "kernels.py:940"),
     "limit_fused": ("kernels_packed.py:895",),
     "a2": ("kernels.py:1015",),
 }
@@ -1893,19 +2107,24 @@ def main() -> int:
     counts["stress2rhs"] = s2r_counts["stress2rhs"]
     t0 = time.perf_counter()
     phase_sharded_checks(errs, meshes)
+    # H-K3fix, the witness, runs in these checks and no longer on a path
+    counts["b3h_fixup"] = phase_fold_checks(errs, meshes)["b3h_fixup"]
     phase_sharded_small()
     split_counts, split_times, part = phase_sharded_path(card, meshes)
     print(f"phase 6 (sharded path) took {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name in ("b3h", "b3h_fixup", "update"):
-        counts[name] = split_counts[name]
+    for name in ("b3h", "b3h_fixup", "update", "update_fixup"):
         times[name] = split_times[name]
-        shapes[name] = part
+        shapes[name] = part[name]
+    for name in ("b3h", "update_fixup"):
+        counts[name] = split_counts[name]
     t0 = time.perf_counter()
     phase_new_kernel_checks(errs, meshes)
     phase_chunk_checks(errs)
-    k12_counts, new_times, md = phase_forms(card, meshes)
-    counts["limit_fused"] = k12_counts["limit_fused"]
+    form_counts, new_times, md = phase_forms(card, meshes)
+    counts["limit_fused"] = form_counts[form_name(True, True)]["limit_fused"]
+    # H-K4 (plain form) runs in the single-device K1 -> K2 -> K3 -> K4 form
+    counts["update"] = form_counts[form_name(False, False)]["update"]
     counts["a2"] = phase_tuner(meshes)["a2"]
     times.update(new_times)
     shapes.update(limit_fused=(md, {}), a2=(md, {}))

@@ -55,6 +55,7 @@ ARGTYPES = {
     "fct_b3h": [_P] * 7 + [_I] * 6 + [_P],
     "fct_b3h_fixup": [_P] * 8 + [_I] * 7 + [_P],
     "fct_update": [_P] * 16 + [_I] * 4 + [_D, _I, _I, _I, _I, _P],
+    "fct_update_fixup": [_P] * 21 + [_I] * 6 + [_D, _I, _I, _I, _I, _P],
     "fct_a2": [_P] * 6 + [_I] * 3 + [_D, _I, _I, _P],
     "fct_occupancy": [_I] * 6 + [_P, _I, _I],
     "stress2rhs": [_P] * 7 + [_I] * 5 + [_P],
@@ -64,7 +65,8 @@ ARGTYPES = {
 SOURCES = {
     "fct_ale.cu": ("fct_bounds", "fct_limit", "fct_limit_fused",
                    "fct_update_fused", "fct_b3h", "fct_b3h_fixup",
-                   "fct_update", "fct_a2", "fct_occupancy"),
+                   "fct_update", "fct_update_fixup", "fct_a2",
+                   "fct_occupancy"),
     "stress2rhs.cu": ("stress2rhs",),
 }
 
@@ -164,26 +166,28 @@ KERNELS = ("limit_fused", "limit", "update_fused", "update", "b3h_fixup",
 # an entry line of ``ptxas -v``: the mangled kernel name, with its template
 # arguments (dtype, then the int parameters: incidence slots where the
 # kernel has them, block size last; then the tracer-axis flag of the
-# kernels that have one)
+# kernels that have one, and H-K4's FIX flag)
 _ENTRY = re.compile(r"Compiling entry function '\w*?(" + "|".join(KERNELS)
-                    + r")_kernelI([fd])((?:Li\d+E)+)(?:Lb([01])E)?")
+                    + r")_kernelI([fd])((?:Li\d+E)+)((?:Lb[01]E)*)")
 
 
 def ptxas_report(log: str) -> list[dict]:
     """One dict per kernel instance in an nvcc log: ``kernel``, ``dtype``
     (float or double), ``params`` (the int template arguments, block size
     last), ``tracers`` (the instance with the tracer axis, which Tb > 1
-    launches take), ``registers``, ``stack``, ``spill_stores`` and
+    launches take), ``fix`` (H-K4's FIX form, the ``update_fixup``
+    wrapper's), ``registers``, ``stack``, ``spill_stores`` and
     ``spill_loads`` (bytes)."""
     out, cur = [], None
     for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
+            flags = re.findall(r"Lb([01])E", m.group(4)) + ["0", "0"]
             cur = dict(kernel=m.group(1) + "_kernel",
                        dtype="float" if m.group(2) == "f" else "double",
                        params=tuple(int(v) for v in
                                     re.findall(r"Li(\d+)E", m.group(3))),
-                       tracers=m.group(4) == "1")
+                       tracers=flags[0] == "1", fix=flags[1] == "1")
             continue
         if cur is None:
             continue
@@ -208,7 +212,8 @@ def main() -> None:
         for r in ptxas_report(path.with_suffix(".log").read_text()):
             print(f"{r['kernel']}<{r['dtype']},"
                   f"{','.join(map(str, r['params']))}"
-                  f"{',tracers' if r['tracers'] else ''}>: {r['registers']} "
+                  f"{',tracers' if r['tracers'] else ''}"
+                  f"{',fix' if r['fix'] else ''}>: {r['registers']} "
                   f"registers, stack {r.get('stack')}, spill stores "
                   f"{r.get('spill_stores')}, spill loads "
                   f"{r.get('spill_loads')}")

@@ -5,9 +5,12 @@
 //     or any of its other forms: K12 limit_fused (K1 and K2 in one pass)
 //     in place of K1 -> K2, and K3 -> K4 in place of K34;
 //   * the split chain of a sharded step, K1 -> K2 -> K3 b3h -> halo
-//     exchange -> K3fix b3h_fixup -> K4 update: K3 limits every edge on the
-//     pre-exchange factors, K3fix redoes the edges that touch a halo node
-//     with the exchanged ones, K4 is stage c from the limited edge fluxes;
+//     exchange -> K4 update in its FIX form: K3 limits every edge on the
+//     pre-exchange factors; K4-fix limits again, from the exchanged ones,
+//     the edges that touch a halo node, writes them back and sums them into
+//     stage c with K3's other edges.  K3fix b3h_fixup (those edges alone)
+//     followed by the plain K4 computes the same bits in two launches: it
+//     is the witness the fold is held against;
 //   * A2 a2, the standalone element bounds of the tuning harness.
 //
 // Each kernel computes what the JAX package's Pallas kernel of the same
@@ -41,6 +44,8 @@
 //     sums each node's limited fluxes (its tile's incidence rows staged in
 //     shared memory, as K34's) and applies stage c, every level on its
 //     own.  No node kernel walks a column any more.
+//     K4's FIX form limits the part's halo edges in its node sum as K34
+//     limits the edges that cross its tile (see update_kernel).
 //   * Edge and element kernels (K3, K3fix, A2): one thread per (edge or
 //     element, level), consecutive threads on consecutive entities of one
 //     level.
@@ -89,7 +94,8 @@
 // and A2 do only max/min, selects and one subtraction, and K3/K3fix only
 // selects and one product per output, so those are bit-exact.  K34 rounds
 // each limited flux on its own (mul_rn) and sums in K4's slot order, so it
-// gives the bits of K3 -> K4.
+// gives the bits of K3 -> K4, and K4's FIX form, which rounds its halo
+// edges' limited fluxes so too, the bits of K3fix -> K4.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -154,6 +160,9 @@ constexpr int kLimitLevels = 32;
 constexpr int kLimitFusedLevels = 24;
 constexpr int kUpdateLevels = 16;
 constexpr int kUpdateSplitLevels = 32;
+// K4's FIX form at one tracer (see update_kernel): shorter chunks share a
+// part's halo edges among more blocks
+constexpr int kFixLevels = 8;
 
 // ---------------------------------------------------------------------------
 // H-K1 bounds.  Replaces kernels.py:bounds_dia_dma_pallas (with the
@@ -408,12 +417,16 @@ __device__ __forceinline__ void limit_vertical(
 // contiguous run of [N, KD], read coalesced into shared memory slot-major
 // (lane l reads column l, no bank conflict); padding slots, and nodes past
 // N, get level bound 0.  Shared by K2 and K4; visible after a barrier.
-template <int MAXD, int THREADS>
+// OTHER (K4's FIX form) stages the slots' other endpoints (nd_other) into
+// s_oth as a fourth row in the same pass.
+template <int MAXD, int THREADS, bool OTHER = false>
 __device__ __forceinline__ void stage_tile_rows(
     const int* __restrict__ nd_idx, const int* __restrict__ nd_lev,
     const signed char* __restrict__ nd_sgn, const int* __restrict__ nd_num,
     int n0, int N, int KD, int (&s_eidx)[MAXD][kTileNodes],
-    int (&s_lev)[MAXD][kTileNodes], int (&s_sgn)[MAXD][kTileNodes]) {
+    int (&s_lev)[MAXD][kTileNodes], int (&s_sgn)[MAXD][kTileNodes],
+    const int* __restrict__ nd_other = nullptr,
+    int (*s_oth)[kTileNodes] = nullptr) {
   for (int w = threadIdx.x; w < MAXD * kTileNodes; w += THREADS) {
     const int l = w / MAXD, k = w - l * MAXD;
     const bool ok = n0 + l < N && k < KD && k < nd_num[n0 + l];
@@ -421,6 +434,7 @@ __device__ __forceinline__ void stage_tile_rows(
     s_eidx[k][l] = ok ? nd_idx[g] : 0;
     s_lev[k][l] = ok ? nd_lev[g] : 0;
     s_sgn[k][l] = ok ? nd_sgn[g] : 0;
+    if constexpr (OTHER) s_oth[k][l] = ok ? nd_other[g] : 0;
   }
 }
 
@@ -1008,9 +1022,56 @@ b3h_fixup_kernel(const T* __restrict__ plus, const T* __restrict__ minus,
 // often.)  The slot order,
 // the signs and stage_c are the node-threaded form's, so the outputs are
 // its bits, and H-K34 still gives the bits of H-K3 -> H-K4.
+//
+// The FIX form (template flag FIX; the split step's only K4) also does
+// K3fix's work, in place of its launch.  Replaces, with the plain form,
+// kernels.py:b3h_fixup_pallas and kernels_packed.py:b3h_packed_fixup_pallas
+// on a part of a sharded step.  K3fix ran 1,210 ids x 47 levels on core2's
+// part 1 of 4 (about 470 blocks, under one wave) in 0.0035 ms against a
+// 0.0002 ms bound on an H100: a launch's fixed cost and one round of
+// scattered loads, and a wrapper call of host time on a host-bound step.
+// On a part the incidence rows of halo columns are empty
+// (parallel/partition.py), every local edge has an owned endpoint, and an
+// edge that touches a halo column has exactly one, so it appears in exactly
+// one row: that of its owned endpoint.  So the thread of that node limits
+// such an edge (its other endpoint outside the owned columns [col_lo,
+// col_hi)) again at each of its levels, from the exchanged factors, with
+// b3h_edge's expression oriented by the slot's sign as K34's crossing
+// edges are, and writes it (and its residual) over K3's value; no other
+// thread reads that value.  Only live slots (z < the edge's levels) are
+// written: on the others K3 wrote f and 0, which no factor changes.  Then
+// the plain form's sum reads every slot back through the pointer it wrote
+// by, in slot order, and stage c follows.  The wrapper holds the contract:
+// every node with a non-empty row lies in [col_lo, col_hi).  The limited
+// flux is rounded on its own (mul_rn), as b3h_edge's, so the outputs are
+// the bits of K3fix -> K4.
+//
+// What bounds it on a part: the halo edges are a small share of a part's
+// edges, but all sit in the tiles next to the halo, so those few blocks
+// carry K3fix's whole latency chain, and any code for them costs
+// registers in every block.  Variants timed beside each other on an H100
+// (core2 f32; verdicts only, the scratch harness is not kept): limiting
+// them inside the slot loop, one branch per slot, serialised every node's
+// loads; gathering the slots first, or a halo pass with its slots
+// unrolled, raised the registers past the 48 of 10 blocks an SM and lost
+// time even on a mesh without a halo edge; a block-wide pass over a shared
+// list of the tile's halo slots kept K4's registers but ran slower on a
+// part.  This form, a per-thread pass over the set bits of the node's halo
+// mask before the plain sum (levels unrolled by 2), keeps K4's registers
+// and was the fastest of those that do.  At one tracer, chunks of
+// kFixLevels = 8 levels (4 and 12 ran slower, 32 slower still) share the
+// halo work among more blocks, and the tiles next to the halo start
+// first; with the tracer axis every tile already has Tb blocks, and K4's
+// chunks of 32 in tile order ran faster (Tb = 8).  At one tracer it runs
+// slower than K4 on a whole mesh (every column owned, no halo edge): the
+// short chunks suit a part only.  In the plain form (FIX false) the
+// extra parameters are unused and every FIX branch folds away at compile
+// time, so it compiles to the code it had before the flag (utils/sass.py
+// checks it).  Each form has its instances with and without the tracer
+// axis.
 // ---------------------------------------------------------------------------
 
-template <typename T, int MAXD, int THREADS, bool TRACERS>
+template <typename T, int MAXD, int THREADS, bool TRACERS, bool FIX>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 update_kernel(const T* __restrict__ adf_v_lim,
               const T* __restrict__ adf_h_lim, const T* __restrict__ ttf,
@@ -1022,42 +1083,128 @@ update_kernel(const T* __restrict__ adf_v_lim,
               const int* __restrict__ nd_num,
               const int* __restrict__ nlev_nod, T* __restrict__ o1,
               T* __restrict__ o2, int L, int N, int Ed, int KD, T dt,
-              int iter_yn, int Tb) {
+              int iter_yn, int Tb,
+              // FIX only: the exchanged factors, the raw flux, the other
+              // endpoints, K3's outputs to write the halo edges into (the
+              // array behind adf_h_lim, and the residual or null) and the
+              // owned columns
+              const T* __restrict__ plus, const T* __restrict__ minus,
+              const T* __restrict__ adf_h,
+              const int* __restrict__ nd_other, T* __restrict__ lim_out,
+              T* __restrict__ res_out, int col_lo, int col_hi) {
   constexpr int kWarps = THREADS / kTileNodes;
-  constexpr int LC = kUpdateSplitLevels;
+  constexpr int LC = FIX && !TRACERS ? kFixLevels : kUpdateSplitLevels;
   __shared__ int s_eidx[MAXD][kTileNodes];
   __shared__ int s_lev[MAXD][kTileNodes];
   __shared__ int s_sgn[MAXD][kTileNodes];
+  __shared__ int s_oth[FIX ? MAXD : 1][kTileNodes];  // FIX only
   const TracerBlock tb = tracer_block<TRACERS>(Tb);
-  const int tile = tb.b, chunk = blockIdx.y;
+  int tile = tb.b;
+  if constexpr (FIX && !TRACERS) {
+    // the tiles from both ends of the part inwards (0, last, 1, last - 1,
+    // ...): the halo lies on both sides of a part's owned columns, so the
+    // tiles next to it, which carry its edges, start first
+    const int last = (N + kTileNodes - 1) / kTileNodes - 1;
+    tile = (tb.b & 1u) ? last - (int)(tb.b >> 1) : (int)(tb.b >> 1);
+  }
+  const int chunk = blockIdx.y;
   // the tracer's first row of its node and edge fields and of its
   // interface fields, as in K2
   const int tl = tb.t * L, tv = tb.t * (L + 1);
-  stage_tile_rows<MAXD, THREADS>(nd_idx, nd_lev, nd_sgn, nd_num,
-                                 tile * kTileNodes, N, KD, s_eidx, s_lev,
-                                 s_sgn);
+  stage_tile_rows<MAXD, THREADS, FIX>(nd_idx, nd_lev, nd_sgn, nd_num,
+                                      tile * kTileNodes, N, KD, s_eidx,
+                                      s_lev, s_sgn, nd_other, s_oth);
   __syncthreads();
-
   const int lane = threadIdx.x % kTileNodes;
   const int n = tile * kTileNodes + lane;
   if (n >= N) return;
   const int nlev = nlev_nod[n];
   const int z1 = min((chunk + 1) * LC, L);
-  for (int z = chunk * LC + threadIdx.x / kTileNodes; z < z1;
-       z += kWarps) {
-    const size_t erow = (size_t)(tl + z) * Ed;
-    T acc = T(0);
+  if constexpr (!FIX) {
+    for (int z = chunk * LC + threadIdx.x / kTileNodes; z < z1;
+         z += kWarps) {
+      const size_t erow = (size_t)(tl + z) * Ed;
+      T acc = T(0);
+#pragma unroll
+      for (int k = 0; k < MAXD; ++k) {
+        if (z < s_lev[k][lane]) {
+          const T f = adf_h_lim[erow + s_eidx[k][lane]];
+          acc += s_sgn[k][lane] > 0 ? f : -f;
+        }
+      }
+      const size_t vidx = (size_t)(tv + z) * N + n;
+      stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, o2,
+              (size_t)z * N + n, (size_t)(tl + z) * N + n, z < nlev - 1,
+              adf_v_lim[vidx], adf_v_lim[vidx + N], acc, dt, iter_yn);
+    }
+  } else {
+    // the node's live slots whose other endpoint is not owned (none on
+    // most nodes: only those next to the halo have any)
+    unsigned halo = 0u;
 #pragma unroll
     for (int k = 0; k < MAXD; ++k) {
-      if (z < s_lev[k][lane]) {
-        const T f = adf_h_lim[erow + s_eidx[k][lane]];
-        acc += s_sgn[k][lane] > 0 ? f : -f;
+      const int o = s_oth[k][lane];
+      if (s_lev[k][lane] > 0 &&
+          (unsigned)(o - col_lo) >= (unsigned)(col_hi - col_lo))
+        halo |= 1u << k;
+    }
+    const int z0 = chunk * LC + threadIdx.x / kTileNodes;
+    if (halo != 0u) {
+      // a node next to the halo: its halo edges limited again at each of
+      // the thread's levels and written over K3's values, before the sum
+      // below reads them back (the same thread and pointer: program order)
+#pragma unroll 2
+      for (int z = z0; z < z1; z += kWarps) {
+        const size_t erow = (size_t)(tl + z) * Ed;
+        const size_t row = (size_t)(tl + z) * N;
+        const T pn = plus[row + n], mn = minus[row + n];
+#pragma unroll 1
+        for (unsigned h = halo; h != 0u; h &= h - 1u) {
+          const int k = __ffs(h) - 1;
+          if (z < s_lev[k][lane]) {
+            const size_t ei = erow + s_eidx[k][lane];
+            const int o = s_oth[k][lane];
+            const T fl = adf_h[ei];
+            const T po = plus[row + o], mo = minus[row + o];
+            const T ae = s_sgn[k][lane] > 0
+                             ? edge_limiter(fl, pn, mn, po, mo)
+                             : edge_limiter(fl, po, mo, pn, mn);
+            lim_out[ei] = mul_rn(ae, fl);
+            if (res_out != nullptr) res_out[ei] = (T(1) - ae) * fl;
+          }
+        }
       }
     }
-    const size_t vidx = (size_t)(tv + z) * N + n;
-    stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, o2,
-            (size_t)z * N + n, (size_t)(tl + z) * N + n, z < nlev - 1,
-            adf_v_lim[vidx], adf_v_lim[vidx + N], acc, dt, iter_yn);
+    // The plain form's sum and stage c, reading through lim_out, in one
+    // loop for each iter_yn fixed at compile time.  With iter_yn a
+    // run-time value in this kernel, the non-iterative stage c rounded
+    // (up - dn) * dt * area_inv on its own before adding it, where the
+    // plain form contracts it into one FMA with the sum (seen on an H100:
+    // 1-ulp differences in del_ttf_advvert); with the branch gone both
+    // forms contract alike and give the same bits.
+    auto levels = [&](auto iter) {
+      for (int z = z0; z < z1; z += kWarps) {
+        const size_t erow = (size_t)(tl + z) * Ed;
+        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k < MAXD; ++k) {
+          if (z < s_lev[k][lane]) {
+            const T f = lim_out[erow + s_eidx[k][lane]];
+            acc += s_sgn[k][lane] > 0 ? f : -f;
+          }
+        }
+        const size_t vidx = (size_t)(tv + z) * N + n;
+        stage_c(ttf, hnode, hnode_new, lo, dvin, dhin, area_inv, o1, o2,
+                (size_t)z * N + n, (size_t)(tl + z) * N + n, z < nlev - 1,
+                adf_v_lim[vidx], adf_v_lim[vidx + N], acc, dt,
+                (int)decltype(iter)::value);
+      }
+    };
+    if (iter_yn) {
+      levels(std::true_type{});
+    } else {
+      levels(std::false_type{});
+    }
   }
 }
 
@@ -1365,7 +1512,14 @@ int launch_b3h_fixup(const void* plus, const void* minus, const void* adf_h,
   });
 }
 
-template <typename T>
+// The one block size of K4's FIX form: its instances at 64, 256 and 512
+// threads would add more than 10 s to the build for a launch the sharded
+// step makes at the default only (kernels.py:FIX_THREADS is a copy).
+constexpr int kFixThreads = 128;
+
+// K4, in its plain form or (FIX, with the halo edges' arguments after
+// stream) its FIX form, which is instantiated at kFixThreads only
+template <typename T, bool FIX = false>
 int launch_update(const void* adf_v_lim, const void* adf_h_lim,
                   const void* ttf, const void* hnode, const void* hnode_new,
                   const void* lo, const void* dvin, const void* dhin,
@@ -1373,26 +1527,40 @@ int launch_update(const void* adf_v_lim, const void* adf_h_lim,
                   const void* nd_lev, const void* nd_sgn, const void* nd_num,
                   const void* nlev_nod, void* o1, void* o2, int L, int N,
                   int Ed, int KD, double dt, int iter_yn, int Tb,
-                  int threads, int device, void* stream) {
+                  int threads, int device, void* stream,
+                  const void* plus = nullptr, const void* minus = nullptr,
+                  const void* adf_h = nullptr,
+                  const void* nd_other = nullptr, void* adf_h_res = nullptr,
+                  int col_lo = 0, int col_hi = 0) {
   if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree ||
       !tracers_fit((N + kTileNodes - 1) / kTileNodes, Tb, L))
+    return cudaErrorInvalidValue;
+  if (FIX && (col_lo < 0 || col_lo > col_hi || col_hi > N ||
+              threads != kFixThreads))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_config(KD, threads, [&](auto d, auto nt) {
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
-    with_tracers(Tb, [&](auto tr) {
-      update_kernel<T, D, TH, decltype(tr)::value>
-          <<<tile_grid(N, L, kUpdateSplitLevels, Tb), TH, 0, s>>>(
-              (const T*)adf_v_lim, (const T*)adf_h_lim, (const T*)ttf,
-              (const T*)hnode, (const T*)hnode_new, (const T*)lo,
-              (const T*)dvin, (const T*)dhin, (const T*)area_inv,
-              (const int*)nd_idx, (const int*)nd_lev,
-              (const signed char*)nd_sgn, (const int*)nd_num,
-              (const int*)nlev_nod, (T*)o1, (T*)o2, L, N, Ed, KD, (T)dt,
-              iter_yn, Tb);
-    });
+    if constexpr (!FIX || TH == kFixThreads) {
+      with_tracers(Tb, [&](auto tr) {
+        constexpr bool TR = decltype(tr)::value;
+        update_kernel<T, D, TH, TR, FIX>
+            <<<tile_grid(N, L, FIX && !TR ? kFixLevels : kUpdateSplitLevels,
+                         Tb),
+               TH, 0, s>>>(
+                (const T*)adf_v_lim, (const T*)adf_h_lim, (const T*)ttf,
+                (const T*)hnode, (const T*)hnode_new, (const T*)lo,
+                (const T*)dvin, (const T*)dhin, (const T*)area_inv,
+                (const int*)nd_idx, (const int*)nd_lev,
+                (const signed char*)nd_sgn, (const int*)nd_num,
+                (const int*)nlev_nod, (T*)o1, (T*)o2, L, N, Ed, KD, (T)dt,
+                iter_yn, Tb, (const T*)plus, (const T*)minus,
+                (const T*)adf_h, (const int*)nd_other, (T*)adf_h_lim,
+                (T*)adf_h_res, col_lo, col_hi);
+      });
+    }
   });
 }
 
@@ -1414,9 +1582,10 @@ int launch_a2(const void* tmax, const void* tmin, const void* elem_nodes,
 }
 
 // The kernels the occupancy query answers for (kernels.py:OCCUPANCY lists
-// them in this order): the default step's K1, K2, K34, then K3, K4, K12.
+// them in this order): the default step's K1, K2, K34, then K3, K4, K12,
+// then K4's FIX form.
 enum OccupancyKernel { kOccBounds, kOccLimit, kOccUpdateFused, kOccB3h,
-                       kOccUpdate, kOccLimitFused };
+                       kOccUpdate, kOccLimitFused, kOccUpdateFixup };
 
 // out[0] = resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 // and out[1] = grid blocks of the instance a launcher of kernel ``kernel``
@@ -1454,12 +1623,20 @@ int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
         grid = dim3((Ed + TH - 1) / TH, L);
         break;
       case kOccUpdate:
-        fn = (const void*)update_kernel<T, D, TH, false>;
+        fn = (const void*)update_kernel<T, D, TH, false, false>;
         grid = tile_grid(N, L, kUpdateSplitLevels);
         break;
       case kOccLimitFused:
         fn = (const void*)limit_fused_kernel<T, D, TH>;
         grid = tile_grid(N, L, kLimitFusedLevels);
+        break;
+      case kOccUpdateFixup:
+        if constexpr (TH == kFixThreads) {
+          fn = (const void*)update_kernel<T, D, TH, false, true>;
+          grid = tile_grid(N, L, kFixLevels);
+        } else {
+          return;  // no instance at this block size
+        }
         break;
       default:
         return;
@@ -1480,11 +1657,11 @@ int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
 }  // namespace
 
 // Plain C interface.  Every pointer is a device pointer (or null for an
-// absent optional output); ``Tb`` (the launchers of K1, K2, K3, K3fix, K4
-// and K34) is the number of tracers, 1 or more, whose per-tracer fields
-// lie tracer-major behind each pointer; ``threads`` is the block size (64,
-// 128, 256 or 512, else cudaErrorInvalidValue and no launch); ``stream`` is a
-// cudaStream_t.  Each launcher returns cudaGetLastError() after its launch
+// absent optional output); ``Tb`` (the launchers of K1, K2, K3, K3fix, K4,
+// K4's FIX form and K34) is the number of tracers, 1 or more, whose
+// per-tracer fields lie tracer-major behind each pointer; ``threads`` is
+// the block size (64, 128, 256 or 512, 128 only for K4's FIX form, else
+// cudaErrorInvalidValue and no launch); ``stream`` is a cudaStream_t.  Each launcher returns cudaGetLastError() after its launch
 // (0 on success) and does not synchronise.
 extern "C" {
 
@@ -1604,6 +1781,33 @@ int fct_update_f32(FCT_UPDATE_SPLIT_ARGS) {
 }
 int fct_update_f64(FCT_UPDATE_SPLIT_ARGS) {
   return launch_update<double>(FCT_UPDATE_SPLIT_CALL);
+}
+
+// K4's FIX form: K4's arguments, then the exchanged factors, the raw flux,
+// the other endpoints, K3's residual (null unless iter_yn; adf_h_lim is
+// K3's limited flux, written in place) and the owned columns
+// [own_lo, own_hi)
+#define FCT_UPDATE_FIXUP_ARGS                                               \
+  const void *adf_v_lim, void *adf_h_lim, const void *ttf,                  \
+      const void *hnode, const void *hnode_new, const void *lo,             \
+      const void *dvin, const void *dhin, const void *area_inv,             \
+      const void *nd_idx, const void *nd_lev, const void *nd_sgn,           \
+      const void *nd_num, const void *nlev_nod, void *o1, void *o2,         \
+      const void *plus, const void *minus, const void *adf_h,               \
+      const void *nd_other, void *adf_h_res, int L, int N, int Ed, int KD,  \
+      int own_lo, int own_hi, double dt, int iter_yn, int Tb, int threads,  \
+      int device, void *stream
+#define FCT_UPDATE_FIXUP_CALL                                               \
+  adf_v_lim, adf_h_lim, ttf, hnode, hnode_new, lo, dvin, dhin, area_inv,    \
+      nd_idx, nd_lev, nd_sgn, nd_num, nlev_nod, o1, o2, L, N, Ed, KD, dt,   \
+      iter_yn, Tb, threads, device, stream, plus, minus, adf_h, nd_other,   \
+      adf_h_res, own_lo, own_hi
+
+int fct_update_fixup_f32(FCT_UPDATE_FIXUP_ARGS) {
+  return launch_update<float, true>(FCT_UPDATE_FIXUP_CALL);
+}
+int fct_update_fixup_f64(FCT_UPDATE_FIXUP_ARGS) {
+  return launch_update<double, true>(FCT_UPDATE_FIXUP_CALL);
 }
 
 #define FCT_A2_ARGS                                                         \

@@ -16,6 +16,8 @@ b3h_fixup     kernels_packed.py:b3h_packed_fixup_pallas and   b3h_fixup_ref
               kernels.py:b3h_fixup_pallas (K3 fixup)
 update        kernels_packed.py:update_packed_pallas and      update_ref
               kernels.py:update_pallas (split K4)
+update_fixup  on a part: b3h_fixup's and update's Pallas      update_fixup_ref
+              functions (K3fix folded into K4)
 a2            kernels.py:a2_pallas (standalone a2, the         a2_ref
               tuning harness's)
 stress2rhs    kernels.py:stress2rhs_pallas and                stress2rhs_ref
@@ -25,25 +27,30 @@ stress2rhs    kernels.py:stress2rhs_pallas and                stress2rhs_ref
 All but the last are in ``fct_ale.cu``.  The FCT-ALE step runs K1 -> K2 ->
 K34 on one device by default, K12 in place of K1 -> K2 and K3 -> K4 in
 place of K34 on request (``ops/cuda/step.py``), or K1 -> K2 -> K3 -> halo
-exchange -> K3fix -> K4 in a sharded step (``parallel/step_sharded.py``);
-a2 runs in the tuning harness (``utils/tuning.py``).  The last is the
-sea-ice EVP stress divergence (``stress2rhs.cu``).  A wrapper given
-tensors on the CPU returns its plain version, built from
-:mod:`fesom2_accelerate_tpu_torch.ops.stages`
-(the stress2rhs one is written out here, in the kernel's summation order).
-Given CUDA tensors it checks device, dtype, shape and contiguity, allocates
-its outputs with ``torch.empty`` (``b3h_fixup`` writes in place into
+exchange -> K4-fix (``update_fixup``: K4 in its FIX form, which does
+K3fix's work in the same launch) in a sharded step
+(``parallel/step_sharded.py``); ``b3h_fixup`` followed by ``update`` is
+the two-launch witness the fold is held against.  a2 runs in the tuning
+harness (``utils/tuning.py``).  The last is the sea-ice EVP stress
+divergence (``stress2rhs.cu``).  A wrapper given tensors on the CPU
+returns its plain version, built from
+:mod:`fesom2_accelerate_tpu_torch.ops.stages` (the stress2rhs one is
+written out here, in the kernel's summation order).  Given CUDA tensors it
+checks device, dtype, shape and contiguity, allocates its outputs with
+``torch.empty`` (``b3h_fixup`` and ``update_fixup`` write in place into
 ``b3h``'s), launches the kernel on the current stream of the mesh data's
 device, raises if the launcher reports an error, and adds one to its
 ``launches`` count.  Any other device raises.  Nothing falls back.
 
 Every wrapper takes ``threads``, the CUDA block size (one of ``THREADS``,
 default 128): the launch configuration the tuning harness sweeps.  The
-plain version ignores it; a value outside ``THREADS`` raises on any device.
+plain version ignores it; a value outside ``THREADS`` raises on any device,
+and so does any but ``FIX_THREADS`` for ``update_fixup``.
 
 The tracer axis: ``bounds``, ``limit``, ``update_fused``, ``b3h``,
-``b3h_fixup`` and ``update`` take their per-tracer fields either 2-D (one
-tracer: [L, N], [L+1, N], [L, Ed]) or 3-D with a leading tracer axis
+``b3h_fixup``, ``update`` and ``update_fixup`` take their per-tracer
+fields either 2-D (one tracer: [L, N], [L+1, N], [L, Ed]) or 3-D with a
+leading tracer axis
 ([Tb, L, N], ...), as the Pallas kernels they replace take ``Tb``; their
 outputs then carry the same axis.  ``hnode``, ``hnode_new`` and the mesh
 data are shared by all tracers and stay 2-D.  One launch covers every
@@ -56,12 +63,13 @@ there too.
 Tolerances against the plain versions, on the card: ``bounds``, ``a2``,
 ``b3h`` and ``b3h_fixup`` are bit-exact (max/min, selects, one subtraction
 or one product per output), and so are the edge outputs of
-``update_fused`` and the bounds that ``limit_fused`` returns; on the card
-``update_fused`` gives the bits of ``b3h`` then ``update``, and
+``update_fused`` and ``update_fixup`` and the bounds that ``limit_fused``
+returns; on the card ``update_fused`` gives the bits of ``b3h`` then
+``update``, ``update_fixup`` those of ``b3h_fixup`` then ``update``, and
 ``limit_fused`` those of ``bounds`` then ``limit``.  ``limit``,
-``limit_fused``'s other outputs, ``update_fused``'s node outputs,
-``update`` and ``stress2rhs`` agree to relerr <= 1e-6 in float32 and
-<= 1e-12 in float64, relerr =
+``limit_fused``'s other outputs, the node outputs of ``update_fused`` and
+``update_fixup``, ``update`` and ``stress2rhs`` agree to relerr <= 1e-6
+in float32 and <= 1e-12 in float64, relerr =
 max|a-b| / max(max|b|, 1): nvcc contracts a*b+c into one FMA rounding, and
 the kernels sum the incident edges (or elements) in another order.  Every
 kernel sums in a fixed order, without atomics: two launches on the same
@@ -95,6 +103,10 @@ DEFAULT_THREADS = 128
 # at most this many threads (kMaxWideThreads in fct_ale.cu: more would
 # spill their registers)
 MAX_WIDE_THREADS = 128
+
+# the one block size of update_fixup (kFixThreads in fct_ale.cu: instances
+# at the others would add more than 10 s to the build)
+FIX_THREADS = 128
 
 
 def check_threads(threads: int, slots: int = 0) -> int:
@@ -587,6 +599,121 @@ update.launches = 0
 
 
 # --------------------------------------------------------------------------
+# K4-fix update_fixup: K3fix folded into K4 (the split K4 of a sharded
+# step's part)
+# --------------------------------------------------------------------------
+
+
+def fixup_edges(md: MeshData, owned: tuple) -> torch.Tensor:
+    """The edges that :func:`update_fixup` limits again, sorted, int32:
+    those in the incidence row of a node in the owned columns
+    ``owned = (lo, hi)`` whose other endpoint lies outside them.  On a
+    part of ``partition_mesh`` with ``owned = (H, H + B)`` these are
+    ``parallel.step_sharded.fix_edge_ids``."""
+    lo, hi = owned
+    n = torch.arange(md.n_nodes, device=md.nd_idx.device)[:, None]
+    oth = md.nd_other
+    sel = md.nd_k & (n >= lo) & (n < hi) & ((oth < lo) | (oth >= hi))
+    return torch.unique(md.nd_idx[sel]).to(torch.int32)
+
+
+def update_fixup_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h,
+                     adf_h_lim, adf_h_res, owned: tuple, adf_v_lim, ttf,
+                     hnode, hnode_new, fct_LO, del_ttf_advvert,
+                     del_ttf_advhoriz, dt: float, iter_yn: bool):
+    """b3 horizontal again on :func:`fixup_edges`, in place into
+    ``adf_h_lim`` (and ``adf_h_res``), then K4's plain version."""
+    b3h_fixup_ref(md, fct_plus, fct_minus, fct_adf_h, adf_h_lim, adf_h_res,
+                  fixup_edges(md, owned), iter_yn)
+    o1, o2 = update_ref(md, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
+                        fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt,
+                        iter_yn)
+    return o1, o2, adf_h_lim, adf_h_res
+
+
+def _owned(md: MeshData, owned: tuple) -> tuple[int, int]:
+    """``owned`` as (lo, hi), after checking the contract of H-K4's FIX
+    form: 0 <= lo <= hi <= N, and every node with a non-empty incidence
+    row lies in [lo, hi) (``MeshData.row_span``), so that an edge with an
+    endpoint outside has one row, that of its owned endpoint."""
+    lo, hi = (int(c) for c in owned)
+    first, end = md.row_span
+    if not 0 <= lo <= hi <= md.n_nodes or (end > first
+                                            and (first < lo or end > hi)):
+        raise ValueError(
+            f"owned={tuple(owned)}: need 0 <= lo <= hi <= {md.n_nodes} "
+            f"around every node with an incidence row ({first} .. "
+            f"{end - 1}), as on a part of partition_mesh")
+    return lo, hi
+
+
+def _fix_threads(threads: int, slots: int) -> int:
+    threads = check_threads(threads, slots)
+    if threads != FIX_THREADS:
+        raise ValueError(f"update_fixup runs at threads={FIX_THREADS} "
+                         f"only, got {threads}")
+    return threads
+
+
+def update_fixup(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
+                 adf_h_res, owned: tuple, adf_v_lim, ttf, hnode, hnode_new,
+                 fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt: float,
+                 iter_yn: bool, *, threads: int = DEFAULT_THREADS):
+    """K4-fix -> (o1, o2, adf_h_lim, adf_h_res): :func:`b3h_fixup` on the
+    edges of a part that touch a column outside ``owned = (lo, hi)`` (the
+    part's [H, H + B): its halo edges, :func:`fixup_edges`), from the
+    exchanged factors, and :func:`update`, in one launch.  The arguments
+    are those of :func:`b3h_fixup` with ``owned`` in place of the id
+    list, then those of :func:`update` after ``adf_h_lim``.  K3's outputs
+    ``adf_h_lim`` (and ``adf_h_res`` when ``iter_yn``) are rewritten in
+    place at those edges and returned; o1, o2 as in :func:`update_fused`.
+    Every node with an incidence row must lie in [lo, hi)
+    (``MeshData.row_span``), as on a part; else ValueError.  ``threads``
+    must be FIX_THREADS, the one block size of H-K4's FIX form."""
+    threads = _fix_threads(threads, md.nd_idx.shape[1])
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    tb = _tracers(ttf)
+    checks = dict(fct_plus=(fct_plus, _rows(tb, L, N)),
+                  fct_minus=(fct_minus, _rows(tb, L, N)),
+                  fct_adf_h=(fct_adf_h, _rows(tb, L, Ed)),
+                  adf_h_lim=(adf_h_lim, _rows(tb, L, Ed)),
+                  adf_v_lim=(adf_v_lim, _rows(tb, L + 1, N)),
+                  **_stage_c_checks(tb, L, N, ttf, hnode, hnode_new, fct_LO,
+                                    del_ttf_advvert, del_ttf_advhoriz))
+    if iter_yn:
+        checks["adf_h_res"] = (adf_h_res, _rows(tb, L, Ed))
+    if _on_cpu(fct_plus, fct_minus, fct_adf_h, adf_h_lim, adf_v_lim, ttf,
+               hnode, hnode_new, fct_LO, del_ttf_advvert, del_ttf_advhoriz,
+               md.area_inv):
+        _shapes(checks)
+        return update_fixup_ref(md, fct_plus, fct_minus, fct_adf_h,
+                                adf_h_lim, adf_h_res, _owned(md, owned),
+                                adf_v_lim, ttf, hnode, hnode_new, fct_LO,
+                                del_ttf_advvert, del_ttf_advhoriz, dt,
+                                iter_yn)
+    dev = _check(md, checks, md.nd_idx.shape[1])
+    lo, hi = _owned(md, owned)
+    o1 = torch.empty(_rows(tb, L, N), dtype=md.dtype, device=dev)
+    o2 = None if iter_yn else torch.empty_like(o1)
+    _launch("fct_update_fixup", md, dev, threads, adf_v_lim.data_ptr(),
+            adf_h_lim.data_ptr(), ttf.data_ptr(), hnode.data_ptr(),
+            hnode_new.data_ptr(), fct_LO.data_ptr(),
+            del_ttf_advvert.data_ptr(), del_ttf_advhoriz.data_ptr(),
+            *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn",
+                        "nd_num", "nlev_nod"),
+            o1.data_ptr(), _ptr(o2), fct_plus.data_ptr(),
+            fct_minus.data_ptr(), fct_adf_h.data_ptr(),
+            md.nd_other.data_ptr(), _ptr(adf_h_res if iter_yn else None), L,
+            N, Ed, md.nd_idx.shape[1], lo, hi, float(dt), int(iter_yn),
+            tb or 1)
+    update_fixup.launches += 1
+    return o1, o2, adf_h_lim, adf_h_res
+
+
+update_fixup.launches = 0
+
+
+# --------------------------------------------------------------------------
 # A2 a2: element bounds (standalone a2 of the tuning harness)
 # --------------------------------------------------------------------------
 
@@ -688,13 +815,13 @@ def stress2rhs(md: MeshData, slab, inv_areamass, rhs_a, rhs_m, *,
 stress2rhs.launches = 0
 
 WRAPPERS = (bounds, limit, limit_fused, update_fused, b3h, b3h_fixup, update,
-            a2, stress2rhs)
+            update_fixup, a2, stress2rhs)
 
 
 # the kernels the occupancy query answers for, in the order of its ids
 # (OccupancyKernel in fct_ale.cu)
 OCCUPANCY = ("bounds", "limit", "update_fused", "b3h", "update",
-             "limit_fused")
+             "limit_fused", "update_fixup")
 
 
 def occupancy(md: MeshData, name: str, *,
@@ -703,7 +830,8 @@ def occupancy(md: MeshData, name: str, *,
     launched at ``md``'s shapes for one tracer: ``blocks_per_sm`` resident
     blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor), ``grid_blocks``
     and ``waves`` = grid blocks / (blocks per SM x SMs).  CUDA only."""
-    threads = check_threads(threads, md.nd_idx.shape[1])
+    threads = (_fix_threads if name == "update_fixup" else check_threads)(
+        threads, md.nd_idx.shape[1])
     dev = _check(md, {}, md.nd_idx.shape[1])
     out = (ctypes.c_int * 2)()
     fn = getattr(build.library(), "fct_occupancy" + _SUFFIX[md.dtype])

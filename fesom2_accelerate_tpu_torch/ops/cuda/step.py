@@ -15,8 +15,11 @@ K2 and the b3 horizontal limiting.  The phases around that exchange:
 * :func:`limit_edges`: split mode's K3, every edge limited on the
   pre-exchange factors (edges with no halo endpoint are then final);
 * :func:`post_exchange_fused`: K34, from the exchanged factors;
-* :func:`post_exchange_split`: K3fix on the edges that touch a halo node,
-  from the exchanged factors, then K4.
+* :func:`post_exchange_split`: K4-fix, one launch (``kernels.update_fixup``,
+  K4 in its FIX form): the edges that touch a halo node limited again from
+  the exchanged factors, in place into K3's outputs, and stage c.  K3fix
+  then K4 (``kernels.b3h_fixup``, ``kernels.update``) computes the same
+  bits in two launches; the step no longer runs them.
 
 A step over P parts in one process enqueues every part's pre-exchange
 phase before the one exchange, so the exchange is not called from inside a
@@ -89,15 +92,18 @@ def post_exchange_fused(md: MeshData, cfg: FctAleConfig, state: dict,
 
 
 def post_exchange_split(md: MeshData, cfg: FctAleConfig, state: dict,
-                        pre: dict, edges: tuple, fix_ids, *,
+                        pre: dict, edges: tuple, owned: tuple, *,
                         threads: int = DEFAULT_THREADS) -> dict:
-    """K3fix on the edges ``fix_ids`` with the (exchanged) factors of
-    ``pre``, in place into ``edges`` (K3's output), then K4 -> the step's
-    output dict."""
-    edges = kernels.b3h_fixup(
+    """K4-fix -> the step's output dict: the edges of the part with an
+    endpoint outside its owned columns ``owned = (lo, hi)`` limited again
+    with the (exchanged) factors of ``pre``, in place into ``edges`` (K3's
+    output), and stage c, in one launch."""
+    o1, o2, adf_h_lim, adf_h_res = kernels.update_fixup(
         md, pre["fct_plus"], pre["fct_minus"], state["fct_adf_h"], *edges,
-        fix_ids, cfg.iter_yn, threads=threads)
-    return _update(md, cfg, state, pre, edges, threads)
+        owned, pre["adf_v_lim"], state["ttf"], state["hnode"],
+        state["hnode_new"], state["fct_LO"], state["del_ttf_advvert"],
+        state["del_ttf_advhoriz"], cfg.dt, cfg.iter_yn, threads=threads)
+    return _assemble(cfg, state, pre, o1, o2, adf_h_lim, adf_h_res)
 
 
 def _update(md: MeshData, cfg: FctAleConfig, state: dict, pre: dict,

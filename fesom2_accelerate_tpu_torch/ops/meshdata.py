@@ -121,6 +121,19 @@ class MeshData:
         return torch.searchsorted(head.contiguous(), nodes).to(torch.int32)
 
     @functools.cached_property
+    def row_span(self) -> tuple[int, int]:
+        """(first, end): every node whose node->edge incidence row is not
+        empty lies in ``first .. end-1``; (0, 0) for a mesh without
+        edges.  On a part of ``parallel/partition.py`` only owned nodes
+        have rows, so the span lies within the owned columns: the contract
+        of H-K4's FIX form (``kernels.update_fixup``).  Read from ``nd_num``
+        on its device once per mesh data."""
+        rows = torch.nonzero(self.nd_num > 0).flatten()
+        if rows.numel() == 0:
+            return 0, 0
+        return int(rows[0]), int(rows[-1]) + 1
+
+    @functools.cached_property
     def tile_edges(self) -> int:
         """The most edges that start in one tile of TILE_NODES nodes: the
         limited fluxes a level that H-K34 keeps in shared memory.  Read

@@ -18,8 +18,10 @@ Two backends:
   (``ops/cuda/step.py``), in one of two modes:
 
   - split (the default): K1, K2 and K3 (every edge limited on the
-    pre-exchange factors) on every part, the exchange, then K3fix (only
-    the edges that touch a halo node, with the exchanged factors) and K4;
+    pre-exchange factors) on every part, the exchange, then K4-fix: one
+    launch of K4 in its FIX form, which limits again only the edges that
+    touch a halo column, with the exchanged factors, and sums them into
+    stage c (what K3fix then K4 did in two launches): 4 launches a part;
   - fused: K1 and K2 on every part, the exchange, then K34;
 * ``torch``: :func:`sharded_fct_ale_step`, the plain stages per part (any
   device and float dtype; the f64 correctness gate).
@@ -135,7 +137,9 @@ def _exchange_maps(pm: PartitionedMesh, mode: str, devices: list) -> list:
 def fix_edge_ids(pm: PartitionedMesh, p: int) -> np.ndarray:
     """The ids of part p's real local edges with an endpoint in a halo
     column: the only b3 horizontal work that waits for the exchanged
-    factors.  The edge form of ``build_pallas_data``'s boundary tiles
+    factors, which K4-fix does on the owned columns ``(pm.H, pm.H +
+    pm.B)`` (``kernels.fixup_edges`` gives these ids) and K3fix on this
+    list.  The edge form of ``build_pallas_data``'s boundary tiles
     (``ops/pallas/step.py:549-575``), exact: no padding, no repeated id."""
     n_real = int(np.sum(pm.local_edges_global[p] >= 0))
     halo = np.ones(pm.n_local, dtype=bool)
@@ -169,26 +173,26 @@ def sharded_fct_ale_step(mds: list, cfg: FctAleConfig, halo_fill,
 
 
 def sharded_fct_ale_step_cuda(mds: list, cfg: FctAleConfig, halo_fill,
-                              states: list, fix_ids: list | None) -> list:
+                              states: list, owned: tuple | None) -> list:
     """One step of the CUDA kernels on every part: split mode when
-    ``fix_ids`` (per part, int32 on the part's device) is given, fused
-    mode when it is None.  Launch order, each phase over all parts: K1, K2
-    -> [K3] -> exchange -> K3fix, K4 | K34 -> [fct_LO exchange].  A batched
-    state (per-tracer fields [Tb, ...]) takes the same launches and
-    exchanges, each over every tracer."""
+    ``owned`` (the owned columns (H, H + B), the same on every part) is
+    given, fused mode when it is None.  Launch order, each phase over all
+    parts: K1, K2 -> [K3] -> exchange -> K4-fix | K34 -> [fct_LO
+    exchange].  A batched state (per-tracer fields [Tb, ...]) takes the
+    same launches and exchanges, each over every tracer."""
     parts = list(zip(mds, states))
     pres = [cstep.pre_exchange(md, cfg, s) for md, s in parts]
-    if fix_ids is not None:
+    if owned is not None:
         edges = [cstep.limit_edges(md, cfg, s, pre)
                  for (md, s), pre in zip(parts, pres)]
     halo_fill([pre["fct_plus"] for pre in pres])
     halo_fill([pre["fct_minus"] for pre in pres])
-    if fix_ids is None:
+    if owned is None:
         outs = [cstep.post_exchange_fused(md, cfg, s, pre)
                 for (md, s), pre in zip(parts, pres)]
     else:
-        outs = [cstep.post_exchange_split(md, cfg, s, pre, e, ids)
-                for (md, s), pre, e, ids in zip(parts, pres, edges, fix_ids)]
+        outs = [cstep.post_exchange_split(md, cfg, s, pre, e, owned)
+                for (md, s), pre, e in zip(parts, pres, edges)]
     if cfg.iter_yn:
         halo_fill([o["fct_LO"] for o in outs])
     return outs
@@ -216,7 +220,7 @@ class ShardedFctAleSolver:
     (plain stages, any devices and float dtype) or "cuda" (the CUDA
     kernels; every device must be a CUDA device).  fused
     (cuda only): exchange, then K34, instead of the split K3 -> exchange ->
-    K3fix -> K4; it needs each part's edges sorted by first endpoint
+    K4-fix; it needs each part's edges sorted by first endpoint
     (``MeshData.ed_ptr``).  exchange: "auto" (ppermute when P > 1, else
     allgather), "ppermute" or "allgather".  part_counts: per-part
     owned-node counts (an RCB partition, ``mesh.ordering.rcb_order``).
@@ -275,18 +279,18 @@ class ShardedFctAleSolver:
         else:
             self.halo_fill = functools.partial(_halo_fill, hmaps=maps,
                                                B=pm.B, H=pm.H)
-        # split mode's K3fix edges per part (int32 on the part's device)
-        self.fix_ids = None
+        # split mode's owned columns, the same on every part: K4-fix limits
+        # again the edges with an endpoint outside them
+        self.owned = None
         if backend == "torch":
             self._step_parts = functools.partial(
                 sharded_fct_ale_step, self.mds, cfg, self.halo_fill)
         else:
             if not fused:
-                self.fix_ids = [torch.tensor(fix_edge_ids(pm, p), device=d)
-                                for p, d in enumerate(devices)]
+                self.owned = (pm.H, pm.H + pm.B)
             self._step_parts = functools.partial(
                 sharded_fct_ale_step_cuda, self.mds, cfg, self.halo_fill,
-                fix_ids=self.fix_ids)
+                owned=self.owned)
 
     # ---- state movement -------------------------------------------------
     def init_state(self, fields: dict) -> dict:

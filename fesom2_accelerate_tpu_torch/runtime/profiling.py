@@ -168,7 +168,7 @@ def _gathered_levels(n_nodes: int, ends, depth) -> int:
 
 
 def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
-              slab=None, inv_areamass=None,
+              owned=None, slab=None, inv_areamass=None,
               tracers: int = 1) -> tuple[int, int]:
     """(bytes, operations) of one call of the CUDA kernel ``name`` (a
     wrapper of ``ops/cuda/kernels.py``) on mesh data ``md`` for ``tracers``
@@ -191,6 +191,13 @@ def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
         one form (K34: the incidence rows of its node sum, not the edge
         rows and ranges its tiling also reads);
       * ``b3h_fixup``: only its edges ``ids`` (a duplicated id read once);
+      * ``update_fixup`` (K4 with K3fix folded in, on a part with owned
+        columns ``owned = (lo, hi)``): K4's bytes, where the limited flux
+        of each fix edge (a live slot of an owned node whose other
+        endpoint ``nd_other`` lies outside, read on every live slot) is
+        replaced by its raw flux, both factors of both its endpoints on
+        its active levels, and its limited flux (and residual) written on
+        those levels;
       * ``stress2rhs``: the ``ea`` row of the element slab for every
         element and its other 10 rows for the elements with ice
         (``slab[3] != 0``), and ``rhs_a`` / ``rhs_m`` where
@@ -198,7 +205,7 @@ def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
     Tracers: the per-tracer inputs and outputs count ``tracers`` times;
     what every tracer shares (the connectivity and per-node, per-edge
     rows, ``area_inv``, ``hnode``, ``hnode_new``, the fix-edge ids) once.
-    Only the six kernels with a tracer axis take ``tracers`` > 1.
+    Only the seven wrappers with a tracer axis take ``tracers`` > 1.
     Operations: the arithmetic and comparisons of the kernel's loop body
     per active (node, level), (incident edge, level), (edge, level),
     (element, level) or incidence, per tracer; far below the bytes' time
@@ -258,6 +265,20 @@ def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
     elif name == "update":
         io = (c_shared + 2 * inc32 + inc8 + 2 * row,
               edge_act * f + c_in + c_out, 12 * nod + 2 * inc_lev)
+    elif name == "update_fixup":
+        if owned is None:
+            raise ValueError("update_fixup needs the owned columns")
+        from fesom2_accelerate_tpu_torch.ops.cuda.kernels import fixup_edges
+
+        u = fixup_edges(md, owned).long()
+        lev = md.nlev_edge[u]
+        gath = _gathered_levels(N, md.edges.reshape(Ed, 2)[u],
+                                lev[:, None].expand(-1, 2))
+        fix_act = int(lev.sum())  # the fix edges' active levels
+        io = (c_shared + 3 * inc32 + inc8 + 2 * row,
+              edge_act * f + 2 * gath * f + c_in + c_out
+              + (2 if iter_yn else 1) * fix_act * f,
+              12 * nod + 2 * inc_lev + 8 * fix_act)
     elif name == "b3h":
         ends = md.edges.reshape(Ed, 2)
         gath = _gathered_levels(N, ends, md.nlev_edge[:, None].expand(Ed, 2))

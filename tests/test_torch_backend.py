@@ -142,7 +142,7 @@ def test_sharded_solver_default_on_cpu_is_torch(small):
     sh = ShardedFctAleSolver(mesh, cfg, devices=["cpu"] * 4)
     plain = ShardedFctAleSolver(mesh, cfg, backend="torch",
                                 devices=["cpu"] * 4)
-    assert sh.backend == "torch" and sh.fix_ids is None
+    assert sh.backend == "torch" and sh.owned is None
     out = sh.gather_state(sh.run(sh.init_state(fields), 2))
     want = plain.gather_state(plain.run(plain.init_state(fields), 2))
     assert out.keys() == want.keys()

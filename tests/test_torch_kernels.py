@@ -168,7 +168,8 @@ def test_cuda_step_on_cpu_matches_torch_step(vlimit, iter_yn):
                                        "limit_fused": 0,
                                        "update_fused": 0, "b3h": 0,
                                        "b3h_fixup": 0, "update": 0,
-                                       "a2": 0, "stress2rhs": 0}
+                                       "update_fixup": 0, "a2": 0,
+                                       "stress2rhs": 0}
     assert build.library.cache_info().currsize == 0, \
         "the CPU path must not build or load the CUDA library"
 
@@ -255,6 +256,8 @@ CU_COPIES = {
                            lambda s: _cu_int(s, "kUpdateSplitLevels")),
     "kMaxWideThreads": (lambda: kernels.MAX_WIDE_THREADS, "fct_ale.cu",
                         lambda s: _cu_int(s, "kMaxWideThreads")),
+    "kFixThreads": (lambda: kernels.FIX_THREADS, "fct_ale.cu",
+                    lambda s: _cu_int(s, "kFixThreads")),
     "OccupancyKernel": (lambda: kernels.OCCUPANCY, "fct_ale.cu",
                         _cu_occupancy_ids),
     "kLanesPerNode": (lambda: kernels.S2R_LANES, "stress2rhs.cu",
@@ -268,7 +271,8 @@ def test_python_copies_of_cuda_constants(name):
     LIMIT_LEVELS, LIMIT_FUSED_LEVELS and UPDATE_SPLIT_LEVELS are the level
     chunks of H-K2, H-K12 and H-K4 (chip_smoke.py's layer counts straddle
     each, as the chunk tests below do), MAX_WIDE_THREADS refuses what
-    with_config refuses, OCCUPANCY names the occupancy query's kernel ids,
+    with_config refuses, FIX_THREADS is the one block size of H-K4's FIX
+    form, OCCUPANCY names the occupancy query's kernel ids,
     and S2R_LANES is H-S2R's lanes per node: each must equal its
     source's."""
     copy, source, original = CU_COPIES[name]
@@ -290,6 +294,7 @@ def test_launcher_argtypes_cover_every_launcher():
               "fct_b3h": "FCT_B3H_ARGS",
               "fct_b3h_fixup": "FCT_B3H_FIXUP_ARGS",
               "fct_update": "FCT_UPDATE_SPLIT_ARGS",
+              "fct_update_fixup": "FCT_UPDATE_FIXUP_ARGS",
               "fct_a2": "FCT_A2_ARGS",
               "fct_occupancy": "FCT_OCCUPANCY_ARGS",
               "stress2rhs": "S2R_ARGS"}
@@ -520,8 +525,8 @@ def test_solver_form_keywords():
 
 def test_ptxas_report_reads_each_instance():
     """build.ptxas_report reads the kernel, dtype, template ints, the
-    tracer-axis flag, registers and spills of each instance from an nvcc
-    -Xptxas -v log."""
+    tracer-axis flag, H-K4's FIX flag, registers and spills of each
+    instance from an nvcc -Xptxas -v log."""
     log = "\n".join([
         "ptxas info    : Compiling entry function '_ZN36_GLOBAL__N__f6935f"
         "_10_fct_ale_cu_7df9e15018limit_fused_kernelIdLi8ELi512EEEvPKT_'"
@@ -544,17 +549,27 @@ def test_ptxas_report_reads_each_instance():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 22 registers, used 0 barriers, 400 bytes "
         "cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN36_GLOBAL__N__f6935f"
+        "_10_fct_ale_cu_7df9e15013update_kernelIfLi8ELi128ELb0ELb1EEEvPKT_'"
+        " for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN36_GLOBAL__N__w",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 44 registers, used 1 barriers, 456 bytes "
+        "cmem[0]",
     ])
     assert build.ptxas_report(log) == [
         dict(kernel="limit_fused_kernel", dtype="double", params=(8, 512),
-             tracers=False, stack=16, spill_stores=8, spill_loads=24,
+             tracers=False, fix=False, stack=16, spill_stores=8, spill_loads=24,
              registers=64),
         dict(kernel="a2_kernel", dtype="float", params=(128,),
-             tracers=False, stack=0, spill_stores=0, spill_loads=0,
+             tracers=False, fix=False, stack=0, spill_stores=0, spill_loads=0,
              registers=20),
         dict(kernel="b3h_fixup_kernel", dtype="float", params=(128,),
-             tracers=True, stack=0, spill_stores=0, spill_loads=0,
-             registers=22),
+             tracers=True, fix=False, stack=0, spill_stores=0,
+             spill_loads=0, registers=22),
+        dict(kernel="update_kernel", dtype="float", params=(8, 128),
+             tracers=False, fix=True, stack=0, spill_stores=0,
+             spill_loads=0, registers=44),
     ]
 
 

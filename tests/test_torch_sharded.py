@@ -8,7 +8,7 @@ single-device step.
   tests/test_sharded.py);
 * the CUDA backend's phase functions on CPU tensors, where each kernel
   wrapper runs its plain version: split mode (K1, K2, K3 -> exchange ->
-  K3fix, K4) against the JAX solver's Pallas path in interpret mode, f32,
+  K4-fix, which does K3fix's work in K4's launch) against the JAX solver's Pallas path in interpret mode, f32,
   relerr < 2e-6, on the packed ``small`` mesh and on the RCM cylinder whose
   parts take the one-hot kernels; fused mode (exchange -> K34) against the
   single-device step, as tests/test_sharded.py holds the JAX fused mode;
@@ -80,13 +80,12 @@ def _node_keys(iter_yn):
 def _cuda_phases(sh, state, fused, n_steps=1):
     """n_steps of the CUDA backend's step on the parts of the torch solver
     ``sh`` (CPU tensors: every wrapper runs its plain version)."""
-    fix = None if fused else [torch.from_numpy(fix_edge_ids(sh.pm, p))
-                              for p in range(sh.n_parts)]
+    owned = None if fused else (sh.pm.H, sh.pm.H + sh.pm.B)
     for _ in range(n_steps):
         parts = [{k: v[p] for k, v in state.items()}
                  for p in range(sh.n_parts)]
         outs = sharded_fct_ale_step_cuda(sh.mds, sh.cfg, sh.halo_fill,
-                                         parts, fix)
+                                         parts, owned)
         new = {k: [o[k] for o in outs] for k in outs[0]}
         state = new if n_steps == 1 else {k: new[k] for k in state}
     return state
@@ -377,7 +376,7 @@ def test_solver_rules(small):
     with pytest.raises(ValueError, match="tracers"):
         ShardedFctAleSolver(mesh, cfg, devices=["cpu"] * 2, tracers=0)
     sh = ShardedFctAleSolver(mesh, cfg, devices=["cpu"] * 2)
-    assert sh.exchange_mode == "ppermute" and sh.fix_ids is None
+    assert sh.exchange_mode == "ppermute" and sh.owned is None
     with pytest.raises(NotImplementedError, match="Queue A item 3, Checkpoints"):
         sh.save_checkpoint("x", {})
     with pytest.raises(NotImplementedError, match="Queue A item 3, Checkpoints"):

@@ -56,7 +56,6 @@ from fesom2_accelerate_tpu_torch.ops.cuda.step import (
 )
 from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
 from fesom2_accelerate_tpu_torch.parallel.step_sharded import (
-    fix_edge_ids,
     sharded_fct_ale_step_cuda,
 )
 from fesom2_accelerate_tpu_torch.runtime import profiling
@@ -235,11 +234,10 @@ def test_run_tracers_is_tb_single_runs(fuse_k34):
 def _sharded_cuda(sh, state, fused):
     """One step of the CUDA backend's phases on the parts of the CPU solver
     ``sh`` (every wrapper runs its plain version) -> per-part state."""
-    fix = None if fused else [torch.from_numpy(fix_edge_ids(sh.pm, p))
-                              for p in range(sh.n_parts)]
+    owned = None if fused else (sh.pm.H, sh.pm.H + sh.pm.B)
     parts = [{k: v[p] for k, v in state.items()} for p in range(sh.n_parts)]
     outs = sharded_fct_ale_step_cuda(sh.mds, sh.cfg, sh.halo_fill, parts,
-                                     fix)
+                                     owned)
     return {k: [o[k] for o in outs] for k in outs[0]}
 
 
