@@ -46,8 +46,13 @@ Phases (each raises on failure, so the script exits non-zero):
    and runs a 120-substep EVP loop of ``call_packed`` on core2, float32,
    with the default backend on the card ("cuda") and ``backend="torch"``;
    the launch count, the final U, V against each other, device and host
-   time per substep, nodes/s and modeled GB/s; then the same loop on the
-   RCM cylinder;
+   time per substep, nodes/s and modeled GB/s; the cuda loop also as a
+   ``graphs.StepGraphs`` run (``runtime/graphs.py``, the counterpart of
+   bench.py's ``lax.scan`` of substeps), which must choose graphs (the
+   host sets the pace of a substep): bit for bit against the host's loop,
+   with its launches, its timed substep, first-run and capture time, the
+   copy of the carry, and device, events and host wall per substep beside
+   the loop's; then the same on the RCM cylinder;
 6. the sharded path, 4 parts of one mesh on the one card:
    a. H-K3 (b3h), H-K3fix (b3h_fixup) and H-K4 (update) against their plain
       versions on ``small`` and core2, as one mesh and on each of its 4
@@ -68,8 +73,9 @@ Phases (each raises on failure, so the script exits non-zero):
       of update_fixup_ref (edge outputs bit-exact).  H-K3fix runs in no
       path any more: it is the fold's witness;
    b. 20 steps of ``ShardedFctAleSolver(devices=["cuda:0"] * 4)`` (the
-      default backend, "cuda") on core2 (float32, dt=0.5, flux_eps=1e-7,
-      vlimit 1, seed 0), split and fused, each against 20 steps of
+      default backend, "cuda"; ``run`` replays CUDA graphs) on core2
+      (float32, dt=0.5, flux_eps=1e-7, vlimit 1, seed 0), split and fused,
+      each against 20 steps of
       ``FctAleSolver(device="cuda")``: gathered node fields and
       ``fct_adf_h`` within MAIN_RELERR,
       and the launch counts (split 4 x K1, K2, K3, K4-fix per step: 16,
@@ -125,9 +131,34 @@ Phases (each raises on failure, so the script exits non-zero):
       single-device batched run within MAIN_RELERR, with 16 (split) and 12
       (fused) launches and as many exchange ops a step as at Tb = 1;
    e. ms a tracer a step at Tb = 1, 2, 4, 8 on core2 f32, single device and
-      4 parts split and fused (CUDA events, device time with the stream
-      held, host enqueue), and each kernel a tracer at Tb = 8 and at
-      Tb = 1 beside its bound (``profiling.kernel_io(tracers=8)``).
+      4 parts split and fused (CUDA events around the solver's run, device
+      time with the stream held, host enqueue); at Tb = 1 and 8 also the
+      choice each run made from its watched steps (graphs or the loop), each
+      first run's capture time, the memory of its graphs' pool and static
+      carry, the copy of the state into the static carry (a run) and of
+      the fields a step changes back into it (a block), and the run
+      against the host's loop of the same steps and, on one device, graph
+      replays (events, host wall, the card's idle share); on one device
+      the three at 1, 20 and 300 steps (bench.py's default); and each
+      kernel a tracer at Tb = 8 and at Tb = 1 beside its bound
+      (``profiling.kernel_io(tracers=8)``);
+9. the on-device run (CUDA graphs, ``runtime/graphs.py``) and checkpoints:
+   a. graph runs against the host's loop of their steps (``graphs.loop``),
+      bit for bit in every column (largest difference printed, 0 so far),
+      with their launches: graph replays (``StepGraphs.replay``) of core2
+      f32 in the four single-device forms, of a run of ODD_STEPS (no
+      multiple of a block) and of ``step_tracers`` at 4 tracers; the
+      sharded ``run``, which must choose graphs, at 4 parts split and
+      fused with both exchange forms; small f64 iterative at vlimit 1 and
+      3 (replays and the solver's ``run`` on one device, 4 parts split and
+      fused);
+   b. the launch counts of graph runs (3 / 16 / 12 a step), a run that
+      captures a block length (its calls rolled back, its replays added)
+      and a run of replays only, held against the kernel events
+      torch.profiler records, and the exchange ops of a sharded step (24);
+   c. 10 split steps at 4 parts on core2, ``save_checkpoint``, loaded at 2
+      parts and on one device, 10 more steps each, against 20 steps without
+      a break (MAIN_RELERR); the same at 4 tracers, resumed at 2 parts.
 Every kernel instance's ptxas report is printed, and a spill fails the
 build phase.  The last three lines are the per-kernel JSON summary (each
 kernel's launches on its path (H-K3fix's in phase 6a's witness checks,
@@ -145,6 +176,8 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -152,7 +185,7 @@ import time
 import numpy as np
 import torch
 
-from fesom2_accelerate_tpu_torch.runtime import profiling
+from fesom2_accelerate_tpu_torch.runtime import graphs, profiling
 from fesom2_accelerate_tpu_torch.runtime.tracing import (
     card_line,
     cuda_time_ms,
@@ -462,6 +495,119 @@ def check_counts(counts: dict, expect: dict, what: str) -> None:
                                  f"expected {expect.get(name, 0)}")
 
 
+def host_wall_ms(calls: dict) -> dict:
+    """Best of TIMING_RUNS host wall times of each callable, to a final
+    synchronize, measured in turns."""
+    wall = {name: float("inf") for name in calls}
+    for _ in range(TIMING_RUNS):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall[name] = min(wall[name], (time.perf_counter() - t0) * 1e3)
+    return wall
+
+
+def first_runs(run) -> tuple:
+    """(ms of the first call, capture ms) of ``run``, a run that no call
+    has captured yet, by the host wall of its first three calls (to a
+    synchronize): the first takes its first steps eagerly (a solver's run
+    also times one, ``graphs.StepGraphs.run``) and captures the blocks of
+    the others, the second captures the run's whole length if it fits one
+    block, the third only replays.  Capture ms = first - third: the first
+    run's captures and its eager steps.  The capture, like a JAX compile,
+    is left out of every timed run."""
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls[0], walls[0] - walls[2]
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bits (a NaN equals the same NaN: the 0/0
+    of a part's pad columns, which hold no node)."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
+def bits_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| where both are numbers (NaNs of pad columns left out)."""
+    return float(torch.nan_to_num((a.double() - b.double()).abs(),
+                                  nan=0.0).max())
+
+
+def copy_ms(tensors: list) -> float:
+    """Device time (CUDA events, best of TIMING_RUNS) of copying
+    ``tensors`` into tensors of their shapes: what a graph run adds
+    around its replays (all the state's tensors: the copy into the static
+    carry a run; the fields a step changes: the copy back a block)."""
+    static = [torch.empty_like(t) for t in tensors]
+
+    def copies():
+        for b, t in zip(static, tensors):
+            b.copy_(t)
+
+    return best_times({"copies": copies}, 1, timer=cuda_time_ms)["copies"]
+
+
+def changed_fields(state: dict, new: dict) -> list:
+    """The tensors of ``state`` (a flat dict) whose fields a step's result
+    ``new`` (flat too) holds anew."""
+    return [v for k, v in state.items() if new[k] is not v]
+
+
+def chose_graphs(sg) -> str:
+    """A StepGraphs' choices (graphs.StepGraphs.run) as text."""
+    from fesom2_accelerate_tpu_torch.runtime.graphs import WATCHED_STEPS
+
+    return "; ".join(f"the card ran dry at {d} of {WATCHED_STEPS} steps: "
+                     f"{'graphs' if p else 'loop'}"
+                     for d, p in sg.choices.values()) or "no choice yet"
+
+
+def decide(run, state, sg, label: str, tries: int = 5) -> None:
+    """Runs ``run(state, n)``, n the fewest steps a choice needs, until
+    the StepGraphs ``sg`` has made its choice (a choice waits for a run
+    over which the allocator's reserve held still: graphs.StepGraphs.run);
+    raises after ``tries`` runs without one."""
+    from fesom2_accelerate_tpu_torch.runtime.graphs import (
+        WARM_STEPS,
+        WATCHED_STEPS,
+    )
+
+    for _ in range(tries):
+        if sg.choices:
+            return
+        run(state, WARM_STEPS + WATCHED_STEPS + 1)
+    if not sg.choices:
+        raise AssertionError(f"{label}: no choice after {tries} runs")
+
+
+def require_graphs(sg, label: str) -> None:
+    """Raises unless every run of ``sg`` has chosen graphs."""
+    if not sg.choices or not all(p for _, p in sg.choices.values()):
+        raise AssertionError(f"{label}: the host sets the pace, yet the run "
+                             f"has not chosen graphs ({chose_graphs(sg)})")
+
+
+def flat_state(state: dict) -> dict:
+    """A solver's state as one dict of tensors (a sharded state's lists
+    keyed (field, part))."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, list):
+            out.update({(k, p): t for p, t in enumerate(v)})
+        else:
+            out[k] = v
+    return out
+
+
 def fct_cuda_vs_torch(mesh, fields, cfg, steps: int, label: str):
     """``steps`` steps of ``FctAleSolver(device="cuda")`` (no backend: the
     default, which must resolve to "cuda") against ``backend="torch"`` on
@@ -710,10 +856,22 @@ def s2r_loop(solver, packed, inv_areamass, rhs_a, rhs_m):
     return u, v
 
 
+def s2r_substep(solver, packed, inv_areamass, rhs_m):
+    """One substep of s2r_loop as a step of a graph's carry (rhs_a, u, v):
+    the call, then rhs_a + 1e-30 * U for the next call (the counterpart of
+    the body of bench.py's 120-substep scan)."""
+    def step(c):
+        u, v = solver.call_packed(packed, inv_areamass, c["rhs_a"], rhs_m)
+        return {"rhs_a": c["rhs_a"] + 1e-30 * u, "u": u, "v": v}
+    return step
+
+
 def s2r_path(card: str, mesh, label: str) -> tuple:
     """The EVP substep loop on one mesh, f32, cuda against torch: launch
     count, agreement, device and host time per substep, rates, and the
-    kernel's time beside its plain version's."""
+    kernel's time beside its plain version's.  The cuda loop also as CUDA
+    graphs (runtime/graphs.py): bit for bit against the host's loop, with
+    its capture time and its times beside the loop's."""
     from fesom2_accelerate_tpu_torch import Stress2RhsSolver
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
     from fesom2_accelerate_tpu_torch.runtime.profiling import (
@@ -751,26 +909,50 @@ def s2r_path(card: str, mesh, label: str) -> tuple:
           f"{S2R_SUBSTEPS} substeps, launches {counts}, final U, V within "
           f"relerr {S2R_RELERR:.0e} of backend=torch", flush=True)
 
-    # device time per substep (CUDA events over the loop, device_time_ms)
-    # and host wall time per substep (loop + final synchronize), best of 3,
-    # in turns; the card idles for the difference
+    # the same loop as graph replays: bit for bit against the host's loop,
+    # with the launches of a run (set to 0 just before it, read just after)
+    sg = graphs.StepGraphs("cuda")
+    step = s2r_substep(sc, pc, node[0], node[2])
+    carry = dict(rhs_a=node[1], u=torch.zeros_like(node[1]),
+                 v=torch.zeros_like(node[1]))
+    graph_loop = lambda: sg.run(step, carry, S2R_SUBSTEPS)  # noqa: E731
+    first, capture = first_runs(graph_loop)
+    require_graphs(sg, f"{label} EVP loop")
+    choice = chose_graphs(sg)
+    K.reset_launch_counts()
+    out = graph_loop()
+    torch.cuda.synchronize()
+    check_counts(K.launch_counts(), {"stress2rhs": S2R_SUBSTEPS},
+                 f"{label} graph")
+    diff = max(abserr(out["u"], uc), abserr(out["v"], vc))
+    if not (same_bits(out["u"], uc) and same_bits(out["v"], vc)):
+        raise AssertionError(f"{label}: graph loop not bit-identical to the "
+                             f"host loop (max abs diff {diff:.3e})")
+    print(f"{label} as CUDA graphs ({graphs.BLOCK_STEPS}-substep blocks): "
+          f"final U, V bit-identical to the host loop (max |graph - loop| "
+          f"{diff:.3e}); watched substeps: {choice}; first run "
+          f"{first:.1f} ms, its captures and eager substeps {capture:.1f} "
+          f"ms (host wall), copy-in (and copy back a block) "
+          f"{copy_ms(list(carry.values())):.4f} ms (events; card {card})",
+          flush=True)
+
+    # device time per substep (CUDA events over the loop, device_time_ms),
+    # CUDA events alone and host wall time per substep (loop + final
+    # synchronize), best of 3, in turns; the card idles for the difference
     loops = {"cuda": lambda: s2r_loop(sc, pc, *node),
+             "cuda graph": graph_loop,
              "torch": lambda: s2r_loop(st, pt, *node)}
     dev = best_times(loops, 1)
-    wall = {name: float("inf") for name in loops}
-    for _ in range(TIMING_RUNS):
-        for name, fn in loops.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall[name] = min(wall[name], (time.perf_counter() - t0) * 1e3)
+    events = best_times(loops, 1, timer=cuda_time_ms)
+    wall = host_wall_ms(loops)
     nbytes = stress2rhs_bytes(mesh, 4)
     for name in loops:
         ms = dev[name] / S2R_SUBSTEPS
         host_ms = wall[name] / S2R_SUBSTEPS
         print(f"stress2rhs backend={name} on {label}: device "
-              f"{ms:.4f} ms/substep, host wall {host_ms:.4f} ms/substep "
+              f"{ms:.4f} ms/substep, events "
+              f"{events[name] / S2R_SUBSTEPS:.4f} ms/substep, host wall "
+              f"{host_ms:.4f} ms/substep "
               f"(card idle {max(0.0, 1.0 - ms / host_ms):.1%}), "
               f"{mesh.n_nodes / (ms * 1e-3):.4e} nodes/s, modeled "
               f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s ({nbytes / 1e6:.2f} MB "
@@ -1175,7 +1357,8 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
                  "sharded fused")
 
     # time per step of each mode, warm-up then best of 3, in turns: CUDA
-    # events around a 20-step run (as phase 4), device time of one step
+    # events around a 20-step run (graph replays, as phase 4), device time
+    # of one step
     # with the stream held while the host enqueues (device_time_ms), and
     # host wall time of the run; the card idles for the difference
     runs = {mode: (lambda sv=sv: sv[0].run(sv[1], steps))
@@ -1620,8 +1803,13 @@ TRACER_KERNELS = ("bounds", "limit", "update_fused", "b3h", "b3h_fixup",
                   "update", "update_fixup")
 TRACERS = 4
 TB_SWEEP = (1, 2, 4, 8)
+# the tracer counts at which phase 8e times the graph runs against the
+# host's loop, with capture time and the graphs' memory
+GRAPH_TB = (1, 8)
 # steps of each timed run of the sweep (phase 8e)
 TRACER_STEPS = 10
+# phase 8e's longest single-device runs: bench.py's default --steps
+LONG_STEPS = 300
 # phase 8a's cases: (dtype, vlimit, iter_yn) at 3 tracers
 TRACER_CASES = ((torch.float32, 1, False), (torch.float32, 1, True),
                 (torch.float32, 3, False), (torch.float64, 1, True))
@@ -1944,10 +2132,15 @@ def phase_tracer_sharded(tf: TracerFields) -> None:
 
 
 def tracer_solvers(tf: TracerFields, cfg, tb: int) -> tuple:
-    """(form -> (one step, a run of TRACER_STEPS steps), (the split
-    solver, its state)) on core2 at ``tb`` tracers: the single-device
-    default form (the single-tracer entry points at tb = 1) and 4 parts on
-    the card, split and fused."""
+    """(form -> {"step": one step, "run": a run of TRACER_STEPS steps (the
+    solver's run), "loop": the same steps as the host's loop, "sg": the
+    StepGraphs of the solver's run, "state": the state's tensors (a flat
+    dict), "changed": those of the fields a step writes; one device also
+    "graph": the same steps as graph replays, whether they pay or not, and
+    "n": (step, state, that StepGraphs) for runs of other lengths}, (the
+    split solver, its state)) on core2 at ``tb`` tracers: the
+    single-device default form (the single-tracer entry points at tb = 1)
+    and 4 parts on the card, split and fused."""
     from fesom2_accelerate_tpu_torch import FctAleSolver, ShardedFctAleSolver
 
     mesh = tf.meshes["core2"]
@@ -1955,19 +2148,30 @@ def tracer_solvers(tf: TracerFields, cfg, tb: int) -> tuple:
     sv = FctAleSolver(mesh, cfg, backend="cuda", device="cuda")
     if tb == 1:
         s = sv.init_state(per[0])
-        forms = {"single": (lambda: sv.step(s),
-                            lambda: sv.run(s, TRACER_STEPS))}
+        step, run = sv.step, sv.run
     else:
         s = sv.init_state_tracers(batched)
-        forms = {"single": (lambda: sv.step_tracers(s),
-                            lambda: sv.run_tracers(s, TRACER_STEPS))}
+        step, run = sv.step_tracers, sv.run_tracers
+    sg = graphs.StepGraphs("cuda")
+    forms = {"single": {
+        "step": lambda: step(s), "run": lambda: run(s, TRACER_STEPS),
+        "loop": lambda: graphs.loop(step, s, TRACER_STEPS),
+        "graph": lambda: sg.replay(step, s, TRACER_STEPS),
+        "sg": sv._graphs, "state": s, "changed": changed_fields(s, step(s)),
+        "n": (step, s, sg, run)}}
     for mode in ("split", "fused"):
         sh = ShardedFctAleSolver(mesh, cfg, backend="cuda",
                                  devices=["cuda:0"] * SHARD_PARTS,
                                  tracers=tb, fused=(mode == "fused"))
         st = sh.init_state(batched if tb > 1 else per[0])
-        forms[mode] = (lambda sh=sh, st=st: sh.step(st),
-                       lambda sh=sh, st=st: sh.run(st, TRACER_STEPS))
+        forms[mode] = {
+            "step": lambda sh=sh, st=st: sh.step(st),
+            "run": lambda sh=sh, st=st: sh.run(st, TRACER_STEPS),
+            "loop": lambda sh=sh, st=st: graphs.loop(sh.step, st,
+                                                     TRACER_STEPS),
+            "sg": sh._graphs, "state": flat_state(st),
+            "changed": changed_fields(flat_state(st),
+                                      flat_state(sh.step(st)))}
         if mode == "split":
             split = (sh, st)
     return forms, split
@@ -1993,29 +2197,102 @@ def phase_tracer_times(card: str, tf: TracerFields) -> dict:
     cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
                        dtype=torch.float32)
     for tb in TB_SWEEP:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         forms, (sh, state) = tracer_solvers(tf, cfg, tb)
-        events = best_times({f: run for f, (_, run) in forms.items()}, 1,
-                            timer=cuda_time_ms)
-        dev = best_times({f: step for f, (step, _) in forms.items()}, 5)
+        if tb in GRAPH_TB:
+            # the first runs of each form (the solver's run, and on one
+            # device the graph replays): capture time, and the memory the
+            # graphs hold (their pool and the static carry); the copies a
+            # graph run adds
+            for f, fm in forms.items():
+                where = ("" if f == "single" else f", {SHARD_PARTS} parts")
+                for v in ("run", "graph"):
+                    if v not in fm:
+                        continue
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    held = torch.cuda.memory_reserved()
+                    first, capture = first_runs(fm[v])
+                    torch.cuda.empty_cache()
+                    held = torch.cuda.memory_reserved() - held
+                    what = (f"the solver's run, watched steps: "
+                            f"{chose_graphs(fm['sg'])}" if v == "run"
+                            else "graph replays")
+                    print(f"first run Tb={tb} {f} ({what}): {first:.1f} "
+                          f"ms, its captures and eager steps {capture:.1f} "
+                          f"ms (host wall), graphs' pool and static carry "
+                          f"{held / 2**20:.0f} MiB (core2 f32{where}; card "
+                          f"{card})", flush=True)
+                print(f"graph run copies Tb={tb} {f}: the state into the "
+                      f"static carry {copy_ms(list(fm['state'].values())):.4f}"
+                      f" ms a run, the fields a step changes back into it "
+                      f"{copy_ms(fm['changed']):.4f} ms a block of "
+                      f"{graphs.BLOCK_STEPS} steps (events; core2 f32"
+                      f"{where}; card {card})", flush=True)
+        runs = {f: fm["run"] for f, fm in forms.items()}
+        events = best_times(runs, 1, timer=cuda_time_ms)
+        dev = best_times({f: fm["step"] for f, fm in forms.items()}, 5)
+        if tb in GRAPH_TB:
+            # in turns: the solver's run, the host's loop, graph replays
+            both = {(f, v): fm[v] for f, fm in forms.items()
+                    for v in ("run", "loop", "graph") if v in fm}
+            other = best_times({k: fn for k, fn in both.items()
+                                if k[1] != "run"}, 1, timer=cuda_time_ms)
+            run_dev = best_times(runs, 1)
+            wall = host_wall_ms(both)
         enq = {f: float("inf") for f in forms}
         for _ in range(TIMING_RUNS):
-            for f, (step, _) in forms.items():
+            for f, fm in forms.items():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for _ in range(5):
-                    step()
+                    fm["step"]()
                 enq[f] = min(enq[f], (time.perf_counter() - t0) * 1e3 / 5)
                 torch.cuda.synchronize()
-        for f in forms:
+        for f, fm in forms.items():
             ms = events[f] / TRACER_STEPS
+            where = ("" if f == "single" else f", {SHARD_PARTS} parts")
             print(f"tracers Tb={tb} {f}: {ms / tb:.4f} ms a tracer a step "
-                  f"({ms:.4f} a step, CUDA events); device {dev[f] / tb:.4f} "
+                  f"({ms:.4f} a step, CUDA events around the solver's run); "
+                  f"device {dev[f] / tb:.4f} "
                   f"a tracer ({dev[f]:.4f} a step, stream held); host "
-                  f"enqueue {enq[f]:.4f} ms a step (core2 f32"
-                  + ("" if f == "single" else f", {SHARD_PARTS} parts")
-                  + f"; card {card})", flush=True)
-        del forms
-        torch.cuda.empty_cache()
+                  f"enqueue {enq[f]:.4f} ms a step (core2 f32{where}; "
+                  f"card {card})", flush=True)
+            if tb in GRAPH_TB:
+                n = TRACER_STEPS
+                idle = lambda v: max(0.0, 1.0 - dev[f] * n  # noqa: E731
+                                     / wall[f, v])
+                graph = (f"; graph replays: events "
+                         f"{other[f, 'graph'] / n:.4f}, host wall "
+                         f"{wall[f, 'graph'] / n:.4f} ms a step (card idle "
+                         f"{idle('graph'):.1%})" if "graph" in fm else "")
+                print(f"run vs loop Tb={tb} {f}: the solver's run "
+                      f"({chose_graphs(fm['sg'])}): events "
+                      f"{events[f] / n:.4f}, host wall {wall[f, 'run'] / n:.4f}"
+                      f" ms a step (card idle {idle('run'):.1%}), device "
+                      f"{run_dev[f] / n:.4f} a step in it (stream held); the "
+                      f"host's loop: events {other[f, 'loop'] / n:.4f}, host "
+                      f"wall {wall[f, 'loop'] / n:.4f} ms a step (card idle "
+                      f"{idle('loop'):.1%}){graph}; a step alone "
+                      f"{dev[f]:.4f} ms ({n}-step runs; core2 f32{where}; "
+                      f"card {card})", flush=True)
+        if tb in GRAPH_TB:
+            # one device: the solver's run, graph replays and the host's
+            # loop at 1 step, MAIN_STEPS and bench.py's default LONG_STEPS
+            step, s, sg, run = forms["single"]["n"]
+            for n in (1, MAIN_STEPS, LONG_STEPS):
+                t = best_times({"run": lambda: run(s, n),
+                                "graph": lambda: sg.replay(step, s, n),
+                                "loop": lambda: graphs.loop(step, s, n)}, 1,
+                               timer=cuda_time_ms)
+                print(f"one device Tb={tb}, {n}-step runs: the solver's "
+                      f"run {t['run'] / n:.4f}, graph replays "
+                      f"{t['graph'] / n:.4f}, the host's loop "
+                      f"{t['loop'] / n:.4f} ms a step (events, best of "
+                      f"{TIMING_RUNS}; core2 f32; card {card})", flush=True)
+            del both, other, wall, run_dev
+        del forms, runs
 
     # each kernel at Tb = 8 and Tb = 1, a tracer, on the whole mesh and on
     # part 1 of 4 (the last sweep's split solver, at Tb = 8)
@@ -2052,6 +2329,332 @@ def phase_tracer_times(card: str, tf: TracerFields) -> dict:
             if split == (label == "part 1"):
                 out[name] = (t[tb] / tb, bound)
     return out
+
+
+# phase 9a's run whose length is no multiple of a graph's block
+ODD_STEPS = 2 * graphs.BLOCK_STEPS + 5
+# each kernel's name in a profiler trace -> its wrapper (H-K4's FIX form,
+# K4-fix, is update_kernel with its last template flag set)
+KERNEL_NAMES = {"bounds_kernel": "bounds", "limit_kernel": "limit",
+                "limit_fused_kernel": "limit_fused",
+                "update_fused_kernel": "update_fused", "b3h_kernel": "b3h",
+                "b3h_fixup_kernel": "b3h_fixup", "update_kernel": "update",
+                "a2_kernel": "a2", "stress2rhs_kernel": "stress2rhs"}
+SHARDED_STEP = {"split": ("bounds", "limit", "b3h", "update_fixup"),
+                "fused": ("bounds", "limit", "update_fused")}
+# phase 9c: steps before the checkpoint, and after it
+CKPT_STEPS = 10
+# phase 9b: sleep kernels that open each profiled window
+MARKERS = 64
+
+
+def graph_vs_loop(label: str, run, step, state: dict, n: int,
+                  per_step: dict, gather=None) -> tuple:
+    """``run(state, n)`` (a solver's run: CUDA graph replays) against
+    ``graphs.loop(step, state, n)`` (the host's loop of the same steps),
+    bit for bit in every column, finite where ``gather`` (a sharded
+    solver's gather_state) reads, and the graph run's launches (set to 0
+    just before it, read just after) against ``per_step`` x n.  Returns
+    (the largest difference, the launch counts)."""
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out = run(state, n)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check_counts(counts, {k: v * n for k, v in per_step.items()}, label)
+    real = (gather(out) if gather
+            else {k: v.cpu().numpy() for k, v in out.items()})
+    for k, v in real.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"{label} {k}: non-finite")
+    got, want = flat_state(out), flat_state(graphs.loop(step, state, n))
+    if got.keys() != flat_state(state).keys() or got.keys() != want.keys():
+        raise AssertionError(f"{label}: run changed the state's keys")
+    diff = 0.0
+    for k, v in want.items():
+        diff = max(diff, bits_diff(got[k], v))
+        if not same_bits(got[k], v):
+            raise AssertionError(f"{label} {k}: graph run not bit-identical "
+                                 f"to the loop (max abs diff "
+                                 f"{bits_diff(got[k], v):.3e})")
+    print(f"{label}: {n} steps as graph replays bit-identical to the host's "
+          f"loop (max |graph - loop| {diff:.3e}), launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return diff, counts
+
+
+def phase_graph_runs(tf: TracerFields, meshes: dict) -> dict:
+    """Phase 9a: runs as CUDA graphs on the card against the host's loop
+    of their steps, bit for bit, with their launches: graph replays
+    (``graphs.StepGraphs.replay``) of core2 f32 in the four single-device
+    forms, a run of ODD_STEPS steps and run_tracers' step at TRACERS
+    tracers; the sharded solvers' run (which must choose graphs: the
+    host's enqueue of the parts' launches sets the pace) at 4 parts split
+    and fused with both exchange forms; small f64 iterative (vlimit 1/3;
+    the single-device solver's run, replays, and 4 parts split and
+    fused).  Returns {path: (a maker of (a new run with nothing captured,
+    a priming that makes its choice or None), its state, launches a step,
+    the sharded solver if any)} for phase 9b."""
+    from fesom2_accelerate_tpu_torch import (
+        FctAleConfig,
+        FctAleSolver,
+        ShardedFctAleSolver,
+    )
+    from fesom2_accelerate_tpu_torch.mesh import random_fields
+
+    def replays(step):
+        sg = graphs.StepGraphs("cuda")
+        return lambda state, n: sg.replay(step, state, n)
+
+    def sharded_run(label, sh):
+        def run(state, n):
+            out = sh.run(state, n)
+            require_graphs(sh._graphs, label)
+            return out
+        return run
+
+    def fresh_sharded(label, sh):
+        """(a new sharded solver's run, which must choose graphs; a
+        priming that makes the choice)"""
+        return sharded_run(label, sh), lambda state: decide(
+            sh.run, state, sh._graphs, label)
+
+    paths = {}
+    cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
+                       dtype=torch.float32)
+    mesh = tf.meshes["core2"]
+    fields = tf("core2", 1)[0][0]
+    for (k12, k34), per_step in FORMS.items():
+        sv = FctAleSolver(mesh, cfg, device="cuda", fuse_k12=k12,
+                          fuse_k34=k34)
+        s = sv.init_state(fields)
+        name = form_name(k12, k34)
+        graph_vs_loop(f"graph replays core2 {name}", replays(sv.step),
+                      sv.step, s, MAIN_STEPS, per_step)
+        if (k12, k34) == (False, True):
+            paths["single"] = (lambda sv=sv: (replays(sv.step), None), s,
+                               per_step)
+            graph_vs_loop(f"graph replays core2 {name}, blocks "
+                          f"{graphs.blocks(ODD_STEPS - 2)} and 2 eager "
+                          f"steps", replays(sv.step), sv.step, s, ODD_STEPS,
+                          per_step)
+    sv = FctAleSolver(mesh, cfg, device="cuda")
+    graph_vs_loop(f"graph replays core2 Tb={TRACERS} (step_tracers)",
+                  replays(sv.step_tracers), sv.step_tracers,
+                  sv.init_state_tracers(tf("core2", TRACERS)[1]),
+                  MAIN_STEPS, TRACER_FORMS[True])
+    for mode, names in SHARDED_STEP.items():
+        for exchange in ("ppermute", "allgather"):
+            make = lambda m=mode, e=exchange: ShardedFctAleSolver(  # noqa
+                mesh, cfg, devices=["cuda:0"] * SHARD_PARTS,
+                fused=(m == "fused"), exchange=e)
+            sh = make()
+            st = sh.init_state(fields)
+            per_step = {k: SHARD_PARTS for k in names}
+            label = f"graph run core2 {SHARD_PARTS} parts {mode} ({exchange})"
+            decide(sh.run, st, sh._graphs, label)
+            graph_vs_loop(label, sharded_run(label, sh), sh.step, st,
+                          MAIN_STEPS, per_step, sh.gather_state)
+            print(f"{label}: watched steps {chose_graphs(sh._graphs)}",
+                  flush=True)
+            if exchange == "ppermute":
+                paths[mode] = (lambda make=make, label=label:
+                               fresh_sharded(label, make()), st, per_step,
+                               sh)
+    small = meshes["small"]
+    fields = random_fields(small, seed=2, dtype=np.float64)
+    for vlimit in (1, 3):
+        c64 = FctAleConfig(vlimit=vlimit, iter_yn=True, dt=0.7,
+                           dtype=torch.float64)
+        sv = FctAleSolver(small, c64, device="cuda")
+        s = sv.init_state(fields)
+        label = f"small f64 iterative vlimit {vlimit}"
+        graph_vs_loop(f"graph replays {label}", replays(sv.step), sv.step,
+                      s, MAIN_STEPS, FORMS[False, True])
+        graph_vs_loop(f"run {label}", sv.run, sv.step, s, MAIN_STEPS,
+                      FORMS[False, True])
+        print(f"run {label}: watched steps {chose_graphs(sv._graphs)}",
+              flush=True)
+        for mode, names in SHARDED_STEP.items():
+            sh = ShardedFctAleSolver(small, c64,
+                                     devices=["cuda:0"] * SHARD_PARTS,
+                                     fused=(mode == "fused"))
+            tag = f"graph run {label} {SHARD_PARTS} parts {mode}"
+            st = sh.init_state(fields)
+            decide(sh.run, st, sh._graphs, tag)
+            graph_vs_loop(tag, sharded_run(tag, sh), sh.step, st,
+                          MAIN_STEPS, {k: SHARD_PARTS for k in names},
+                          sh.gather_state)
+    return paths
+
+
+def kernel_sequence(prof) -> str:
+    """The CUDA kernels of a torch.profiler trace in the order they ran,
+    ours by wrapper and the others as "-"."""
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    names = []
+    for e in ev:
+        m = re.search(r"\b(\w+_kernel)<", e.name)
+        names.append(KERNEL_NAMES.get(m.group(1), "-") if m else "-")
+    return " ".join(names)
+
+
+def profiled_launches(prof) -> tuple:
+    """({wrapper: kernel launches}, launches of other kernels) that
+    torch.profiler's CUDA kernel events show."""
+    ours, other = {}, 0
+    for e in prof.key_averages():
+        m = re.search(r"\b(\w+_kernel)<([^>]*)>", e.key)
+        if m and m.group(1) in KERNEL_NAMES:
+            name = KERNEL_NAMES[m.group(1)]
+            if name == "update" and m.group(2).split(",")[-1].strip() \
+                    == "true":
+                name = "update_fixup"
+            ours[name] = ours.get(name, 0) + e.count
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            other += e.count
+    return ours, other
+
+
+def phase_graph_counts(paths: dict) -> None:
+    """Phase 9b: the launch counts of graph runs (a capture's own calls
+    rolled back, kernels.capturing; each capture's calls added once per
+    replay, kernels.count_replay) held against the kernel events
+    torch.profiler records (CUPTI sees the kernels of a replay), for the
+    single-device step's replays (3 a step), the 4-part split (16) and
+    fused (12) steps' runs: a new run's run that captures a block length
+    (after a short run that primes the step and, for the solvers' run,
+    makes its choice) and a run of replays only; and the exchange ops of a
+    sharded step (24).  CUPTI has lost the first kernels of a profiled
+    window in long processes, so each window opens after a warm-up cycle
+    of the profiler with MARKERS sleep kernels, and the priming steps run
+    before it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+    from fesom2_accelerate_tpu_torch.runtime.graphs import (
+        WARM_STEPS,
+        WATCHED_STEPS,
+    )
+
+    for path, (fresh, state, per_step, *sh) in paths.items():
+        run, choose = fresh()
+        if choose is not None:
+            choose(state)
+        # primes the step, captures a short block
+        run(state, WARM_STEPS + WATCHED_STEPS + 3)
+        for when in ("run that captures", "run of replays only"):
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            # a warm-up cycle of the profiler (tracing, results dropped),
+            # then the recorded one: MARKERS sleep kernels, then the run
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                for _ in range(MARKERS):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                prof.step()
+                for _ in range(MARKERS):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                run(state, MAIN_STEPS)
+                torch.cuda.synchronize()
+                prof.step()
+            counts = {k: v for k, v in K.launch_counts().items() if v}
+            label = f"graph run {path}, its {when}"
+            check_counts(counts,
+                         {k: v * MAIN_STEPS for k, v in per_step.items()},
+                         label)
+            seen, other = profiled_launches(prof)
+            marks = sum(e.count for e in prof.key_averages()
+                        if "spin_kernel" in e.key)
+            if seen != counts:
+                raise AssertionError(f"{label}: counters {counts}, "
+                                     f"profiler's kernel events {seen}; "
+                                     f"kernels in order: "
+                                     f"{kernel_sequence(prof)}")
+            ops = f", {exchange_ops(sh[0], state)} exchange ops a step" \
+                if sh else ""
+            print(f"{label} (core2): counters = torch.profiler's kernel "
+                  f"events over {MAIN_STEPS} steps, "
+                  f"{sum(counts.values()) // MAIN_STEPS} launches a step "
+                  f"{seen}{ops}; {other - marks} other kernels in the run "
+                  f"(halo fills, carry copies); {marks} of {MARKERS} "
+                  f"marker kernels before it", flush=True)
+
+
+def phase_checkpoint(tf: TracerFields) -> None:
+    """Phase 9c: CKPT_STEPS split steps at 4 parts on core2 (f32, the
+    solvers' run), save_checkpoint, load at 2 parts and on one device,
+    CKPT_STEPS more steps each, against 2 x CKPT_STEPS steps at 4 parts
+    without a break, within MAIN_RELERR (other partitions sum in other
+    orders); the same at TRACERS tracers (solvers built with tracers=),
+    resumed at 2 parts."""
+    from fesom2_accelerate_tpu_torch import (
+        FctAleConfig,
+        FctAleSolver,
+        ShardedFctAleSolver,
+    )
+    from fesom2_accelerate_tpu_torch.runtime import checkpoint
+
+    mesh = tf.meshes["core2"]
+    cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
+                       dtype=torch.float32)
+    path = pathlib.Path(__file__).resolve().parent / "chip_scratch" / "ckpt"
+    for tb in (1, TRACERS):
+        sharded = lambda parts, tb=tb: ShardedFctAleSolver(  # noqa: E731
+            mesh, cfg, devices=["cuda:0"] * parts, tracers=tb)
+        sh4 = sharded(SHARD_PARTS)
+        per, batched = tf("core2", tb)
+        s0 = sh4.init_state(per[0] if tb == 1 else batched)
+        full = sh4.gather_state(sh4.run(s0, 2 * CKPT_STEPS))
+        try:
+            t0 = time.perf_counter()
+            sh4.save_checkpoint(path, sh4.run(s0, CKPT_STEPS),
+                                step=CKPT_STEPS)
+            save_s = time.perf_counter() - t0
+            sh2 = sharded(2)
+            st, step = sh2.load_checkpoint(path)
+            resumed = {"2 parts": (sh2.gather_state(sh2.run(st, CKPT_STEPS)),
+                                   step)}
+            if tb == 1:
+                one = FctAleSolver(mesh, cfg, device="cuda")
+                host, step1 = checkpoint.load_checkpoint(path, mesh, cfg)
+                resumed["one device"] = (
+                    {k: v.cpu().numpy() for k, v in
+                     one.run(one.init_state(host), CKPT_STEPS).items()},
+                    step1)
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+        for where, (got, step) in resumed.items():
+            if step != CKPT_STEPS:
+                raise AssertionError(f"Tb={tb} at {where}: checkpoint step "
+                                     f"{step}")
+            if got.keys() != full.keys():
+                raise AssertionError(f"Tb={tb} resumed at {where}: keys "
+                                     f"differ")
+            err = 0.0
+            for k, v in full.items():
+                if got[k].shape != v.shape or not np.isfinite(got[k]).all():
+                    raise AssertionError(f"Tb={tb} resumed at {where} {k}: "
+                                         f"bad shape or non-finite")
+                err = max(err, float(np.abs(got[k].astype(np.float64)
+                                            - v).max()
+                                     / max(float(np.abs(v).max()), 1.0)))
+            if err > MAIN_RELERR:
+                raise AssertionError(f"Tb={tb} resumed at {where}: relerr "
+                                     f"{err:.3e} > {MAIN_RELERR:.0e}")
+            print(f"checkpoint Tb={tb}: {CKPT_STEPS} split steps at "
+                  f"{SHARD_PARTS} parts, saved ({save_s:.2f} s), resumed at "
+                  f"{where} for {CKPT_STEPS} more: within relerr {err:.3e} "
+                  f"of {2 * CKPT_STEPS} steps without a break (core2 f32)",
+                  flush=True)
 
 
 SOURCE = "fesom2_accelerate_tpu_torch/ops/cuda/csrc/"
@@ -2138,6 +2741,13 @@ def main() -> int:
     tb8, _ = lap("8e", lambda: phase_tracer_times(card, tf), t1)
     print(f"phase 8 (multi-tracer path) took {time.perf_counter() - t0:.1f} "
           f"s", flush=True)
+    t0 = time.perf_counter()
+    paths, t1 = lap("9a", lambda: phase_graph_runs(tf, meshes), t0)
+    _, t1 = lap("9b", lambda: phase_graph_counts(paths), t1)
+    del paths
+    _, t1 = lap("9c", lambda: phase_checkpoint(tf), t1)
+    print(f"phase 9 (on-device run, checkpoints) took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     kernels = []
     for name, src in KERNEL_SOURCES.items():
         kmd, inputs = shapes[name]

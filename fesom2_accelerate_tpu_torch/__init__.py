@@ -25,7 +25,13 @@ cylinder generators, RCM ordering, the FESOM2 mesh-file reader).
 * ``ShardedFctAleSolver(mesh, cfg, devices=[...])``
   runs the FCT step on ``partition_mesh``'s parts, one per entry of
   ``devices`` (several may share one card), with a halo exchange between
-  K2 and the b3 horizontal limiting (``parallel/``).
+  K2 and the b3 horizontal limiting (``parallel/``);
+* the solvers' ``run`` (and ``run_tracers``) replay the steps as CUDA
+  graphs on the "cuda" backend where the host, not the card, sets the
+  pace of a step (``runtime/graphs.py``, the counterpart of the JAX
+  ``lax.scan``), and ``runtime/checkpoint.py`` saves and loads a
+  state in the JAX package's npz format: the sharded solver's
+  ``save_checkpoint`` / ``load_checkpoint`` resume at any partition.
 """
 
 from fesom2_accelerate_tpu_torch.config import FctAleConfig

@@ -27,6 +27,17 @@ leading tracer axis, ``hnode``/``hnode_new`` shared.  As in the JAX
 package, where only ``backend="pallas"`` batches, it is ``backend="cuda"``
 only (:func:`~fesom2_accelerate_tpu_torch.ops.cuda.step.
 fct_ale_step_cuda_batched`).
+
+``run`` and ``run_tracers`` on ``backend="cuda"`` replay the steps as CUDA
+graphs (:mod:`~fesom2_accelerate_tpu_torch.runtime.graphs`), the
+counterpart of the JAX solver's ``jit(lax.scan)``: one enqueue for a block
+of steps, results bit-identical to the loop of ``step``.  They do so where
+the host's enqueue, not the card, sets the pace of a step (timed once per
+state signature, ``graphs.StepGraphs.run``); where the card does, as on
+core2, the graphs' copies would cost more than they save and the run is
+the loop of steps.  ``step`` and ``step_tracers`` run one step eagerly.
+``backend="torch"`` (the plain stages, the correctness gate, on any
+device) runs the Python loop of steps.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from fesom2_accelerate_tpu_torch.ops.meshdata import (
     build_mesh_data,
     check_edge_order,
 )
+from fesom2_accelerate_tpu_torch.runtime import graphs
 
 
 def pre_comm(md: MeshData, cfg: FctAleConfig, ttf, fct_LO, fct_adf_v,
@@ -148,7 +160,7 @@ class FctAleSolver:
         solver = FctAleSolver(mesh, FctAleConfig(), device="cuda")
         state = solver.init_state(fields)      # host numpy -> device
         state = solver.step(state)             # one FCT-ALE step
-        state = solver.run(state, n_steps=10)  # Python loop of steps
+        state = solver.run(state, n_steps=10)  # CUDA graphs where they pay
         # Tb tracers: per-tracer fields [Tb, ...], hnode/hnode_new [L, N]
         batch = solver.run_tracers(solver.init_state_tracers(fields_tb), 10)
 
@@ -190,6 +202,8 @@ class FctAleSolver:
         self.md = build_mesh_data(mesh, cfg.dtype, device)
         if backend == "cuda" and fuse_k34:
             check_edge_order(self.md.edges)  # H-K34's edge ranges
+        self._graphs = (graphs.StepGraphs(device) if backend == "cuda"
+                        else None)
 
     def init_state(self, fields: dict) -> dict:
         """Host numpy fields -> tensors of the config dtype on the device
@@ -205,11 +219,18 @@ class FctAleSolver:
 
     def run(self, state: dict, n_steps: int) -> dict:
         """n_steps of the step function; the carry keeps the input's keys
-        and drops the diagnostic ones, as the JAX solver's scan does."""
-        for _ in range(n_steps):
-            new = self._step_fn(self.md, self.cfg, state)
-            state = {k: new[k] for k in state}
-        return state
+        and drops the diagnostic ones, as the JAX solver's scan does.  On
+        backend "cuda" the steps replay as CUDA graphs where the host sets
+        the pace (cached per block length, as the JAX solver caches its
+        scan per n_steps), else the loop; backend "torch" runs the Python
+        loop of :meth:`step`.  Either way the fields a step changes are
+        new tensors and the others are ``state``'s own."""
+        return self._run(self.step, state, n_steps)
+
+    def _run(self, step, state: dict, n_steps: int) -> dict:
+        if self._graphs is None:
+            return graphs.loop(step, state, n_steps)
+        return self._graphs.run(step, state, n_steps)
 
     # ---- multi-tracer batching (backend="cuda") -------------------------
 
@@ -234,10 +255,7 @@ class FctAleSolver:
         return self._tracer_step()(self.md, self.cfg, state)
 
     def run_tracers(self, state: dict, n_steps: int) -> dict:
-        """n_steps of :meth:`step_tracers`; the carry keeps the input's
-        keys, as :meth:`run`'s does."""
-        step = self._tracer_step()
-        for _ in range(n_steps):
-            new = step(self.md, self.cfg, state)
-            state = {k: new[k] for k in state}
-        return state
+        """n_steps of :meth:`step_tracers`, as :meth:`run` runs those of
+        :meth:`step`."""
+        self._tracer_step()  # raises on backend "torch", even for 0 steps
+        return self._run(self.step_tracers, state, n_steps)

@@ -40,7 +40,10 @@ checks device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty`` (``b3h_fixup`` and ``update_fixup`` write in place into
 ``b3h``'s), launches the kernel on the current stream of the mesh data's
 device, raises if the launcher reports an error, and adds one to its
-``launches`` count.  Any other device raises.  Nothing falls back.
+``launches`` count.  Any other device raises.  Nothing falls back.  In
+the capture of a CUDA graph a call launches nothing and a replay calls no
+wrapper: :func:`capturing` and :func:`count_replay` keep the counts
+those of the launches (``runtime/graphs.py``).
 
 Every wrapper takes ``threads``, the CUDA block size (one of ``THREADS``,
 default 128): the launch configuration the tuning harness sweeps.  The
@@ -78,6 +81,7 @@ inputs give the same bits.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -855,3 +859,27 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {w.__name__: w.launches for w in WRAPPERS}
+
+
+@contextlib.contextmanager
+def capturing():
+    """The block is a CUDA graph's capture, where a wrapper's call puts
+    its kernel into the graph and launches nothing: yields a dict that
+    holds, once the block ends, each wrapper's calls inside it (the
+    launches of one replay), and leaves every count as it was before."""
+    before = launch_counts()
+    calls = {}
+    try:
+        yield calls
+    finally:
+        for w in WRAPPERS:
+            calls[w.__name__] = w.launches - before[w.__name__]
+            w.launches = before[w.__name__]
+
+
+def count_replay(calls: dict) -> None:
+    """Adds the launches of one replay of a graph (the calls that
+    :func:`capturing` recorded) to the counts: no wrapper runs in a
+    replay (``runtime/graphs.py``)."""
+    for w in WRAPPERS:
+        w.launches += calls.get(w.__name__, 0)

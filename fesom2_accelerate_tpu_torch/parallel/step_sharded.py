@@ -49,6 +49,20 @@ and ``hnode``/``hnode_new`` are shared [L, 2H+B]; every phase runs its
 kernels once for all tracers, and one halo fill per field moves every
 tracer's halo columns, as the JAX package's one exchange does.  The
 launches and exchange ops of a step do not depend on Tb.
+
+``run`` on the cuda backend with every part on one card replays the steps
+as CUDA graphs (:mod:`~fesom2_accelerate_tpu_torch.runtime.graphs`, the
+JAX solver's ``jit(lax.scan)``): the kernels and the halo fills' index
+ops of a block of steps in one enqueue, bit-identical to the loop of
+``step``.  It does so where the host's enqueue of the parts' launches sets
+the pace of a step (timed once per state signature, as on core2 at 4
+parts and one tracer), else it runs the loop.  The torch backend, and
+parts spread over several cards (a graph captures one device), run the
+Python loop of steps.
+
+Checkpoints (:mod:`~fesom2_accelerate_tpu_torch.runtime.checkpoint`, npz)
+hold the gathered global state, so a run saved at P parts resumes at any
+partition, or on one device through ``FctAleSolver.init_state``.
 """
 
 from __future__ import annotations
@@ -69,6 +83,8 @@ from fesom2_accelerate_tpu_torch.ops.meshdata import (
 )
 from fesom2_accelerate_tpu_torch.parallel import partition as part_mod
 from fesom2_accelerate_tpu_torch.parallel.partition import PartitionedMesh
+from fesom2_accelerate_tpu_torch.runtime import checkpoint as ckpt
+from fesom2_accelerate_tpu_torch.runtime import graphs
 
 # field layout by name (a small mesh may have as many edges as nodes)
 EDGE_FIELDS = frozenset({"fct_adf_h", "fct_adf_h_limited"})
@@ -206,8 +222,12 @@ class ShardedFctAleSolver:
         sh = ShardedFctAleSolver(mesh, FctAleConfig(),
                                  devices=["cuda:0"] * 4)
         state = sh.init_state(fields)       # global numpy -> per-part lists
-        state = sh.run(state, n_steps=10)
+        state = sh.run(state, n_steps=10)   # CUDA graphs on one card
         ttf = sh.gather_node(state["ttf"])  # owned columns -> global numpy
+        sh.save_checkpoint("ckpt", state, step=10)
+        sh2 = ShardedFctAleSolver(mesh, FctAleConfig(),
+                                  devices=["cuda:0"] * 2)
+        state, step = sh2.load_checkpoint("ckpt")  # another partition
 
     The state is a dict of lists: ``state[k][p]`` is part p's tensor,
     [rows, 2H+B] for node fields and [L, Ed_loc] for edge fields, on
@@ -291,6 +311,9 @@ class ShardedFctAleSolver:
             self._step_parts = functools.partial(
                 sharded_fct_ale_step_cuda, self.mds, cfg, self.halo_fill,
                 owned=self.owned)
+        self._graphs = (graphs.StepGraphs(devices[0])
+                        if backend == "cuda" and len(set(devices)) == 1
+                        else None)
 
     # ---- state movement -------------------------------------------------
     def init_state(self, fields: dict) -> dict:
@@ -338,14 +361,25 @@ class ShardedFctAleSolver:
         return out
 
     def save_checkpoint(self, path, state: dict, step: int = 0) -> None:
-        raise NotImplementedError(
-            "checkpoints: runtime/checkpoint.py is not ported yet (ROADMAP "
-            "Queue A item 3, Checkpoints)")
+        """Writes the gathered global state (:meth:`gather_state`) with
+        the mesh fingerprint and the config (``runtime/checkpoint.py``,
+        npz): it loads at any partition, in the JAX package as well."""
+        ckpt.save_checkpoint(path, self.gather_state(state), self.mesh,
+                             self.cfg, step=step)
 
-    def load_checkpoint(self, path):
-        raise NotImplementedError(
-            "checkpoints: runtime/checkpoint.py is not ported yet (ROADMAP "
-            "Queue A item 3, Checkpoints)")
+    def load_checkpoint(self, path) -> tuple:
+        """(per-part state, step) from a checkpoint, scattered through
+        :meth:`init_state`: a run saved at P parts resumes at this
+        solver's partition.  Raises on another mesh, vlimit, iter_yn or
+        tracer count."""
+        st, step = ckpt.load_checkpoint(path, self.mesh, self.cfg)
+        lead = st["ttf"].shape[:-2]
+        if lead != ((self.tracers,) if self.tracers > 1 else ()):
+            raise ValueError(
+                f"checkpoint {path} holds ttf of shape {st['ttf'].shape}: "
+                f"{lead[0] if lead else 1} tracers, this solver runs "
+                f"{self.tracers}")
+        return self.init_state(st), step
 
     # ---- stepping -------------------------------------------------------
     def step(self, state: dict) -> dict:
@@ -356,8 +390,23 @@ class ShardedFctAleSolver:
 
     def run(self, state: dict, n_steps: int) -> dict:
         """n_steps steps; the carry keeps the input's keys and drops the
-        diagnostic ones, as the single-device solver's run does."""
-        for _ in range(n_steps):
-            new = self.step(state)
-            state = {k: new[k] for k in state}
-        return state
+        diagnostic ones, as the single-device solver's run does.  As CUDA
+        graphs on the cuda backend with every part on one card where the
+        host sets the pace (``graphs.StepGraphs.run``); else the Python
+        loop of :meth:`step`."""
+        if self._graphs is None:
+            return graphs.loop(self.step, state, n_steps)
+        n = self.n_parts
+        flat = self._graphs.run(
+            self._step_flat, {(k, p): v[p] for k, v in state.items()
+                              for p in range(n)}, n_steps)
+        return {k: [flat[k, p] for p in range(n)] for k in state}
+
+    def _step_flat(self, flat: dict) -> dict:
+        """:meth:`step` on the state as one dict keyed (field, part), the
+        form a graph's carry takes."""
+        keys = dict.fromkeys(k for k, _ in flat)
+        new = self.step({k: [flat[k, p] for p in range(self.n_parts)]
+                         for k in keys})
+        return {(k, p): v[p] for k, v in new.items()
+                for p in range(self.n_parts)}

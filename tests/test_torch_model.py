@@ -141,12 +141,17 @@ def test_port_imports_no_jax():
     models, the partitioner, the sharded solver, the timing helpers and
     the tuning harness included), runs one toy FCT step, one toy
     stress2rhs call, one sharded toy step on two parts, one batched toy
-    step of two tracers, and the tuner's
-    validation of a2 and of the K12 -> K3 -> K4 step."""
+    step of two tracers, the tuner's
+    validation of a2 and of the K12 -> K3 -> K4 step, the run path's
+    ``runtime.graphs`` and ``runtime.checkpoint`` (orbax unimportable as
+    well) and a checkpoint of the sharded toy state resumed on one
+    device."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['fesom2_accelerate_tpu'] = None\n"
+        "sys.modules['orbax'] = None\n"
+        "sys.modules['orbax.checkpoint'] = None\n"
         "import torch\n"
         "import fesom2_accelerate_tpu_torch as f\n"
         "from fesom2_accelerate_tpu_torch.mesh import random_fields\n"
@@ -188,8 +193,15 @@ def test_port_imports_no_jax():
         "assert tuning.check_a2(tuning.a2_case(mesh, 'cpu'), 128) < 1e-5\n"
         "assert tuning.check_step(tuning.fct_case(mesh, 'cpu'), True,\n"
         "                         False, 128) < 1e-4\n"
+        "import tempfile\n"
+        "from fesom2_accelerate_tpu_torch.runtime import checkpoint, graphs\n"
+        "assert graphs.blocks(2 * graphs.BLOCK_STEPS + 1)[-1] == 1\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    sh.save_checkpoint(d, st, step=1)\n"
+        "    back, n = checkpoint.load_checkpoint(d, mesh, s.cfg)\n"
+        "assert n == 1 and s.run(s.init_state(back), 1).keys() == back.keys()\n"
         "assert not [m for m in sys.modules\n"
-        "            if m.split('.')[0] in ('jax', 'jaxlib')\n"
+        "            if m.split('.')[0] in ('jax', 'jaxlib', 'orbax')\n"
         "            and sys.modules[m] is not None]\n"
         "print('ok')\n"
     )
