@@ -159,6 +159,15 @@ Phases (each raises on failure, so the script exits non-zero):
    c. 10 split steps at 4 parts on core2, ``save_checkpoint``, loaded at 2
       parts and on one device, 10 more steps each, against 20 steps without
       a break (MAIN_RELERR); the same at 4 tracers, resumed at 2 parts.
+10. the bench and its measurement tools (``utils/bench.py``,
+   ``utils/scaling.py``, ``utils/accuracy.py``), each cell's solver freed
+   before the next: the triad roof (``profiling.measure_stream_bandwidth``,
+   at most 1.05 x the data sheet's 3.35 TB/s); every bench cell at 20 steps
+   (120 EVP substeps), one JSON line each, each run bit for bit against
+   ``graphs.loop`` of its steps with its launches, and its ``step_io``
+   share of the measured roof at most 1; the scaling harness on core2 at
+   P = 1, 2, 4, split and fused, whose exactness gate must pass; the f32
+   drift and ``flux_eps`` tables on small, kernels and plain stages.
 Every kernel instance's ptxas report is printed, and a spill fails the
 build phase.  The last three lines are the per-kernel JSON summary (each
 kernel's launches on its path (H-K3fix's in phase 6a's witness checks,
@@ -2683,6 +2692,37 @@ REPLACES = {
 }
 
 
+def phase_bench(card: str, meshes: dict) -> None:
+    """Phase 10: the bench's cells, the measured roof, the scaling
+    harness and the drift study, through the port's modules; each raises
+    where its check fails."""
+    from fesom2_accelerate_tpu_torch.utils import accuracy, bench, scaling
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    roof = profiling.measure_stream_bandwidth()
+    print(json.dumps({"measured_roof_Bps": roof,
+                      "roof_kernel": bench.ROOF_KERNEL, "card": card}),
+          flush=True)
+    bench.check_roof(roof)
+    inputs = bench.Inputs({"core2": meshes["core2"],
+                           "cyl512": meshes["cylinder"]})
+    for name in bench.CELLS:
+        print(json.dumps(bench.run_cell(name, inputs, MAIN_STEPS, roof,
+                                        card)), flush=True)
+    del inputs
+    rows, summary = scaling.scaling(meshes["core2"], "core2", (1, 2, 4),
+                                    MAIN_STEPS)
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    print(json.dumps(summary), flush=True)
+    if summary["failures"]:
+        raise AssertionError(f"scaling gate: {summary['failures']}")
+    tables = accuracy.study(meshes["small"], "cuda")
+    print(accuracy.markdown(tables, "small"))
+    print(json.dumps(tables), flush=True)
+
+
 def lap(name: str, run, t0: float) -> tuple:
     """Runs ``run()`` and prints the seconds since ``t0`` -> (its result,
     now)."""
@@ -2748,6 +2788,8 @@ def main() -> int:
     _, t1 = lap("9c", lambda: phase_checkpoint(tf), t1)
     print(f"phase 9 (on-device run, checkpoints) took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lap("10 (bench, scaling, drift)", lambda: phase_bench(card, meshes),
+        time.perf_counter())
     kernels = []
     for name, src in KERNEL_SOURCES.items():
         kmd, inputs = shapes[name]

@@ -13,7 +13,10 @@ Also here: a copy of the JAX tuning harness's per-family byte models
 (:func:`kernel_bytes`, :func:`a2_bytes`), and the least work of each CUDA
 kernel (:func:`kernel_io`: each input read once where the kernel's
 function needs it, each output written once) with :func:`bound_ms`, which
-turns it into a bound at a data-sheet peak (``PEAKS``).
+turns it into a bound at a data-sheet peak (``PEAKS``); :func:`step_io`
+sums it over the kernels of a step's form (``STEP_FORMS``).
+:func:`measure_stream_bandwidth` measures the card's own memory roof, a
+triad, the counterpart of the JAX module's function of that name.
 
 The reference's perf methodology is explicit per-kernel bytes models
 divided by measured time (kernels/fct_ale_a1.py:93-95 and friends).
@@ -21,10 +24,13 @@ divided by measured time (kernels/fct_ale_a1.py:93-95 and friends).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
+from fesom2_accelerate_tpu_torch.runtime.tracing import require_cuda
 
 
 def fct_ale_step_bytes(mesh: Mesh, itemsize: int = 4,
@@ -322,3 +328,80 @@ def bound_ms(nbytes: int, ops: int = 0, dtype: torch.dtype = torch.float32,
     t_bytes = nbytes / p["bytes_per_s"] * 1e3
     t_ops = ops / p[str(dtype).removeprefix("torch.")] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the kernels each form of the step launches, once each (ops/cuda/step.py):
+# the four single-device forms (fuse_k12 x fuse_k34), and a part of the
+# split sharded step, whose K4-fix limits again the edges with an endpoint
+# outside the part's owned columns
+STEP_FORMS = {
+    "K1->K2->K34": ("bounds", "limit", "update_fused"),
+    "K12->K34": ("limit_fused", "update_fused"),
+    "K1->K2->K3->K4": ("bounds", "limit", "b3h", "update"),
+    "K12->K3->K4": ("limit_fused", "b3h", "update"),
+    "K1->K2->K3->K4fix": ("bounds", "limit", "b3h", "update_fixup"),
+}
+
+
+def step_io(md, cfg, form: str, tracers: int = 1,
+            owned: tuple | None = None) -> tuple[int, int]:
+    """(bytes, operations) of one step of ``form`` (a key of
+    ``STEP_FORMS``) on mesh data ``md`` for ``tracers`` tracers, in the
+    mode of ``cfg`` (``iter_yn``): the sum of :func:`kernel_io` over the
+    kernels the form launches.  ``owned`` is the part's owned columns, for
+    K4-fix (form "K1->K2->K3->K4fix"); a sharded step is the sum over its
+    parts.  What the step's functions need, not what the card moved: each
+    kernel's inputs count once, so a share of a roof above 1 means a wrong
+    count or a wrong time.
+
+    The port's counterpart of the JAX ``fct_ale_step_bytes_physical``,
+    which counts the TPU's packed layout (slabs, windows, pad rows); the
+    port's kernels read natural shapes, so the port counts the functions'
+    bytes."""
+    if form not in STEP_FORMS:
+        raise ValueError(f"form must be one of {sorted(STEP_FORMS)}, got "
+                         f"{form!r}")
+    nbytes = ops = 0
+    for name in STEP_FORMS[form]:
+        b, o = kernel_io(md, name, cfg.iter_yn, owned=owned, tracers=tracers)
+        nbytes += b
+        ops += o
+    return nbytes, ops
+
+
+def measure_stream_bandwidth(n_bytes: int = 2 ** 29, iters: int = 20,
+                             reps: int = 3, device="cuda") -> float:
+    """The card's measured streaming rate, bytes/s: a triad chained
+    ``iters`` times over float32 arrays of ``n_bytes`` each, 2 reads and 1
+    write a pass (``c = a + 0.5 * b``, one ``torch.add(a, b, alpha=0.5,
+    out=c)`` kernel, then ``a`` and ``c`` swap), timed by CUDA events,
+    best of ``reps`` after a warm-up -> ``3 * n_bytes * iters / t``.  The
+    counterpart of the JAX ``runtime/profiling.py`` function of the same
+    name, the same triad; the roof a step's :func:`step_io` share is taken
+    against.  Arrays of 512 MiB are far above the H100's 50 MB L2, so every
+    pass streams from HBM.  Raises ValueError without a CUDA device."""
+    dev = require_cuda(device)
+    n = n_bytes // 4
+    with torch.cuda.device(dev):
+        a = torch.ones(n, dtype=torch.float32, device=dev)
+        b = torch.ones_like(a)
+        c = torch.empty_like(a)
+
+        def passes():
+            nonlocal a, c
+            for _ in range(iters):
+                torch.add(a, b, alpha=0.5, out=c)
+                a, c = c, a
+
+        passes()  # warm-up
+        best = math.inf
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            passes()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) * 1e-3)
+        del a, b, c
+    return 3.0 * 4 * n * iters / best

@@ -10,23 +10,33 @@ The counterpart of ``fesom2_accelerate_tpu/runtime/tracing.py``:
   written as a Chrome trace into a directory;
 * :func:`time_stages` -- the plain PyTorch stages of the FCT step timed one
   by one, with GB/s from the same per-stage byte terms as the JAX module;
-* :func:`card_line` -- the card's name and power limit from ``nvidia-smi``.
+* :func:`card_line` -- the card's name and power limit from ``nvidia-smi``;
+* :func:`time_run` -- a solver's ``run`` at the bench's protocol: events,
+  device and host time a step, what the run chose, a graph run's copy-in.
 
-``chip_smoke.py`` and the tuning harness (``utils/tuning.py``) time kernels
-with these functions.  Each raises when given, or left with, no CUDA
-device: a measurement does not fall back to the CPU.
+``chip_smoke.py``, the tuning harness (``utils/tuning.py``) and the bench
+(``utils/bench.py``, ``utils/scaling.py``) time with these functions.
+Each raises when given, or left with, no CUDA device: a measurement does
+not fall back to the CPU.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import math
 import pathlib
 import subprocess
 import time
 
 import numpy as np
 import torch
+
+# timed runs of each measurement of time_run, best of them reported
+TIMING_RUNS = 3
+# time_run's warm-up runs that may pass before the run has chosen (a
+# choice waits for a run over which the allocator's reserve held still)
+CHOICE_TRIES = 5
 
 
 def card_line() -> str:
@@ -198,3 +208,91 @@ def time_stages(mesh, fields: dict, device="cuda",
         s["del_ttf_advvert"], s["del_ttf_advhoriz"], 1.0),
         (9 * nod + vint + deg_d) * fsize)
     return report
+
+
+def _tensors(state: dict) -> list:
+    """A solver's state as its tensors (a sharded state holds a list of
+    per-part tensors for each field)."""
+    return [t for v in state.values()
+            for t in (v if isinstance(v, list) else [v])]
+
+
+def time_run(run, state: dict, n_steps: int = 20, *, graphs=None,
+             device="cuda") -> dict:
+    """``run(state, n_steps)`` (a solver's ``run``, ``run_tracers`` or a
+    ``StepGraphs.run`` of a step) timed at the bench's protocol:
+
+    * warm-up: runs of the same length until ``graphs``, the run's
+      ``StepGraphs`` (None where it has none), has chosen between graphs
+      and the loop (a choice waits for a run over which the allocator's
+      reserve held still; ValueError after CHOICE_TRIES runs without
+      one), then one more, which captures the graphs of this length
+      where graphs were chosen: no timed run holds a choice or a capture;
+    * ``step_ms``: CUDA events around each of TIMING_RUNS runs, over
+      ``n_steps``: the best, and all of them in ``step_ms_runs``;
+    * ``device_ms``: the same with the stream held while the host
+      enqueues the run (:func:`device_time_ms`), best of TIMING_RUNS;
+    * ``host_ms``: the host's wall time of a run to a synchronize, best of
+      TIMING_RUNS, over ``n_steps``;
+    * ``choice``: what the run chose, ``{"run": "graphs" | "loop",
+      "dry_steps": d, "watched_steps": w}`` (d of w watched steps found
+      the card run dry; None where the run has no graphs, or has made no
+      choice because its runs are too short to choose, and runs the
+      loop);
+    * ``copy_in_ms``: where graphs were chosen, the device time (events,
+      best of TIMING_RUNS) of copying the state into tensors of its
+      shapes, which a graph run does once inside the events; else None.
+
+    A ``graphs`` that serves more than one state signature raises
+    ValueError: the choice reported is the run's own.  Raises ValueError
+    without a CUDA device."""
+    from fesom2_accelerate_tpu_torch.runtime.graphs import (
+        WARM_STEPS,
+        WATCHED_STEPS,
+    )
+
+    dev = require_cuda(device)
+    waits = graphs is not None and n_steps > WARM_STEPS + WATCHED_STEPS
+    with torch.cuda.device(dev):
+        for _ in range(CHOICE_TRIES):
+            run(state, n_steps)
+            if not waits or graphs.choices:
+                break
+        else:
+            raise ValueError(f"the run made no choice in {CHOICE_TRIES} "
+                             f"runs of {n_steps} steps")
+        run(state, n_steps)  # with the choice made: captures this length
+        choice = {"run": "loop", "dry_steps": None, "watched_steps": None}
+        if graphs is not None and graphs.choices:
+            if len(graphs.choices) != 1:
+                raise ValueError(f"the run's StepGraphs holds "
+                                 f"{len(graphs.choices)} choices, not one")
+            (dry, pays), = graphs.choices.values()
+            choice = {"run": "graphs" if pays else "loop", "dry_steps": dry,
+                      "watched_steps": WATCHED_STEPS}
+        events = [cuda_time_ms(lambda: run(state, n_steps), 1, dev) / n_steps
+                  for _ in range(TIMING_RUNS)]
+        held = min(device_time_ms(lambda: run(state, n_steps), 1, dev)
+                   for _ in range(TIMING_RUNS)) / n_steps
+        wall = math.inf
+        for _ in range(TIMING_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(state, n_steps)
+            torch.cuda.synchronize()
+            wall = min(wall, (time.perf_counter() - t0) * 1e3 / n_steps)
+        copy_in = None
+        if choice["run"] == "graphs":
+            src = _tensors(state)
+            static = [torch.empty_like(t) for t in src]
+
+            def copies():
+                for b, t in zip(static, src):
+                    b.copy_(t)
+
+            copies()
+            copy_in = min(cuda_time_ms(copies, 1, dev)
+                          for _ in range(TIMING_RUNS))
+    return {"steps": n_steps, "step_ms": min(events), "step_ms_runs": events,
+            "device_ms": held, "host_ms": wall, "choice": choice,
+            "copy_in_ms": copy_in}

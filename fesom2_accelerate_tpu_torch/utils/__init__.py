@@ -1,3 +1,4 @@
 """Tools around the port: the kernels' tuning harness (``tuning``), its
-command line (``tune``), and the ablation of the tiled kernels
-(``ablate``)."""
+command line (``tune``), the ablation of the tiled kernels (``ablate``),
+and the bench and its measurement tools (``bench``, ``scaling``,
+``accuracy``)."""
