@@ -167,7 +167,25 @@ Phases (each raises on failure, so the script exits non-zero):
    ``graphs.loop`` of its steps with its launches, and its ``step_io``
    share of the measured roof at most 1; the scaling harness on core2 at
    P = 1, 2, 4, split and fused, whose exactness gate must pass; the f32
-   drift and ``flux_eps`` tables on small, kernels and plain stages.
+   drift and ``flux_eps`` tables on small, kernels and plain stages;
+11. the sharded step over 2 OS processes (``utils/multiproc.py``), both
+   ranks on cuda:0 over gloo (each slab staged through pinned host
+   memory), 2 parts each: core2 f32 split and fused, 20 steps, small f64
+   iterative (3 steps) and core2 split at 4 tracers, each bit for bit on
+   the owned nodes (node fields and ``fct_adf_h``, both ranks' gathers)
+   against ``ShardedFctAleSolver(devices=["cuda:0"] * 4)`` in this
+   process, with 8 (split) / 6 (fused) launches a rank a step and the
+   cross-process sends and bytes a step; a collective checkpoint at 10
+   split steps (rank 0 writes), resumed here at 2 parts, bit for bit
+   against 20 steps without a break; ms a step on each rank (CUDA events,
+   host wall) of core2 split and fused;
+12. the host-embedding ABI: the shim (``native/fesom2_torch_host.cpp``)
+   and its C demo host built with g++; the demo runs one step through
+   ``f2t_*_`` on core2 with backend 1 (the CUDA kernels, f32), bit for bit
+   against ``FctAleSolver(device="cuda")`` on the same f64 fields, and on
+   small with backend 0 (torch f64, CPU) against the plain f64 solver;
+   then 5 backend-1 steps on core2 through ``host_embed``'s calls on
+   ctypes-addressed buffers, timed as copy-in, step and copy-out.
 Every kernel instance's ptxas report is printed, and a spill fails the
 build phase.  The last three lines are the per-kernel JSON summary (each
 kernel's launches on its path (H-K3fix's in phase 6a's witness checks,
@@ -2723,6 +2741,246 @@ def phase_bench(card: str, meshes: dict) -> None:
     print(json.dumps(tables), flush=True)
 
 
+# phase 11: parts a rank of the 2-process runs, their launch timeout, and
+# each mode's kernel launches a rank a step (K1, K2, K3, K4-fix or K1, K2,
+# K34 on each of its 2 parts)
+MP_PARTS_PER_RANK = 2
+MP_TIMEOUT = 300.0
+MP_LAUNCHES = {"split": 8, "fused": 6}
+# phase 12: the ABI steps timed on core2
+ABI_STEPS = 5
+
+
+def mp_case(label: str, preset: str, dtype: str, mode: str, steps: int,
+            iter_yn: bool = False, tracers: int = 1, timed: bool = False,
+            checkpoint=None, checkpoint_at: int = 0) -> tuple:
+    """One run of ``utils.multiproc`` on 2 ranks, both on cuda:0 over gloo,
+    2 parts each, bit for bit on the owned nodes (node fields and
+    ``fct_adf_h``; both ranks' gathers) against the one-process
+    ShardedFctAleSolver(devices=["cuda:0"] * 4) of the same case; each
+    rank's launches a step must be MP_LAUNCHES[mode].  Returns (the rows
+    of both ranks, the gathered state)."""
+    from fesom2_accelerate_tpu_torch.utils import multiproc
+
+    out = pathlib.Path(__file__).resolve().parent / "chip_scratch" / "mp" / \
+        label
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    status, logs = multiproc.launch(
+        2, multiproc.worker_args(
+            preset, dtype, mode, tracers=tracers, iter_yn=iter_yn,
+            steps=steps, parts_per_rank=MP_PARTS_PER_RANK, device="cuda",
+            checkpoint=checkpoint, checkpoint_at=checkpoint_at,
+            time_steps=timed),
+        f"file://{out}.rdv", MP_TIMEOUT, out=out)
+    wall = time.perf_counter() - t0
+    if status != 0:
+        raise AssertionError(f"{label}: 2 processes, status {status}\n"
+                             + "\n".join(f"rank {r}:\n{log[-4000:]}"
+                                         for r, log in enumerate(logs)))
+    with np.load(out / "rank0.npz") as z:
+        got = {k: z[k] for k in z.files}
+    rows = [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(2)]
+    shutil.rmtree(out, ignore_errors=True)
+    sh = multiproc.build_solver(["cuda:0"] * 2 * MP_PARTS_PER_RANK, preset,
+                                dtype, mode, iter_yn, tracers=tracers)
+    state = sh.init_state(multiproc.case_fields(preset, tracers))
+    ref = sh.gather_state(multiproc.take_steps(sh, state, steps))
+    del sh, state
+    torch.cuda.empty_cache()
+    if got.keys() != ref.keys():
+        raise AssertionError(f"{label}: keys {set(got) ^ set(ref)}")
+    diff = 0.0
+    for k, v in ref.items():
+        if not np.isfinite(v).all() or not np.array_equal(got[k], v):
+            diff = max(diff, float(np.abs(got[k].astype(np.float64)
+                                          - v).max()))
+            raise AssertionError(f"{label} {k}: 2 processes differ from "
+                                 f"one process, max |diff| {diff:.3e}")
+    for row in rows:
+        if row["digest"] != {k: multiproc.digest(v) for k, v in
+                             got.items()}:
+            raise AssertionError(f"{label}: rank {row['rank']} gathered "
+                                 f"other bits than rank 0")
+        if row["launches_per_step"] != MP_LAUNCHES[mode]:
+            raise AssertionError(f"{label}: rank {row['rank']} launched "
+                                 f"{row['launches']} in {steps} steps")
+    print(f"{label}: 2 ranks x {MP_PARTS_PER_RANK} parts on "
+          f"{rows[0]['devices'][0]} ({rows[0]['transport']}), {steps} "
+          f"steps: bit for bit against one process at "
+          f"{2 * MP_PARTS_PER_RANK} parts (max diff {diff:.1e}, both "
+          f"ranks' gathers); launches a rank a step "
+          f"{[r['launches_per_step'] for r in rows]}; cross-process sends a "
+          f"rank a step {[r['messages_per_step'] for r in rows]}, bytes "
+          f"{[r['bytes_per_step'] for r in rows]}; launch wall "
+          f"{wall:.1f} s", flush=True)
+    return rows, got
+
+
+def phase_multiprocess(card: str) -> None:
+    """Phase 11: the sharded step over 2 OS processes (utils/multiproc.py),
+    both ranks on cuda:0 over gloo (slabs staged through pinned host
+    memory), 2 parts each: core2 f32 split (with a collective checkpoint
+    at CKPT_STEPS, resumed in this process at 2 parts) and fused, small
+    f64 iterative, core2 split at TRACERS tracers; each bit for bit
+    against one process at 4 parts, with launches and cross-process bytes
+    a step, and on core2 ms a step on each rank (events, host wall)."""
+    from fesom2_accelerate_tpu_torch import ShardedFctAleSolver
+    from fesom2_accelerate_tpu_torch.utils import multiproc
+
+    ck = pathlib.Path(__file__).resolve().parent / "chip_scratch" / "mpck"
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        rows, full = mp_case("mp core2 f32 split", "core2", "f32", "split",
+                             MAIN_STEPS, timed=True, checkpoint=ck,
+                             checkpoint_at=CKPT_STEPS)
+        if [r["wrote_checkpoint"] for r in rows] != [True, False]:
+            raise AssertionError(f"checkpoint writers {rows}")
+        sh2 = ShardedFctAleSolver(multiproc.case_mesh("core2"),
+                                  multiproc.case_config("f32", False),
+                                  devices=["cuda:0"] * 2)
+        st, step = sh2.load_checkpoint(ck)
+        resumed = sh2.gather_state(sh2.run(st, MAIN_STEPS - step))
+        del sh2, st
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if step != CKPT_STEPS or resumed.keys() != full.keys():
+        raise AssertionError(f"checkpoint step {step}, keys "
+                             f"{set(resumed) ^ set(full)}")
+    diff = max(float(np.abs(resumed[k].astype(np.float64) - v).max())
+               for k, v in full.items())
+    if diff != 0.0:
+        raise AssertionError(f"collective checkpoint resumed at 2 parts: "
+                             f"max |diff| {diff:.3e} against "
+                             f"{MAIN_STEPS} steps without a break")
+    print(f"mp checkpoint: saved at {CKPT_STEPS} steps by 2 ranks (rank 0 "
+          f"wrote), resumed in one process at 2 parts for "
+          f"{MAIN_STEPS - CKPT_STEPS} more: bit for bit against "
+          f"{MAIN_STEPS} steps without a break", flush=True)
+    timed = {"split": rows}
+    timed["fused"], _ = mp_case("mp core2 f32 fused", "core2", "f32",
+                                "fused", MAIN_STEPS, timed=True)
+    mp_case("mp small f64 iterative split", "small", "f64", "split", 3,
+            iter_yn=True)
+    mp_case(f"mp core2 f32 split Tb={TRACERS}", "core2", "f32", "split",
+            MAIN_STEPS, tracers=TRACERS)
+    for mode, rows in timed.items():
+        print(json.dumps({
+            "phase": 11, "mode": mode, "procs": 2, "parts": 4,
+            "steps": MAIN_STEPS, "transport": rows[0]["transport"],
+            "step_ms_ranks": [r["step_ms"] for r in rows],
+            "host_ms_ranks": [r["host_ms"] for r in rows],
+            "exchange_ms_ranks": [r["exchange_ms"] for r in rows],
+            "messages_per_step_ranks": [r["messages_per_step"]
+                                        for r in rows],
+            "bytes_per_step_ranks": [r["bytes_per_step"] for r in rows],
+            "card": card}), flush=True)
+
+
+def abi_ptrs(bufs: dict) -> list:
+    from fesom2_accelerate_tpu_torch.native import demo
+
+    return [bufs[k].ctypes.data for k, _ in demo.FIELD_FILES]
+
+
+def phase_host_abi(card: str, meshes: dict) -> None:
+    """Phase 12: the host-embedding ABI.  Builds the shim and its C demo
+    host (g++), runs the demo for one step on core2 with backend 1 (the
+    CUDA kernels, f32) bit for bit against FctAleSolver(device="cuda") on
+    the same fields, and with backend 0 (torch f64, CPU) on small against
+    the plain f64 solver; then times ABI_STEPS steps of backend 1 on core2
+    through the shim's Python calls on ctypes-addressed buffers:
+    copy-in, step and copy-out apart."""
+    import tempfile
+
+    from fesom2_accelerate_tpu_torch import FctAleSolver, host_embed
+    from fesom2_accelerate_tpu_torch.mesh import random_fields
+    from fesom2_accelerate_tpu_torch.native import build, demo
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    t0 = time.perf_counter()
+    lib, exe = build.build()
+    print(f"host shim: {lib.name}, demo {exe.name} built in "
+          f"{time.perf_counter() - t0:.1f} s (g++)", flush=True)
+    for key, backend, device in (("core2", 1, "cuda"), ("small", 0, "cpu")):
+        mesh = meshes[key]
+        fields = random_fields(mesh, seed=0, dtype=np.float64)
+        with tempfile.TemporaryDirectory() as d:
+            demo.write_inputs(d, mesh, fields, 500, 1, False, backend)
+            t0 = time.perf_counter()
+            p = demo.run(exe, d)
+            wall = time.perf_counter() - t0
+            if p.returncode != 0:
+                raise AssertionError(f"demo {key} backend {backend}: exit "
+                                     f"{p.returncode}\n{p.stdout}\n"
+                                     f"{p.stderr[-4000:]}")
+            got = demo.outputs(d, mesh, False)
+        solver = FctAleSolver(mesh, host_embed.config(backend, 500, 1, 0),
+                              device=device)
+        ref = solver.step(solver.init_state(fields))
+        for k, v in got.items():
+            want = ref[k].double().cpu().numpy()
+            if not np.isfinite(v).all() or not np.array_equal(v, want):
+                raise AssertionError(
+                    f"demo {key} backend {backend} {k}: max |diff| "
+                    f"{float(np.abs(v - want).max()):.3e} against "
+                    f"FctAleSolver(device={device!r})")
+        del solver, ref
+        print(f"C demo host, {key}, backend {backend} ({device}): one step "
+              f"through f2t_*_ bit for bit against FctAleSolver(device="
+              f"{device!r}) on {sorted(got)}; {wall:.1f} s with the "
+              f"interpreter's start ({p.stdout.strip()})", flush=True)
+
+    mesh = meshes["core2"]
+    fields = random_fields(mesh, seed=0, dtype=np.float64)
+    en = np.ascontiguousarray(mesh.elem_nodes, np.int32)
+    nl = np.ascontiguousarray(mesh.nlev_elem, np.int32)
+    xy = np.ascontiguousarray(mesh.node_xy, np.float64)
+    if host_embed.setup(mesh.n_elems, mesh.nl, en.ctypes.data,
+                        nl.ctypes.data, mesh.n_nodes, xy.ctypes.data, 500, 1,
+                        0, 1) != 0:
+        raise AssertionError("host_embed.setup(backend=1) failed on core2")
+    try:
+        bufs = {k: np.array(fields[k], np.float64)
+                for k, _ in demo.FIELD_FILES}
+        solver = host_embed.session().solver
+        times = {"copy_in": [], "step": [], "copy_out": []}
+        K.reset_launch_counts()
+        for _ in range(ABI_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = host_embed.views(*abi_ptrs(bufs))
+            state = host_embed.copy_in(host)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = solver.step(state)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host_embed.copy_out(out, host)
+            t3 = time.perf_counter()
+            for k, a, b in (("copy_in", t0, t1), ("step", t1, t2),
+                            ("copy_out", t2, t3)):
+                times[k].append((b - a) * 1e3)
+        counts = K.launch_counts()
+    finally:
+        host_embed.reset()
+    check_counts(counts, {"bounds": ABI_STEPS, "limit": ABI_STEPS,
+                          "update_fused": ABI_STEPS}, "ABI steps")
+    L, N, Ed = mesh.n_layers, mesh.n_nodes, mesh.n_edges
+    nbytes = {"copy_in": 8 * (6 * L * N + (L + 1) * N + L * Ed),
+              "copy_out": 8 * (2 * L * N + (L + 1) * N + L * Ed)}
+    row = {"phase": 12, "mesh": "core2", "backend": 1, "steps": ABI_STEPS,
+           "card": card}
+    for k, v in times.items():
+        row[f"{k}_ms"] = min(v)
+        row[f"{k}_ms_runs"] = v
+        if k in nbytes:
+            row[f"{k}_MB"] = nbytes[k] / 1e6
+            row[f"{k}_GBps"] = nbytes[k] / (min(v) * 1e6)
+    print(json.dumps(row), flush=True)
+
+
 def lap(name: str, run, t0: float) -> tuple:
     """Runs ``run()`` and prints the seconds since ``t0`` -> (its result,
     now)."""
@@ -2789,6 +3047,10 @@ def main() -> int:
     print(f"phase 9 (on-device run, checkpoints) took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     lap("10 (bench, scaling, drift)", lambda: phase_bench(card, meshes),
+        time.perf_counter())
+    lap("11 (2 processes)", lambda: phase_multiprocess(card),
+        time.perf_counter())
+    lap("12 (host ABI)", lambda: phase_host_abi(card, meshes),
         time.perf_counter())
     kernels = []
     for name, src in KERNEL_SOURCES.items():

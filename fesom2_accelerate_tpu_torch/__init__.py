@@ -25,7 +25,12 @@ cylinder generators, RCM ordering, the FESOM2 mesh-file reader).
 * ``ShardedFctAleSolver(mesh, cfg, devices=[...])``
   runs the FCT step on ``partition_mesh``'s parts, one per entry of
   ``devices`` (several may share one card), with a halo exchange between
-  K2 and the b3 horizontal limiting (``parallel/``);
+  K2 and the b3 horizontal limiting (``parallel/``); with
+  ``devices=distributed.global_devices(...)`` the parts spread over
+  processes (``parallel/distributed.py``, ``torch.distributed``), as a
+  FESOM2 run's MPI ranks hold them;
+* ``host_embed.py`` and ``native/fesom2_torch_host.cpp`` are the C ABI a
+  Fortran or C host calls (the JAX shim's ``f2t_*_`` surface);
 * the solvers' ``run`` (and ``run_tracers``) replay the steps as CUDA
   graphs on the "cuda" backend where the host, not the card, sets the
   pace of a step (``runtime/graphs.py``, the counterpart of the JAX

@@ -1,0 +1,204 @@
+"""Host-embedding surface: the Python side of the port's C ABI.
+
+The counterpart of ``fesom2_accelerate_tpu/host_embed.py``.  The
+reference's L1 is a Fortran-callable C ABI that mirrors host arrays into
+GPU memory and drives the production pipeline (reference
+include/fesom2-accelerate.h:128-236, src/fesom2-accelerate.cu:258-379).
+Here it is split in two:
+
+* ``native/fesom2_torch_host.cpp``: the ``extern "C"`` surface a Fortran
+  or C host links against (``f2t_init_``, ``f2t_setup_``, ``f2t_dims_``,
+  ``f2t_fct_ale_step_``, ``f2t_finalize_``), with the parameter lists of
+  the JAX package's ``native/fesom2_tpu_host.cpp``, so a host links either
+  library unchanged.  It embeds CPython and calls this module;
+* this module: it wraps the caller's host pointers as numpy views
+  (zero-copy), builds the mesh (``mesh/topology.py``
+  ``build_mesh_from_elements``) and the solver once at :func:`setup` (the
+  reference's one-time ``transfer_mesh_``), and each :func:`step` copies
+  the input fields to the solver's device, runs one step and writes the
+  results back into the caller's buffers (the reference's
+  ``transfer_var_`` and its read-backs).
+
+Backends:
+
+* 0: the plain PyTorch step in float64 on the CPU, the correctness path,
+  as the reference ships ``src/reference.cpp``;
+* 1: the CUDA kernels in float32 (``flux_eps=1e-7``) on the card.  With no
+  card :func:`setup` says why and returns 1; nothing stands in for the
+  kernels.
+
+Every function takes only ints (sizes, flags) and addresses (pointer
+values), so the C side needs nothing beyond ``PyObject_CallObject`` with
+integer arguments.  Connectivity is 0-based, as in the JAX shim.  The
+embedding holds one solver a process, as the ABI passes no handle.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import sys
+import traceback
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from fesom2_accelerate_tpu_torch.config import FctAleConfig
+from fesom2_accelerate_tpu_torch.mesh.topology import (
+    Mesh,
+    build_mesh_from_elements,
+)
+from fesom2_accelerate_tpu_torch.model.fct_ale import FctAleSolver
+
+__all__ = ["setup", "dims", "step", "reset"]
+
+
+class Session(NamedTuple):
+    """What :func:`setup` built: the mesh, the config and the solver."""
+
+    mesh: Mesh
+    cfg: FctAleConfig
+    solver: FctAleSolver
+
+
+_SESSION: Session | None = None
+
+
+class NoDevice(RuntimeError):
+    """Backend 1 on a host with no CUDA device."""
+
+
+def _view(addr: int, shape, dtype) -> np.ndarray:
+    """Zero-copy numpy view of caller-owned host memory."""
+    n = int(np.prod(shape))
+    ctype = {"float64": ctypes.c_double, "int32": ctypes.c_int32}[
+        np.dtype(dtype).name]
+    buf = (ctype * n).from_address(int(addr))
+    return np.frombuffer(buf, dtype=dtype).reshape(shape)
+
+
+def config(backend: int, dt_milli: int, vlimit: int,
+           iter_yn: int) -> FctAleConfig:
+    """The config of ``backend``: float64 for 0, float32 with
+    ``flux_eps=1e-7`` for 1.  ``dt_milli`` is the timestep in 1e-3 units
+    (the ABI passes integers only)."""
+    if backend == 0:
+        return FctAleConfig(dt=dt_milli * 1e-3, vlimit=vlimit,
+                            iter_yn=bool(iter_yn), dtype=torch.float64)
+    if backend == 1:
+        return FctAleConfig(dt=dt_milli * 1e-3, vlimit=vlimit,
+                            iter_yn=bool(iter_yn), dtype=torch.float32,
+                            flux_eps=1e-7)
+    raise ValueError(f"backend must be 0 (torch f64, CPU) or 1 (CUDA "
+                     f"kernels f32), got {backend}")
+
+
+def _solver(mesh: Mesh, cfg: FctAleConfig, backend: int) -> FctAleSolver:
+    if backend == 0:
+        return FctAleSolver(mesh, cfg, device="cpu")
+    if not torch.cuda.is_available():
+        raise NoDevice("backend 1 runs the CUDA kernels and needs a CUDA "
+                       "device: torch.cuda.is_available() is False")
+    return FctAleSolver(mesh, cfg, device="cuda")
+
+
+def setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
+          n_nodes: int, node_xy_addr: int, dt_milli: int, vlimit: int,
+          iter_yn: int, backend: int) -> int:
+    """Builds the mesh and the solver from host connectivity (once, as the
+    reference's ``transfer_mesh_`` and ``alloc_var_``): ``elem_nodes``
+    [n_elems, 3] int32, 0-based; ``nlev_elem`` [n_elems] int32;
+    ``node_xy`` [n_nodes, 2] float64.  Returns 0 on success, 1 on failure
+    (the reference's ``istat``, src/fesom2-accelerate.cu:114-127)."""
+    global _SESSION
+    try:
+        elem_nodes = _view(elem_nodes_addr, (n_elems, 3), np.int32).copy()
+        nlev_elem = _view(nlev_elem_addr, (n_elems,), np.int32).copy()
+        node_xy = _view(node_xy_addr, (n_nodes, 2), np.float64).copy()
+        mesh = build_mesh_from_elements(elem_nodes, nlev_elem, nl, node_xy)
+        mesh.validate()
+        cfg = config(backend, dt_milli, vlimit, iter_yn)
+        _SESSION = Session(mesh, cfg, _solver(mesh, cfg, backend))
+        return 0
+    except NoDevice as e:
+        print(f"fesom2_accelerate_tpu_torch.host_embed.setup: {e}",
+              file=sys.stderr, flush=True)
+        return 1
+    except Exception:  # the ABI's boundary: report, return istat 1
+        traceback.print_exc()
+        return 1
+
+
+def session() -> Session:
+    if _SESSION is None:
+        raise RuntimeError("host_embed: setup has not succeeded")
+    return _SESSION
+
+
+def dims() -> tuple:
+    """(n_nodes, n_edges, n_layers): the edge count is derived here (the
+    host sizes its flux buffers from it)."""
+    mesh = session().mesh
+    return (int(mesh.n_nodes), int(mesh.n_edges), int(mesh.n_layers))
+
+
+def views(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
+          hnode_new_a: int, del_v_a: int, del_h_a: int) -> dict:
+    """The caller's eight f64 buffers as zero-copy numpy views, by field
+    name: level-major [L, N] node fields, [L+1, N] interface fluxes,
+    [L, Ed] edge fluxes."""
+    mesh = session().mesh
+    L, N, Ed = mesh.n_layers, mesh.n_nodes, mesh.n_edges
+    return dict(
+        ttf=_view(ttf_a, (L, N), np.float64),
+        fct_LO=_view(lo_a, (L, N), np.float64),
+        fct_adf_v=_view(adf_v_a, (L + 1, N), np.float64),
+        fct_adf_h=_view(adf_h_a, (L, Ed), np.float64),
+        hnode=_view(hnode_a, (L, N), np.float64),
+        hnode_new=_view(hnode_new_a, (L, N), np.float64),
+        del_ttf_advvert=_view(del_v_a, (L, N), np.float64),
+        del_ttf_advhoriz=_view(del_h_a, (L, N), np.float64),
+    )
+
+
+def copy_in(host: dict) -> dict:
+    """The fields of :func:`views` as the solver's state (copies, in the
+    config's dtype, on its device)."""
+    return session().solver.init_state(host)
+
+
+def copy_out(out: dict, host: dict) -> None:
+    """Writes a step's results into the caller's buffers: the limited
+    fluxes over ``fct_adf_v`` / ``fct_adf_h``; ``fct_LO`` in iterative
+    mode, else ``del_ttf_advvert`` / ``del_ttf_advhoriz``."""
+    keys = ["fct_adf_v", "fct_adf_h"] + (
+        ["fct_LO"] if session().cfg.iter_yn
+        else ["del_ttf_advvert", "del_ttf_advhoriz"])
+    for k in keys:
+        np.copyto(host[k], out[k].cpu().numpy())
+
+
+def step(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
+         hnode_new_a: int, del_v_a: int, del_h_a: int) -> int:
+    """One FCT-ALE step on host-owned f64 buffers.
+
+    In/out (the read-backs of the reference's phase entry points,
+    src/fesom2-accelerate.cu:338-378, plus the stage-c outputs its L2 never
+    wired): ``fct_adf_v`` / ``fct_adf_h`` are overwritten with the limited
+    fluxes; non-iterative mode accumulates into ``del_v`` / ``del_h``;
+    iterative mode overwrites ``fct_LO`` and leaves the residual fluxes in
+    ``fct_adf_v`` / ``fct_adf_h``.  Returns 0, or 1 on failure."""
+    try:
+        host = views(ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
+                     del_v_a, del_h_a)
+        copy_out(session().solver.step(copy_in(host)), host)
+        return 0
+    except Exception:  # the ABI's boundary: report, return istat 1
+        traceback.print_exc()
+        return 1
+
+
+def reset() -> int:
+    global _SESSION
+    _SESSION = None
+    return 0

@@ -1,0 +1,207 @@
+// Host-embedding C ABI of the PyTorch port: the Fortran/C-callable surface
+// of fesom2_accelerate_tpu_torch.
+//
+// The reference's L1 is an extern "C" library the FESOM2 Fortran host links
+// against: setup (set_mpi_rank_, transfer_mesh_, alloc_var_, ...) plus three
+// phase entry points driving the GPU pipeline (reference
+// include/fesom2-accelerate.h:128-236, src/fesom2-accelerate.cu:258-379).
+// This shim embeds CPython and drives fesom2_accelerate_tpu_torch.host_embed,
+// which wraps the caller's buffers zero-copy and runs the port's step: the
+// plain float64 step on the CPU (backend 0) or the CUDA kernels on the card
+// (backend 1).  Its extern "C" block has the names and parameter lists of
+// the JAX package's native/fesom2_tpu_host.cpp, so a host links either
+// library unchanged.  Same binding style as the reference (trailing-
+// underscore names, pointer-to-scalar args, istat out-params,
+// src/fesom2-accelerate.cu:114-127); 0-based connectivity.
+//
+// Thread model: the interpreter is started at most once a process, under
+// std::call_once, so concurrent first calls from several host threads are
+// safe.  Every entry point then takes the GIL via PyGILState_Ensure, so
+// f2t_* calls are safe from any host thread and from hosts that initialized
+// Python themselves.  When this shim owns the interpreter it releases the
+// GIL after init (PyEval_SaveThread) so the GILState API works uniformly.
+// After f2t_finalize_ has finalized an interpreter the shim started, every
+// entry point returns istat 1: CPython is not started twice in a process.
+//
+// Build: python -m fesom2_accelerate_tpu_torch.native.build (g++, links
+// libpython).
+
+#include <Python.h>
+
+#include <atomic>
+#include <cstdint>
+#include <cstdio>
+#include <mutex>
+
+namespace {
+
+PyObject *g_mod = nullptr;  // fesom2_accelerate_tpu_torch.host_embed
+bool g_owns_interp = false;
+PyThreadState *g_saved = nullptr;  // main thread state parked after init
+std::once_flag g_init_once;
+std::atomic<bool> g_finalized{false};
+
+// Initialize the interpreter if no host did (once a process, from any
+// thread), then park the GIL so every entry can use PyGILState_Ensure.
+// Returns false once f2t_finalize_ has finalized it.
+bool ensure_interpreter() {
+  std::call_once(g_init_once, [] {
+    if (!Py_IsInitialized()) {
+      Py_InitializeEx(0);
+      g_owns_interp = true;
+      g_saved = PyEval_SaveThread();
+    }
+  });
+  if (g_finalized.load()) {
+    std::fprintf(stderr, "fesom2_torch_host: the interpreter was finalized "
+                         "by f2t_finalize_\n");
+    return false;
+  }
+  return true;
+}
+
+// RAII GIL hold for one ABI call.
+class GilGuard {
+ public:
+  GilGuard() : st_(PyGILState_Ensure()) {}
+  ~GilGuard() { PyGILState_Release(st_); }
+
+ private:
+  PyGILState_STATE st_;
+};
+
+// Import the port's module (GIL must be held).
+bool ensure_module_locked() {
+  if (g_mod != nullptr) return true;
+  g_mod = PyImport_ImportModule("fesom2_accelerate_tpu_torch.host_embed");
+  if (g_mod == nullptr) {
+    PyErr_Print();
+    return false;
+  }
+  return true;
+}
+
+// Call host_embed.<fn>(args...) -> long; returns -1 on Python-level failure.
+// GIL must be held; steals the args reference.
+long call_long(const char *fn, PyObject *args) {
+  long out = -1;
+  PyObject *f = PyObject_GetAttrString(g_mod, fn);
+  if (f != nullptr) {
+    PyObject *r = PyObject_CallObject(f, args);
+    if (r != nullptr) {
+      out = PyLong_AsLong(r);
+      Py_DECREF(r);
+    } else {
+      PyErr_Print();
+    }
+    Py_DECREF(f);
+  } else {
+    PyErr_Print();
+  }
+  Py_XDECREF(args);
+  return out;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Initialize the embedded interpreter + import the port.
+void f2t_init_(int *istat) {
+  *istat = 1;
+  if (!ensure_interpreter()) return;
+  GilGuard gil;
+  *istat = ensure_module_locked() ? 0 : 1;
+}
+
+// One-time mesh transfer + solver build (reference transfer_mesh_ +
+// alloc_var_ phase).  elem_nodes: [n_elems, 3] int32 row-major, 0-based;
+// nlev_elem: [n_elems] int32; node_xy: [n_nodes, 2] f64.
+// backend: 0 = torch f64 on the CPU (correctness), 1 = CUDA kernels f32 on
+// the card (istat 1 where there is no card).  dt_milli: timestep in 1e-3
+// units.
+void f2t_setup_(const int *n_elems, const int *nl, const int *elem_nodes,
+                const int *nlev_elem, const int *n_nodes,
+                const double *node_xy, const int *dt_milli, const int *vlimit,
+                const int *iter_yn, const int *backend, int *istat) {
+  *istat = 1;
+  if (!ensure_interpreter()) return;
+  GilGuard gil;
+  if (!ensure_module_locked()) return;
+  PyObject *args = Py_BuildValue(
+      "(iiLLiLiiii)", *n_elems, *nl, (long long)(uintptr_t)elem_nodes,
+      (long long)(uintptr_t)nlev_elem, *n_nodes,
+      (long long)(uintptr_t)node_xy, *dt_milli, *vlimit, *iter_yn, *backend);
+  long r = call_long("setup", args);
+  *istat = (r == 0) ? 0 : 1;
+}
+
+// Derived sizes the host needs to size its flux buffers.
+void f2t_dims_(int *n_nodes, int *n_edges, int *n_layers, int *istat) {
+  *istat = 1;
+  if (!ensure_interpreter()) return;
+  GilGuard gil;
+  if (!ensure_module_locked()) return;
+  PyObject *f = PyObject_GetAttrString(g_mod, "dims");
+  if (f == nullptr) {
+    PyErr_Print();
+    return;
+  }
+  PyObject *r = PyObject_CallObject(f, nullptr);
+  Py_DECREF(f);
+  if (r == nullptr) {
+    PyErr_Print();
+    return;
+  }
+  if (PyArg_ParseTuple(r, "iii", n_nodes, n_edges, n_layers)) {
+    *istat = 0;
+  } else {
+    PyErr_Print();
+  }
+  Py_DECREF(r);
+}
+
+// One FCT-ALE step on host-owned f64 buffers (level-major [L, N] node
+// fields, [L+1, N] interface fluxes, [L, Ed] edge fluxes).  Limited fluxes
+// overwrite fct_adf_v/fct_adf_h; non-iterative mode accumulates del_v/del_h,
+// iterative mode updates fct_LO (the stage-c outputs the reference built as
+// K10/K11 but never wired into its phase entry points).
+void f2t_fct_ale_step_(const double *ttf, double *fct_LO, double *fct_adf_v,
+                       double *fct_adf_h, const double *hnode,
+                       const double *hnode_new, double *del_v, double *del_h,
+                       int *istat) {
+  *istat = 1;
+  if (!ensure_interpreter()) return;
+  GilGuard gil;
+  if (!ensure_module_locked()) return;
+  PyObject *args = Py_BuildValue(
+      "(LLLLLLLL)", (long long)(uintptr_t)ttf, (long long)(uintptr_t)fct_LO,
+      (long long)(uintptr_t)fct_adf_v, (long long)(uintptr_t)fct_adf_h,
+      (long long)(uintptr_t)hnode, (long long)(uintptr_t)hnode_new,
+      (long long)(uintptr_t)del_v, (long long)(uintptr_t)del_h);
+  long r = call_long("step", args);
+  *istat = (r == 0) ? 0 : 1;
+}
+
+void f2t_finalize_(int *istat) {
+  *istat = 0;
+  if (g_finalized.load() || !Py_IsInitialized()) return;
+  {
+    GilGuard gil;
+    if (g_mod != nullptr) {
+      call_long("reset", PyTuple_New(0));
+      Py_DECREF(g_mod);
+      g_mod = nullptr;
+    }
+  }
+  if (g_owns_interp) {
+    // re-enter the parked main thread state to finalize
+    PyEval_RestoreThread(g_saved);
+    g_saved = nullptr;
+    g_finalized.store(true);
+    if (Py_FinalizeEx() != 0) *istat = 1;
+    g_owns_interp = false;
+  }
+}
+
+}  // extern "C"

@@ -1,3 +1,4 @@
+from fesom2_accelerate_tpu_torch.parallel import distributed
 from fesom2_accelerate_tpu_torch.parallel.partition import (
     PartitionedMesh,
     partition_mesh,
@@ -9,5 +10,6 @@ from fesom2_accelerate_tpu_torch.parallel.step_sharded import (
 __all__ = [
     "PartitionedMesh",
     "ShardedFctAleSolver",
+    "distributed",
     "partition_mesh",
 ]

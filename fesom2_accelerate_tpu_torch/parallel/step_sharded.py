@@ -1,4 +1,5 @@
-"""Domain-decomposed FCT-ALE step: P parts in one process (PyTorch port).
+"""Domain-decomposed FCT-ALE step: P parts in one process or over several
+(PyTorch port).
 
 Counterpart of ``fesom2_accelerate_tpu/parallel/step_sharded.py``.  The
 mesh is split by :func:`~fesom2_accelerate_tpu_torch.parallel.partition.
@@ -63,6 +64,14 @@ Python loop of steps.
 Checkpoints (:mod:`~fesom2_accelerate_tpu_torch.runtime.checkpoint`, npz)
 hold the gathered global state, so a run saved at P parts resumes at any
 partition, or on one device through ``FctAleSolver.init_state``.
+
+Across processes (the JAX package's ``_multiproc``, a FESOM2 run's MPI
+ranks), each process holds its own parts and the halo fill sends the
+slabs that cross processes point to point over ``torch.distributed``
+(:class:`ProcessHaloFill`; gloo stages a CUDA part's slab through pinned
+host memory, :class:`Wire`).  The gathers and the checkpoint's write are
+collectives; a run is the host's loop of steps (a CUDA graph cannot
+capture a send).
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fesom2_accelerate_tpu_torch.config import FctAleConfig, resolve_backend
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
@@ -81,6 +91,7 @@ from fesom2_accelerate_tpu_torch.ops.meshdata import (
     build_mesh_data,
     check_edge_order,
 )
+from fesom2_accelerate_tpu_torch.parallel import distributed
 from fesom2_accelerate_tpu_torch.parallel import partition as part_mod
 from fesom2_accelerate_tpu_torch.parallel.partition import PartitionedMesh
 from fesom2_accelerate_tpu_torch.runtime import checkpoint as ckpt
@@ -116,25 +127,18 @@ def _halo_fill_nbr(xs: list, smaps: list) -> list:
     return xs
 
 
-def _exchange_maps(pm: PartitionedMesh, mode: str, devices: list) -> list:
-    """Per-part index tensors of the halo fill of ``mode``."""
+def exchange_pairs(pm: PartitionedMesh) -> list:
+    """Every packed slab of the point-to-point exchange: (p, q, hop,
+    send_cols, cols), part q sending owned columns ``send_cols`` of its
+    own into halo columns ``cols`` of part p, q = p + hop.  A pure
+    function of the partition, in one order (p, then |hop|, then the low
+    side before the high one), so processes that hold different parts
+    derive the same list and match their sends and receives by it."""
     H, B = pm.H, pm.B
-    hi_cols = np.arange(H + B, H + B + H)
-    cols = np.concatenate([np.arange(H), hi_cols])
-
-    def long(a, p):
-        return torch.tensor(np.asarray(a, np.int64), device=devices[p])
-
-    if mode == "allgather":
-        return [(long(cols, p), long(np.concatenate([
-            pm.halo_lo_src_part[p] * B + pm.halo_lo_src_idx[p],
-            pm.halo_hi_src_part[p] * B + pm.halo_hi_src_idx[p]]), p))
-            for p in range(pm.n_parts)]
+    pairs = []
     # hop r of the JAX package's _halo_fill_nbr: halo column c of part p
     # takes slot pos[c] of the slab that part p -/+ r packs with its send list
-    smaps = []
     for p in range(pm.n_parts):
-        sources = []
         for r in range(1, pm.neighbor_radius + 1):
             for q, hop, pos, sends, base in (
                     (p - r, pm.halo_lo_hop, pm.halo_lo_pos, pm.hop_send_up,
@@ -143,11 +147,184 @@ def _exchange_maps(pm: PartitionedMesh, mode: str, devices: list) -> list:
                      H + B)):
                 c = np.nonzero(hop[p] == r)[0]
                 if len(c):
-                    send_cols = H + sends[r - 1][q, pos[p, c]]
-                    sources.append((q, long(send_cols, q),
-                                    long(base + c, p)))
-        smaps.append(sources)
+                    pairs.append((p, q, q - p, H + sends[r - 1][q, pos[p, c]],
+                                  base + c))
+    return pairs
+
+
+def _long(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.int64), device=device)
+
+
+def _exchange_maps(pm: PartitionedMesh, mode: str, devices: list) -> list:
+    """Per-part index tensors of the halo fill of ``mode``."""
+    H, B = pm.H, pm.B
+    hi_cols = np.arange(H + B, H + B + H)
+    cols = np.concatenate([np.arange(H), hi_cols])
+
+    if mode == "allgather":
+        return [(_long(cols, devices[p]), _long(np.concatenate([
+            pm.halo_lo_src_part[p] * B + pm.halo_lo_src_idx[p],
+            pm.halo_hi_src_part[p] * B + pm.halo_hi_src_idx[p]]),
+            devices[p])) for p in range(pm.n_parts)]
+    smaps = [[] for _ in range(pm.n_parts)]
+    for p, q, _, send_cols, c in exchange_pairs(pm):
+        smaps[p].append((q, _long(send_cols, devices[q]),
+                         _long(c, devices[p])))
     return smaps
+
+
+class Wire:
+    """How tensors cross between processes: ``name`` is the transport.
+
+    * "nccl": device tensors, sent as they are;
+    * "gloo": CPU parts' tensors, sent as they are;
+    * "gloo, staged through pinned host memory": gloo takes CPU tensors
+      only, so a CUDA part's slab is copied into pinned host memory, the
+      stream is synchronized (:meth:`ready`) before anything is sent, and
+      what arrives is copied to the card on the current stream."""
+
+    def __init__(self, backend: str, devices: list):
+        self.cards = sorted({d for d in devices if d.type == "cuda"},
+                            key=str)
+        self.staged = backend != "nccl" and bool(self.cards)
+        self.name = ("nccl" if backend == "nccl" else
+                     "gloo, staged through pinned host memory"
+                     if self.staged else "gloo")
+
+    def out(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as it is sent (a pinned host copy, enqueued, if staged)."""
+        if not self.staged or t.device.type != "cuda":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+
+    def ready(self) -> None:
+        """Waits for the copies of :meth:`out` (and the kernels before
+        them) before anything is sent."""
+        if self.staged:
+            for d in self.cards:
+                torch.cuda.current_stream(d).synchronize()
+
+    def buffer(self, shape, dtype, device: torch.device) -> torch.Tensor:
+        """A receive buffer for a tensor bound for ``device``."""
+        if self.staged and device.type == "cuda":
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    def into(self, t: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """A received tensor on ``device`` (copied on the current stream)."""
+        return t.to(device, non_blocking=True)
+
+
+class ProcessHaloFill:
+    """The halo fill of parts spread over processes: ``xs`` holds this
+    rank's parts (``local``, global part ids, in order).
+
+    * ppermute: each slab of :func:`exchange_pairs` whose two parts share
+      this process stays an index op (:func:`_halo_fill_nbr`); a slab
+      across processes is sent by the owner of q, ``xs[q].index_select(-1,
+      send_cols)``, and received by the owner of p into a buffer of that
+      shape, then ``index_copy_``-ed into its halo columns.  All the
+      cross-process ops of one call go in one ``batch_isend_irecv``, tagged
+      by their place in the list of cross-process slabs, which every rank
+      derives alike;
+    * allgather: every rank's owned blocks (``[.., H:H+B]`` of each of its
+      parts, zero-padded to the most parts a rank holds) in one
+      ``all_gather``, then each part's halo columns taken from it.
+
+    ``owners[p]`` is the rank of part p, ``devices`` this rank's parts'
+    devices.  ``messages`` and ``nbytes`` count what this rank sent since
+    they were last set to 0."""
+
+    def __init__(self, pm: PartitionedMesh, mode: str, owners: list,
+                 rank: int, devices: list, wire: Wire):
+        self.wire = wire
+        self.mode = mode
+        self.H, self.B = pm.H, pm.B
+        local = [p for p, r in enumerate(owners) if r == rank]
+        slot = {p: i for i, p in enumerate(local)}
+        self.messages = self.nbytes = 0
+        if mode == "allgather":
+            self.world = dist.get_world_size()
+            self.width = max(owners.count(r) for r in range(self.world))
+            # part q's owned column i in the gathered blocks, rank by rank
+            pos = np.array([owners[q] * self.width
+                            + owners[:q].count(owners[q])
+                            for q in range(pm.n_parts)])
+            H, B = pm.H, pm.B
+            cols = np.concatenate([np.arange(H), np.arange(H + B,
+                                                           2 * H + B)])
+            self.hmaps = [(_long(cols, devices[i]), _long(np.concatenate([
+                pos[pm.halo_lo_src_part[p]] * B + pm.halo_lo_src_idx[p],
+                pos[pm.halo_hi_src_part[p]] * B + pm.halo_hi_src_idx[p]]),
+                devices[i])) for i, p in enumerate(local)]
+            return
+        self.smaps = [[] for _ in local]
+        self.sends, self.recvs = [], []
+        tag = 0
+        for p, q, _, send_cols, cols in exchange_pairs(pm):
+            if owners[p] == owners[q]:
+                if owners[p] == rank:
+                    self.smaps[slot[p]].append((
+                        slot[q], _long(send_cols, devices[slot[q]]),
+                        _long(cols, devices[slot[p]])))
+                continue
+            if owners[q] == rank:
+                i = slot[q]
+                self.sends.append((tag, owners[p], i,
+                                   _long(send_cols, devices[i])))
+            if owners[p] == rank:
+                i = slot[p]
+                self.recvs.append((tag, owners[q], i,
+                                   _long(cols, devices[i])))
+            tag += 1
+
+    def __call__(self, xs: list) -> list:
+        if self.mode == "allgather":
+            return self._allgather(xs)
+        slabs = [(tag, dst, self.wire.out(xs[i].index_select(-1, cols)))
+                 for tag, dst, i, cols in self.sends]
+        self.wire.ready()
+        ops = [dist.P2POp(dist.isend, t, dst, tag=tag)
+               for tag, dst, t in slabs]
+        bufs = []
+        for tag, src, i, cols in self.recvs:
+            x = xs[i]
+            buf = self.wire.buffer(x.shape[:-1] + (len(cols),), x.dtype,
+                                   x.device)
+            bufs.append(buf)
+            ops.append(dist.P2POp(dist.irecv, buf, src, tag=tag))
+        reqs = dist.batch_isend_irecv(ops) if ops else []
+        _halo_fill_nbr(xs, self.smaps)
+        for req in reqs:
+            req.wait()
+        for (_, _, i, cols), buf in zip(self.recvs, bufs):
+            x = xs[i]
+            x.index_copy_(x.dim() - 1, cols, self.wire.into(buf, x.device))
+        self.messages += len(slabs)
+        self.nbytes += sum(t.numel() * t.element_size() for _, _, t in slabs)
+        return xs
+
+    def _allgather(self, xs: list) -> list:
+        H, B = self.H, self.B
+        blocks = [x[..., H:H + B] for x in xs]
+        blocks += [torch.zeros_like(blocks[0])] * (self.width - len(xs))
+        mine = self.wire.out(torch.cat(blocks, dim=-1))
+        self.wire.ready()
+        got = [self.wire.buffer(mine.shape, mine.dtype, xs[0].device)
+               for _ in range(self.world)]
+        dist.all_gather(got, mine)
+        flat = {}
+        for x, (cols, src) in zip(xs, self.hmaps):
+            if x.device not in flat:
+                flat[x.device] = self.wire.into(torch.cat(got, dim=-1),
+                                                x.device)
+            x.index_copy_(x.dim() - 1, cols,
+                          flat[x.device].index_select(-1, src))
+        self.messages += self.world - 1
+        self.nbytes += (self.world - 1) * mine.numel() * mine.element_size()
+        return xs
 
 
 def fix_edge_ids(pm: PartitionedMesh, p: int) -> np.ndarray:
@@ -215,7 +392,8 @@ def sharded_fct_ale_step_cuda(mds: list, cfg: FctAleConfig, halo_fill,
 
 
 class ShardedFctAleSolver:
-    """Domain-decomposed FCT-ALE over P = len(devices) parts in one process.
+    """Domain-decomposed FCT-ALE over P = len(devices) parts, in one
+    process or over several.
 
     Usage::
 
@@ -229,11 +407,31 @@ class ShardedFctAleSolver:
                                   devices=["cuda:0"] * 2)
         state, step = sh2.load_checkpoint("ckpt")  # another partition
 
-    The state is a dict of lists: ``state[k][p]`` is part p's tensor,
-    [rows, 2H+B] for node fields and [L, Ed_loc] for edge fields, on
-    ``devices[p]``; with ``tracers=Tb`` > 1 each per-tracer field has a
-    leading tracer axis ([Tb, rows, 2H+B], [Tb, L, Ed_loc]) and ``hnode``,
-    ``hnode_new`` stay [L, 2H+B].
+    Across processes (``parallel/distributed.py``)::
+
+        dist.init_distributed()
+        dev = dist.bind_device()
+        sh = ShardedFctAleSolver(mesh, cfg,
+                                 devices=dist.global_devices([dev] * 2))
+
+    An entry of ``devices`` is a device (a part of this process) or a
+    ``distributed.PartDevice(rank, device)``; the solver is
+    multi-process (``multiprocess``) when some part belongs to another
+    rank.  Every process then partitions the whole mesh (redundantly, as
+    the JAX package does and as each MPI rank builds its subdomain), and
+    builds mesh data and state only for its own parts, ``local_parts``
+    (global part ids, in order): ``state[k]`` lists those parts' tensors,
+    and ``devices``, ``mds`` follow them.  The halo fill crosses
+    processes point to point (``ProcessHaloFill``, over ``transport``);
+    ``gather_node``, ``gather_state`` and ``save_checkpoint`` are
+    collectives that every rank enters; ``run`` is the host's loop.
+
+    The state is a dict of lists: ``state[k][i]`` is the tensor of part
+    ``local_parts[i]`` (part i in one process), [rows, 2H+B] for node
+    fields and [L, Ed_loc] for edge fields, on ``devices[i]``; with
+    ``tracers=Tb`` > 1 each per-tracer field has a leading tracer axis
+    ([Tb, rows, 2H+B], [Tb, L, Ed_loc]) and ``hnode``, ``hnode_new`` stay
+    [L, 2H+B].
 
     backend: None (the default: "cuda" when every device is a CUDA
     device, "torch" when every one is the CPU, a mix raises), "torch"
@@ -255,8 +453,13 @@ class ShardedFctAleSolver:
                  fused: bool = False):
         if tracers < 1:
             raise ValueError(f"tracers must be >= 1, got {tracers}")
-        devices = [torch.device(d) for d in devices]
-        backend = resolve_backend(backend, devices)
+        rank = distributed.process_rank()
+        parts = [d if isinstance(d, distributed.PartDevice)
+                 else distributed.PartDevice(rank, torch.device(d))
+                 for d in devices]
+        every_device = [torch.device(d.device) for d in parts]
+        owners = [d.rank for d in parts]
+        backend = resolve_backend(backend, every_device)
         if backend == "torch":
             if fused:
                 raise ValueError("fused sharded mode is cuda-only")
@@ -264,41 +467,59 @@ class ShardedFctAleSolver:
                 raise ValueError("tracer batching is cuda-only: the CUDA "
                                  "kernels take the tracer axis")
         if exchange == "auto":
-            exchange = "ppermute" if len(devices) > 1 else "allgather"
+            exchange = "ppermute" if len(parts) > 1 else "allgather"
         if exchange not in ("ppermute", "allgather"):
             raise ValueError(f"exchange must be 'auto', 'ppermute' or "
                              f"'allgather', got {exchange!r}")
+        self._owners = owners
+        self.local_parts = [p for p, r in enumerate(owners) if r == rank]
+        if not self.local_parts:
+            raise ValueError(f"rank {rank} holds none of the {len(parts)} "
+                             f"parts: {[tuple(map(str, d)) for d in parts]}")
+        self.multiprocess = any(r != rank for r in owners)
         self.mesh = mesh
         self.cfg = cfg
         self.backend = backend
         self.fused = fused
         self.tracers = tracers
-        self.devices = devices
-        self.n_parts = len(devices)
+        self.devices = [every_device[p] for p in self.local_parts]
+        self.n_parts = len(parts)
         self.exchange_mode = exchange
         self.pm: PartitionedMesh = part_mod.partition_mesh(
             mesh, self.n_parts, counts=part_counts)
         pm = self.pm
-        # each part's global node / edge ids (clamped) and which are real,
-        # to scatter global fields: index_select, where the numpy
+        # each local part's global node / edge ids (clamped) and which are
+        # real, to scatter global fields: index_select, where the numpy
         # scatter_*_field takes seconds for a [Tb, L, N] field
         self._cols = {
-            edge: [(torch.from_numpy(np.maximum(g, 0).astype(np.int64)),
-                    torch.from_numpy(g >= 0)) for g in ids]
+            edge: [(torch.from_numpy(np.maximum(ids[p], 0).astype(np.int64)),
+                    torch.from_numpy(ids[p] >= 0)) for p in self.local_parts]
             for edge, ids in ((False, pm.local_nodes_global),
                               (True, pm.local_edges_global))}
         self.mds: list[MeshData] = [
-            build_mesh_data(m, cfg.dtype, d)
-            for m, d in zip(pm.local_meshes, devices)]
+            build_mesh_data(pm.local_meshes[p], cfg.dtype, d)
+            for p, d in zip(self.local_parts, self.devices)]
         if backend == "cuda" and fused:
             for md in self.mds:
                 check_edge_order(md.edges)  # H-K34's edge ranges
-        maps = _exchange_maps(pm, exchange, devices)
-        if exchange == "ppermute":
-            self.halo_fill = functools.partial(_halo_fill_nbr, smaps=maps)
+        if self.multiprocess:
+            self.wire = Wire(dist.get_backend(), self.devices)
+            self.transport = self.wire.name
+            self.halo_fill = ProcessHaloFill(pm, exchange, owners, rank,
+                                             self.devices, self.wire)
+            print(f"rank {rank}: parts {self.local_parts} of "
+                  f"{self.n_parts} on {[str(d) for d in self.devices]}, "
+                  f"{exchange} exchange over {self.transport}", flush=True)
         else:
-            self.halo_fill = functools.partial(_halo_fill, hmaps=maps,
-                                               B=pm.B, H=pm.H)
+            self.wire = None
+            self.transport = "in-process"
+            maps = _exchange_maps(pm, exchange, self.devices)
+            if exchange == "ppermute":
+                self.halo_fill = functools.partial(_halo_fill_nbr,
+                                                   smaps=maps)
+            else:
+                self.halo_fill = functools.partial(_halo_fill, hmaps=maps,
+                                                   B=pm.B, H=pm.H)
         # split mode's owned columns, the same on every part: K4-fix limits
         # again the edges with an endpoint outside them
         self.owned = None
@@ -311,9 +532,10 @@ class ShardedFctAleSolver:
             self._step_parts = functools.partial(
                 sharded_fct_ale_step_cuda, self.mds, cfg, self.halo_fill,
                 owned=self.owned)
-        self._graphs = (graphs.StepGraphs(devices[0])
-                        if backend == "cuda" and len(set(devices)) == 1
-                        else None)
+        # a graph captures one device, and no gloo send
+        self._graphs = (graphs.StepGraphs(self.devices[0])
+                        if backend == "cuda" and not self.multiprocess
+                        and len(set(self.devices)) == 1 else None)
 
     # ---- state movement -------------------------------------------------
     def init_state(self, fields: dict) -> dict:
@@ -344,33 +566,79 @@ class ShardedFctAleSolver:
                 for (cols, live), d in zip(self._cols[edge], self.devices)]
         return out
 
+    def _every_part(self, tensors: list, edge: bool) -> np.ndarray:
+        """Every part's tensor, stacked [P, ...] in numpy.  Across
+        processes an ``all_gather`` that every rank enters, of the owned
+        blocks ``[.., H:H+B]`` of node fields (the other columns stay 0)
+        and the whole tensors of edge fields."""
+        if not self.multiprocess:
+            return np.stack([t.detach().cpu().numpy() for t in tensors])
+        H, B = self.pm.H, self.pm.B
+        blocks = [t.detach() if edge else t.detach()[..., H:H + B]
+                  for t in tensors]
+        # zero-padded to the most parts a rank holds: all_gather takes one
+        # shape from every rank
+        width = max(self._owners.count(r) for r in set(self._owners))
+        blocks += [torch.zeros_like(blocks[0])] * (width - len(blocks))
+        mine = self.wire.out(torch.stack(blocks))
+        self.wire.ready()
+        got = [self.wire.buffer(mine.shape, mine.dtype, mine.device)
+               for _ in range(dist.get_world_size())]
+        dist.all_gather(got, mine)
+        got = [g.cpu().numpy() for g in got]
+        out = np.zeros((self.n_parts,) + tuple(tensors[0].shape),
+                       dtype=got[0].dtype)
+        seen = [0] * len(got)
+        for p, r in enumerate(self._owners):
+            block = got[r][seen[r]]
+            seen[r] += 1
+            if edge:
+                out[p] = block
+            else:
+                out[p, ..., H:H + B] = block
+        return out
+
     def gather_node(self, tensors: list) -> np.ndarray:
         """Per-part node tensors -> the global [.., N] numpy field, from
-        the owned columns (a tracer axis stays in front)."""
+        the owned columns (a tracer axis stays in front).  Across
+        processes every rank must call it, and every rank gets the whole
+        field, as the JAX ``process_allgather``."""
         return part_mod.gather_node_field(
-            self.pm, np.stack([t.detach().cpu().numpy() for t in tensors]))
+            self.pm, self._every_part(tensors, edge=False))
 
     def gather_state(self, state: dict) -> dict:
         """Per-part state -> global natural-layout numpy dict (per-tracer
-        fields [Tb, ...] when the state has a tracer axis)."""
+        fields [Tb, ...] when the state has a tracer axis); collective
+        across processes, as :meth:`gather_node`."""
         out = {}
         for k, v in state.items():
-            local = np.stack([t.detach().cpu().numpy() for t in v])
-            out[k] = (part_mod.gather_edge_field if k in EDGE_FIELDS
+            edge = k in EDGE_FIELDS
+            local = self._every_part(v, edge)
+            out[k] = (part_mod.gather_edge_field if edge
                       else part_mod.gather_node_field)(self.pm, local)
         return out
 
-    def save_checkpoint(self, path, state: dict, step: int = 0) -> None:
+    def save_checkpoint(self, path, state: dict, step: int = 0) -> bool:
         """Writes the gathered global state (:meth:`gather_state`) with
         the mesh fingerprint and the config (``runtime/checkpoint.py``,
-        npz): it loads at any partition, in the JAX package as well."""
-        ckpt.save_checkpoint(path, self.gather_state(state), self.mesh,
-                             self.cfg, step=step)
+        npz): it loads at any partition, in the JAX package as well.
+        Across processes every rank gathers (a collective), rank 0 alone
+        writes, and every rank waits at a barrier until it has.  Returns
+        whether this process wrote the files."""
+        gathered = self.gather_state(state)
+        writes = distributed.process_rank() == 0
+        if writes:
+            ckpt.save_checkpoint(path, gathered, self.mesh, self.cfg,
+                                 step=step)
+        if self.multiprocess:
+            dist.barrier()
+        return writes
 
     def load_checkpoint(self, path) -> tuple:
         """(per-part state, step) from a checkpoint, scattered through
         :meth:`init_state`: a run saved at P parts resumes at this
-        solver's partition.  Raises on another mesh, vlimit, iter_yn or
+        solver's partition (each rank reads the file and takes its own
+        parts).  Raises on another mesh, vlimit, iter_yn or
         tracer count."""
         st, step = ckpt.load_checkpoint(path, self.mesh, self.cfg)
         lead = st["ttf"].shape[:-2]
@@ -383,8 +651,8 @@ class ShardedFctAleSolver:
 
     # ---- stepping -------------------------------------------------------
     def step(self, state: dict) -> dict:
-        parts = [{k: v[p] for k, v in state.items()}
-                 for p in range(self.n_parts)]
+        parts = [{k: v[i] for k, v in state.items()}
+                 for i in range(len(self.local_parts))]
         outs = self._step_parts(parts)
         return {k: [o[k] for o in outs] for k in outs[0]}
 
@@ -396,7 +664,7 @@ class ShardedFctAleSolver:
         loop of :meth:`step`."""
         if self._graphs is None:
             return graphs.loop(self.step, state, n_steps)
-        n = self.n_parts
+        n = len(self.local_parts)
         flat = self._graphs.run(
             self._step_flat, {(k, p): v[p] for k, v in state.items()
                               for p in range(n)}, n_steps)
@@ -405,8 +673,7 @@ class ShardedFctAleSolver:
     def _step_flat(self, flat: dict) -> dict:
         """:meth:`step` on the state as one dict keyed (field, part), the
         form a graph's carry takes."""
+        n = len(self.local_parts)
         keys = dict.fromkeys(k for k, _ in flat)
-        new = self.step({k: [flat[k, p] for p in range(self.n_parts)]
-                         for k in keys})
-        return {(k, p): v[p] for k, v in new.items()
-                for p in range(self.n_parts)}
+        new = self.step({k: [flat[k, p] for p in range(n)] for k in keys})
+        return {(k, p): v[p] for k, v in new.items() for p in range(n)}

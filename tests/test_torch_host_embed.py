@@ -1,0 +1,201 @@
+"""PyTorch port: the host-embedding C ABI (``native/fesom2_torch_host.cpp``
+over ``host_embed``), the counterpart of tests/test_native.py:108-181.
+
+* the port's C demo host, built with g++ and linked against the port's
+  shim, runs one step on the ``toy`` mesh through ``f2t_*_`` only:
+  backend 0 (torch f64 on the CPU) bit for bit against
+  ``FctAleSolver(device="cpu")`` in f64, and against the JAX f64 solver at
+  1e-12, with ``iter_yn`` both ways;
+* backend 1 (the CUDA kernels) on a host without a card: ``istat`` 1 from
+  setup, and the message names the missing device; nothing stands in;
+* backend 1's Python ``step`` on the CPU, given the CUDA step function
+  (each kernel wrapper's plain version), against the JAX
+  ``FctAleSolver(backend="pallas")`` in interpret mode at 2e-6;
+* the port's ``extern "C"`` block declares the names and parameter lists
+  of the JAX package's ``native/fesom2_tpu_host.cpp`` (a text check);
+* ``build_mesh_from_elements`` keeps the edge order H-K34 needs on the
+  host's elements.
+
+The build is skipped only where g++ or libpython is absent, as
+tests/test_native.py skips."""
+
+import pathlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fesom2_accelerate_tpu.config import FctAleConfig as JaxFctAleConfig
+from fesom2_accelerate_tpu.mesh import generate_planar_mesh as jax_planar_mesh
+from fesom2_accelerate_tpu.model.fct_ale import FctAleSolver as JaxFctAleSolver
+from fesom2_accelerate_tpu.ops.pallas import kernels as pallas_kernels
+from fesom2_accelerate_tpu_torch import host_embed
+from fesom2_accelerate_tpu_torch.mesh import (
+    generate_planar_mesh,
+    random_fields,
+)
+from fesom2_accelerate_tpu_torch.mesh.topology import (
+    build_mesh_from_elements,
+)
+from fesom2_accelerate_tpu_torch.model import FctAleSolver
+from fesom2_accelerate_tpu_torch.native import build, demo
+from fesom2_accelerate_tpu_torch.ops.cuda.step import fct_ale_step_cuda
+from fesom2_accelerate_tpu_torch.ops.meshdata import check_edge_order
+
+from conftest import masked_allclose
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+F32_RELERR = 2e-6  # tests/test_native.py:181
+DT_MILLI = 500
+
+
+@pytest.fixture(scope="module")
+def toy():
+    mesh = generate_planar_mesh(preset="toy")
+    return mesh, random_fields(mesh, seed=5)
+
+
+@pytest.fixture(scope="module")
+def demo_exe():
+    if not build.available():
+        pytest.skip("host embedding shim unavailable (no g++ or libpython)")
+    return build.build()[1]
+
+
+def _jax(iter_yn, backend, fields):
+    if backend == "pallas":
+        cfg = JaxFctAleConfig(dt=DT_MILLI * 1e-3, vlimit=1, iter_yn=iter_yn,
+                              dtype=jnp.float32, flux_eps=1e-7)
+    else:
+        cfg = JaxFctAleConfig(dt=DT_MILLI * 1e-3, vlimit=1, iter_yn=iter_yn,
+                              dtype=jnp.float64)
+    pallas_kernels.set_interpret(backend == "pallas")
+    try:
+        solver = JaxFctAleSolver(jax_planar_mesh(preset="toy"), cfg,
+                                 backend=backend)
+        return {k: np.asarray(v)
+                for k, v in solver.step(solver.init_state(fields)).items()}
+    finally:
+        pallas_kernels.set_interpret(False)
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_c_demo_backend0_matches_port_and_jax(tmp_path, toy, demo_exe,
+                                              iter_yn):
+    mesh, fields = toy
+    demo.write_inputs(tmp_path, mesh, fields, DT_MILLI, 1, iter_yn, 0)
+    p = demo.run(demo_exe, tmp_path)
+    assert p.returncode == 0, f"demo failed:\n{p.stdout}\n{p.stderr[-3000:]}"
+    assert f"nodes={mesh.n_nodes} edges={mesh.n_edges}" in p.stdout
+    got = demo.outputs(tmp_path, mesh, iter_yn)
+
+    solver = FctAleSolver(mesh, host_embed.config(0, DT_MILLI, 1, iter_yn),
+                          device="cpu")
+    ref = solver.step(solver.init_state(fields))
+    jref = _jax(iter_yn, "xla", fields)
+    assert set(got) == ({"fct_adf_v", "fct_adf_h"} | (
+        {"fct_LO"} if iter_yn else {"del_ttf_advvert", "del_ttf_advhoriz"}))
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, ref[k].numpy(), err_msg=k)
+        masked_allclose(v, jref[k], msg=f"jax[{k}]")
+
+
+def test_backend1_without_a_card_fails_setup(tmp_path, toy, demo_exe,
+                                             capsys, monkeypatch):
+    mesh, fields = toy
+    # through the C host: f2t_setup_ gives istat 1, the demo exits 4
+    demo.write_inputs(tmp_path, mesh, fields, DT_MILLI, 1, False, 1)
+    p = demo.run(demo_exe, tmp_path)
+    assert p.returncode == 4, p.stdout + p.stderr
+    assert "needs a CUDA device" in p.stderr
+    # the same call from Python, with the card hidden where there is one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    en = np.ascontiguousarray(mesh.elem_nodes, np.int32)
+    nl = np.ascontiguousarray(mesh.nlev_elem, np.int32)
+    xy = np.ascontiguousarray(mesh.node_xy, np.float64)
+    assert host_embed.setup(mesh.n_elems, mesh.nl, en.ctypes.data,
+                            nl.ctypes.data, mesh.n_nodes, xy.ctypes.data,
+                            DT_MILLI, 1, 0, 1) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="setup has not succeeded"):
+        host_embed.dims()
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_backend1_step_on_cpu_matches_jax_pallas(toy, monkeypatch, iter_yn):
+    """Backend 1 through ``setup`` / ``step`` on caller-owned f64 buffers,
+    its solver a CPU one given the CUDA step function."""
+    mesh, fields = toy
+
+    def cpu_solver(mesh, cfg, backend):
+        assert backend == 1 and cfg.dtype == torch.float32
+        solver = FctAleSolver(mesh, cfg, device="cpu")
+        solver._step_fn = fct_ale_step_cuda
+        return solver
+
+    monkeypatch.setattr(host_embed, "_solver", cpu_solver)
+    en = np.ascontiguousarray(mesh.elem_nodes, np.int32)
+    nl = np.ascontiguousarray(mesh.nlev_elem, np.int32)
+    xy = np.ascontiguousarray(mesh.node_xy, np.float64)
+    try:
+        assert host_embed.setup(mesh.n_elems, mesh.nl, en.ctypes.data,
+                                nl.ctypes.data, mesh.n_nodes, xy.ctypes.data,
+                                DT_MILLI, 1, int(iter_yn), 1) == 0
+        assert host_embed.dims() == (mesh.n_nodes, mesh.n_edges,
+                                     mesh.n_layers)
+        bufs = {k: np.array(fields[k], np.float64)
+                for k, _ in demo.FIELD_FILES}
+        before = {k: v.copy() for k, v in bufs.items()}
+        assert host_embed.step(*(bufs[k].ctypes.data
+                                 for k, _ in demo.FIELD_FILES)) == 0
+    finally:
+        host_embed.reset()
+    jref = _jax(iter_yn, "pallas", fields)
+    written = {"fct_adf_v", "fct_adf_h"} | (
+        {"fct_LO"} if iter_yn else {"del_ttf_advvert", "del_ttf_advhoriz"})
+    for k, v in bufs.items():
+        if k not in written:
+            np.testing.assert_array_equal(v, before[k], err_msg=k)
+            continue
+        ref = jref[k][:v.shape[0]]
+        err = np.abs(v - ref).max() / max(np.abs(ref).max(), 1.0)
+        assert err < F32_RELERR, f"{k}: relerr {err:.2e}"
+        assert not np.array_equal(v, before[k]), k
+
+
+def _extern_c(path: pathlib.Path) -> dict:
+    """name -> parameter list (whitespace collapsed) of each function
+    defined in the file's ``extern "C"`` block."""
+    text = path.read_text()
+    block = text[text.index('extern "C" {'):]
+    sigs = re.findall(r"void\s+(f2t_\w+)\s*\(([^)]*)\)\s*\{", block)
+    return {name: " ".join(params.split()) for name, params in sigs}
+
+
+def test_c_surface_matches_jax_shim():
+    port = REPO / "fesom2_accelerate_tpu_torch" / "native"
+    ours = _extern_c(port / "fesom2_torch_host.cpp")
+    assert ours == _extern_c(REPO / "native" / "fesom2_tpu_host.cpp")
+    assert set(ours) == {"f2t_init_", "f2t_setup_", "f2t_dims_",
+                         "f2t_fct_ale_step_", "f2t_finalize_"}
+    # the demo host declares the same surface
+    decls = re.findall(r"void\s+(f2t_\w+)\s*\(([^)]*)\);",
+                       (port / "host_embed_demo.cpp").read_text())
+    assert {n: " ".join(p.split()) for n, p in decls} == ours
+    # the shim imports the port, never the JAX package
+    src = (port / "fesom2_torch_host.cpp").read_text()
+    assert '"fesom2_accelerate_tpu_torch.host_embed"' in src
+    assert "std::call_once" in src
+
+
+@pytest.mark.parametrize("preset", ["toy", "tiny", "small"])
+def test_host_built_mesh_keeps_edge_order(preset):
+    """The mesh ``setup`` builds from the host's elements has the planar
+    mesh's edges, in the order H-K34's edge ranges need."""
+    mesh = generate_planar_mesh(preset=preset)
+    host = build_mesh_from_elements(mesh.elem_nodes, mesh.nlev_elem,
+                                    mesh.nl, mesh.node_xy)
+    np.testing.assert_array_equal(host.edges, mesh.edges)
+    assert check_edge_order(torch.from_numpy(host.edges)) == mesh.n_edges

@@ -144,8 +144,11 @@ def test_port_imports_no_jax():
     step of two tracers, the tuner's
     validation of a2 and of the K12 -> K3 -> K4 step, the run path's
     ``runtime.graphs`` and ``runtime.checkpoint`` (orbax unimportable as
-    well) and a checkpoint of the sharded toy state resumed on one
-    device."""
+    well), a checkpoint of the sharded toy state resumed on one
+    device, and the multi-process and host-embedding modules
+    (``parallel.distributed``, ``utils.multiproc``, ``host_embed`` and
+    the shim's ``native`` build and demo runner): one step through
+    ``host_embed`` on caller-owned buffers."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -200,6 +203,19 @@ def test_port_imports_no_jax():
         "    sh.save_checkpoint(d, st, step=1)\n"
         "    back, n = checkpoint.load_checkpoint(d, mesh, s.cfg)\n"
         "assert n == 1 and s.run(s.init_state(back), 1).keys() == back.keys()\n"
+        "from fesom2_accelerate_tpu_torch.parallel import distributed\n"
+        "from fesom2_accelerate_tpu_torch.utils import multiproc\n"
+        "from fesom2_accelerate_tpu_torch.native import build, demo\n"
+        "from fesom2_accelerate_tpu_torch import host_embed as he\n"
+        "assert distributed.global_devices(['cpu'])[0].rank == 0\n"
+        "assert multiproc.case_config('f64', False).dtype == torch.float64\n"
+        "en, nl = mesh.elem_nodes.copy(), mesh.nlev_elem.copy()\n"
+        "xy = mesh.node_xy.copy()\n"
+        "assert he.setup(mesh.n_elems, mesh.nl, en.ctypes.data,\n"
+        "                nl.ctypes.data, N, xy.ctypes.data, 500, 1, 0, 0) == 0\n"
+        "fl = random_fields(mesh, seed=0)\n"
+        "bufs = [np.array(fl[k], np.float64) for k, _ in demo.FIELD_FILES]\n"
+        "assert he.step(*(b.ctypes.data for b in bufs)) == 0\n"
         "assert not [m for m in sys.modules\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib', 'orbax')\n"
         "            and sys.modules[m] is not None]\n"
