@@ -2772,7 +2772,7 @@ def mp_case(label: str, preset: str, dtype: str, mode: str, steps: int,
             steps=steps, parts_per_rank=MP_PARTS_PER_RANK, device="cuda",
             checkpoint=checkpoint, checkpoint_at=checkpoint_at,
             time_steps=timed),
-        f"file://{out}.rdv", MP_TIMEOUT, out=out)
+        f"file://{out}/rdv", MP_TIMEOUT, out=out)
     wall = time.perf_counter() - t0
     if status != 0:
         raise AssertionError(f"{label}: 2 processes, status {status}\n"

@@ -156,17 +156,24 @@ def _long(a, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.int64), device=device)
 
 
+def _allgather_maps(pm: PartitionedMesh, parts: list,
+                    devices: list) -> list:
+    """The all-gather form's ``hmaps`` of each of ``parts`` (global ids),
+    on ``devices`` (one a part): its 2H halo columns and their flat
+    indices q*B + i into every part's owned block, concatenated in part
+    order."""
+    H, B = pm.H, pm.B
+    cols = np.concatenate([np.arange(H), np.arange(H + B, 2 * H + B)])
+    return [(_long(cols, d), _long(np.concatenate([
+        pm.halo_lo_src_part[p] * B + pm.halo_lo_src_idx[p],
+        pm.halo_hi_src_part[p] * B + pm.halo_hi_src_idx[p]]), d))
+        for p, d in zip(parts, devices)]
+
+
 def _exchange_maps(pm: PartitionedMesh, mode: str, devices: list) -> list:
     """Per-part index tensors of the halo fill of ``mode``."""
-    H, B = pm.H, pm.B
-    hi_cols = np.arange(H + B, H + B + H)
-    cols = np.concatenate([np.arange(H), hi_cols])
-
     if mode == "allgather":
-        return [(_long(cols, devices[p]), _long(np.concatenate([
-            pm.halo_lo_src_part[p] * B + pm.halo_lo_src_idx[p],
-            pm.halo_hi_src_part[p] * B + pm.halo_hi_src_idx[p]]),
-            devices[p])) for p in range(pm.n_parts)]
+        return _allgather_maps(pm, range(pm.n_parts), devices)
     smaps = [[] for _ in range(pm.n_parts)]
     for p, q, _, send_cols, c in exchange_pairs(pm):
         smaps[p].append((q, _long(send_cols, devices[q]),
@@ -217,6 +224,28 @@ class Wire:
         return t.to(device, non_blocking=True)
 
 
+def _gather_owned(blocks: list, owners: list, wire: Wire) -> tuple:
+    """Every part's block from every rank, ``blocks`` this rank's (its
+    parts', in order): (the blocks in global part order, the bytes this
+    rank sent to each other rank).  One ``all_gather`` that every rank
+    enters, of this rank's blocks stacked and zero-padded to the most
+    parts a rank holds (it takes one shape from every rank); the blocks
+    come back on the host when ``wire`` stages."""
+    width = max(owners.count(r) for r in set(owners))
+    blocks = blocks + [torch.zeros_like(blocks[0])] * (width - len(blocks))
+    mine = wire.out(torch.stack(blocks))
+    wire.ready()
+    got = [wire.buffer(mine.shape, mine.dtype, blocks[0].device)
+           for _ in range(dist.get_world_size())]
+    dist.all_gather(got, mine)
+    seen = [0] * len(got)
+    out = []
+    for r in owners:
+        out.append(got[r][seen[r]])
+        seen[r] += 1
+    return out, mine.numel() * mine.element_size()
+
+
 class ProcessHaloFill:
     """The halo fill of parts spread over processes: ``xs`` holds this
     rank's parts (``local``, global part ids, in order).
@@ -230,8 +259,8 @@ class ProcessHaloFill:
       by their place in the list of cross-process slabs, which every rank
       derives alike;
     * allgather: every rank's owned blocks (``[.., H:H+B]`` of each of its
-      parts, zero-padded to the most parts a rank holds) in one
-      ``all_gather``, then each part's halo columns taken from it.
+      parts) in one ``all_gather`` (:func:`_gather_owned`), then each
+      part's halo columns taken from them, as :func:`_halo_fill` does.
 
     ``owners[p]`` is the rank of part p, ``devices`` this rank's parts'
     devices.  ``messages`` and ``nbytes`` count what this rank sent since
@@ -241,24 +270,13 @@ class ProcessHaloFill:
                  rank: int, devices: list, wire: Wire):
         self.wire = wire
         self.mode = mode
+        self.owners = owners
         self.H, self.B = pm.H, pm.B
         local = [p for p, r in enumerate(owners) if r == rank]
         slot = {p: i for i, p in enumerate(local)}
         self.messages = self.nbytes = 0
         if mode == "allgather":
-            self.world = dist.get_world_size()
-            self.width = max(owners.count(r) for r in range(self.world))
-            # part q's owned column i in the gathered blocks, rank by rank
-            pos = np.array([owners[q] * self.width
-                            + owners[:q].count(owners[q])
-                            for q in range(pm.n_parts)])
-            H, B = pm.H, pm.B
-            cols = np.concatenate([np.arange(H), np.arange(H + B,
-                                                           2 * H + B)])
-            self.hmaps = [(_long(cols, devices[i]), _long(np.concatenate([
-                pos[pm.halo_lo_src_part[p]] * B + pm.halo_lo_src_idx[p],
-                pos[pm.halo_hi_src_part[p]] * B + pm.halo_hi_src_idx[p]]),
-                devices[i])) for i, p in enumerate(local)]
+            self.hmaps = _allgather_maps(pm, local, devices)
             return
         self.smaps = [[] for _ in local]
         self.sends, self.recvs = [], []
@@ -308,22 +326,18 @@ class ProcessHaloFill:
 
     def _allgather(self, xs: list) -> list:
         H, B = self.H, self.B
-        blocks = [x[..., H:H + B] for x in xs]
-        blocks += [torch.zeros_like(blocks[0])] * (self.width - len(xs))
-        mine = self.wire.out(torch.cat(blocks, dim=-1))
-        self.wire.ready()
-        got = [self.wire.buffer(mine.shape, mine.dtype, xs[0].device)
-               for _ in range(self.world)]
-        dist.all_gather(got, mine)
+        blocks, sent = _gather_owned([x[..., H:H + B] for x in xs],
+                                     self.owners, self.wire)
         flat = {}
         for x, (cols, src) in zip(xs, self.hmaps):
             if x.device not in flat:
-                flat[x.device] = self.wire.into(torch.cat(got, dim=-1),
+                flat[x.device] = self.wire.into(torch.cat(blocks, dim=-1),
                                                 x.device)
             x.index_copy_(x.dim() - 1, cols,
                           flat[x.device].index_select(-1, src))
-        self.messages += self.world - 1
-        self.nbytes += (self.world - 1) * mine.numel() * mine.element_size()
+        others = dist.get_world_size() - 1
+        self.messages += others
+        self.nbytes += others * sent
         return xs
 
 
@@ -480,8 +494,6 @@ class ShardedFctAleSolver:
         self.mesh = mesh
         self.cfg = cfg
         self.backend = backend
-        self.fused = fused
-        self.tracers = tracers
         self.devices = [every_device[p] for p in self.local_parts]
         self.n_parts = len(parts)
         self.exchange_mode = exchange
@@ -499,9 +511,6 @@ class ShardedFctAleSolver:
         self.mds: list[MeshData] = [
             build_mesh_data(pm.local_meshes[p], cfg.dtype, d)
             for p, d in zip(self.local_parts, self.devices)]
-        if backend == "cuda" and fused:
-            for md in self.mds:
-                check_edge_order(md.edges)  # H-K34's edge ranges
         if self.multiprocess:
             self.wire = Wire(dist.get_backend(), self.devices)
             self.transport = self.wire.name
@@ -520,22 +529,35 @@ class ShardedFctAleSolver:
             else:
                 self.halo_fill = functools.partial(_halo_fill, hmaps=maps,
                                                    B=pm.B, H=pm.H)
-        # split mode's owned columns, the same on every part: K4-fix limits
-        # again the edges with an endpoint outside them
-        self.owned = None
-        if backend == "torch":
-            self._step_parts = functools.partial(
-                sharded_fct_ale_step, self.mds, cfg, self.halo_fill)
-        else:
-            if not fused:
-                self.owned = (pm.H, pm.H + pm.B)
-            self._step_parts = functools.partial(
-                sharded_fct_ale_step_cuda, self.mds, cfg, self.halo_fill,
-                owned=self.owned)
+        self.set_step(backend == "cuda", fused, tracers)
         # a graph captures one device, and no gloo send
         self._graphs = (graphs.StepGraphs(self.devices[0])
                         if backend == "cuda" and not self.multiprocess
                         and len(set(self.devices)) == 1 else None)
+
+    def set_step(self, kernels: bool, fused: bool = False,
+                 tracers: int = 1) -> None:
+        """Wires :meth:`step`: the plain stages, or with ``kernels`` the
+        CUDA backend's step, split or fused, at ``tracers`` tracers (what
+        ``backend`` chose at construction).  On a CPU solver the kernel
+        step runs every kernel wrapper's plain version, the form the CPU
+        tests hold against the JAX package."""
+        self.fused, self.tracers = fused, tracers
+        # split mode's owned columns, the same on every part: K4-fix limits
+        # again the edges with an endpoint outside them
+        self.owned = None
+        if not kernels:
+            self._step_parts = functools.partial(
+                sharded_fct_ale_step, self.mds, self.cfg, self.halo_fill)
+            return
+        if fused:
+            for md in self.mds:
+                check_edge_order(md.edges)  # H-K34's edge ranges
+        else:
+            self.owned = (self.pm.H, self.pm.H + self.pm.B)
+        self._step_parts = functools.partial(
+            sharded_fct_ale_step_cuda, self.mds, self.cfg, self.halo_fill,
+            owned=self.owned)
 
     # ---- state movement -------------------------------------------------
     def init_state(self, fields: dict) -> dict:
@@ -574,24 +596,13 @@ class ShardedFctAleSolver:
         if not self.multiprocess:
             return np.stack([t.detach().cpu().numpy() for t in tensors])
         H, B = self.pm.H, self.pm.B
-        blocks = [t.detach() if edge else t.detach()[..., H:H + B]
-                  for t in tensors]
-        # zero-padded to the most parts a rank holds: all_gather takes one
-        # shape from every rank
-        width = max(self._owners.count(r) for r in set(self._owners))
-        blocks += [torch.zeros_like(blocks[0])] * (width - len(blocks))
-        mine = self.wire.out(torch.stack(blocks))
-        self.wire.ready()
-        got = [self.wire.buffer(mine.shape, mine.dtype, mine.device)
-               for _ in range(dist.get_world_size())]
-        dist.all_gather(got, mine)
-        got = [g.cpu().numpy() for g in got]
+        blocks, _ = _gather_owned(
+            [t.detach() if edge else t.detach()[..., H:H + B]
+             for t in tensors], self._owners, self.wire)
+        blocks = [b.cpu().numpy() for b in blocks]
         out = np.zeros((self.n_parts,) + tuple(tensors[0].shape),
-                       dtype=got[0].dtype)
-        seen = [0] * len(got)
-        for p, r in enumerate(self._owners):
-            block = got[r][seen[r]]
-            seen[r] += 1
+                       dtype=blocks[0].dtype)
+        for p, block in enumerate(blocks):
             if edge:
                 out[p] = block
             else:
@@ -623,10 +634,11 @@ class ShardedFctAleSolver:
         the mesh fingerprint and the config (``runtime/checkpoint.py``,
         npz): it loads at any partition, in the JAX package as well.
         Across processes every rank gathers (a collective), rank 0 alone
-        writes, and every rank waits at a barrier until it has.  Returns
-        whether this process wrote the files."""
+        writes, and every rank waits at a barrier until it has; a
+        one-process solver writes whatever its rank.  Returns whether this
+        process wrote the files."""
         gathered = self.gather_state(state)
-        writes = distributed.process_rank() == 0
+        writes = not self.multiprocess or distributed.process_rank() == 0
         if writes:
             ckpt.save_checkpoint(path, gathered, self.mesh, self.cfg,
                                  step=step)

@@ -25,10 +25,11 @@ CUDA device, the step time of a second run of the same steps from the
 same state, by CUDA events on the rank's stream and by host wall, and the
 time of one field's halo fill alone.
 
-``--mode split`` or ``fused`` on the CPU gives the CPU solver the CUDA
-step functions (:func:`use_cuda_steps`: every kernel wrapper runs its
-plain version on CPU tensors), as the CPU tests of the one-process
-solver do.
+A worker runs on the card (``--device cuda``) unless it is asked for
+the CPU (``--device cpu``).  ``--mode split`` or ``fused`` on the CPU
+gives the CPU solver the CUDA step functions
+(``ShardedFctAleSolver.set_step``: every kernel wrapper runs its plain
+version on CPU tensors), as the CPU tests of the one-process solver do.
 
 The case's inputs and config are :func:`case_config` and
 :func:`case_fields`, so that a one-process run to compare with is built
@@ -83,25 +84,6 @@ def case_fields(preset: str, tracers: int = 1) -> dict:
     return Inputs({preset: case_mesh(preset)}).fields(preset, tracers)
 
 
-def use_cuda_steps(sh, fused: bool, tracers: int = 1) -> None:
-    """Gives the CPU solver ``sh`` (backend "torch") the CUDA backend's
-    step, split or fused, at ``tracers`` tracers: on CPU tensors every
-    kernel wrapper runs its plain version."""
-    from fesom2_accelerate_tpu_torch.ops.meshdata import check_edge_order
-    from fesom2_accelerate_tpu_torch.parallel.step_sharded import (
-        sharded_fct_ale_step_cuda,
-    )
-
-    if fused:
-        for md in sh.mds:
-            check_edge_order(md.edges)
-    sh.fused = fused
-    sh.tracers = tracers
-    sh.owned = None if fused else (sh.pm.H, sh.pm.H + sh.pm.B)
-    sh._step_parts = functools.partial(sharded_fct_ale_step_cuda, sh.mds,
-                                       sh.cfg, sh.halo_fill, owned=sh.owned)
-
-
 def build_solver(devices: list, preset: str, dtype: str, mode: str,
                  iter_yn: bool, exchange: str = "auto", tracers: int = 1):
     """The sharded solver of a case on ``devices`` (plain devices in one
@@ -119,7 +101,7 @@ def build_solver(devices: list, preset: str, dtype: str, mode: str,
         devices=devices, exchange=exchange, tracers=tracers if cuda else 1,
         fused=mode == "fused" and cuda)
     if cpu and mode != "torch":
-        use_cuda_steps(sh, mode == "fused", tracers)
+        sh.set_step(True, mode == "fused", tracers)
     return sh
 
 
@@ -140,10 +122,11 @@ def take_steps(sh, state: dict, steps: int) -> dict:
 def worker_args(preset: str = "tiny", dtype: str = "f32",
                 mode: str = "torch", exchange: str = "auto",
                 tracers: int = 1, iter_yn: bool = False, steps: int = 1,
-                parts_per_rank: int = 2, device: str = "cpu",
+                parts_per_rank: int = 2, device: str = "cuda",
                 checkpoint: str | None = None, checkpoint_at: int = 0,
                 time_steps: bool = False) -> list:
-    """The command-line options of one case."""
+    """The command-line options of one case, on the card unless
+    ``device="cpu"``."""
     args = ["--preset", preset, "--dtype", dtype, "--mode", mode,
             "--exchange", exchange, "--tracers", str(tracers),
             "--iter", str(int(iter_yn)), "--steps", str(steps),
@@ -171,7 +154,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--iter", type=int, default=0)
     ap.add_argument("--steps", type=int, default=1)
     ap.add_argument("--parts-per-rank", type=int, default=2)
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    ap.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--checkpoint-at", type=int, default=0)
     ap.add_argument("--time", action="store_true",

@@ -41,6 +41,7 @@ from fesom2_accelerate_tpu_torch import ShardedFctAleSolver
 from fesom2_accelerate_tpu_torch.mesh import generate_planar_mesh
 from fesom2_accelerate_tpu_torch.parallel import distributed
 from fesom2_accelerate_tpu_torch.parallel import partition as part_mod
+from fesom2_accelerate_tpu_torch.parallel import step_sharded
 from fesom2_accelerate_tpu_torch.parallel.step_sharded import (
     ProcessHaloFill,
     Wire,
@@ -60,7 +61,8 @@ def _launch(tmp_path, name, **case):
     rank's JSON row); rank 1 gathered the same bits."""
     out = tmp_path / name
     status, logs = multiproc.launch(
-        2, multiproc.worker_args(**case), f"file://{out}.rdv", TIMEOUT,
+        2, multiproc.worker_args(device="cpu", **case), f"file://{out}.rdv",
+        TIMEOUT,
         out=out)
     assert status == 0, "\n".join(f"rank {r}:\n{log[-3000:]}"
                                   for r, log in enumerate(logs))
@@ -175,6 +177,52 @@ def test_collective_checkpoint_resumes_in_one_process(tmp_path):
         np.testing.assert_array_equal(resumed[k], v, err_msg=k)
 
 
+def test_one_process_checkpoint_writes_at_any_rank(tmp_path, monkeypatch):
+    """A one-process solver in a rank other than 0 (each rank running a
+    solver of its own) still writes its checkpoint."""
+    sh = ShardedFctAleSolver(multiproc.case_mesh("tiny"),
+                             multiproc.case_config("f64", False),
+                             devices=["cpu"] * 2)
+    state = sh.init_state(multiproc.case_fields("tiny"))
+    monkeypatch.setattr(distributed, "process_rank", lambda: 1)
+    assert not sh.multiprocess
+    assert sh.save_checkpoint(tmp_path / "ck", state, step=3)
+    assert (tmp_path / "ck" / "meta.json").exists()
+    _, step = sh.load_checkpoint(tmp_path / "ck")
+    assert step == 3
+
+
+def test_gather_owned_unpacks_ranks_of_unequal_parts(monkeypatch):
+    """Rank 1 holds one part and rank 0 three: rank 1's stack is
+    zero-padded to three, and the blocks come back in part order."""
+    owners = [0, 0, 0, 1]
+    blocks = [torch.full((2, 3), float(p + 1)) for p in range(4)]
+
+    def all_gather(got, mine):
+        assert mine.shape == (3, 2, 3)
+        got[0].copy_(torch.stack(blocks[:3]))
+        got[1].copy_(mine)
+
+    monkeypatch.setattr(step_sharded.dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(step_sharded.dist, "all_gather", all_gather)
+    got, sent = step_sharded._gather_owned(
+        blocks[3:], owners, Wire("gloo", [torch.device("cpu")]))
+    assert len(got) == 4 and sent == 3 * 2 * 3 * 4
+    for a, b in zip(got, blocks):
+        assert torch.equal(a, b)
+
+
+def test_worker_runs_on_the_card_unless_asked_for_the_cpu():
+    args = multiproc._parser().parse_args(
+        ["worker", "--rank", "0", "--world", "1", "--init-method", "x",
+         "--out", "o"])
+    assert args.device == "cuda"
+    opts = multiproc.worker_args()
+    assert opts[opts.index("--device") + 1] == "cuda"
+    opts = multiproc.worker_args(device="cpu")
+    assert opts[opts.index("--device") + 1] == "cpu"
+
+
 def test_multiprocess_run_never_touches_cuda_graphs(tmp_path):
     """A 3-step run across processes (the CUDA step functions on CPU
     tensors) with ``torch.cuda.CUDAGraph`` and ``torch.cuda.graph`` made
@@ -193,7 +241,7 @@ def test_multiprocess_run_never_touches_cuda_graphs(tmp_path):
     procs = [subprocess.Popen(
         [sys.executable, "-c", code, "worker", "--rank", str(r), "--world",
          "2", "--init-method", f"file://{out}.rdv", "--out", str(out),
-         *multiproc.worker_args(mode="split", steps=3)],
+         *multiproc.worker_args(mode="split", steps=3, device="cpu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=env) for r in range(2)]
     try:
@@ -236,11 +284,11 @@ def test_scaling_two_process_rows_on_the_cpu(capsys):
 def test_launch_kills_every_rank_on_failure_and_timeout(tmp_path):
     # a case that fails at once on both ranks (no such preset)
     status, logs = multiproc.launch(
-        2, multiproc.worker_args(preset="nonesuch"),
+        2, multiproc.worker_args(preset="nonesuch", device="cpu"),
         f"file://{tmp_path}/a.rdv", TIMEOUT, out=tmp_path / "a")
     assert status != 0 and any("nonesuch" in log for log in logs)
     # rank 1 of a world of 3 waits for a rank that never starts
-    status, _ = multiproc.launch(2, ["--world", "3"],
+    status, _ = multiproc.launch(2, ["--world", "3", "--device", "cpu"],
                                  f"file://{tmp_path}/b.rdv", 5.0,
                                  out=tmp_path / "b")
     assert status == 124
