@@ -185,7 +185,43 @@ Phases (each raises on failure, so the script exits non-zero):
    against ``FctAleSolver(device="cuda")`` on the same f64 fields, and on
    small with backend 0 (torch f64, CPU) against the plain f64 solver;
    then 5 backend-1 steps on core2 through ``host_embed``'s calls on
-   ctypes-addressed buffers, timed as copy-in, step and copy-out.
+   ctypes-addressed buffers, timed as copy-in, step and copy-out;
+13. the ground truth: the port's numpy oracle (``ops/oracle.py``) and C++
+   golden reference (``mesh/native.py`` over
+   ``native/fesom2_torch_core.cpp``, built here with g++), neither of
+   them written with the kernels; every check raises:
+   a. the native mesh core (edges, edge_tri, the node -> element and node
+      -> edge incidences with counts, positions and signs) array-equal to
+      the numpy topology on core2, the cylinder and polar_cap, both builds
+      timed on the host;
+   b. on core2 and the cylinder, f64, inputs from ``random_fields``: H-K1
+      (vlimit 1/2/3) and H-A2 bit-exact against ``a1 -> a2 -> a3_vlimit*``
+      and ``oracle.a2``; H-K2, H-K12 (its bounds bit-exact), H-K3, H-K3fix
+      (every edge), H-K4, H-K34 and K4-fix (every column owned) within
+      1e-12 (``masked_allclose``, rtol = atol = 1e-12, as
+      tests/conftest.py) of the oracle's stages, iter_yn both ways, at the
+      vlimits of c, each fed the oracle's upstream outputs; H-S2R within
+      1e-12 of ``oracle.stress2rhs`` and of ``f2t_stress2rhs``;
+   c. one f64 step of ``FctAleSolver(device="cuda")``, default form and
+      K1 -> K2 -> K3 -> K4, against ``oracle.fct_ale_step`` for vlimit 1
+      x iter_yn on core2 (and against ``NativeReference.step``) and vlimit
+      2/3 x iter_yn on the cylinder (a core2-size oracle step takes about
+      7 s on the host), every output within 1e-12; one f64 4-part split
+      step of ``ShardedFctAleSolver(devices=["cuda:0"] * 4)`` (K1, K2,
+      K3, K4-fix 4 times each), gathered, against the oracle;
+   d. the f32 production path from ``random_fields(seed=0)`` rounded to
+      f32: one step against the f64 oracle (bounds compared with the
+      oracle's rounded to f32, every output within relerr 1e-6); 20
+      iterative ``NativeReference`` steps with ``graphs.loop``'s carry (on
+      a host thread, beside the cylinder's checks), each also taken in
+      f32 by the kernels from the reference's state: ``fct_LO`` within
+      relerr 1e-5 of the reference's next state (the plain f32 path's
+      error printed beside); then 20 steps of ``run`` free of the
+      reference, launches 20 each of K1, K2, K34, their drift from it and
+      the plain path's printed;
+   e. a core2 step of the golden reference (C++, one thread) and of the
+      oracle (numpy) on the host, with the CPU's model, beside the f64 and
+      f32 CUDA steps (events, best of 3), and the topology builds.
 Every kernel instance's ptxas report is printed, and a spill fails the
 build phase.  The last three lines are the per-kernel JSON summary (each
 kernel's launches on its path (H-K3fix's in phase 6a's witness checks,
@@ -193,7 +229,9 @@ H-K4's in phase 7b's K1 -> K2 -> K3 -> K4 form, H-A2's in the tuner), max
 abs error, ms, plain ms, the byte bound
 at the H100 SXM data-sheet rate of ``runtime/profiling.py``, and
 ``library_ms``: null, since no single PyTorch call computes any of these
-functions; the seven with a tracer axis also carry
+functions; ``oracle_max_abs_err_f64``, the largest f64 difference from the
+oracle in phase 13 (b, and for K4-fix also the 4-part step of c); the
+seven with a tracer axis also carry
 ``ms_per_tracer_tb8`` and ``bound_ms_tb8``, a tracer's share of one launch
 at 8 tracers and of its bound), the card's name and power limit as
 nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
@@ -201,7 +239,9 @@ nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -2981,6 +3021,539 @@ def phase_host_abi(card: str, meshes: dict) -> None:
     print(json.dumps(row), flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 13: the ground truth.  Every kernel, the f64 steps and the f32
+# production path against the port's numpy oracle (ops/oracle.py) and C++
+# golden reference (mesh/native.py), at core2 width
+# --------------------------------------------------------------------------
+
+# tests/conftest.py's masked_allclose tolerance: the f64 gate
+GT_TOL = 1e-12
+# one f32 step against the f64 oracle (ROADMAP.md "In f32"), and each of
+# 20 iterative f32 steps against the golden reference (PERF.md §2)
+GT_F32_RELERR = 1e-6
+GT_LOOP_RELERR = 1e-5
+GT_DT = 0.5
+GT_SEED = 5
+GT_LOOP_KEYS = ("fct_LO", "fct_adf_v", "fct_adf_h")
+# (vlimit, iter_yn) of the oracle's whole steps, which feed 13b and 13c:
+# vlimit 1 on core2, vlimit 2 and 3 on the cylinder (a core2-size oracle
+# step takes about 7 s on the host; H-K1 is held to a1 -> a2 -> a3 at
+# vlimit 1/2/3 on both meshes)
+GT_CASES = {"core2": [(1, False), (1, True)],
+            "cylinder": [(v, it) for v in (2, 3) for it in (False, True)]}
+
+
+def masked_allclose(a, b, rtol=GT_TOL, atol=GT_TOL, msg="") -> float:
+    """tests/conftest.py's ``masked_allclose`` on whole arrays (the oracle
+    zeroes every output outside the active region), on the card: every
+    entry of ``a`` within ``atol + rtol * |b|`` of ``b`` (``np.allclose``'s
+    test; a NaN fails), else AssertionError naming the first entries that
+    fail.  Returns the largest absolute difference."""
+    a, b = gt_tensor(a), gt_tensor(b)
+    if a.shape != b.shape:
+        raise AssertionError(f"{msg}: shape {tuple(a.shape)} vs "
+                             f"{tuple(b.shape)}")
+    diff = (a - b).abs()
+    bad = ~(diff <= atol + rtol * b.abs())
+    if bool(bad.any()):
+        idx = torch.nonzero(bad)[:5]
+        raise AssertionError(
+            f"{msg} mismatch at {int(bad.sum())}/{bad.numel()} entries; "
+            f"first idx {idx.tolist()}; a={a[bad][:5].tolist()} "
+            f"b={b[bad][:5].tolist()}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def gt_tensor(x) -> torch.Tensor:
+    """A numpy array or a tensor -> float64 on the card."""
+    return torch.as_tensor(x, dtype=torch.float64, device="cuda")
+
+
+class GroundErrors:
+    """Largest absolute difference from the oracle per kernel (f64)."""
+
+    def __init__(self):
+        self.max_abs = {name: 0.0 for name in KERNEL_SOURCES}
+
+    def close(self, kernel, name, got, ref, case, exact=False) -> float:
+        """``got`` against the oracle's ``ref``: bit-exact, or within
+        GT_TOL -> the largest absolute difference."""
+        if ref is None:
+            if got is not None:
+                raise AssertionError(f"{kernel}.{name} {case}: expected None")
+            return 0.0
+        what = f"{kernel}.{name} {case} vs oracle"
+        if exact:
+            d = abserr(got, gt_tensor(ref))
+            if not torch.equal(got, gt_tensor(ref)):
+                raise AssertionError(f"{what}: not bit-exact (max abs diff "
+                                     f"{d:.3e})")
+        else:
+            d = masked_allclose(got, ref, msg=what)
+        self.max_abs[kernel] = max(self.max_abs[kernel], d)
+        return d
+
+
+def cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo names it (model name, vendor, family,
+    model, stepping of the first CPU) and the cores this process sees."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            fields[key.strip()] = value.strip()
+    ident = ", ".join(f"{k} {fields[k]}" for k in ("vendor_id", "cpu family",
+                                                   "model", "stepping")
+                      if k in fields)
+    return (f"{fields.get('model name', '?')} ({ident}), {os.cpu_count()} "
+            f"cores")
+
+
+def gt_incidences(mesh) -> dict:
+    """(rows, cols, extra) of the node -> element and node -> edge
+    incidences, as ``topology.build_mesh_from_elements`` builds them."""
+    E, Ed = mesh.n_elems, mesh.n_edges
+    return {"node_elems": (mesh.elem_nodes.ravel(),
+                           np.repeat(np.arange(E, dtype=np.int32), 3),
+                           np.tile(np.arange(3, dtype=np.int32), E)),
+            "node_edges": (mesh.edges.ravel(),
+                           np.repeat(np.arange(Ed, dtype=np.int32), 2),
+                           np.tile(np.array([1, -1], dtype=np.int8), Ed))}
+
+
+def gt_mesh_core(meshes: dict, cpu: str) -> dict:
+    """13a: the native core's build (g++, from the checkout), then its
+    edge derivation and incidences against the numpy topology and the
+    mesh's arrays, array for array, on core2, the cylinder and polar_cap
+    -> {mesh: (native s, numpy s)} of the builds."""
+    from fesom2_accelerate_tpu_torch.mesh import native, topology
+
+    t0 = time.perf_counter()
+    lib = native.load()
+    print(f"ground truth 13a: native core {pathlib.Path(lib._name).name} "
+          f"built and loaded in {time.perf_counter() - t0:.2f} s (g++)",
+          flush=True)
+    builders = {
+        "native": (native.build_edges, native.ragged_to_padded),
+        "numpy": (topology._build_edges, topology._ragged_to_padded)}
+    times = {}
+    for key in ("core2", "cylinder", "polar_cap"):
+        mesh = meshes[key]
+        want = {"edges": (mesh.edges, mesh.edge_tri),
+                "node_elems": (mesh.node_elems, mesh.node_elems_num,
+                               mesh.node_elems_pos),
+                "node_edges": (mesh.node_edges, mesh.node_edges_num,
+                               mesh.node_edges_sign)}
+        secs = {}
+        for who, (edges_fn, ragged_fn) in builders.items():
+            t0 = time.perf_counter()
+            got = {"edges": edges_fn(mesh.elem_nodes)}
+            for name, (rows, cols, extra) in gt_incidences(mesh).items():
+                got[name] = ragged_fn(rows, cols, mesh.n_nodes, extra=extra)
+            secs[who] = time.perf_counter() - t0
+            for name, arrays in want.items():
+                for i, w in enumerate(arrays):
+                    g = got[name][i]
+                    if g.dtype != w.dtype or not np.array_equal(g, w):
+                        raise AssertionError(f"mesh core {key}: {who} "
+                                             f"{name}[{i}] differs")
+        times[key] = (secs["native"], secs["numpy"])
+        print(f"ground truth 13a: mesh core {key} ({mesh.n_nodes} nodes, "
+              f"{mesh.n_edges} edges): edges, edge_tri, node_elems (counts, "
+              f"positions), node_edges (counts, signs) array-equal between "
+              f"the native core and the numpy topology; build native "
+              f"{secs['native']:.4f} s, numpy {secs['numpy']:.4f} s (host: "
+              f"{cpu})", flush=True)
+    return times
+
+
+def gt_limited(ref: dict, iter_yn: bool) -> tuple:
+    """(limited fct_adf_v, its residual, limited fct_adf_h, its residual,
+    o1, o2) of an oracle step, in the kernels' output order."""
+    if iter_yn:
+        return (ref["fct_adf_v_limited"], ref["fct_adf_v"],
+                ref["fct_adf_h_limited"], ref["fct_adf_h"], ref["fct_LO"],
+                None)
+    return (ref["fct_adf_v"], None, ref["fct_adf_h"], None,
+            ref["del_ttf_advvert"], ref["del_ttf_advhoriz"])
+
+
+def gt_kernel_case(md, s: dict, ref: dict, vlimit: int, iter_yn: bool,
+                   ge: GroundErrors, case: str) -> float:
+    """Every FCT wrapper on f64 tensors against the oracle's stage that
+    computes the same thing, each fed the oracle's upstream outputs (the
+    stage outputs its ``fct_ale_step`` returns).  Returns H-K3's largest
+    difference (its edge outputs are expected bit-exact)."""
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    eps = 1e-16
+    t = gt_tensor
+    lim_v, res_v, lim_h, res_h, o1, o2 = gt_limited(ref, iter_yn)
+    node = (s["ttf"], s["hnode"], s["hnode_new"], s["fct_LO"],
+            s["del_ttf_advvert"], s["del_ttf_advhoriz"], GT_DT, iter_yn)
+    bounds = (ref["fct_ttf_max"], ref["fct_ttf_min"])
+    limit = (ref["fct_plus"], ref["fct_minus"], lim_v, res_v)
+    names = ("fct_plus", "fct_minus", "adf_v_lim", "adf_v_res")
+    # H-K2: b1_vertical -> b1_horizontal -> b2 -> b3_vertical
+    got = K.limit(md, s["fct_adf_v"], t(bounds[0]), t(bounds[1]),
+                  s["fct_adf_h"], GT_DT, eps, iter_yn)
+    for name, g, r in zip(names, got, limit):
+        ge.close("limit", name, g, r, case)
+    # H-K12: the same chain from a1, its bounds bit-exact
+    got = K.limit_fused(md, s["fct_LO"], s["ttf"], s["fct_adf_v"],
+                        s["fct_adf_h"], vlimit, GT_DT, eps, iter_yn)
+    for i, (name, g, r) in enumerate(zip(("fct_ttf_max", "fct_ttf_min")
+                                         + names, got, bounds + limit)):
+        ge.close("limit_fused", name, g, r, case, exact=i < 2)
+    plus, minus, lv = t(ref["fct_plus"]), t(ref["fct_minus"]), t(lim_v)
+    # H-K3: b3_horizontal; H-K3fix on every edge, into zeroed outputs
+    b3h = 0.0
+    for name, g, r in zip(("adf_h_lim", "adf_h_res"),
+                          K.b3h(md, plus, minus, s["fct_adf_h"], iter_yn),
+                          (lim_h, res_h)):
+        b3h = max(b3h, ge.close("b3h", name, g, r, case))
+    every = torch.arange(md.n_edges, dtype=torch.int32, device="cuda")
+    zero = torch.zeros_like(s["fct_adf_h"])
+    got = K.b3h_fixup(md, plus, minus, s["fct_adf_h"], zero.clone(),
+                      zero.clone() if iter_yn else None, every, iter_yn)
+    for name, g, r in zip(("adf_h_lim", "adf_h_res"), got, (lim_h, res_h)):
+        ge.close("b3h_fixup", name, g, r, case)
+    # H-K4 and H-K34: c_update_solution / c_update_LO
+    for name, g, r in zip(("o1", "o2"), K.update(md, lv, t(lim_h), *node),
+                          (o1, o2)):
+        ge.close("update", name, g, r, case)
+    got = K.update_fused(md, plus, minus, lv, s["fct_adf_h"], *node)
+    for name, g, r in zip(("o1", "o2", "adf_h_lim", "adf_h_res"), got,
+                          (o1, o2, lim_h, res_h)):
+        ge.close("update_fused", name, g, r, case)
+    # K4-fix on the whole mesh (every column owned: no edge limited again)
+    got = K.update_fixup(md, plus, minus, s["fct_adf_h"], t(lim_h),
+                         t(res_h) if iter_yn else None, (0, md.n_nodes), lv,
+                         *node)
+    for name, g, r in zip(("o1", "o2", "adf_h_lim", "adf_h_res"), got,
+                          (o1, o2, lim_h, res_h)):
+        ge.close("update_fixup", name, g, r, case)
+    return b3h
+
+
+def gt_kernels(mesh, key: str, ge: GroundErrors, cpu: str) -> tuple:
+    """13b on one mesh, f64, inputs from ``random_fields``: H-K1 (vlimit
+    1/2/3) and H-A2 against ``a1 -> a2 -> a3_vlimit*``, bit-exact; every
+    FCT wrapper against the oracle's step at each (vlimit, iter_yn) of
+    GT_CASES; H-S2R against ``oracle.stress2rhs`` and the golden
+    reference's ``f2t_stress2rhs``.  Returns (the oracle's steps by case,
+    their host seconds, the fields)."""
+    from fesom2_accelerate_tpu_torch import (
+        FctAleConfig,
+        FctAleSolver,
+        Stress2RhsSolver,
+    )
+    from fesom2_accelerate_tpu_torch.mesh import native, random_fields
+    from fesom2_accelerate_tpu_torch.ops import oracle
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    fields = random_fields(mesh, seed=GT_SEED)
+    mk = oracle.masks(mesh)
+    md = FctAleSolver(mesh, FctAleConfig(dtype=torch.float64),
+                      device="cuda").md
+    s = {k: gt_tensor(v) for k, v in fields.items()}
+    lo = fields["fct_LO"]
+    tmax, tmin = oracle.a1(mesh, mk, lo, fields["ttf"])
+    uv = oracle.a2(mesh, mk, tmax, tmin)
+    for name, g, r in zip(("UV_max", "UV_min"),
+                          K.a2(md, gt_tensor(tmax), gt_tensor(tmin), 1e3),
+                          uv):
+        ge.close("a2", name, g, r, key, exact=True)
+    a3 = {1: oracle.a3_vlimit1(mesh, mk, *uv, lo),
+          2: oracle.a3_vlimit2(mesh, mk, *uv, tmax, lo),
+          3: oracle.a3_vlimit3(mesh, mk, *uv, tmax, lo)}
+    for vlimit, want in a3.items():
+        for name, g, r in zip(("fct_ttf_max", "fct_ttf_min"),
+                              K.bounds(md, s["fct_LO"], s["ttf"], vlimit),
+                              want):
+            ge.close("bounds", name, g, r, f"{key} vlimit={vlimit}",
+                     exact=True)
+    refs, secs = {}, {}
+    b3h = 0.0
+    for vlimit, iter_yn in GT_CASES[key]:
+        t0 = time.perf_counter()
+        ref = oracle.fct_ale_step(mesh, fields, vlimit=vlimit,
+                                  iter_yn=iter_yn, dt=GT_DT, mk=mk)
+        secs[vlimit, iter_yn] = time.perf_counter() - t0
+        refs[vlimit, iter_yn] = ref
+        b3h = max(b3h, gt_kernel_case(
+            md, s, ref, vlimit, iter_yn, ge,
+            f"{key} vlimit={vlimit} iter={iter_yn}"))
+    # H-S2R against the oracle's gather and the reference's scatter
+    host = s2r_inputs(mesh)
+    solver = Stress2RhsSolver(mesh, torch.float64, device="cuda")
+    got = K.stress2rhs(solver.md, solver.pack_elem_inputs(*host[:7]),
+                       *(gt_tensor(a) for a in host[7:]))
+    want = oracle.stress2rhs(mesh.elem_nodes, mesh.node_elems,
+                             mesh.node_elems_pos, mesh.node_elems_num,
+                             *host)
+    for name, g, r, n in zip("UV", got, want,
+                             native.stress2rhs(mesh.elem_nodes, *host)):
+        ge.close("stress2rhs", name, g, r, key)
+        d = masked_allclose(g, n, msg=f"stress2rhs.{name} {key} vs "
+                            f"f2t_stress2rhs")
+        ge.max_abs["stress2rhs"] = max(ge.max_abs["stress2rhs"], d)
+    torch.cuda.synchronize()
+    print(f"ground truth 13b: {key} ({mesh.n_nodes} nodes, "
+          f"{mesh.n_layers} layers), f64: H-K1 (vlimit 1/2/3) and H-A2 "
+          f"bit-exact against a1 -> a2 -> a3_vlimit*; at (vlimit, iter_yn) "
+          f"{GT_CASES[key]} H-K12's bounds bit-exact, H-K2, H-K12, H-K3, "
+          f"H-K3fix, H-K4, H-K34 and K4-fix within {GT_TOL:.0e} of the "
+          f"oracle's stages; H-S2R within {GT_TOL:.0e} of the oracle and of "
+          f"f2t_stress2rhs; max |H-K3 - b3_horizontal| {b3h:.3e}; an oracle "
+          f"step {min(secs.values()):.2f}-{max(secs.values()):.2f} s (numpy, "
+          f"host: {cpu})", flush=True)
+    return refs, secs, fields
+
+
+def gt_steps(mesh, key: str, refs: dict, fields: dict, ge: GroundErrors,
+             cpu: str, golden: bool) -> tuple:
+    """13c: one f64 step of FctAleSolver(device="cuda") in the default
+    form and in K1 -> K2 -> K3 -> K4 against the oracle for each case of
+    ``refs``; with ``golden``, also against NativeReference.step (vlimit
+    1), and one f64 4-part split step of ShardedFctAleSolver, gathered,
+    against the oracle.  Returns (the default form's first solver and its
+    state, the golden reference's host seconds a step by iter_yn)."""
+    from fesom2_accelerate_tpu_torch import (
+        FctAleConfig,
+        FctAleSolver,
+        ShardedFctAleSolver,
+    )
+    from fesom2_accelerate_tpu_torch.mesh import native
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    nat_secs, worst, kept = {}, {}, None
+    reference = native.NativeReference(mesh) if golden else None
+    for (vlimit, iter_yn), ref in refs.items():
+        cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=GT_DT,
+                           dtype=torch.float64)
+        wants = {"the oracle": ref}
+        if golden:
+            t0 = time.perf_counter()
+            wants["NativeReference"] = reference.step(fields, dt=GT_DT,
+                                                      iter_yn=iter_yn)
+            nat_secs[iter_yn] = time.perf_counter() - t0
+        for form, fuse_k34 in (("K1 -> K2 -> K34", True),
+                               ("K1 -> K2 -> K3 -> K4", False)):
+            solver = FctAleSolver(mesh, cfg, device="cuda",
+                                  fuse_k34=fuse_k34)
+            state = solver.init_state(fields)
+            out = solver.step(state)
+            kept = kept or (solver, state)
+            for what, want in wants.items():
+                for k, v in want.items():
+                    d = masked_allclose(
+                        out[k], v, msg=f"{key} {form} step {k} vlimit="
+                        f"{vlimit} iter={iter_yn} vs {what}")
+                    worst[form, what] = max(worst.get((form, what), 0.0), d)
+    if golden:
+        for iter_yn in (False, True):
+            cfg = FctAleConfig(vlimit=1, iter_yn=iter_yn, dt=GT_DT,
+                               dtype=torch.float64)
+            sh = ShardedFctAleSolver(mesh, cfg,
+                                     devices=["cuda:0"] * SHARD_PARTS)
+            st = sh.init_state(fields)
+            K.reset_launch_counts()
+            out = sh.step(st)
+            check_counts(K.launch_counts(),
+                         {n: SHARD_PARTS for n in SHARDED_STEP["split"]},
+                         f"ground truth 4-part f64 step iter={iter_yn}")
+            gathered = sh.gather_state(out)
+            what = ("4-part split step", "the oracle")
+            for k, v in refs[1, iter_yn].items():
+                d = masked_allclose(gathered[k], v, msg=f"{key} 4-part "
+                                    f"split step {k} iter={iter_yn} vs the "
+                                    f"oracle")
+                worst[what] = max(worst.get(what, 0.0), d)
+                if k in ("fct_adf_h", "fct_adf_h_limited", "fct_LO",
+                         "del_ttf_advvert", "del_ttf_advhoriz"):
+                    # K4-fix's outputs on the parts, gathered
+                    ge.max_abs["update_fixup"] = max(
+                        ge.max_abs["update_fixup"], d)
+            del sh, st, out
+    torch.cuda.synchronize()
+    for (form, what), d in worst.items():
+        print(f"ground truth 13c: {key} f64, one step, {form}, (vlimit, "
+              f"iter_yn) {list(refs)}: every output within {GT_TOL:.0e} of "
+              f"{what} (max abs diff {d:.3e})", flush=True)
+    if golden:
+        print(f"ground truth 13c: the 4-part split step launched K1, K2, K3 "
+              f"and K4-fix {SHARD_PARTS} times each; NativeReference.step on "
+              f"{key} (f64, C++, one thread) {nat_secs[False]:.3f} s, "
+              f"iterative {nat_secs[True]:.3f} s (host: {cpu})", flush=True)
+    return kept, nat_secs
+
+
+def gt_golden_run(mesh, f64: dict, paths: dict) -> tuple:
+    """13d's reference run: MAIN_STEPS iterative steps of the golden
+    reference (f64) from ``f64``, with graphs.loop's carry (as
+    ``FctAleSolver.run``); each step also taken in f32 by each solver of
+    ``paths`` from the reference's state rounded to f32 -> (the
+    reference's final state, its host seconds of each step, each path's
+    largest relerr from the reference's next state by field)."""
+    from fesom2_accelerate_tpu_torch.mesh import native
+
+    golden = native.NativeReference(mesh)
+    cfg = paths["cuda"].cfg
+    secs, shadow = [], {b: {k: 0.0 for k in GT_LOOP_KEYS} for b in paths}
+
+    def golden_step(s):
+        t0 = time.perf_counter()
+        new = {**s, **golden.step(s, dt=cfg.dt, flux_eps=cfg.flux_eps,
+                                  iter_yn=True)}
+        secs.append(time.perf_counter() - t0)
+        for b, sv in paths.items():
+            got = sv.step(sv.init_state(s))
+            for k in GT_LOOP_KEYS:
+                shadow[b][k] = max(shadow[b][k],
+                                   relerr(got[k], gt_tensor(new[k])))
+        return new
+
+    return graphs.loop(golden_step, f64, MAIN_STEPS), secs, shadow
+
+
+def gt_f32(mesh, f32: dict, f64: dict, paths: dict,
+           golden: tuple) -> tuple:
+    """13d: the f32 production path from random_fields(seed=0) rounded to
+    f32, the references given those values widened to f64.  One step
+    against the oracle.  Then the golden reference's run (``golden``, of
+    :func:`gt_golden_run`): each of its steps taken in f32 by the kernels
+    within GT_LOOP_RELERR; and MAIN_STEPS steps of ``run`` from the same
+    start, free of the reference, their drift from it printed (a few
+    entries of an iterative run's f32 state drift further: PERF.md §6,
+    PR 13).  Returns the f32 solver and its state."""
+    from fesom2_accelerate_tpu_torch import FctAleConfig, FctAleSolver
+    from fesom2_accelerate_tpu_torch.ops import oracle
+    from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
+
+    cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, dtype=torch.float32)
+    solver = FctAleSolver(mesh, cfg, device="cuda")
+    state = solver.init_state(f32)
+    out = solver.step(state)
+    ref = oracle.fct_ale_step(mesh, f64, vlimit=1, dt=cfg.dt,
+                              flux_eps=cfg.flux_eps)
+    errs = {}
+    for k, v in ref.items():
+        if out[k].dtype != torch.float32:
+            raise AssertionError(f"f32 step {k}: {out[k].dtype}")
+        errs[k] = relerr(out[k], gt_tensor(v))
+        if errs[k] > GT_F32_RELERR:
+            raise AssertionError(f"f32 step {k}: relerr {errs[k]:.3e} > "
+                                 f"{GT_F32_RELERR:.0e} of the f64 oracle")
+    for k in ("fct_ttf_max", "fct_ttf_min"):
+        want = torch.as_tensor(ref[k].astype(np.float32), device="cuda")
+        print(f"ground truth 13d: f32 step {k}: {int((out[k] != want).sum())}"
+              f" entries differ from the f64 oracle's rounded to f32 (max "
+              f"abs diff {abserr(out[k], want):.3e})", flush=True)
+    print("ground truth 13d: one core2 f32 step (dt 0.5, flux_eps 1e-7, "
+          "vlimit 1) against the f64 oracle, relerr: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f" (bar {GT_F32_RELERR:.0e})", flush=True)
+    del ref
+
+    want, _, shadow = golden
+    for b, e in shadow.items():
+        print(f"ground truth 13d: each of {MAIN_STEPS} iterative core2 steps "
+              f"of the golden reference (f64, graphs.loop's carry), taken in "
+              f"f32 by backend {b} from the reference's state: largest "
+              f"relerr " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+              + f" (bar {GT_LOOP_RELERR:.0e} on fct_LO)", flush=True)
+    if shadow["cuda"]["fct_LO"] > GT_LOOP_RELERR:
+        raise AssertionError(f"{MAIN_STEPS} iterative f32 steps: fct_LO "
+                             f"relerr {shadow['cuda']['fct_LO']:.3e} > "
+                             f"{GT_LOOP_RELERR:.0e} of the golden reference")
+    bar = gt_tensor(want["fct_LO"]).abs().max().clamp(min=1.0) * \
+        GT_LOOP_RELERR
+    for b, sv in paths.items():
+        K.reset_launch_counts()
+        got = sv.run(sv.init_state(f32), MAIN_STEPS)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        check_counts(counts, {n: MAIN_STEPS for n in FCT_KERNELS}
+                     if b == "cuda" else {},
+                     f"ground truth {MAIN_STEPS} f32 steps, {b}")
+        far = int(((got["fct_LO"].double() - gt_tensor(want["fct_LO"])).abs()
+                   > bar).sum())
+        print(f"ground truth 13d: {MAIN_STEPS} iterative core2 f32 steps of "
+              f"run, backend {b}, free of the reference, drift from "
+              f"{MAIN_STEPS} golden-reference steps: relerr " + ", ".join(
+                  f"{k} {relerr(got[k], gt_tensor(want[k])):.3e}"
+                  for k in GT_LOOP_KEYS)
+              + f"; {far} of {got['fct_LO'].numel()} fct_LO entries beyond "
+              f"{GT_LOOP_RELERR:.0e} (launches "
+              f"{dict((k, v) for k, v in counts.items() if v)})", flush=True)
+    return solver, state
+
+
+def phase_ground_truth(card: str, meshes: dict) -> dict:
+    """Phase 13: the port's own ground truth on the card (13a-e).  The
+    golden reference's 13d run takes a host thread while the cylinder's
+    checks run (no launch is counted meanwhile).  Returns each kernel's
+    largest f64 difference from the oracle (13b, with K4-fix's outputs
+    of 13c's 4-part step)."""
+    from fesom2_accelerate_tpu_torch import FctAleConfig, FctAleSolver
+    from fesom2_accelerate_tpu_torch.mesh import random_fields
+
+    cpu = cpu_model()
+    ge = GroundErrors()
+    topo = gt_mesh_core(meshes, cpu)
+    core2 = meshes["core2"]
+    refs, secs, fields = gt_kernels(core2, "core2", ge, cpu)
+    (s64, st64), nat = gt_steps(core2, "core2", refs, fields, ge, cpu,
+                                golden=True)
+    del refs, fields
+    f32 = random_fields(core2, seed=0, dtype=np.float32)
+    f64 = {k: v.astype(np.float64) for k, v in f32.items()}
+    cfg_it = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=True,
+                          dtype=torch.float32)
+    paths = {b: FctAleSolver(core2, cfg_it, b, device="cuda")
+             for b in ("cuda", "torch")}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        run = pool.submit(gt_golden_run, core2, f64, paths)
+        cyl = meshes["cylinder"]
+        refs, cyl_secs, fields = gt_kernels(cyl, "cylinder", ge, cpu)
+        gt_steps(cyl, "cylinder", refs, fields, ge, cpu, golden=False)
+        del refs, fields
+        golden = run.result()
+    s32, st32 = gt_f32(core2, f32, f64, paths, golden)
+    best = best_times({"f64": lambda: s64.step(st64),
+                       "f32": lambda: s32.step(st32)}, MAIN_STEPS,
+                      timer=cuda_time_ms)
+    oracle_s = {f"{key} vlimit={v} iter_yn={it}": x
+                for key, by in (("core2", secs), ("cylinder", cyl_secs))
+                for (v, it), x in by.items()}
+    print(json.dumps({
+        "ground_truth_times": {
+            "native_step_s": nat[False], "native_step_iter_s": nat[True],
+            "native_steps_13d_s": golden[1],
+            "oracle_step_s": oracle_s,
+            "cuda_step_f64_ms": best["f64"], "cuda_step_f32_ms": best["f32"],
+            "topology_native_s": {k: v[0] for k, v in topo.items()},
+            "topology_numpy_s": {k: v[1] for k, v in topo.items()}},
+        "mesh": "core2", "card": card, "host_cpu": cpu}), flush=True)
+    print(f"ground truth 13e: one core2 step: C++ golden reference "
+          f"{nat[False] * 1e3:.1f} ms (iterative {nat[True] * 1e3:.1f} ms; "
+          f"13d's {MAIN_STEPS} on a thread beside the cylinder's checks "
+          f"{min(golden[1]) * 1e3:.1f}-{max(golden[1]) * 1e3:.1f} ms), "
+          f"numpy oracle {min(secs.values()) * 1e3:.1f} ms (host: {cpu}); "
+          f"CUDA f64 {best['f64']:.4f} ms, f32 {best['f32']:.4f} ms (events "
+          f"around {MAIN_STEPS} steps, best of {TIMING_RUNS}; card {card})",
+          flush=True)
+    print("ground truth: each kernel's largest f64 difference from the "
+          "oracle: " + ", ".join(f"{k} {v:.3e}"
+                                 for k, v in ge.max_abs.items()),
+          flush=True)
+    return ge.max_abs
+
+
 def lap(name: str, run, t0: float) -> tuple:
     """Runs ``run()`` and prints the seconds since ``t0`` -> (its result,
     now)."""
@@ -3052,6 +3625,9 @@ def main() -> int:
         time.perf_counter())
     lap("12 (host ABI)", lambda: phase_host_abi(card, meshes),
         time.perf_counter())
+    oracle_err, _ = lap("13 (ground truth)",
+                        lambda: phase_ground_truth(card, meshes),
+                        time.perf_counter())
     kernels = []
     for name, src in KERNEL_SOURCES.items():
         kmd, inputs = shapes[name]
@@ -3066,7 +3642,8 @@ def main() -> int:
             "ms": times[name]["kernel"], "plain_ms": times[name]["plain"],
             "bound_ms": bound, "bound_by": bound_by,
             # no single PyTorch call computes any of these functions
-            "library_ms": None})
+            "library_ms": None,
+            "oracle_max_abs_err_f64": oracle_err[name]})
         if name in tb8:
             # a tracer's share of one launch at 8 tracers, and of its bound
             kernels[-1].update(ms_per_tracer_tb8=tb8[name][0],

@@ -148,7 +148,10 @@ def test_port_imports_no_jax():
     device, and the multi-process and host-embedding modules
     (``parallel.distributed``, ``utils.multiproc``, ``host_embed`` and
     the shim's ``native`` build and demo runner): one step through
-    ``host_embed`` on caller-owned buffers."""
+    ``host_embed`` on caller-owned buffers; the ground-truth modules
+    (``ops.oracle``, ``ops.oracle_loops``, ``mesh.native``): one toy
+    step of the numpy oracle and one of the built C++ golden reference,
+    against each other."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -216,6 +219,13 @@ def test_port_imports_no_jax():
         "fl = random_fields(mesh, seed=0)\n"
         "bufs = [np.array(fl[k], np.float64) for k, _ in demo.FIELD_FILES]\n"
         "assert he.step(*(b.ctypes.data for b in bufs)) == 0\n"
+        "from fesom2_accelerate_tpu_torch.ops import oracle, oracle_loops\n"
+        "from fesom2_accelerate_tpu_torch.mesh import native\n"
+        "o = oracle.fct_ale_step(mesh, fl)\n"
+        "r = native.NativeReference(mesh).step(fl)\n"
+        "assert r.keys() == o.keys() and np.allclose(\n"
+        "    r['del_ttf_advhoriz'], o['del_ttf_advhoriz'], rtol=1e-12,\n"
+        "    atol=1e-12)\n"
         "assert not [m for m in sys.modules\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib', 'orbax')\n"
         "            and sys.modules[m] is not None]\n"
