@@ -182,10 +182,16 @@ Phases (each raises on failure, so the script exits non-zero):
 12. the host-embedding ABI: the shim (``native/fesom2_torch_host.cpp``)
    and its C demo host built with g++; the demo runs one step through
    ``f2t_*_`` on core2 with backend 1 (the CUDA kernels, f32), bit for bit
-   against ``FctAleSolver(device="cuda")`` on the same f64 fields, and on
-   small with backend 0 (torch f64, CPU) against the plain f64 solver;
-   then 5 backend-1 steps on core2 through ``host_embed``'s calls on
-   ctypes-addressed buffers, timed as copy-in, step and copy-out;
+   against ``FctAleSolver(device="cuda")`` on the same f64 fields; on
+   core2 with backend 0 (the plain stages, f64) on the card, bit for bit
+   against ``FctAleSolver(backend="torch", device="cuda")`` and within
+   1e-12 of the port's oracle (phase 13's step on its fields); and on
+   small with backend 0 asked for on the CPU (``FESOM2_TORCH_DEVICE=cpu``)
+   bit for bit against ``FctAleSolver(device="cpu")``; then 5 steps each
+   of backend 1 and backend 0 on core2 through ``host_embed``'s calls on
+   ctypes-addressed buffers, timed as copy-in, step and copy-out, with the
+   launch counts (backend 0 launches no kernel of the port, its solver on
+   the card) and backend 0's peak device memory;
 13. the ground truth: the port's numpy oracle (``ops/oracle.py``) and C++
    golden reference (``mesh/native.py`` over
    ``native/fesom2_torch_core.cpp``, built here with g++), neither of
@@ -2924,101 +2930,196 @@ def abi_ptrs(bufs: dict) -> list:
     return [bufs[k].ctypes.data for k, _ in demo.FIELD_FILES]
 
 
-def phase_host_abi(card: str, meshes: dict) -> None:
-    """Phase 12: the host-embedding ABI.  Builds the shim and its C demo
-    host (g++), runs the demo for one step on core2 with backend 1 (the
-    CUDA kernels, f32) bit for bit against FctAleSolver(device="cuda") on
-    the same fields, and with backend 0 (torch f64, CPU) on small against
-    the plain f64 solver; then times ABI_STEPS steps of backend 1 on core2
-    through the shim's Python calls on ctypes-addressed buffers:
-    copy-in, step and copy-out apart."""
+def abi_demo_case(exe, mesh, key: str, backend: int, device: str,
+                  seed: int, env: dict) -> dict:
+    """The C demo host's one step of ``backend`` through ``f2t_*_`` on
+    ``mesh``, bit for bit against the solver ``host_embed`` builds for it
+    (the plain stages for backend 0, the kernels for 1) on ``device``, on
+    ``random_fields(seed)``; ``env`` is added to the demo's environment.
+    Returns the fields the demo wrote back."""
     import tempfile
 
     from fesom2_accelerate_tpu_torch import FctAleSolver, host_embed
     from fesom2_accelerate_tpu_torch.mesh import random_fields
-    from fesom2_accelerate_tpu_torch.native import build, demo
+    from fesom2_accelerate_tpu_torch.native import demo
+
+    fields = random_fields(mesh, seed=seed, dtype=np.float64)
+    with tempfile.TemporaryDirectory() as d:
+        demo.write_inputs(d, mesh, fields, 500, 1, False, backend)
+        t0 = time.perf_counter()
+        p = demo.run(exe, d, env=env)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"demo {key} backend {backend}: exit "
+                                 f"{p.returncode}\n{p.stdout}\n"
+                                 f"{p.stderr[-4000:]}")
+        got = demo.outputs(d, mesh, False)
+    solver = FctAleSolver(mesh, host_embed.config(backend, 500, 1, 0),
+                          "torch" if backend == 0 else "cuda", device=device)
+    ref = solver.step(solver.init_state(fields))
+    for k, v in got.items():
+        want = ref[k].double().cpu().numpy()
+        if not np.isfinite(v).all() or not np.array_equal(v, want):
+            raise AssertionError(
+                f"demo {key} backend {backend} {k}: max |diff| "
+                f"{float(np.abs(v - want).max()):.3e} against "
+                f"FctAleSolver(backend={solver.backend!r}, "
+                f"device={device!r})")
+    del solver, ref
+    print(f"C demo host, {key}, backend {backend} ({device}"
+          f"{''.join(f', {k}={v}' for k, v in env.items())}): one step "
+          f"through f2t_*_ bit for bit against FctAleSolver(backend="
+          f"{'torch' if backend == 0 else 'cuda'!r}, device={device!r}) on "
+          f"{sorted(got)}; {wall:.1f} s with the interpreter's start "
+          f"({p.stdout.strip()})", flush=True)
+    return got
+
+
+def abi_timed(mesh, fields: dict, backend: int) -> tuple:
+    """ABI_STEPS steps of ``backend`` through ``host_embed``'s Python calls
+    on ctypes-addressed buffers (as ``step`` runs them for the C host):
+    copy-in, step and copy-out timed apart,
+    the port's launch counts across the steps, and the device memory a
+    step takes above what the process held before it.  Backend 0's solver must hold
+    its mesh on the card and run the plain stages.  -> (times ms by part,
+    launch counts, the host buffers after the last step, the device
+    memory the process had allocated before a step (the session's mesh
+    and state, and what earlier phases still hold), the most allocated
+    during one and the difference, {"before_step_MB", "step_peak_MB",
+    "step_MB"})."""
+    from fesom2_accelerate_tpu_torch import host_embed
+    from fesom2_accelerate_tpu_torch.native import demo
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
 
-    t0 = time.perf_counter()
-    lib, exe = build.build()
-    print(f"host shim: {lib.name}, demo {exe.name} built in "
-          f"{time.perf_counter() - t0:.1f} s (g++)", flush=True)
-    for key, backend, device in (("core2", 1, "cuda"), ("small", 0, "cpu")):
-        mesh = meshes[key]
-        fields = random_fields(mesh, seed=0, dtype=np.float64)
-        with tempfile.TemporaryDirectory() as d:
-            demo.write_inputs(d, mesh, fields, 500, 1, False, backend)
-            t0 = time.perf_counter()
-            p = demo.run(exe, d)
-            wall = time.perf_counter() - t0
-            if p.returncode != 0:
-                raise AssertionError(f"demo {key} backend {backend}: exit "
-                                     f"{p.returncode}\n{p.stdout}\n"
-                                     f"{p.stderr[-4000:]}")
-            got = demo.outputs(d, mesh, False)
-        solver = FctAleSolver(mesh, host_embed.config(backend, 500, 1, 0),
-                              device=device)
-        ref = solver.step(solver.init_state(fields))
-        for k, v in got.items():
-            want = ref[k].double().cpu().numpy()
-            if not np.isfinite(v).all() or not np.array_equal(v, want):
-                raise AssertionError(
-                    f"demo {key} backend {backend} {k}: max |diff| "
-                    f"{float(np.abs(v - want).max()):.3e} against "
-                    f"FctAleSolver(device={device!r})")
-        del solver, ref
-        print(f"C demo host, {key}, backend {backend} ({device}): one step "
-              f"through f2t_*_ bit for bit against FctAleSolver(device="
-              f"{device!r}) on {sorted(got)}; {wall:.1f} s with the "
-              f"interpreter's start ({p.stdout.strip()})", flush=True)
-
-    mesh = meshes["core2"]
-    fields = random_fields(mesh, seed=0, dtype=np.float64)
     en = np.ascontiguousarray(mesh.elem_nodes, np.int32)
     nl = np.ascontiguousarray(mesh.nlev_elem, np.int32)
     xy = np.ascontiguousarray(mesh.node_xy, np.float64)
     if host_embed.setup(mesh.n_elems, mesh.nl, en.ctypes.data,
                         nl.ctypes.data, mesh.n_nodes, xy.ctypes.data, 500, 1,
-                        0, 1) != 0:
-        raise AssertionError("host_embed.setup(backend=1) failed on core2")
+                        0, backend) != 0:
+        raise AssertionError(f"host_embed.setup(backend={backend}) failed "
+                             f"on core2")
     try:
-        bufs = {k: np.array(fields[k], np.float64)
-                for k, _ in demo.FIELD_FILES}
         solver = host_embed.session().solver
+        want = ("torch", torch.float64) if backend == 0 else (
+            "cuda", torch.float32)
+        devs = {t.device.type for t in vars(solver.md).values()
+                if isinstance(t, torch.Tensor)}
+        if (solver.backend, solver.cfg.dtype) != want or devs != {"cuda"} \
+                or solver.device.type != "cuda":
+            raise AssertionError(
+                f"backend {backend}: solver {solver.backend!r} "
+                f"{solver.cfg.dtype} on {solver.device}, mesh tensors on "
+                f"{sorted(devs)}; expected {want} on cuda")
         times = {"copy_in": [], "step": [], "copy_out": []}
+        mem = {"before_step_MB": 0.0, "step_peak_MB": 0.0, "step_MB": 0.0}
         K.reset_launch_counts()
         for _ in range(ABI_STEPS):
+            bufs = {k: np.array(fields[k], np.float64)
+                    for k, _ in demo.FIELD_FILES}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             host = host_embed.views(*abi_ptrs(bufs))
             state = host_embed.copy_in(host)
             torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             t1 = time.perf_counter()
             out = solver.step(state)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated()
+            if peak <= base:
+                raise AssertionError(f"backend {backend}: the step took no "
+                                     f"device memory ({peak} <= {base} B)")
+            mem = {"before_step_MB": base / 1e6,
+                   "step_peak_MB": max(mem["step_peak_MB"], peak / 1e6),
+                   "step_MB": max(mem["step_MB"], (peak - base) / 1e6)}
             host_embed.copy_out(out, host)
             t3 = time.perf_counter()
             for k, a, b in (("copy_in", t0, t1), ("step", t1, t2),
                             ("copy_out", t2, t3)):
                 times[k].append((b - a) * 1e3)
+            del state, out
         counts = K.launch_counts()
     finally:
         host_embed.reset()
-    check_counts(counts, {"bounds": ABI_STEPS, "limit": ABI_STEPS,
-                          "update_fused": ABI_STEPS}, "ABI steps")
+    return times, counts, bufs, mem
+
+
+def abi_row(mesh, backend: int, times: dict, mem: dict, card: str) -> dict:
+    """The line of one backend's ABI times on ``mesh``: min and all of each
+    part, the bytes copied at the caller's f64 and their rate."""
     L, N, Ed = mesh.n_layers, mesh.n_nodes, mesh.n_edges
     nbytes = {"copy_in": 8 * (6 * L * N + (L + 1) * N + L * Ed),
               "copy_out": 8 * (2 * L * N + (L + 1) * N + L * Ed)}
-    row = {"phase": 12, "mesh": "core2", "backend": 1, "steps": ABI_STEPS,
-           "card": card}
+    row = {"phase": 12, "mesh": "core2", "backend": backend,
+           "steps": ABI_STEPS, "card": card}
     for k, v in times.items():
         row[f"{k}_ms"] = min(v)
         row[f"{k}_ms_runs"] = v
         if k in nbytes:
             row[f"{k}_MB"] = nbytes[k] / 1e6
             row[f"{k}_GBps"] = nbytes[k] / (min(v) * 1e6)
-    print(json.dumps(row), flush=True)
+    row.update(mem)
+    return row
+
+
+def phase_host_abi(card: str, meshes: dict) -> None:
+    """Phase 12: the host-embedding ABI.  Builds the shim and its C demo
+    host (g++); the demo runs one step of each of ABI_CASES through
+    ``f2t_*_``, bit for bit against the solver of its backend and device:
+    backend 1 (the CUDA kernels, f32) on core2; backend 0 (the plain
+    stages, f64) on core2 on the card, also within GT_TOL of the port's
+    oracle (phase 13's step, on its fields), and on small on the CPU, asked
+    for with FESOM2_TORCH_DEVICE=cpu.  Then ABI_STEPS steps of backend 1
+    and of backend 0 on core2 through the shim's Python calls, timed as
+    copy-in, step and copy-out; backend 0's on the card, launching no
+    kernel of the port, its buffers bit for bit the demo's."""
+    from fesom2_accelerate_tpu_torch.mesh import random_fields
+    from fesom2_accelerate_tpu_torch.native import build
+
+    t0 = time.perf_counter()
+    lib, exe = build.build()
+    print(f"host shim: {lib.name}, demo {exe.name} built in "
+          f"{time.perf_counter() - t0:.1f} s (g++)", flush=True)
+    outs = {}
+    for key, backend, device, seed, env in ABI_CASES:
+        outs[key, backend] = abi_demo_case(exe, meshes[key], key, backend,
+                                           device, seed, env)
+    mesh = meshes["core2"]
+    gt_fields = random_fields(mesh, seed=GT_SEED, dtype=np.float64)
+    ref, _ = gt_oracle_step("core2", mesh, gt_fields, 1, False)
+    worst = max(masked_allclose(v, ref[k], msg=f"demo core2 backend 0 {k} "
+                                f"vs the oracle")
+                for k, v in outs["core2", 0].items())
+    print(f"C demo host, core2, backend 0 (cuda): {sorted(outs['core2', 0])}"
+          f" within {GT_TOL:.0e} of the port's oracle (max abs diff "
+          f"{worst:.3e})", flush=True)
+
+    fields = {0: gt_fields, 1: random_fields(mesh, seed=0, dtype=np.float64)}
+    expect = {0: {}, 1: {"bounds": ABI_STEPS, "limit": ABI_STEPS,
+                         "update_fused": ABI_STEPS}}
+    for backend in (1, 0):
+        times, counts, bufs, mem = abi_timed(mesh, fields[backend], backend)
+        check_counts(counts, expect[backend], f"ABI steps, backend "
+                     f"{backend}")
+        for k, v in outs["core2", backend].items():
+            if not np.array_equal(bufs[k], v):
+                raise AssertionError(
+                    f"ABI backend {backend} {k}: the Python-side step is "
+                    f"not the demo's bit for bit (max |diff| "
+                    f"{float(np.abs(bufs[k] - v).max()):.3e})")
+        if backend == 0:
+            print(f"ABI backend 0 on core2: the solver and its mesh on "
+                  f"cuda, the plain stages (backend 'torch', f64); "
+                  f"{ABI_STEPS} steps launched no kernel of the port; "
+                  f"a step allocates {mem['step_MB']:.1f} MB of device "
+                  f"memory above the {mem['before_step_MB']:.1f} MB held "
+                  f"before it (peak {mem['step_peak_MB']:.1f} MB); the "
+                  f"buffers bit for bit the demo's", flush=True)
+        print(json.dumps(abi_row(mesh, backend, times, mem, card)),
+              flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -3042,6 +3143,33 @@ GT_LOOP_KEYS = ("fct_LO", "fct_adf_v", "fct_adf_h")
 # vlimit 1/2/3 on both meshes)
 GT_CASES = {"core2": [(1, False), (1, True)],
             "cylinder": [(v, it) for v in (2, 3) for it in (False, True)]}
+# the oracle's whole steps by (mesh, vlimit, iter_yn): (fields, step, host
+# seconds), taken once for phases 12 and 13
+GT_ORACLE = {}
+# phase 12's C demo host cases: (mesh, backend, device, seed of the fields,
+# the variables added to its environment); backend 0 on core2 takes phase
+# 13's fields, and so its oracle step
+ABI_CASES = (("core2", 1, "cuda", 0, {}),
+             ("core2", 0, "cuda", GT_SEED, {}),
+             ("small", 0, "cpu", 0, {"FESOM2_TORCH_DEVICE": "cpu"}))
+
+
+def gt_oracle_step(key: str, mesh, fields: dict, vlimit: int,
+                   iter_yn: bool, mk=None) -> tuple:
+    """The oracle's step at GT_DT on ``fields``, taken once a (mesh,
+    vlimit, iter_yn) and reused while the fields are the same -> (the
+    step, the host seconds it took)."""
+    from fesom2_accelerate_tpu_torch.ops import oracle
+
+    hit = GT_ORACLE.get((key, vlimit, iter_yn))
+    if hit is None or hit[0].keys() != fields.keys() or not all(
+            np.array_equal(hit[0][k], v) for k, v in fields.items()):
+        t0 = time.perf_counter()
+        ref = oracle.fct_ale_step(mesh, fields, vlimit=vlimit,
+                                  iter_yn=iter_yn, dt=GT_DT, mk=mk)
+        hit = GT_ORACLE[key, vlimit, iter_yn] = (
+            fields, ref, time.perf_counter() - t0)
+    return hit[1], hit[2]
 
 
 def masked_allclose(a, b, rtol=GT_TOL, atol=GT_TOL, msg="") -> float:
@@ -3279,10 +3407,8 @@ def gt_kernels(mesh, key: str, ge: GroundErrors, cpu: str) -> tuple:
     refs, secs = {}, {}
     b3h = 0.0
     for vlimit, iter_yn in GT_CASES[key]:
-        t0 = time.perf_counter()
-        ref = oracle.fct_ale_step(mesh, fields, vlimit=vlimit,
-                                  iter_yn=iter_yn, dt=GT_DT, mk=mk)
-        secs[vlimit, iter_yn] = time.perf_counter() - t0
+        ref, secs[vlimit, iter_yn] = gt_oracle_step(key, mesh, fields, vlimit,
+                                                    iter_yn, mk)
         refs[vlimit, iter_yn] = ref
         b3h = max(b3h, gt_kernel_case(
             md, s, ref, vlimit, iter_yn, ge,

@@ -21,11 +21,21 @@ Here it is split in two:
 
 Backends:
 
-* 0: the plain PyTorch step in float64 on the CPU, the correctness path,
-  as the reference ships ``src/reference.cpp``;
-* 1: the CUDA kernels in float32 (``flux_eps=1e-7``) on the card.  With no
-  card :func:`setup` says why and returns 1; nothing stands in for the
-  kernels.
+* 0: the plain PyTorch step (``ops/stages.py``, ``backend="torch"``) in
+  float64 on the card, the correctness path, as the reference ships
+  ``src/reference.cpp`` and the JAX shim's backend 0 runs XLA's plain f64
+  stages on the chip.  It launches none of the port's kernels, so it stays
+  independent of backend 1.  It runs on the CPU only where the caller asks
+  for it: ``FESOM2_TORCH_DEVICE=cpu`` in the environment (read at
+  :func:`setup`), in the role ``JAX_PLATFORMS=cpu`` plays for the JAX
+  shim, since the ABI passes only integers;
+* 1: the CUDA kernels in float32 (``flux_eps=1e-7``) on the card.
+
+Either backend on a host with no card, and backend 1 asked for the CPU,
+make :func:`setup` say why and return 1; nothing falls back to the CPU and
+nothing stands in for the kernels.  Unset or ``cuda``, the variable means
+the card (the current device, which ``parallel/distributed.py``
+``bind_device`` sets for a rank); any other value fails :func:`setup`.
 
 Every function takes only ints (sizes, flags) and addresses (pointer
 values), so the C side needs nothing beyond ``PyObject_CallObject`` with
@@ -36,6 +46,7 @@ embedding holds one solver a process, as the ABI passes no handle.
 from __future__ import annotations
 
 import ctypes
+import os
 import sys
 import traceback
 from typing import NamedTuple
@@ -52,6 +63,9 @@ from fesom2_accelerate_tpu_torch.model.fct_ale import FctAleSolver
 
 __all__ = ["setup", "dims", "step", "reset"]
 
+# the environment variable by which a caller asks for the CPU (backend 0)
+DEVICE_ENV = "FESOM2_TORCH_DEVICE"
+
 
 class Session(NamedTuple):
     """What :func:`setup` built: the mesh, the config and the solver."""
@@ -65,7 +79,12 @@ _SESSION: Session | None = None
 
 
 class NoDevice(RuntimeError):
-    """Backend 1 on a host with no CUDA device."""
+    """A backend on a host with no CUDA device, or backend 1 asked for the
+    CPU."""
+
+
+class BadDevice(ValueError):
+    """A value of ``FESOM2_TORCH_DEVICE`` other than ``cuda`` or ``cpu``."""
 
 
 def _view(addr: int, shape, dtype) -> np.ndarray:
@@ -89,17 +108,38 @@ def config(backend: int, dt_milli: int, vlimit: int,
         return FctAleConfig(dt=dt_milli * 1e-3, vlimit=vlimit,
                             iter_yn=bool(iter_yn), dtype=torch.float32,
                             flux_eps=1e-7)
-    raise ValueError(f"backend must be 0 (torch f64, CPU) or 1 (CUDA "
-                     f"kernels f32), got {backend}")
+    raise ValueError(f"backend must be 0 (torch f64 on the card, or on the "
+                     f"CPU with {DEVICE_ENV}=cpu) or 1 (CUDA kernels f32), "
+                     f"got {backend}")
+
+
+def _device(backend: int) -> torch.device:
+    """The device of ``backend``'s solver: the card (the current CUDA
+    device), or the CPU where ``FESOM2_TORCH_DEVICE=cpu`` asks for it and
+    the backend is 0.  Raises NoDevice or BadDevice."""
+    asked = os.environ.get(DEVICE_ENV, "cuda")
+    if asked not in ("cuda", "cpu"):
+        raise BadDevice(f"{DEVICE_ENV}={asked!r}: unset or 'cuda' runs on "
+                        f"the card, 'cpu' runs backend 0 on the CPU")
+    if asked == "cpu":
+        if backend == 1:
+            raise NoDevice(f"backend 1 runs the CUDA kernels and needs a "
+                           f"CUDA device: {DEVICE_ENV}=cpu asks for the CPU")
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        what = ("runs the CUDA kernels" if backend == 1 else
+                f"runs the plain f64 step on the card (or on the CPU with "
+                f"{DEVICE_ENV}=cpu)")
+        raise NoDevice(f"backend {backend} {what} and needs a CUDA device: "
+                       f"torch.cuda.is_available() is False")
+    return torch.device("cuda")
 
 
 def _solver(mesh: Mesh, cfg: FctAleConfig, backend: int) -> FctAleSolver:
-    if backend == 0:
-        return FctAleSolver(mesh, cfg, device="cpu")
-    if not torch.cuda.is_available():
-        raise NoDevice("backend 1 runs the CUDA kernels and needs a CUDA "
-                       "device: torch.cuda.is_available() is False")
-    return FctAleSolver(mesh, cfg, device="cuda")
+    # backend 0 is the plain stages wherever it runs, as the JAX shim's
+    # backend 0 is XLA's; backend 1 the kernels
+    return FctAleSolver(mesh, cfg, "torch" if backend == 0 else "cuda",
+                        device=_device(backend))
 
 
 def setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
@@ -120,7 +160,7 @@ def setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
         cfg = config(backend, dt_milli, vlimit, iter_yn)
         _SESSION = Session(mesh, cfg, _solver(mesh, cfg, backend))
         return 0
-    except NoDevice as e:
+    except (NoDevice, BadDevice) as e:
         print(f"fesom2_accelerate_tpu_torch.host_embed.setup: {e}",
               file=sys.stderr, flush=True)
         return 1

@@ -56,11 +56,15 @@ def environment() -> dict:
     return env
 
 
-def run(demo, d, timeout: float = 600.0) -> subprocess.CompletedProcess:
-    """Runs the demo on the case in ``d``; its exit code names the ABI
-    call that failed (0 when none did)."""
+def run(demo, d, timeout: float = 600.0,
+        env: dict | None = None) -> subprocess.CompletedProcess:
+    """Runs the demo on the case in ``d``, with the variables of ``env``
+    added to :func:`environment` (``{"FESOM2_TORCH_DEVICE": "cpu"}`` runs
+    backend 0 on the CPU); its exit code names the ABI call that failed (0
+    when none did)."""
     return subprocess.run([str(demo), str(d)], capture_output=True,
-                          text=True, env=environment(), timeout=timeout)
+                          text=True, env={**environment(), **(env or {})},
+                          timeout=timeout)
 
 
 def outputs(d, mesh, iter_yn: bool) -> dict:

@@ -6,11 +6,11 @@
 // phase entry points driving the GPU pipeline (reference
 // include/fesom2-accelerate.h:128-236, src/fesom2-accelerate.cu:258-379).
 // This shim embeds CPython and drives fesom2_accelerate_tpu_torch.host_embed,
-// which wraps the caller's buffers zero-copy and runs the port's step: the
-// plain float64 step on the CPU (backend 0) or the CUDA kernels on the card
-// (backend 1).  Its extern "C" block has the names and parameter lists of
-// the JAX package's native/fesom2_tpu_host.cpp, so a host links either
-// library unchanged.  Same binding style as the reference (trailing-
+// which wraps the caller's buffers zero-copy and runs the port's step on the
+// card: the plain float64 step (backend 0; on the CPU only where the caller
+// sets FESOM2_TORCH_DEVICE=cpu) or the CUDA kernels (backend 1).  Its
+// extern "C" block has the names and parameter lists of the JAX package's
+// native/fesom2_tpu_host.cpp, so a host links either library unchanged.  Same binding style as the reference (trailing-
 // underscore names, pointer-to-scalar args, istat out-params,
 // src/fesom2-accelerate.cu:114-127); 0-based connectivity.
 //
@@ -117,9 +117,10 @@ void f2t_init_(int *istat) {
 // One-time mesh transfer + solver build (reference transfer_mesh_ +
 // alloc_var_ phase).  elem_nodes: [n_elems, 3] int32 row-major, 0-based;
 // nlev_elem: [n_elems] int32; node_xy: [n_nodes, 2] f64.
-// backend: 0 = torch f64 on the CPU (correctness), 1 = CUDA kernels f32 on
-// the card (istat 1 where there is no card).  dt_milli: timestep in 1e-3
-// units.
+// backend: 0 = plain torch f64 on the card (correctness; on the CPU where
+// FESOM2_TORCH_DEVICE=cpu), 1 = CUDA kernels f32 on the card (istat 1
+// where there is no card; either backend then).  dt_milli: timestep in
+// 1e-3 units.
 void f2t_setup_(const int *n_elems, const int *nl, const int *elem_nodes,
                 const int *nlev_elem, const int *n_nodes,
                 const double *node_xy, const int *dt_milli, const int *vlimit,

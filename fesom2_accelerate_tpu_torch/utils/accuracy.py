@@ -66,7 +66,7 @@ def _solver(mesh, dtype, eps: float, backend: str, device) -> FctAleSolver:
 
 
 def trajectory(mesh, fields: dict, dtype, eps: float, steps, *,
-               backend: str = "torch", device="cpu") -> dict:
+               backend: str = "torch", device) -> dict:
     """{N: {key: float64 numpy}} of the iterative run's state after each N
     of ``steps`` (ascending), one run from ``fields`` through
     ``FctAleSolver.run``: the state after N steps, as the JAX study's
@@ -82,7 +82,7 @@ def trajectory(mesh, fields: dict, dtype, eps: float, steps, *,
 
 
 def one_step(mesh, fields: dict, dtype, eps: float, *,
-             backend: str = "torch", device="cpu") -> dict:
+             backend: str = "torch", device) -> dict:
     """The full output of one ``FctAleSolver.step`` (with the factors
     ``fct_plus``/``fct_minus``), as float64 numpy."""
     solver = _solver(mesh, dtype, eps, backend, device)

@@ -58,7 +58,8 @@ def jax_f64():
 
 
 def test_plain_f64_trajectory_equals_jax_xla(small, fields, jax_f64):
-    ours = accuracy.trajectory(small, fields, torch.float64, 1e-16, STEPS)
+    ours = accuracy.trajectory(small, fields, torch.float64, 1e-16, STEPS,
+                               device="cpu")
     for n in STEPS:
         for k in accuracy.DRIFT_KEYS:
             err = accuracy.relerr(ours[n][k], jax_f64[n][k])
@@ -96,3 +97,14 @@ def test_flux_eps_table_has_the_jax_rows(small, capsys):
     # one step's fct_LO is the drift table's N = 1 at flux_eps 1e-7
     at_1e7 = tables["flux_eps"][2]["torch"]["fct_LO"]
     assert at_1e7 == tables["drift"][0]["torch"]["fct_LO"]
+
+
+@pytest.mark.parametrize("call", [
+    lambda m, f: accuracy.trajectory(m, f, torch.float64, 1e-16, STEPS),
+    lambda m, f: accuracy.one_step(m, f, torch.float64, 1e-16)],
+    ids=["trajectory", "one_step"])
+def test_runs_take_no_default_device(small, fields, call):
+    """The device is the caller's choice, as for ``FctAleSolver``: the
+    study's runs take no default, so none runs on the CPU unasked."""
+    with pytest.raises(TypeError, match="device"):
+        call(small, fields)

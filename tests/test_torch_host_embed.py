@@ -3,11 +3,18 @@ over ``host_embed``), the counterpart of tests/test_native.py:108-181.
 
 * the port's C demo host, built with g++ and linked against the port's
   shim, runs one step on the ``toy`` mesh through ``f2t_*_`` only:
-  backend 0 (torch f64 on the CPU) bit for bit against
+  backend 0 (the plain torch f64 step), asked for on the CPU with
+  ``FESOM2_TORCH_DEVICE=cpu``, bit for bit against
   ``FctAleSolver(device="cpu")`` in f64, and against the JAX f64 solver at
   1e-12, with ``iter_yn`` both ways;
-* backend 1 (the CUDA kernels) on a host without a card: ``istat`` 1 from
-  setup, and the message names the missing device; nothing stands in;
+* either backend on a host without a card, backend 0 not asked for on the
+  CPU, and backend 1 asked for the CPU: ``istat`` 1 from setup, and the
+  message names the missing device; nothing falls back to the CPU and
+  nothing stands in for the kernels; an unknown ``FESOM2_TORCH_DEVICE``
+  fails setup and is named;
+* ``_solver`` gives backend 0 the plain stages (``backend="torch"``) on
+  the device asked for, backend 1 the kernels on the card (the card's half
+  runs in ``chip_smoke.py`` phase 12);
 * backend 1's Python ``step`` on the CPU, given the CUDA step function
   (each kernel wrapper's plain version), against the JAX
   ``FctAleSolver(backend="pallas")`` in interpret mode at 2e-6;
@@ -81,10 +88,21 @@ def _jax(iter_yn, backend, fields):
         pallas_kernels.set_interpret(False)
 
 
+def _setup(mesh, backend: int, iter_yn: bool = False) -> int:
+    """``host_embed.setup`` on the mesh's host arrays -> its istat."""
+    en = np.ascontiguousarray(mesh.elem_nodes, np.int32)
+    nl = np.ascontiguousarray(mesh.nlev_elem, np.int32)
+    xy = np.ascontiguousarray(mesh.node_xy, np.float64)
+    return host_embed.setup(mesh.n_elems, mesh.nl, en.ctypes.data,
+                            nl.ctypes.data, mesh.n_nodes, xy.ctypes.data,
+                            DT_MILLI, 1, int(iter_yn), backend)
+
+
 @pytest.mark.parametrize("iter_yn", [False, True])
 def test_c_demo_backend0_matches_port_and_jax(tmp_path, toy, demo_exe,
-                                              iter_yn):
+                                              monkeypatch, iter_yn):
     mesh, fields = toy
+    monkeypatch.setenv(host_embed.DEVICE_ENV, "cpu")
     demo.write_inputs(tmp_path, mesh, fields, DT_MILLI, 1, iter_yn, 0)
     p = demo.run(demo_exe, tmp_path)
     assert p.returncode == 0, f"demo failed:\n{p.stdout}\n{p.stderr[-3000:]}"
@@ -121,6 +139,91 @@ def test_backend1_without_a_card_fails_setup(tmp_path, toy, demo_exe,
     assert "needs a CUDA device" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="setup has not succeeded"):
         host_embed.dims()
+
+
+def test_backend0_without_a_card_fails_setup(tmp_path, toy, demo_exe,
+                                             capsys, monkeypatch):
+    """With no card and no request for the CPU, backend 0 refuses: it does
+    not carry on on the CPU."""
+    mesh, fields = toy
+    monkeypatch.delenv(host_embed.DEVICE_ENV, raising=False)
+    # through the C host, the card hidden: istat 1, the demo exits 4
+    demo.write_inputs(tmp_path, mesh, fields, DT_MILLI, 1, False, 0)
+    p = demo.run(demo_exe, tmp_path, env={"CUDA_VISIBLE_DEVICES": ""})
+    assert p.returncode == 4, p.stdout + p.stderr
+    assert "backend 0" in p.stderr and "needs a CUDA device" in p.stderr
+    # from Python, with the card hidden where there is one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert _setup(mesh, 0) == 1
+    err = capsys.readouterr().err
+    assert "needs a CUDA device" in err and host_embed.DEVICE_ENV in err
+    with pytest.raises(RuntimeError, match="setup has not succeeded"):
+        host_embed.dims()
+
+
+@pytest.mark.parametrize("backend", [0, 1])
+@pytest.mark.parametrize("value", ["gpu", "CPU", ""])
+def test_unknown_device_request_fails_setup(toy, capsys, monkeypatch,
+                                            backend, value):
+    mesh, _ = toy
+    monkeypatch.setenv(host_embed.DEVICE_ENV, value)
+    assert _setup(mesh, backend) == 1
+    assert f"{host_embed.DEVICE_ENV}={value!r}" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="setup has not succeeded"):
+        host_embed.dims()
+
+
+def test_backend1_asked_for_the_cpu_fails_setup(tmp_path, toy, demo_exe,
+                                                capsys, monkeypatch):
+    """The kernels need the card: ``FESOM2_TORCH_DEVICE=cpu`` does not move
+    backend 1 to the CPU, even where a card exists."""
+    mesh, fields = toy
+    demo.write_inputs(tmp_path, mesh, fields, DT_MILLI, 1, False, 1)
+    p = demo.run(demo_exe, tmp_path, env={host_embed.DEVICE_ENV: "cpu"})
+    assert p.returncode == 4, p.stdout + p.stderr
+    assert f"{host_embed.DEVICE_ENV}=cpu" in p.stderr
+    monkeypatch.setenv(host_embed.DEVICE_ENV, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert _setup(mesh, 1) == 1
+    err = capsys.readouterr().err
+    assert "needs a CUDA device" in err and host_embed.DEVICE_ENV in err
+
+
+def test_backend0_solver_is_the_plain_step_on_the_cpu_asked_for(
+        toy, monkeypatch):
+    mesh, fields = toy
+    monkeypatch.setenv(host_embed.DEVICE_ENV, "cpu")
+    cfg = host_embed.config(0, DT_MILLI, 1, 0)
+    solver = host_embed._solver(mesh, cfg, 0)
+    assert solver.backend == "torch" and solver.device == torch.device("cpu")
+    assert solver.md.edges.device.type == "cpu"
+    ref = FctAleSolver(mesh, cfg, "torch", device="cpu")
+    got = solver.step(solver.init_state(fields))
+    for k, v in ref.step(ref.init_state(fields)).items():
+        assert got[k].dtype == torch.float64
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("backend, asked, want", [
+    (0, None, ("torch", "cuda")), (0, "cuda", ("torch", "cuda")),
+    (0, "cpu", ("torch", "cpu")), (1, None, ("cuda", "cuda")),
+    (1, "cuda", ("cuda", "cuda"))])
+def test_solver_backend_and_device(toy, monkeypatch, backend, asked, want):
+    """The (backend, device) ``_solver`` builds for each backend and
+    ``FESOM2_TORCH_DEVICE``, a card reported present (the solver is not
+    built, so no card is needed)."""
+    mesh, _ = toy
+    if asked is None:
+        monkeypatch.delenv(host_embed.DEVICE_ENV, raising=False)
+    else:
+        monkeypatch.setenv(host_embed.DEVICE_ENV, asked)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    built = []
+    monkeypatch.setattr(host_embed, "FctAleSolver",
+                        lambda m, c, b, *, device: built.append((b, device)))
+    host_embed._solver(mesh, host_embed.config(backend, DT_MILLI, 1, 0),
+                       backend)
+    assert built == [(want[0], torch.device(want[1]))]
 
 
 @pytest.mark.parametrize("iter_yn", [False, True])

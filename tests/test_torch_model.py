@@ -148,7 +148,8 @@ def test_port_imports_no_jax():
     device, and the multi-process and host-embedding modules
     (``parallel.distributed``, ``utils.multiproc``, ``host_embed`` and
     the shim's ``native`` build and demo runner): one step through
-    ``host_embed`` on caller-owned buffers; the ground-truth modules
+    ``host_embed`` on caller-owned buffers, backend 0 asked for on the CPU
+    (``FESOM2_TORCH_DEVICE=cpu``); the ground-truth modules
     (``ops.oracle``, ``ops.oracle_loops``, ``mesh.native``): one toy
     step of the numpy oracle and one of the built C++ golden reference,
     against each other."""
@@ -231,7 +232,7 @@ def test_port_imports_no_jax():
         "            and sys.modules[m] is not None]\n"
         "print('ok')\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, FESOM2_TORCH_DEVICE="cpu")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -225,8 +225,9 @@ def test_core_and_host_shim_in_one_process():
     """Both libraries load with ctypes' default RTLD_LOCAL; neither
     resolves the other's names, each function lies in its own library's
     mapping, and each call reaches its own library: the core derives the
-    toy mesh's edges, the shim sets up the toy mesh and reports its
-    sizes through the embedded interpreter (this process's)."""
+    toy mesh's edges, the shim sets up the toy mesh (backend 0, asked for
+    on the CPU with ``FESOM2_TORCH_DEVICE=cpu``) and reports its sizes
+    through the embedded interpreter (this process's)."""
     if not build.available():
         pytest.skip("host embedding shim unavailable (no g++ or libpython)")
     code = r"""
@@ -277,7 +278,8 @@ assert [d.value for d in dims] == [mesh.n_nodes, mesh.n_edges,
 print("ok")
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          env=dict(os.environ, PYTHONPATH=str(REPO),
+                                   FESOM2_TORCH_DEVICE="cpu"),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "ok"
