@@ -129,7 +129,8 @@ Phases (each raises on failure, so the script exits non-zero):
    d. ``ShardedFctAleSolver(backend="cuda", devices=["cuda:0"] * 4,
       tracers=4)`` on core2, split and fused, 20 steps, against the
       single-device batched run within MAIN_RELERR, with 16 (split) and 12
-      (fused) launches and as many exchange ops a step as at Tb = 1;
+      (fused) launches and as many exchange ops a step as at Tb = 1
+      (EXCHANGE_OPS, 12: one exchange of both limiter factors);
    e. ms a tracer a step at Tb = 1, 2, 4, 8 on core2 f32, single device and
       4 parts split and fused (CUDA events around the solver's run, device
       time with the stream held, host enqueue); at Tb = 1 and 8 also the
@@ -155,7 +156,7 @@ Phases (each raises on failure, so the script exits non-zero):
    b. the launch counts of graph runs (3 / 16 / 12 a step), a run that
       captures a block length (its calls rolled back, its replays added)
       and a run of replays only, held against the kernel events
-      torch.profiler records, and the exchange ops of a sharded step (24);
+      torch.profiler records, and the exchange ops of a sharded step (12);
    c. 10 split steps at 4 parts on core2, ``save_checkpoint``, loaded at 2
       parts and on one device, 10 more steps each, against 20 steps without
       a break (MAIN_RELERR); the same at 4 tracers, resumed at 2 parts.
@@ -177,8 +178,16 @@ Phases (each raises on failure, so the script exits non-zero):
    process, with 8 (split) / 6 (fused) launches a rank a step and the
    cross-process sends and bytes a step; a collective checkpoint at 10
    split steps (rank 0 writes), resumed here at 2 parts, bit for bit
-   against 20 steps without a break; ms a step on each rank (CUDA events,
-   host wall) of core2 split and fused;
+   against 20 steps without a break; the messages and bytes each rank
+   sends a step equal to one exchange of both limiter factors' slabs (and
+   one of fct_LO's when iterative), from the partition (``mp_sent``: 1
+   message and 113,928 B a rank on core2, where one exchange a factor
+   sent 2); ms a step on each rank (CUDA events, host wall) of core2
+   split and fused beside those of one exchange a factor
+   (MP_TWO_EXCHANGE_STEP_MS), the time of one exchange of both factors
+   alone, and a torch.profiler trace of one split step on each rank:
+   whether the staging of its slabs (the gather and device-to-host copy
+   on the side stream) ran while its K3 ran, printed, not asserted;
 12. the host-embedding ABI: the shim (``native/fesom2_torch_host.cpp``)
    and its C demo host built with g++; the demo runs one step through
    ``f2t_*_`` on core2 with backend 1 (the CUDA kernels, f32), bit for bit
@@ -1048,6 +1057,10 @@ def phase_s2r_path(card: str, meshes: dict) -> tuple:
 
 
 SHARD_PARTS = 4
+# the halo fill's device ops a sharded step at SHARD_PARTS parts of core2,
+# at any Tb: 6 slabs, an index_select and an index_copy_ each, in the one
+# exchange of both limiter factors (24 when each factor had its own)
+EXCHANGE_OPS = 12
 
 
 def part_targets(mesh, dtype, fields) -> list:
@@ -1310,8 +1323,9 @@ def phase_fold_checks(errs: Errors, meshes: dict) -> dict:
                     edges = [K.b3h(md, pre["fct_plus"], pre["fct_minus"],
                                    st["fct_adf_h"], iter_yn)
                              for md, st, pre in zip(sh.mds, parts, pres)]
-                    sh.halo_fill([pre["fct_plus"] for pre in pres])
-                    sh.halo_fill([pre["fct_minus"] for pre in pres])
+                    sh.halo_fill([K.factor_pair(pre["fct_plus"],
+                                                pre["fct_minus"])
+                                  for pre in pres])
                     for p in range(n_parts):
                         diff = max(diff, fold_vs_witness(
                             sh.mds[p], parts[p], pres[p], edges[p],
@@ -1469,10 +1483,11 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
               f"(core2 f32, {SHARD_PARTS} parts on one card; card {card})")
 
     sh, state = solvers["split"]
-    plus = [torch.rand(mesh.n_layers, sh.pm.n_local, device="cuda")
+    both = [torch.rand(2, mesh.n_layers, sh.pm.n_local, device="cuda")
             for _ in range(SHARD_PARTS)]
-    t = best_times({"exchange": lambda: sh.halo_fill(plus)}, 20)
-    print(f"exchange alone ({sh.exchange_mode}, one [L, 2H+B] field, "
+    t = best_times({"exchange": lambda: sh.halo_fill(both)}, 20)
+    print(f"exchange alone ({sh.exchange_mode}, a step's one exchange of "
+          f"both limiter factors, [2, L, 2H+B], "
           f"{SHARD_PARTS} parts, H={sh.pm.H}, B={sh.pm.B}): "
           f"{t['exchange']:.4f} ms (card {card})")
 
@@ -2148,7 +2163,8 @@ def phase_tracer_sharded(tf: TracerFields) -> None:
     4, tracers=4) on core2, split and fused, 20 steps, against the
     single-device batched run within MAIN_RELERR, with the launches of each
     run (16 split, 12 fused a step, as at Tb=1) and the exchange ops of a
-    step (as many as at Tb=1: 24)."""
+    step (as many as at Tb=1: EXCHANGE_OPS, one exchange of both limiter
+    factors)."""
     from fesom2_accelerate_tpu_torch import (
         FctAleConfig,
         FctAleSolver,
@@ -2167,6 +2183,10 @@ def phase_tracer_sharded(tf: TracerFields) -> None:
     one = ShardedFctAleSolver(mesh, cfg, backend="cuda",
                               devices=["cuda:0"] * SHARD_PARTS)
     ops1 = exchange_ops(one, one.init_state(tf("core2", 1)[0][0]))
+    if ops1 != EXCHANGE_OPS:
+        raise AssertionError(f"sharded split (core2, {SHARD_PARTS} parts, "
+                             f"Tb=1): {ops1} exchange ops a step, expected "
+                             f"{EXCHANGE_OPS}")
     per = {"split": ("bounds", "limit", "b3h", "update_fixup"),
            "fused": ("bounds", "limit", "update_fused")}
     for mode, names in per.items():
@@ -2182,7 +2202,7 @@ def phase_tracer_sharded(tf: TracerFields) -> None:
         label = f"sharded {mode} (core2, {SHARD_PARTS} parts, Tb={TRACERS})"
         check_counts(counts, {k: SHARD_PARTS * steps for k in names}, label)
         ops = exchange_ops(sh, state)
-        if ops != ops1:
+        if ops != EXCHANGE_OPS:
             raise AssertionError(f"{label}: {ops} exchange ops a step, "
                                  f"{ops1} at Tb=1")
         got = sh.gather_state(out)
@@ -2602,10 +2622,10 @@ def phase_graph_counts(paths: dict) -> None:
     fused (12) steps' runs: a new run's run that captures a block length
     (after a short run that primes the step and, for the solvers' run,
     makes its choice) and a run of replays only; and the exchange ops of a
-    sharded step (24).  CUPTI has lost the first kernels of a profiled
-    window in long processes, so each window opens after a warm-up cycle
-    of the profiler with MARKERS sleep kernels, and the priming steps run
-    before it."""
+    sharded step (EXCHANGE_OPS).  CUPTI has lost the first kernels of a
+    profiled window in long processes, so each window opens after a
+    warm-up cycle of the profiler with MARKERS sleep kernels, and the
+    priming steps run before it."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
@@ -2652,8 +2672,13 @@ def phase_graph_counts(paths: dict) -> None:
                                      f"profiler's kernel events {seen}; "
                                      f"kernels in order: "
                                      f"{kernel_sequence(prof)}")
-            ops = f", {exchange_ops(sh[0], state)} exchange ops a step" \
-                if sh else ""
+            ops = ""
+            if sh:
+                n_ops = exchange_ops(sh[0], state)
+                if n_ops != EXCHANGE_OPS:
+                    raise AssertionError(f"{label}: {n_ops} exchange ops a "
+                                         f"step, expected {EXCHANGE_OPS}")
+                ops = f", {n_ops} exchange ops a step"
             print(f"{label} (core2): counters = torch.profiler's kernel "
                   f"events over {MAIN_STEPS} steps, "
                   f"{sum(counts.values()) // MAIN_STEPS} launches a step "
@@ -2793,8 +2818,37 @@ def phase_bench(card: str, meshes: dict) -> None:
 MP_PARTS_PER_RANK = 2
 MP_TIMEOUT = 300.0
 MP_LAUNCHES = {"split": 8, "fused": 6}
+# ms a rank a step of phase 11's core2 runs in two calls on an H100
+# ("NVIDIA H100 80GB HBM3, 700.00 W") when each limiter factor had its own
+# exchange, after K3 (PERF.md §5): printed beside this run's
+MP_TWO_EXCHANGE_STEP_MS = {"split": (2.3368, 2.9713),
+                           "fused": (3.2403, 4.4185)}
 # phase 12: the ABI steps timed on core2
 ABI_STEPS = 5
+
+
+def mp_sent(preset: str, dtype: str, tracers: int, iter_yn: bool) -> list:
+    """(messages, bytes) each rank sends a step in phase 11's layout (4
+    parts, ranks 0, 0, 1, 1), from the partition: one message a slab that
+    leaves the rank in the one exchange of both limiter factors ([2, Tb,
+    L, slab] each) and, iterative, one more in fct_LO's ([Tb, L, slab])."""
+    from fesom2_accelerate_tpu_torch.parallel import partition as part_mod
+    from fesom2_accelerate_tpu_torch.parallel.step_sharded import (
+        exchange_pairs,
+    )
+    from fesom2_accelerate_tpu_torch.utils import multiproc
+
+    mesh = multiproc.case_mesh(preset)
+    owners = [r for r in range(2) for _ in range(MP_PARTS_PER_RANK)]
+    pm = part_mod.partition_mesh(mesh, len(owners))
+    size = 4 if dtype == "f32" else 8
+    out = []
+    for r in range(2):
+        cols = [len(c) for p, q, _, c, _ in exchange_pairs(pm)
+                if owners[q] == r != owners[p]]
+        out.append((len(cols) * (1 + iter_yn), sum(cols) * mesh.n_layers
+                    * size * tracers * (2 + iter_yn)))
+    return out
 
 
 def mp_case(label: str, preset: str, dtype: str, mode: str, steps: int,
@@ -2852,6 +2906,13 @@ def mp_case(label: str, preset: str, dtype: str, mode: str, steps: int,
         if row["launches_per_step"] != MP_LAUNCHES[mode]:
             raise AssertionError(f"{label}: rank {row['rank']} launched "
                                  f"{row['launches']} in {steps} steps")
+    sent = mp_sent(preset, dtype, tracers, iter_yn)
+    got_sent = [(r["messages_per_step"], r["bytes_per_step"]) for r in rows]
+    if got_sent != sent:
+        raise AssertionError(f"{label}: (messages, bytes) a rank a step "
+                             f"{got_sent}, expected {sent}: one exchange of "
+                             f"both limiter factors (and of fct_LO when "
+                             f"iterative)")
     print(f"{label}: 2 ranks x {MP_PARTS_PER_RANK} parts on "
           f"{rows[0]['devices'][0]} ({rows[0]['transport']}), {steps} "
           f"steps: bit for bit against one process at "
@@ -2911,16 +2972,31 @@ def phase_multiprocess(card: str) -> None:
             iter_yn=True)
     mp_case(f"mp core2 f32 split Tb={TRACERS}", "core2", "f32", "split",
             MAIN_STEPS, tracers=TRACERS)
+    for r in timed["split"]:
+        tr = r["staging_trace"]
+        seq = ", ".join(f"{n} ({s}) {a:.1f}-{b:.1f}"
+                        for n, s, a, b in tr["events"])
+        print(f"mp core2 f32 split rank {r['rank']}, one step's device "
+              f"events (µs): {seq}; {tr['k3']} K3 launches, "
+              f"{tr['staging']} staging ops on the side stream (the "
+              f"gather and DtoH copy of the slab that leaves the rank), "
+              f"{tr['staging_during_k3']} of them while a K3 ran",
+              flush=True)
     for mode, rows in timed.items():
         print(json.dumps({
             "phase": 11, "mode": mode, "procs": 2, "parts": 4,
             "steps": MAIN_STEPS, "transport": rows[0]["transport"],
             "step_ms_ranks": [r["step_ms"] for r in rows],
+            "two_exchange_step_ms_runs": MP_TWO_EXCHANGE_STEP_MS[mode],
             "host_ms_ranks": [r["host_ms"] for r in rows],
             "exchange_ms_ranks": [r["exchange_ms"] for r in rows],
+            "exchange": "both limiter factors in one exchange",
             "messages_per_step_ranks": [r["messages_per_step"]
                                         for r in rows],
             "bytes_per_step_ranks": [r["bytes_per_step"] for r in rows],
+            "staging_during_k3_ranks": [
+                r["staging_trace"]["staging_during_k3"] for r in rows]
+            if mode == "split" else None,
             "card": card}), flush=True)
 
 

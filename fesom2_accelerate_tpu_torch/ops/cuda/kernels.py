@@ -38,12 +38,15 @@ returns its plain version, built from
 written out here, in the kernel's summation order).  Given CUDA tensors it
 checks device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty`` (``b3h_fixup`` and ``update_fixup`` write in place into
-``b3h``'s), launches the kernel on the current stream of the mesh data's
-device, raises if the launcher reports an error, and adds one to its
-``launches`` count.  Any other device raises.  Nothing falls back.  In
-the capture of a CUDA graph a call launches nothing and a replay calls no
-wrapper: :func:`capturing` and :func:`count_replay` keep the counts
-those of the launches (``runtime/graphs.py``).
+``b3h``'s; ``limit`` and ``limit_fused`` write fct_plus and fct_minus into
+the two halves of one allocation, which :func:`factor_pair` returns as
+one tensor for a sharded step's exchange), launches the kernel on the
+current stream of the mesh data's device, raises if the launcher reports
+an error, and adds one to its ``launches`` count.  Any other device
+raises.  Nothing falls back.  In the capture of a CUDA graph a call
+launches nothing and a replay calls no wrapper: :func:`capturing` and
+:func:`count_replay` keep the counts those of the launches
+(``runtime/graphs.py``).
 
 Every wrapper takes ``threads``, the CUDA block size (one of ``THREADS``,
 default 128): the launch configuration the tuning harness sweeps.  The
@@ -199,6 +202,33 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _factors(shape: tuple, dtype: torch.dtype, dev: torch.device) -> tuple:
+    """fct_plus and fct_minus of ``shape``: the two halves of one [2,
+    *shape] allocation, each contiguous, so that :func:`factor_pair` gives
+    both as one tensor without a copy (a sharded step's one exchange of
+    both factors)."""
+    both = torch.empty((2, *shape), dtype=dtype, device=dev)
+    return both[0], both[1]
+
+
+def factor_pair(plus: torch.Tensor, minus: torch.Tensor) -> torch.Tensor:
+    """fct_plus and fct_minus as one [2, ...] tensor, the JAX sharded
+    step's ``jnp.stack([plus, minus])``: a view of the allocation that
+    :func:`limit` and :func:`limit_fused` write them into when they are its
+    two halves (no copy), else the two stacked.  Halo columns written into
+    the pair are what its halves ``[0]`` and ``[1]`` read."""
+    if (plus.shape == minus.shape and plus.dtype == minus.dtype
+            and plus.device == minus.device and plus.is_contiguous()
+            and minus.is_contiguous() and plus.untyped_storage().data_ptr()
+            == minus.untyped_storage().data_ptr()
+            and minus.storage_offset()
+            == plus.storage_offset() + plus.numel()):
+        return plus.as_strided((2, *plus.shape),
+                               (plus.numel(), *plus.stride()),
+                               plus.storage_offset())
+    return torch.stack([plus, minus])
+
+
 def _mesh_ptrs(md: MeshData, *names) -> list:
     return [getattr(md, n).data_ptr() for n in names]
 
@@ -287,8 +317,7 @@ def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
         return limit_ref(md, fct_adf_v, tmax, tmin, fct_adf_h, dt, flux_eps,
                          iter_yn)
     dev = _check(md, checks, md.nd_idx.shape[1])
-    plus = torch.empty(_rows(tb, L, N), dtype=md.dtype, device=dev)
-    minus = torch.empty_like(plus)
+    plus, minus = _factors(_rows(tb, L, N), md.dtype, dev)
     adf_v_lim = torch.empty(_rows(tb, L + 1, N), dtype=md.dtype, device=dev)
     adf_v_res = torch.empty_like(adf_v_lim) if iter_yn else None
     _launch("fct_limit", md, dev, threads, fct_adf_v.data_ptr(),
@@ -341,8 +370,7 @@ def limit_fused(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
     dev = _check(md, checks, md.nd_idx.shape[1])
     tmax = torch.empty((L, N), dtype=md.dtype, device=dev)
     tmin = torch.empty_like(tmax)
-    plus = torch.empty_like(tmax)
-    minus = torch.empty_like(tmax)
+    plus, minus = _factors((L, N), md.dtype, dev)
     adf_v_lim = torch.empty((L + 1, N), dtype=md.dtype, device=dev)
     adf_v_res = torch.empty_like(adf_v_lim) if iter_yn else None
     _launch("fct_limit_fused", md, dev, threads, fct_LO.data_ptr(),

@@ -8,12 +8,17 @@ the Pallas planners (``plan.py``, ``packed.py``) are TPU layout machinery.
 On CPU tensors each kernel wrapper runs its plain PyTorch version.
 
 A sharded step fills the halo columns of ``fct_plus``/``fct_minus`` between
-K2 and the b3 horizontal limiting.  The phases around that exchange:
+K2 and the b3 horizontal limiting, both in one exchange of the pair
+(``kernels.factor_pair``, the JAX sharded step's ``jnp.stack([plus,
+minus])``).  The
+phases around that exchange:
 
 * :func:`pre_exchange`: K1 bounds, K2 limit (the limiter factors), or
   K12 (both in one kernel);
 * :func:`limit_edges`: split mode's K3, every edge limited on the
-  pre-exchange factors (edges with no halo endpoint are then final);
+  pre-exchange factors (edges with no halo endpoint are then final); it
+  reads no halo column's exchanged value, so the exchange is in flight
+  while it runs;
 * :func:`post_exchange_fused`: K34, from the exchanged factors;
 * :func:`post_exchange_split`: K4-fix, one launch (``kernels.update_fixup``,
   K4 in its FIX form): the edges that touch a halo node limited again from
@@ -22,7 +27,8 @@ K2 and the b3 horizontal limiting.  The phases around that exchange:
   bits in two launches; the step no longer runs them.
 
 A step over P parts in one process enqueues every part's pre-exchange
-phase before the one exchange, so the exchange is not called from inside a
+phase, starts the one exchange, enqueues every part's K3 (split mode),
+then finishes the exchange, so the exchange is not called from inside a
 part's step (``parallel/step_sharded.py``).  The iterative mode's
 ``fct_LO`` halo refresh after stage c is done there as well.
 :func:`fct_ale_step_cuda` is the single-device step, in one of the four
@@ -56,7 +62,11 @@ def pre_exchange(md: MeshData, cfg: FctAleConfig, state: dict, *,
                  threads: int = DEFAULT_THREADS) -> dict:
     """K1, K2 (or K12 when ``fuse_k12``) -> the bounds, the limiter factors
     and the limited vertical fluxes (``adf_v_res`` is None unless
-    ``iter_yn``)."""
+    ``iter_yn``).  ``fct_plus`` and ``fct_minus`` are the two halves of
+    one [2, ...] allocation (the kernels' own on the card; stacked once
+    from the plain versions' on the CPU), so that
+    ``kernels.factor_pair(pre["fct_plus"], pre["fct_minus"])`` is both as
+    one tensor without a copy, and one halo fill of it exchanges both."""
     if fuse_k12:
         tmax, tmin, plus, minus, adf_v_lim, adf_v_res = kernels.limit_fused(
             md, state["fct_LO"], state["ttf"], state["fct_adf_v"],
@@ -68,6 +78,7 @@ def pre_exchange(md: MeshData, cfg: FctAleConfig, state: dict, *,
         plus, minus, adf_v_lim, adf_v_res = kernels.limit(
             md, state["fct_adf_v"], tmax, tmin, state["fct_adf_h"], cfg.dt,
             cfg.flux_eps, cfg.iter_yn, threads=threads)
+    plus, minus = kernels.factor_pair(plus, minus)
     return dict(fct_ttf_max=tmax, fct_ttf_min=tmin, fct_plus=plus,
                 fct_minus=minus, adf_v_lim=adf_v_lim, adf_v_res=adf_v_res)
 

@@ -13,13 +13,24 @@ package calls the exchange inside ``shard_map`` from each part's step, a
 single-process step enqueues every part's pre-exchange phase first, then
 the one exchange, then every part's post-exchange phase.
 
+The exchange's schedule is the JAX package's
+(``fesom2_accelerate_tpu/parallel/step_sharded.py:176-186``,
+``ops/pallas/step.py:822-871``, certified by ``tests/test_overlap.py``):
+both limiter factors move in one exchange of the pair ``[2, ...]``
+(``jnp.stack([plus, minus])``), and the fill is two-phase (``start``,
+``finish``; a call does both): it starts right after K2, the compute that
+reads no exchanged value (K3 in split mode, b3 vertical in the plain
+step) is enqueued while it is in flight, and it finishes, writing the halo
+columns, before the compute that reads them.
+
 Two backends:
 
 * ``cuda``: :func:`sharded_fct_ale_step_cuda`, the CUDA kernels per part
   (``ops/cuda/step.py``), in one of two modes:
 
-  - split (the default): K1, K2 and K3 (every edge limited on the
-    pre-exchange factors) on every part, the exchange, then K4-fix: one
+  - split (the default): K1, K2 on every part, the exchange started, K3
+    (every edge limited on the pre-exchange factors) on every part, the
+    exchange finished, then K4-fix: one
     launch of K4 in its FIX form, which limits again only the edges that
     touch a halo column, with the exchanged factors, and sums them into
     stage c (what K3fix then K4 did in two launches): 4 launches a part;
@@ -47,8 +58,9 @@ stage c, so the next iteration's K1 sees current halo values.
 Tracers (``tracers=Tb``, cuda only, as the JAX package batches on its
 Pallas backend only): each per-tracer field of a part is [Tb, rows, cols]
 and ``hnode``/``hnode_new`` are shared [L, 2H+B]; every phase runs its
-kernels once for all tracers, and one halo fill per field moves every
-tracer's halo columns, as the JAX package's one exchange does.  The
+kernels once for all tracers, and one halo fill moves every tracer's
+halo columns (the factors' pair is [2, Tb, rows, cols]), as the JAX
+package's one exchange does.  The
 launches and exchange ops of a step do not depend on Tb.
 
 ``run`` on the cuda backend with every part on one card replays the steps
@@ -69,13 +81,15 @@ Across processes (the JAX package's ``_multiproc``, a FESOM2 run's MPI
 ranks), each process holds its own parts and the halo fill sends the
 slabs that cross processes point to point over ``torch.distributed``
 (:class:`ProcessHaloFill`; gloo stages a CUDA part's slab through pinned
-host memory, :class:`Wire`).  The gathers and the checkpoint's write are
-collectives; a run is the host's loop of steps (a CUDA graph cannot
-capture a send).
+host memory on a side stream while K3 runs, :class:`Wire`; the finish
+waits for that staging's events, not for the compute stream).  The
+gathers and the checkpoint's write are collectives; a run is the host's
+loop of steps (a CUDA graph cannot capture a send).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -85,6 +99,7 @@ import torch.distributed as dist
 from fesom2_accelerate_tpu_torch.config import FctAleConfig, resolve_backend
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 from fesom2_accelerate_tpu_torch.model import fct_ale as single
+from fesom2_accelerate_tpu_torch.ops.cuda import kernels
 from fesom2_accelerate_tpu_torch.ops.cuda import step as cstep
 from fesom2_accelerate_tpu_torch.ops.meshdata import (
     MeshData,
@@ -101,30 +116,65 @@ from fesom2_accelerate_tpu_torch.runtime import graphs
 EDGE_FIELDS = frozenset({"fct_adf_h", "fct_adf_h_limited"})
 
 
-def _halo_fill(xs: list, hmaps: list, B: int, H: int) -> list:
-    """All-gather form: every part's owned block [.., H:H+B] concatenated
-    (once per device), then each part's 2H halo columns taken from it, in
-    place.  ``hmaps[p]`` = (halo columns, their flat indices q*B + i into
-    the concatenation), long tensors on part p's device."""
-    flat = {}
-    for x, (cols, src) in zip(xs, hmaps):
-        if x.device not in flat:
-            flat[x.device] = torch.cat([y[..., H:H + B].to(x.device)
-                                        for y in xs], dim=-1)
-        x.index_copy_(x.dim() - 1, cols, flat[x.device].index_select(-1, src))
+def _take_allgather(xs: list, hmaps: list, flat) -> list:
+    """All-gather form, what each part's halo columns take: ``flat(d)`` is
+    every part's owned block [.., H:H+B] concatenated in part order, on
+    device d (made once a device), and ``hmaps[p]`` = (part p's 2H halo
+    columns, their flat indices q*B + i into it), long tensors on part p's
+    device.  Returns, a part, [(halo columns, their values)]."""
+    flat = functools.cache(flat)
+    return [[(cols, flat(x.device).index_select(-1, src))]
+            for x, (cols, src) in zip(xs, hmaps)]
+
+
+def _take_nbr(xs: list, smaps: list) -> list:
+    """Packed point-to-point form, multi-hop, what each part's halo
+    columns take: ``smaps[p]`` lists, for each part q that owns some of
+    part p's halo nodes, (q, the owned columns q sends, long on q's
+    device; the halo columns they land in, long on p's device).  Each pair
+    gathers one packed slab.  Returns, a part, [(halo columns, slab)]."""
+    return [[(cols, xs[q].index_select(-1, send_cols).to(x.device))
+             for q, send_cols, cols in sources]
+            for x, sources in zip(xs, smaps)]
+
+
+def _place(xs: list, taken: list) -> list:
+    """Writes what :func:`_take_nbr` / :func:`_take_allgather` took into
+    the halo columns of ``xs``, in place."""
+    for x, got in zip(xs, taken):
+        for cols, vals in got:
+            x.index_copy_(x.dim() - 1, cols, vals)
     return xs
 
 
-def _halo_fill_nbr(xs: list, smaps: list) -> list:
-    """Packed point-to-point form, multi-hop: ``smaps[p]`` lists, for each
-    part q that owns some of part p's halo nodes, (q, the owned columns q
-    sends, long on q's device; the halo columns they land in, long on p's
-    device).  Each pair moves one packed slab, in place."""
-    for x, sources in zip(xs, smaps):
-        for q, send_cols, cols in sources:
-            x.index_copy_(x.dim() - 1, cols,
-                          xs[q].index_select(-1, send_cols).to(x.device))
-    return xs
+class HaloFill:
+    """The halo fill of parts in one process, in two phases, as the JAX
+    sharded step's exchange runs while compute that reads no exchanged
+    value goes on: :meth:`start` takes what every halo column receives
+    (from owned columns, which no fill writes), :meth:`finish` writes it
+    into the halo columns, in place.  A call does both.  ``mode``: the
+    ``ppermute`` form (``maps`` from :func:`_exchange_maps`: the packed
+    multi-hop slabs, :func:`_take_nbr`) or the ``allgather`` one
+    (:func:`_take_allgather`).  Every op is enqueued on the current
+    stream of its device, so a CUDA graph captures the fill as it is."""
+
+    def __init__(self, pm: PartitionedMesh, mode: str, devices: list):
+        self.mode = mode
+        self.H, self.B = pm.H, pm.B
+        self.maps = _exchange_maps(pm, mode, devices)
+
+    def start(self, xs: list) -> tuple:
+        if self.mode == "allgather":
+            H, B = self.H, self.B
+            return xs, _take_allgather(xs, self.maps, lambda d: torch.cat(
+                [y[..., H:H + B].to(d) for y in xs], dim=-1))
+        return xs, _take_nbr(xs, self.maps)
+
+    def finish(self, pending: tuple) -> list:
+        return _place(*pending)
+
+    def __call__(self, xs: list) -> list:
+        return self.finish(self.start(xs))
 
 
 def exchange_pairs(pm: PartitionedMesh) -> list:
@@ -187,9 +237,12 @@ class Wire:
     * "nccl": device tensors, sent as they are;
     * "gloo": CPU parts' tensors, sent as they are;
     * "gloo, staged through pinned host memory": gloo takes CPU tensors
-      only, so a CUDA part's slab is copied into pinned host memory, the
-      stream is synchronized (:meth:`ready`) before anything is sent, and
-      what arrives is copied to the card on the current stream."""
+      only, so :meth:`out` makes a CUDA part's tensors on a side stream
+      of its card, behind an event recorded on the current stream, and
+      copies them there into pinned host memory; :meth:`ready` waits for
+      the events recorded behind those copies, never for the current
+      stream, which goes on with the kernels enqueued after; what arrives
+      is copied to the card on the current stream."""
 
     def __init__(self, backend: str, devices: list):
         self.cards = sorted({d for d in devices if d.type == "cuda"},
@@ -198,20 +251,48 @@ class Wire:
         self.name = ("nccl" if backend == "nccl" else
                      "gloo, staged through pinned host memory"
                      if self.staged else "gloo")
+        self._side = {}
 
-    def out(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` as it is sent (a pinned host copy, enqueued, if staged)."""
-        if not self.staged or t.device.type != "cuda":
-            return t
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return host.copy_(t, non_blocking=True)
-
-    def ready(self) -> None:
-        """Waits for the copies of :meth:`out` (and the kernels before
-        them) before anything is sent."""
-        if self.staged:
+    def out(self, make, reads: list) -> tuple:
+        """(``make()``, a list of tensors, as it is sent; what
+        :meth:`ready` waits on).  Staged, ``make`` runs on each card's side
+        stream, after what the current stream has enqueued so far, and its
+        CUDA tensors are copied into pinned host memory there; ``reads``
+        are the tensors ``make`` reads (kept from reuse until the side
+        stream is done with them).  Else ``make()`` on the current
+        stream, and nothing to wait on."""
+        if not self.staged:
+            return make(), []
+        with contextlib.ExitStack() as on_side:
             for d in self.cards:
-                torch.cuda.current_stream(d).synchronize()
+                if d not in self._side:
+                    self._side[d] = torch.cuda.Stream(d)
+                side = self._side[d]
+                side.wait_stream(torch.cuda.current_stream(d))
+                on_side.enter_context(torch.cuda.stream(side))
+            for t in reads:
+                if t.device.type == "cuda":
+                    t.record_stream(self._side[t.device])
+            sent = []
+            for t in make():
+                if t.device.type == "cuda":
+                    t = torch.empty(t.shape, dtype=t.dtype,
+                                    pin_memory=True).copy_(
+                                        t, non_blocking=True)
+                sent.append(t)
+            staged = []
+            for d in self.cards:
+                ev = torch.cuda.Event()
+                ev.record(self._side[d])
+                staged.append(ev)
+        return sent, staged
+
+    @staticmethod
+    def ready(staged: list) -> None:
+        """Waits for the copies of one :meth:`out` (and the side stream's
+        work before them) before anything is sent."""
+        for ev in staged:
+            ev.synchronize()
 
     def buffer(self, shape, dtype, device: torch.device) -> torch.Tensor:
         """A receive buffer for a tensor bound for ``device``."""
@@ -224,18 +305,21 @@ class Wire:
         return t.to(device, non_blocking=True)
 
 
-def _gather_owned(blocks: list, owners: list, wire: Wire) -> tuple:
-    """Every part's block from every rank, ``blocks`` this rank's (its
-    parts', in order): (the blocks in global part order, the bytes this
-    rank sent to each other rank).  One ``all_gather`` that every rank
-    enters, of this rank's blocks stacked and zero-padded to the most
-    parts a rank holds (it takes one shape from every rank); the blocks
-    come back on the host when ``wire`` stages."""
+def _owned_stack(blocks: list, owners: list) -> torch.Tensor:
+    """This rank's blocks stacked and zero-padded to the most parts a rank
+    holds: the one shape an ``all_gather`` takes from every rank."""
     width = max(owners.count(r) for r in set(owners))
-    blocks = blocks + [torch.zeros_like(blocks[0])] * (width - len(blocks))
-    mine = wire.out(torch.stack(blocks))
-    wire.ready()
-    got = [wire.buffer(mine.shape, mine.dtype, blocks[0].device)
+    return torch.stack(
+        blocks + [torch.zeros_like(blocks[0])] * (width - len(blocks)))
+
+
+def _all_gather_owned(mine: torch.Tensor, owners: list,
+                      wire: Wire) -> tuple:
+    """Every rank's ``mine`` (:func:`_owned_stack`, as it is sent) in one
+    ``all_gather`` that every rank enters: (the blocks in global part
+    order, the bytes this rank sent to each other rank).  The blocks come
+    back on the host when ``wire`` stages."""
+    got = [wire.buffer(mine.shape, mine.dtype, mine.device)
            for _ in range(dist.get_world_size())]
     dist.all_gather(got, mine)
     seen = [0] * len(got)
@@ -246,25 +330,40 @@ def _gather_owned(blocks: list, owners: list, wire: Wire) -> tuple:
     return out, mine.numel() * mine.element_size()
 
 
+def _gather_owned(blocks: list, owners: list, wire: Wire) -> tuple:
+    """Every part's block from every rank, ``blocks`` this rank's (its
+    parts', in order): (the blocks in global part order, the bytes this
+    rank sent to each other rank), staged and gathered at once."""
+    (mine,), staged = wire.out(lambda: [_owned_stack(blocks, owners)],
+                               blocks)
+    wire.ready(staged)
+    return _all_gather_owned(mine, owners, wire)
+
+
 class ProcessHaloFill:
     """The halo fill of parts spread over processes: ``xs`` holds this
-    rank's parts (``local``, global part ids, in order).
+    rank's parts (``local``, global part ids, in order).  Two phases, as
+    :class:`HaloFill`: :meth:`start` takes what leaves this rank (staged
+    on a side stream, :meth:`Wire.out`) and the slabs that stay in it;
+    :meth:`finish` waits for the staging only, sends and receives, and
+    writes every halo column on the current stream.  A call does both.
 
     * ppermute: each slab of :func:`exchange_pairs` whose two parts share
-      this process stays an index op (:func:`_halo_fill_nbr`); a slab
+      this process stays an index op (:func:`_take_nbr`); a slab
       across processes is sent by the owner of q, ``xs[q].index_select(-1,
       send_cols)``, and received by the owner of p into a buffer of that
       shape, then ``index_copy_``-ed into its halo columns.  All the
-      cross-process ops of one call go in one ``batch_isend_irecv``, tagged
+      cross-process ops of one fill go in one ``batch_isend_irecv``, tagged
       by their place in the list of cross-process slabs, which every rank
       derives alike;
     * allgather: every rank's owned blocks (``[.., H:H+B]`` of each of its
-      parts) in one ``all_gather`` (:func:`_gather_owned`), then each
-      part's halo columns taken from them, as :func:`_halo_fill` does.
+      parts) in one ``all_gather`` (:func:`_all_gather_owned`), then each
+      part's halo columns taken from them, as :class:`HaloFill` does.
 
     ``owners[p]`` is the rank of part p, ``devices`` this rank's parts'
     devices.  ``messages`` and ``nbytes`` count what this rank sent since
-    they were last set to 0."""
+    they were last set to 0: one message a slab (a rank) a fill, whatever
+    the leading axes of ``xs`` (both limiter factors, tracers)."""
 
     def __init__(self, pm: PartitionedMesh, mode: str, owners: list,
                  rank: int, devices: list, wire: Wire):
@@ -298,14 +397,25 @@ class ProcessHaloFill:
                                    _long(cols, devices[i])))
             tag += 1
 
-    def __call__(self, xs: list) -> list:
+    def start(self, xs: list) -> tuple:
+        H, B = self.H, self.B
         if self.mode == "allgather":
-            return self._allgather(xs)
-        slabs = [(tag, dst, self.wire.out(xs[i].index_select(-1, cols)))
-                 for tag, dst, i, cols in self.sends]
-        self.wire.ready()
+            blocks = [x[..., H:H + B] for x in xs]
+            (mine,), staged = self.wire.out(
+                lambda: [_owned_stack(blocks, self.owners)], xs)
+            return xs, mine, staged
+        slabs, staged = self.wire.out(
+            lambda: [xs[i].index_select(-1, cols)
+                     for _, _, i, cols in self.sends], xs)
+        return xs, _take_nbr(xs, self.smaps), slabs, staged
+
+    def finish(self, pending: tuple) -> list:
+        if self.mode == "allgather":
+            return self._finish_allgather(*pending)
+        xs, taken, slabs, staged = pending
+        self.wire.ready(staged)
         ops = [dist.P2POp(dist.isend, t, dst, tag=tag)
-               for tag, dst, t in slabs]
+               for (tag, dst, _, _), t in zip(self.sends, slabs)]
         bufs = []
         for tag, src, i, cols in self.recvs:
             x = xs[i]
@@ -314,27 +424,26 @@ class ProcessHaloFill:
             bufs.append(buf)
             ops.append(dist.P2POp(dist.irecv, buf, src, tag=tag))
         reqs = dist.batch_isend_irecv(ops) if ops else []
-        _halo_fill_nbr(xs, self.smaps)
+        _place(xs, taken)
         for req in reqs:
             req.wait()
         for (_, _, i, cols), buf in zip(self.recvs, bufs):
             x = xs[i]
             x.index_copy_(x.dim() - 1, cols, self.wire.into(buf, x.device))
         self.messages += len(slabs)
-        self.nbytes += sum(t.numel() * t.element_size() for _, _, t in slabs)
+        self.nbytes += sum(t.numel() * t.element_size() for t in slabs)
         return xs
 
-    def _allgather(self, xs: list) -> list:
-        H, B = self.H, self.B
-        blocks, sent = _gather_owned([x[..., H:H + B] for x in xs],
-                                     self.owners, self.wire)
-        flat = {}
-        for x, (cols, src) in zip(xs, self.hmaps):
-            if x.device not in flat:
-                flat[x.device] = self.wire.into(torch.cat(blocks, dim=-1),
-                                                x.device)
-            x.index_copy_(x.dim() - 1, cols,
-                          flat[x.device].index_select(-1, src))
+    def __call__(self, xs: list) -> list:
+        return self.finish(self.start(xs))
+
+    def _finish_allgather(self, xs: list, mine: torch.Tensor,
+                          staged: list) -> list:
+        self.wire.ready(staged)
+        blocks, sent = _all_gather_owned(mine, self.owners, self.wire)
+        every = torch.cat(blocks, dim=-1)
+        _place(xs, _take_allgather(xs, self.hmaps,
+                                   lambda d: self.wire.into(every, d)))
         others = dist.get_world_size() - 1
         self.messages += others
         self.nbytes += others * sent
@@ -358,17 +467,24 @@ def fix_edge_ids(pm: PartitionedMesh, p: int) -> np.ndarray:
 def sharded_fct_ale_step(mds: list, cfg: FctAleConfig, halo_fill,
                          states: list) -> list:
     """One plain-PyTorch step on every part (the JAX package's XLA-path
-    ``sharded_fct_ale_step``, phase by phase over the parts).  b3 vertical
-    runs on the pre-exchange factors, whose owned columns are final, as the
-    reference's inter_comm phase overlaps the MPI wait."""
+    ``sharded_fct_ale_step``, phase by phase over the parts): both limiter
+    factors stacked and their one exchange started, b3 vertical on the
+    pre-exchange factors (node-local, owned columns final) while it is in
+    flight, as the reference's inter_comm phase runs while MPI completes,
+    then the exchange finished and b3 horizontal on the exchanged
+    factors."""
     parts = list(zip(mds, states))
     lims = [single.pre_comm(md, cfg, s["ttf"], s["fct_LO"], s["fct_adf_v"],
                             s["fct_adf_h"]) for md, s in parts]
+    both = [torch.stack([lim["fct_plus"], lim["fct_minus"]])
+            for lim in lims]
+    pending = halo_fill.start(both)
     verts = [single.inter_comm(md, cfg, lim["fct_plus"], lim["fct_minus"],
                                s["fct_adf_v"])
              for (md, s), lim in zip(parts, lims)]
-    halo_fill([lim["fct_plus"] for lim in lims])
-    halo_fill([lim["fct_minus"] for lim in lims])
+    halo_fill.finish(pending)
+    for lim, pm in zip(lims, both):
+        lim.update(fct_plus=pm[0], fct_minus=pm[1])
     outs = [single.update_step(
         md, cfg, s, lim, vert,
         single.post_comm(md, cfg, lim["fct_plus"], lim["fct_minus"],
@@ -383,21 +499,27 @@ def sharded_fct_ale_step_cuda(mds: list, cfg: FctAleConfig, halo_fill,
                               states: list, owned: tuple | None) -> list:
     """One step of the CUDA kernels on every part: split mode when
     ``owned`` (the owned columns (H, H + B), the same on every part) is
-    given, fused mode when it is None.  Launch order, each phase over all
-    parts: K1, K2 -> [K3] -> exchange -> K4-fix | K34 -> [fct_LO
+    given, fused mode when it is None.  Order, each phase over all parts,
+    as the JAX package's split step (``ops/pallas/step.py``, the stacked
+    ``pm`` exchanged once): K1, K2 -> start of the one exchange of both
+    limiter factors (``kernels.factor_pair``, a view) -> [K3, on the
+    pre-exchange factors, while the exchange is in flight] -> finish of
+    the exchange (the halo columns written) -> K4-fix | K34 -> [fct_LO
     exchange].  A batched state (per-tracer fields [Tb, ...]) takes the
     same launches and exchanges, each over every tracer."""
     parts = list(zip(mds, states))
     pres = [cstep.pre_exchange(md, cfg, s) for md, s in parts]
-    if owned is not None:
-        edges = [cstep.limit_edges(md, cfg, s, pre)
-                 for (md, s), pre in zip(parts, pres)]
-    halo_fill([pre["fct_plus"] for pre in pres])
-    halo_fill([pre["fct_minus"] for pre in pres])
+    pending = halo_fill.start([
+        kernels.factor_pair(pre["fct_plus"], pre["fct_minus"])
+        for pre in pres])
     if owned is None:
+        halo_fill.finish(pending)
         outs = [cstep.post_exchange_fused(md, cfg, s, pre)
                 for (md, s), pre in zip(parts, pres)]
     else:
+        edges = [cstep.limit_edges(md, cfg, s, pre)
+                 for (md, s), pre in zip(parts, pres)]
+        halo_fill.finish(pending)
         outs = [cstep.post_exchange_split(md, cfg, s, pre, e, owned)
                 for (md, s), pre, e in zip(parts, pres, edges)]
     if cfg.iter_yn:
@@ -522,13 +644,7 @@ class ShardedFctAleSolver:
         else:
             self.wire = None
             self.transport = "in-process"
-            maps = _exchange_maps(pm, exchange, self.devices)
-            if exchange == "ppermute":
-                self.halo_fill = functools.partial(_halo_fill_nbr,
-                                                   smaps=maps)
-            else:
-                self.halo_fill = functools.partial(_halo_fill, hmaps=maps,
-                                                   B=pm.B, H=pm.H)
+            self.halo_fill = HaloFill(pm, exchange, self.devices)
         self.set_step(backend == "cuda", fused, tracers)
         # a graph captures one device, and no gloo send
         self._graphs = (graphs.StepGraphs(self.devices[0])

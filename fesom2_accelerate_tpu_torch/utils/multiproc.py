@@ -22,8 +22,10 @@ holds it; rank 0 writes it to ``DIR/rank0.npz``) and one JSON line to
 digest of each field it gathered (:func:`digest`), the
 cross-process messages and bytes it sent a step, and, with ``--time`` on a
 CUDA device, the step time of a second run of the same steps from the
-same state, by CUDA events on the rank's stream and by host wall, and the
-time of one field's halo fill alone.
+same state, by CUDA events on the rank's stream and by host wall, the
+time of one exchange of both limiter factors alone, and in split mode a
+profiler trace of one step: whether the staging of the slabs ran while K3
+did.
 
 A worker runs on the card (``--device cuda``) unless it is asked for
 the CPU (``--device cpu``).  ``--mode split`` or ``fused`` on the CPU
@@ -166,9 +168,11 @@ def _timed_run(sh, state: dict, steps: int, device: torch.device,
                fills: int = 20) -> dict:
     """A run of ``steps`` steps from ``state`` on this rank, after a
     barrier: ms a step by CUDA events on the current stream and by host
-    wall to a synchronize; then ``fills`` halo fills of one field
-    (``fct_LO``'s parts), ms a fill by host wall: the exchange alone,
-    staging, the sends and the index ops."""
+    wall to a synchronize; then ``fills`` halo fills of the limiter
+    factors' pair (``fct_LO``'s parts stacked twice, the [2, ...] shape of
+    a step's one exchange of both factors), ms a fill by host wall: the
+    exchange alone, staging, the sends and the index ops.  In split mode
+    also :func:`_staging_trace` of one step."""
     import torch.distributed as dist
 
     dist.barrier()
@@ -181,16 +185,60 @@ def _timed_run(sh, state: dict, steps: int, device: torch.device,
     end.record()
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    xs = [t.clone() for t in state["fct_LO"]]
+    xs = [torch.stack([t, t]) for t in state["fct_LO"]]
     dist.barrier()
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     for _ in range(fills):
         sh.halo_fill(xs)
     torch.cuda.synchronize(device)
-    return {"step_ms": start.elapsed_time(end) / steps,
-            "host_ms": wall * 1e3 / steps,
-            "exchange_ms": (time.perf_counter() - t0) * 1e3 / fills}
+    row = {"step_ms": start.elapsed_time(end) / steps,
+           "host_ms": wall * 1e3 / steps,
+           "exchange_ms": (time.perf_counter() - t0) * 1e3 / fills}
+    if sh.owned is not None:
+        row["staging_trace"] = _staging_trace(sh, state, device)
+    return row
+
+
+def _staging_trace(sh, state: dict, device: torch.device) -> dict:
+    """One split step of this rank under torch.profiler, after a barrier:
+    its device events in the order they ran, each (name: our kernels'
+    template name or the first word before a template list, else the
+    event's name; "compute" for the stream K3 (``b3h_kernel``) ran on,
+    else "side"; µs from the step's first device event), and how many of
+    the side stream's ops, the staging of the slabs that leave the rank
+    (their gather and device-to-host copy), ran while some K3 ran.  What
+    the trace shows, not a time to hold."""
+    import re
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    dist.barrier()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sh.step(state)
+        torch.cuda.synchronize(device)
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name(),
+                    e.device_resource_id())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and not e.name().startswith("gloo"))
+    compute = {r for _, _, n, r in spans if re.search(r"\bb3h_kernel<", n)}
+    t0 = spans[0][0] if spans else 0.0
+    events = []
+    for a, b, name, stream in spans:
+        m = re.search(r"(\w+)<", name)
+        events.append((m.group(1) if m else name[:24],
+                       "compute" if stream in compute else "side",
+                       a - t0, b - t0))
+    k3 = [(a, b) for n, _, a, b in events if n == "b3h_kernel"]
+    staging = [(a, b) for _, s, a, b in events if s == "side"]
+    during = [s for s in staging
+              if any(s[0] < b and a < s[1] for a, b in k3)]
+    return {"events": events, "k3": len(k3), "staging": len(staging),
+            "staging_during_k3": len(during)}
 
 
 def worker(argv=None) -> int:

@@ -34,9 +34,11 @@ same gate, the bits of ``fct_LO`` against the one-process run at the same
 P and mode (``bits_vs_1proc``), each rank's ms a step of a second run of
 the steps (CUDA events on its stream and host wall; the host's loop, as a
 run across processes is; the slower rank counts), the time of one
-field's halo fill alone (``exchange_ms``: staging, sends, index ops), the
-bytes that cross between processes a step over every rank
-(``bytes_per_step``), the transport and the cards.  On one card it
+exchange of both limiter factors alone (``exchange_ms``: staging, sends,
+index ops), the messages and bytes that cross between processes a step
+over every rank (``messages_per_step``: one exchange of both factors and,
+iterative, one of ``fct_LO``; ``bytes_per_step``), the transport and the
+cards.  On one card it
 measures the staging through host memory and two CUDA contexts sharing a
 card, not scaling.
 

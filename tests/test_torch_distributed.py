@@ -276,8 +276,9 @@ def test_scaling_two_process_rows_on_the_cpu(capsys):
     for r in rows[1::2]:
         assert r["bits_vs_1proc"] and r["exact_vs_single"]
         assert r["transport"] == "gloo" and r["cards"] == 1
-        # iterative: fct_plus, fct_minus and fct_LO cross a step, a rank
-        assert r["messages_per_step"] == 6 and r["bytes_per_step"] > 0
+        # iterative: one exchange of both limiter factors and one of
+        # fct_LO a step, one message each a rank
+        assert r["messages_per_step"] == 4 and r["bytes_per_step"] > 0
         assert "step_ms" not in r
 
 
@@ -363,3 +364,120 @@ def test_both_sides_derive_the_same_cross_process_slabs(mesh_kw, parts,
         local = sum(len(s) for s in f.smaps)
         assert local == sum(1 for p, q, *_ in pairs
                             if owners[p] == owners[q] == r)
+
+
+def _sent_a_step(preset, exchange, iter_yn, dtype):
+    """(messages, bytes) each of 2 ranks (2 of the 4 parts each) sends a
+    step, from the partition: one exchange of the [2, L, cols] factor pair
+    and, iterative, one of fct_LO.  ppermute: one message a slab that
+    leaves the rank; allgather: one to the other rank, its 2 owned blocks
+    stacked."""
+    mesh = generate_planar_mesh(preset=preset)
+    pm = part_mod.partition_mesh(mesh, PARTS)
+    owners = [0, 0, 1, 1]
+    size = 4 if dtype == "f32" else 8
+    fields = 2 + iter_yn
+    out = []
+    for r in range(2):
+        if exchange == "allgather":
+            out.append((1 + iter_yn,
+                        2 * pm.B * mesh.n_layers * size * fields))
+            continue
+        cols = [len(c) for p, q, _, c, _ in exchange_pairs(pm)
+                if owners[q] == r != owners[p]]
+        out.append((len(cols) * (1 + iter_yn),
+                    sum(cols) * mesh.n_layers * size * fields))
+    return out
+
+
+@pytest.mark.parametrize("mode,exchange,iter_yn,dtype", [
+    ("split", "ppermute", False, "f32"),
+    ("fused", "ppermute", True, "f32"),
+    ("torch", "allgather", True, "f64"),
+])
+def test_two_processes_send_both_factors_in_one_exchange(
+        tmp_path, mode, exchange, iter_yn, dtype):
+    """Over 2 processes a rank sends one message a slab a step for both
+    limiter factors (half of a message a factor), plus one for fct_LO when
+    iterative, and the bytes of both; the state is bit for bit the
+    one-process run's."""
+    case = dict(mode=mode, dtype=dtype, steps=2, iter_yn=iter_yn,
+                exchange=exchange)
+    got, rows = _launch(tmp_path, f"{mode}_{exchange}", **case)
+    assert [(r["messages_per_step"], r["bytes_per_step"]) for r in rows] \
+        == _sent_a_step("tiny", exchange, iter_yn, dtype)
+    ref = _one_process(**case)
+    assert got.keys() == ref.keys()
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+class _FakeCuda:
+    """What ``Wire`` touches of ``torch.cuda``, logging into ``log``: the
+    compute stream raises if anything synchronizes it."""
+
+    def __init__(self, log):
+        self.log = log
+        fake = self
+
+        class Stream:
+            def __init__(self, device=None, name="side"):
+                self.name = name
+
+            def wait_stream(self, other):
+                fake.log.append(("wait", self.name, other.name))
+
+            def synchronize(self):
+                raise AssertionError(f"{self.name} stream synchronized")
+
+        class Event:
+            def record(self, stream):
+                fake.log.append(("record", stream.name))
+
+            def synchronize(self):
+                fake.log.append(("event sync",))
+
+        self.Stream, self.Event = Stream, Event
+        self.compute = Stream(name="compute")
+
+    def current_stream(self, device=None):
+        return self.compute
+
+    def stream(self, s):
+        log = self.log
+
+        class On:
+            def __enter__(self):
+                log.append(("on", s.name))
+
+            def __exit__(self, *exc):
+                log.append(("off", s.name))
+
+        return On()
+
+
+def test_staging_waits_on_its_events_never_on_the_stream(monkeypatch):
+    """A staged wire makes what it sends on a side stream that waits for
+    the compute stream (an event behind what was enqueued), records an
+    event behind it, and ``ready`` synchronizes that event only: the
+    compute stream goes on with K3."""
+    log = []
+    fake = _FakeCuda(log)
+    for name in ("Stream", "Event", "current_stream", "stream"):
+        monkeypatch.setattr(step_sharded.torch.cuda, name,
+                            getattr(fake, name))
+    wire = Wire("gloo", [torch.device("cuda", 0)])
+    assert wire.staged
+    x = torch.arange(6.0).reshape(2, 3)
+
+    def make():
+        log.append(("make",))
+        return [x[:, :2]]
+
+    (sent,), staged = wire.out(make, [x])
+    assert torch.equal(sent, x[:, :2])
+    assert log == [("wait", "side", "compute"), ("on", "side"), ("make",),
+                   ("record", "side"), ("off", "side")]
+    wire.ready(staged)
+    assert log[-1] == ("event sync",) and len(staged) == 1
+    assert Wire("gloo", [torch.device("cpu")]).out(make, [x])[1] == []

@@ -48,6 +48,7 @@ from fesom2_accelerate_tpu_torch.mesh import (
 )
 from fesom2_accelerate_tpu_torch.ops.cuda import build, kernels
 from fesom2_accelerate_tpu_torch.parallel import partition as part_mod
+from fesom2_accelerate_tpu_torch.parallel import step_sharded
 from fesom2_accelerate_tpu_torch.parallel.step_sharded import (
     fix_edge_ids,
     sharded_fct_ale_step_cuda,
@@ -384,3 +385,198 @@ def test_solver_rules(small):
     state = sh.init_state(fields)
     assert all(len(v) == 2 and v[0].dtype == torch.float32
                for v in state.values())
+
+
+# --------------------------------------------------------------------------
+# the exchange's schedule: the JAX sharded step's (parallel/step_sharded.py:
+# 176-186, ops/pallas/step.py:822-871, certified by tests/test_overlap.py)
+# --------------------------------------------------------------------------
+
+
+class _LoggedFill:
+    """A halo fill that logs its phases into ``log`` (with the shapes it
+    was given) and counts the index ops the fill it wraps runs."""
+
+    def __init__(self, fill, log):
+        self.fill, self.log, self.ops = fill, log, 0
+
+    def _counted(self, fn, arg):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = fn(arg)
+        self.ops += sum(e.count for e in prof.key_averages()
+                        if e.key in ("aten::index_select",
+                                     "aten::index_copy_"))
+        return out
+
+    def start(self, xs):
+        self.log.append(("start", [tuple(x.shape) for x in xs]))
+        return self._counted(self.fill.start, xs)
+
+    def finish(self, pending):
+        self.log.append(("finish",))
+        return self._counted(self.fill.finish, pending)
+
+    def __call__(self, xs):
+        self.log.append(("fill", [tuple(x.shape) for x in xs]))
+        return self._counted(self.fill, xs)
+
+
+def _logged_solver(mesh, cfg, mode, log, tracers=1):
+    """A 4-part CPU solver whose step is ``mode`` ("torch": the plain
+    stages; "split", "fused": the CUDA step functions, every wrapper's
+    plain version) and whose halo fill logs into ``log``."""
+    sh = ShardedFctAleSolver(mesh, cfg, devices=["cpu"] * 4)
+    sh.halo_fill = _LoggedFill(sh.halo_fill, log)
+    sh.set_step(mode != "torch", mode == "fused", tracers)
+    return sh
+
+
+def _pair_halo(pair, sh):
+    """The halo columns of a part's [2, ...] factor pair."""
+    return torch.cat([pair[..., :sh.pm.H], pair[..., sh.pm.H + sh.pm.B:]],
+                     dim=-1).clone()
+
+
+@pytest.mark.parametrize("mode", ["split", "fused", "torch"])
+def test_exchange_in_flight_while_k3_sweeps(small, mode, monkeypatch):
+    """The order of a step's calls, as the JAX step's: split K1/K2 of
+    every part -> start -> K3 of every part -> finish -> K4-fix, K3
+    reading the pre-exchange factors (no halo column written before every
+    K3 is enqueued); fused start -> finish -> K34; plain start ->
+    inter_comm (b3 vertical) -> finish -> post_comm."""
+    mesh, _, fields = small
+    log = []
+    sh = _logged_solver(mesh, FctAleConfig(dt=0.7, dtype=torch.float64),
+                        mode, log)
+    before = {}
+
+    def logged(name, fn, part_of=lambda *a: None):
+        def call(*args, **kw):
+            p = part_of(*args)
+            log.append((name, p))
+            return fn(*args, **kw)
+        return call
+
+    part = {id(md): p for p, md in enumerate(sh.mds)}
+    real_pre, real_k3 = step_sharded.cstep.pre_exchange, \
+        step_sharded.cstep.limit_edges
+
+    def pre(md, cfg, s, **kw):
+        out = real_pre(md, cfg, s, **kw)
+        log.append(("K1/K2", part[id(md)]))
+        before[part[id(md)]] = _pair_halo(
+            kernels.factor_pair(out["fct_plus"], out["fct_minus"]), sh)
+        return out
+
+    def k3(md, cfg, s, p, **kw):
+        pair = kernels.factor_pair(p["fct_plus"], p["fct_minus"])
+        assert torch.equal(_pair_halo(pair, sh), before[part[id(md)]]), \
+            "a halo column was written before K3"
+        log.append(("K3", part[id(md)]))
+        return real_k3(md, cfg, s, p, **kw)
+
+    by_part = lambda md, *a: part.get(id(md))  # noqa: E731
+    monkeypatch.setattr(step_sharded.cstep, "pre_exchange", pre)
+    monkeypatch.setattr(step_sharded.cstep, "limit_edges", k3)
+    for name, attr in (("K4-fix", "post_exchange_split"),
+                       ("K34", "post_exchange_fused")):
+        monkeypatch.setattr(step_sharded.cstep, attr, logged(
+            name, getattr(step_sharded.cstep, attr), by_part))
+    for name in ("pre_comm", "inter_comm", "post_comm"):
+        monkeypatch.setattr(step_sharded.single, name, logged(
+            name, getattr(step_sharded.single, name), by_part))
+    out = sh.step(sh.init_state(fields))
+
+    parts = range(sh.n_parts)
+    L, n_local = mesh.n_layers, sh.pm.n_local
+    start = ("start", [(2, L, n_local)] * sh.n_parts)
+    want = {
+        "split": [("K1/K2", p) for p in parts] + [start]
+        + [("K3", p) for p in parts] + [("finish",)]
+        + [("K4-fix", p) for p in parts],
+        "fused": [("K1/K2", p) for p in parts] + [start, ("finish",)]
+        + [("K34", p) for p in parts],
+        "torch": [("pre_comm", p) for p in parts] + [start]
+        + [("inter_comm", p) for p in parts] + [("finish",)]
+        + [("post_comm", p) for p in parts],
+    }[mode]
+    assert log == want
+    # the step's fct_plus and fct_minus are the exchanged pair's halves
+    for p in parts:
+        halo = _pair_halo(torch.stack([out["fct_plus"][p],
+                                       out["fct_minus"][p]]), sh)
+        if mode != "torch":
+            assert not torch.equal(halo, before[p]), \
+                f"part {p}: the exchange wrote no halo column"
+    ref = FctAleSolver(mesh, sh.cfg, device="cpu")
+    ref = ref.step(ref.init_state(fields))
+    for k in ("fct_plus", "fct_minus", "del_ttf_advhoriz"):
+        masked_allclose(sh.gather_node(out[k]), ref[k].numpy(), msg=k)
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+@pytest.mark.parametrize("mode", ["torch", "split", "fused"])
+def test_one_exchange_of_both_factors_a_step(small, mode, iter_yn):
+    """One exchange of the [2, ...] factor pair a step (2 index ops a slab,
+    half of a fill a factor), plus one of fct_LO when iterative; the
+    outputs equal the single-device step's and the JAX XLA sharded step's
+    (f64, 1e-12)."""
+    mesh, jmesh, fields = small
+    cfg = FctAleConfig(dt=0.7, iter_yn=iter_yn, dtype=torch.float64)
+    log = []
+    sh = _logged_solver(mesh, cfg, mode, log)
+    out = sh.step(sh.init_state(fields))
+    L, n_local = mesh.n_layers, sh.pm.n_local
+    want = [("start", [(2, L, n_local)] * 4), ("finish",)]
+    if iter_yn:
+        want.append(("fill", [(L, n_local)] * 4))
+    assert log == want
+    slabs = len(step_sharded.exchange_pairs(sh.pm))
+    assert sh.halo_fill.ops == 2 * slabs * (1 + iter_yn)
+
+    single = FctAleSolver(mesh, cfg, device="cpu")
+    ref = single.step(single.init_state(fields))
+    jsh = JaxShardedFctAleSolver(
+        jmesh, JaxFctAleConfig(dt=0.7, iter_yn=iter_yn, dtype=jnp.float64),
+        devices=jax.devices()[:4])
+    jout = jsh.step(jsh.init_state(fields))
+    for k in _node_keys(iter_yn):
+        got = sh.gather_node(out[k])
+        masked_allclose(got, ref[k].numpy(), msg=f"single[{k}]")
+        masked_allclose(got, jsh.gather_node(jout[k]), msg=f"jax[{k}]")
+    got = sh.gather_state({"fct_adf_h": out["fct_adf_h"]})["fct_adf_h"]
+    masked_allclose(got, ref["fct_adf_h"].numpy(), msg="single[fct_adf_h]")
+    masked_allclose(got, part_mod.gather_edge_field(
+        sh.pm, np.asarray(jout["fct_adf_h"])), msg="jax[fct_adf_h]")
+
+
+@pytest.mark.parametrize("mode", ["split", "fused"])
+def test_one_exchange_of_both_factors_at_any_tb(small, mode):
+    """At Tb = 2 tracers the pair is [2, Tb, L, cols], in one exchange of
+    as many index ops as at Tb = 1, and each tracer's outputs are the bits
+    of a Tb = 1 step on it."""
+    mesh, _, fields = small
+    cfg = FctAleConfig(dt=0.7, dtype=torch.float64)
+    per = [random_fields(mesh, seed=3 + t) for t in range(2)]
+    batched = {k: per[0][k] if k in ("hnode", "hnode_new")
+               else np.stack([f[k] for f in per]) for k in per[0]}
+    for f in per:
+        f.update(hnode=per[0]["hnode"], hnode_new=per[0]["hnode_new"])
+    log = []
+    sh = _logged_solver(mesh, cfg, mode, log, tracers=2)
+    out = sh.step(sh.init_state(batched))
+    L, n_local = mesh.n_layers, sh.pm.n_local
+    assert log == [("start", [(2, 2, L, n_local)] * 4), ("finish",)]
+    ops = sh.halo_fill.ops
+    assert ops == 2 * len(step_sharded.exchange_pairs(sh.pm))
+    one = _logged_solver(mesh, cfg, mode, [])
+    for t in range(2):
+        one.halo_fill.ops = 0
+        ref = one.step(one.init_state(per[t]))
+        assert one.halo_fill.ops == ops
+        for k, v in ref.items():
+            for p in range(4):
+                got = out[k][p] if k in ("hnode", "hnode_new") \
+                    else out[k][p][t]
+                assert torch.equal(got, v[p]), f"{k} part {p} tracer {t}"
