@@ -41,6 +41,11 @@ Every function takes only ints (sizes, flags) and addresses (pointer
 values), so the C side needs nothing beyond ``PyObject_CallObject`` with
 integer arguments.  Connectivity is 0-based, as in the JAX shim.  The
 embedding holds one solver a process, as the ABI passes no handle.
+
+Under a profiler a :func:`step` is the span ``abi.step``, with
+``abi.copy_in`` (the cast to the config's dtype and the copy to the
+device), ``solver.step`` and ``abi.copy_out`` (the copy to the host and the
+write into the caller's f64 buffers) under it (``runtime/tracing.py``).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from fesom2_accelerate_tpu_torch.mesh.topology import (
     build_mesh_from_elements,
 )
 from fesom2_accelerate_tpu_torch.model.fct_ale import FctAleSolver
+from fesom2_accelerate_tpu_torch.runtime import tracing
 
 __all__ = ["setup", "dims", "step", "reset"]
 
@@ -201,12 +207,14 @@ def views(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
     )
 
 
+@tracing.spanned("abi.copy_in")
 def copy_in(host: dict) -> dict:
     """The fields of :func:`views` as the solver's state (copies, in the
     config's dtype, on its device)."""
     return session().solver.init_state(host)
 
 
+@tracing.spanned("abi.copy_out")
 def copy_out(out: dict, host: dict) -> None:
     """Writes a step's results into the caller's buffers: the limited
     fluxes over ``fct_adf_v`` / ``fct_adf_h``; ``fct_LO`` in iterative
@@ -218,6 +226,7 @@ def copy_out(out: dict, host: dict) -> None:
         np.copyto(host[k], out[k].cpu().numpy())
 
 
+@tracing.spanned("abi.step")
 def step(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
          hnode_new_a: int, del_v_a: int, del_h_a: int) -> int:
     """One FCT-ALE step on host-owned f64 buffers.

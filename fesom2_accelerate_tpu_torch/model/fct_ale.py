@@ -35,7 +35,8 @@ of steps, results bit-identical to the loop of ``step``.  They do so where
 the host's enqueue, not the card, sets the pace of a step (timed once per
 state signature, ``graphs.StepGraphs.run``); where the card does, as on
 core2, the graphs' copies would cost more than they save and the run is
-the loop of steps.  ``step`` and ``step_tracers`` run one step eagerly.
+the loop of steps.  ``step`` and ``step_tracers`` run one step eagerly,
+each the span ``solver.step`` under a profiler (``runtime/tracing.py``).
 ``backend="torch"`` (the plain stages, the correctness gate, on any
 device) runs the Python loop of steps.
 """
@@ -59,7 +60,7 @@ from fesom2_accelerate_tpu_torch.ops.meshdata import (
     build_mesh_data,
     check_edge_order,
 )
-from fesom2_accelerate_tpu_torch.runtime import graphs
+from fesom2_accelerate_tpu_torch.runtime import graphs, tracing
 
 
 def pre_comm(md: MeshData, cfg: FctAleConfig, ttf, fct_LO, fct_adf_v,
@@ -214,6 +215,7 @@ class FctAleSolver:
             for k, v in fields.items()
         }
 
+    @tracing.spanned("solver.step")
     def step(self, state: dict) -> dict:
         return self._step_fn(self.md, self.cfg, state)
 
@@ -247,6 +249,7 @@ class FctAleSolver:
                              "on backend='pallas' only")
         return self._tracer_step_fn
 
+    @tracing.spanned("solver.step")
     def step_tracers(self, state: dict) -> dict:
         """One step of every tracer of a multi-tracer state (per-tracer
         fields [Tb, ...], ``hnode``/``hnode_new`` shared): Tb independent

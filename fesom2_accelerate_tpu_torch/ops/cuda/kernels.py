@@ -47,6 +47,9 @@ raises.  Nothing falls back.  In the capture of a CUDA graph a call
 launches nothing and a replay calls no wrapper: :func:`capturing` and
 :func:`count_replay` keep the counts those of the launches
 (``runtime/graphs.py``).
+Under a profiler each call of a wrapper, on any device, is the span
+``kernels.<wrapper>`` (``runtime/tracing.py``): its checks, its outputs'
+allocations and the launcher's call.
 
 Every wrapper takes ``threads``, the CUDA block size (one of ``THREADS``,
 default 128): the launch configuration the tuning harness sweeps.  The
@@ -92,6 +95,7 @@ import torch
 from fesom2_accelerate_tpu_torch.ops import stages
 from fesom2_accelerate_tpu_torch.ops.cuda import build
 from fesom2_accelerate_tpu_torch.ops.meshdata import MeshData
+from fesom2_accelerate_tpu_torch.runtime import tracing
 
 TOLERANCE = {torch.float32: 1e-6, torch.float64: 1e-12}
 
@@ -253,6 +257,7 @@ def bounds_ref(md: MeshData, fct_LO, ttf, vlimit: int):
                                             widen=(vlimit == 2))
 
 
+@tracing.spanned("kernels.bounds")
 def bounds(md: MeshData, fct_LO, ttf, vlimit: int, *,
            threads: int = DEFAULT_THREADS):
     """K1 -> (fct_ttf_max, fct_ttf_min), each [L, N] (or [Tb, L, N] for
@@ -301,6 +306,7 @@ def limit_ref(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
     return plus, minus, adf_v_lim, adf_v_res
 
 
+@tracing.spanned("kernels.limit")
 def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
           flux_eps: float, iter_yn: bool, *, threads: int = DEFAULT_THREADS):
     """K2 -> (fct_plus [L, N], fct_minus [L, N], limited fct_adf_v
@@ -348,6 +354,7 @@ def limit_fused_ref(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
                                     flux_eps, iter_yn)
 
 
+@tracing.spanned("kernels.limit_fused")
 def limit_fused(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
                 vlimit: int, dt: float, flux_eps: float, iter_yn: bool, *,
                 threads: int = DEFAULT_THREADS):
@@ -415,6 +422,7 @@ def _stage_c_checks(tb, L: int, N: int, ttf, hnode, hnode_new, fct_LO,
                 del_ttf_advhoriz=(del_ttf_advhoriz, _rows(tb, L, N)))
 
 
+@tracing.spanned("kernels.update_fused")
 def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
                  ttf, hnode, hnode_new, fct_LO, del_ttf_advvert,
                  del_ttf_advhoriz, dt: float, iter_yn: bool, *,
@@ -482,6 +490,7 @@ def b3h_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool):
     return stages.b3_horizontal(md, fct_plus, fct_minus, fct_adf_h, iter_yn)
 
 
+@tracing.spanned("kernels.b3h")
 def b3h(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool, *,
         threads: int = DEFAULT_THREADS):
     """K3 -> (limited fct_adf_h [L, Ed], its residual [L, Ed] when
@@ -530,6 +539,7 @@ def b3h_fixup_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
     return adf_h_lim, adf_h_res
 
 
+@tracing.spanned("kernels.b3h_fixup")
 def b3h_fixup(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
               adf_h_res, fix_ids, iter_yn: bool, *,
               threads: int = DEFAULT_THREADS):
@@ -593,6 +603,7 @@ def update_ref(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
         del_ttf_advvert, del_ttf_advhoriz, dt)
 
 
+@tracing.spanned("kernels.update")
 def update(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
            fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt: float,
            iter_yn: bool, *, threads: int = DEFAULT_THREADS):
@@ -687,6 +698,7 @@ def _fix_threads(threads: int, slots: int) -> int:
     return threads
 
 
+@tracing.spanned("kernels.update_fixup")
 def update_fixup(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
                  adf_h_res, owned: tuple, adf_v_lim, ttf, hnode, hnode_new,
                  fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt: float,
@@ -754,6 +766,7 @@ def a2_ref(md: MeshData, tmax, tmin, bignumber: float):
     return stages.a2(md, tmax, tmin, bignumber)
 
 
+@tracing.spanned("kernels.a2")
 def a2(md: MeshData, tmax, tmin, bignumber: float, *,
        threads: int = DEFAULT_THREADS):
     """A2 -> (UV_max, UV_min), each [L, E]: the max / min of ``tmax`` /
@@ -819,6 +832,7 @@ def stress2rhs_ref(md: MeshData, slab, inv_areamass, rhs_a, rhs_m):
             torch.where(has_mass, V * inv_areamass + rhs_m, 0.0))
 
 
+@tracing.spanned("kernels.stress2rhs")
 def stress2rhs(md: MeshData, slab, inv_areamass, rhs_a, rhs_m, *,
                threads: int = DEFAULT_THREADS):
     """H-S2R -> (U [N], V [N]) from the element slab [SLAB_ROWS, E] (rows

@@ -61,6 +61,11 @@ and nothing falls back to the loop.  A kernel that faults in a replay
 reports it at the next synchronize, as any asynchronous CUDA error does.
 A graph captures one device: every tensor of the state must lie on the
 :class:`StepGraphs`' device.
+
+Spans (``runtime/tracing.py``, recorded only under a profiler):
+``graphs.run`` a run, ``graphs.loop`` the host's loop, ``graphs.copy_in``
+the copy into the static carry, ``graphs.replay`` each replay's enqueue,
+``graphs.capture`` each capture.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from __future__ import annotations
 import torch
 
 from fesom2_accelerate_tpu_torch.ops.cuda import kernels
+from fesom2_accelerate_tpu_torch.runtime import tracing
 
 # steps of one graph: the copy of the fields a step changes back into the
 # static tensors after each block (144 MB on core2 f32, 0.12 ms by
@@ -95,6 +101,7 @@ def pays(dry: int, watched: int) -> bool:
     return dry == watched
 
 
+@tracing.spanned("graphs.loop")
 def loop(step, state: dict, n_steps: int) -> dict:
     """``n_steps`` calls of ``step`` from the host; the carry keeps the
     input's keys."""
@@ -136,6 +143,7 @@ class StepGraphs:
         return (getattr(step, "__func__", step),
                 tuple((k, tuple(v.shape), v.dtype) for k, v in state.items()))
 
+    @tracing.spanned("graphs.run")
     def run(self, step, state: dict, n_steps: int) -> dict:
         """``n_steps`` of ``step`` (a dict of tensors -> a dict with at
         least the same keys) from ``state``: graph replays where graphs
@@ -188,11 +196,13 @@ class StepGraphs:
                 self._static[key] = (
                     {k: torch.empty_like(v) for k, v in state.items()}, [])
             static, changed = self._static[key]
-            for k, v in state.items():
-                static[k].copy_(v)
+            with tracing.span("graphs.copy_in"):
+                for k, v in state.items():
+                    static[k].copy_(v)
             for length in blocks(n_steps - 1):
                 graph, calls = self._graph(key, step, length)
-                graph.replay()
+                with tracing.span("graphs.replay"):
+                    graph.replay()
                 kernels.count_replay(calls)
             # the fields the steps leave as they were: the caller's own
             last = {k: static[k] if k in changed else v
@@ -206,13 +216,14 @@ class StepGraphs:
         if (key, length) not in self._graphs:
             static, changed = self._static[key]
             graph = torch.cuda.CUDAGraph()
-            with kernels.capturing() as calls:
-                with torch.cuda.graph(graph, pool=self.pool,
-                                      stream=self.stream):
-                    out = loop(step, dict(static), length)
-                    for k, v in out.items():
-                        if v is not static[k]:
-                            static[k].copy_(v)
+            with tracing.span("graphs.capture"):
+                with kernels.capturing() as calls:
+                    with torch.cuda.graph(graph, pool=self.pool,
+                                          stream=self.stream):
+                        out = loop(step, dict(static), length)
+                        for k, v in out.items():
+                            if v is not static[k]:
+                                static[k].copy_(v)
             changed[:] = [k for k, v in out.items() if v is not static[k]]
             self._graphs[key, length] = (graph, calls)
         return self._graphs[key, length]

@@ -1,4 +1,4 @@
-"""Device timing and profiler helpers for one CUDA card.
+"""Device timing, and the program's spans, for one CUDA card.
 
 The counterpart of ``fesom2_accelerate_tpu/runtime/tracing.py``:
 
@@ -6,37 +6,169 @@ The counterpart of ``fesom2_accelerate_tpu/runtime/tracing.py``:
 * :func:`device_time_ms` -- the same with the stream held busy by a sleep
   kernel while the host enqueues, so that only the card's work (and the
   gaps between its kernels) is counted, not the host's time per launch;
-* :func:`trace` -- a ``torch.profiler`` trace (CPU and CUDA activity),
-  written as a Chrome trace into a directory;
 * :func:`time_stages` -- the plain PyTorch stages of the FCT step timed one
   by one, with GB/s from the same per-stage byte terms as the JAX module;
 * :func:`card_line` -- the card's name and power limit from ``nvidia-smi``;
 * :func:`time_run` -- a solver's ``run`` at the bench's protocol: events,
-  device and host time a step, what the run chose, a graph run's copy-in.
+  device and host time a step, what the run chose, a graph run's copy-in;
+* :func:`span` and :func:`spanned` -- the program's spans (below), read
+  back by :func:`spans`.
 
 ``chip_smoke.py``, the tuning harness (``utils/tuning.py``) and the bench
 (``utils/bench.py``, ``utils/scaling.py``) time with these functions.
 Each raises when given, or left with, no CUDA device: a measurement does
 not fall back to the CPU.
+
+Spans.  The run path, the kernel wrappers and the host ABI mark where
+their host time goes with ``with span(name):`` or ``@spanned(name)``
+(``graphs.run``, ``graphs.loop``, ``graphs.copy_in``, ``graphs.replay``,
+``graphs.capture``, ``solver.step``, ``kernels.<wrapper>``, ``abi.step``,
+``abi.copy_in``, ``abi.copy_out``).  A span is on only while a
+``torch.profiler`` session records (``torch.autograd.profiler.
+_is_profiler_enabled``): profiling a run of steps is how it is turned on.
+Off, :func:`span` reads that flag and returns a shared object that does
+nothing: no torch call, no clock, no allocation.  On, a span
+
+* puts a marker of its name on the profiler's host timeline
+  (``torch._C._profiler._RecordFunctionFast``: not a user annotation,
+  so the profiler gives it no copy on the device's timeline), and
+* appends ``Span(name, start_ns, end_ns, parent, call)`` to the record
+  that :func:`spans` returns: ``time.time_ns()`` stamps, the clock of
+  the profiler's events, so each span can be set against the device's
+  idle gaps; ``parent`` the index of the enclosing span (-1 for a root),
+  ``call`` the index of its root, shared by every span under it.
+
+The record holds at most ``SPAN_CAP`` spans; later ones are not recorded
+and counted by :func:`dropped_spans`.  :func:`reset_spans` clears both.
+Spans take no CUDA event, no synchronize and no device query, so they do
+not change the pacing of host and card.  They nest on the one host thread
+that steps the model.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
-import pathlib
 import subprocess
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 # timed runs of each measurement of time_run, best of them reported
 TIMING_RUNS = 3
 # time_run's warm-up runs that may pass before the run has chosen (a
 # choice waits for a run over which the allocator's reserve held still)
 CHOICE_TRIES = 5
+
+
+# the most spans the record holds
+SPAN_CAP = 2 ** 20
+
+
+class Span(NamedTuple):
+    """A recorded span: ``time.time_ns()`` stamps (``end_ns`` None while
+    it is open), the index of its parent (-1: a root) and of its root."""
+
+    name: str
+    start_ns: int
+    end_ns: int | None
+    parent: int
+    call: int
+
+
+# the record: [name, start_ns, end_ns, parent, call] a span; the indices
+# of the open recorded spans, innermost last; the spans past SPAN_CAP
+_record: list = []
+_open: list = []
+_dropped = 0
+
+
+class _Off:
+    """The span of every name while no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _On:
+    __slots__ = ("name", "entry", "index", "marker")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _dropped
+        self.entry = None
+        if len(_record) < SPAN_CAP:
+            self.index = len(_record)
+            parent = _open[-1] if _open else -1
+            call = _record[parent][4] if _open else self.index
+            self.entry = [self.name, time.time_ns(), None, parent, call]
+            _record.append(self.entry)
+            _open.append(self.index)
+        else:
+            _dropped += 1
+        self.marker = torch._C._profiler._RecordFunctionFast(self.name)
+        self.marker.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.marker.__exit__(*exc)
+        if self.entry is not None:
+            self.entry[2] = time.time_ns()
+            if _open and _open[-1] == self.index:
+                _open.pop()
+        return False
+
+
+def span(name: str):
+    """A context manager that records the block as span ``name`` while a
+    profiler records, and does nothing otherwise (module docstring)."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _On(name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function is span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _On(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def spans() -> list:
+    """The record: a :class:`Span` a span, in the order they opened."""
+    return [Span(*e) for e in _record]
+
+
+def dropped_spans() -> int:
+    """The spans not recorded since the record reached ``SPAN_CAP``."""
+    return _dropped
+
+
+def reset_spans() -> None:
+    """Clears the record and the count of dropped spans."""
+    global _dropped
+    _record.clear()
+    _open.clear()
+    _dropped = 0
 
 
 def card_line() -> str:
@@ -129,24 +261,6 @@ def device_time_ms(fn, reps: int, device="cuda") -> float:
                 break
             hold_ms *= 4.0
         return start.elapsed_time(end) / reps
-
-
-@contextlib.contextmanager
-def trace(logdir, device="cuda"):
-    """Profile the block with ``torch.profiler`` (CPU and CUDA activity)
-    and write ``trace.json`` (Chrome trace format) into ``logdir``.
-    Yields the profiler, whose ``key_averages()`` sums the device time by
-    kernel."""
-    require_cuda(device)
-    from torch.profiler import ProfilerActivity, profile
-
-    out = pathlib.Path(logdir)
-    out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        yield prof
-    torch.cuda.synchronize()
-    prof.export_chrome_trace(str(out / "trace.json"))
 
 
 def time_stages(mesh, fields: dict, device="cuda",
