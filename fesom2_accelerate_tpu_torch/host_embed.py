@@ -42,10 +42,45 @@ values), so the C side needs nothing beyond ``PyObject_CallObject`` with
 integer arguments.  Connectivity is 0-based, as in the JAX shim.  The
 embedding holds one solver a process, as the ABI passes no handle.
 
+Copies.  Each :func:`step` copies every input buffer to the solver's
+device in f64 and casts it there to the config's dtype (bit for bit the
+host's round-to-nearest cast), casts each result to f64 there and copies it
+straight into the caller's buffer, and, on the card, synchronizes once
+before it returns.  Nothing is skipped or kept on the device between steps:
+every call moves every buffer.  On the card the first step that sees a
+buffer page-locks its bytes (``cudaHostRegister``, default flags) and the
+session keeps them locked, by address and byte count, from then on
+(:class:`Pins`), so the copies are DMA of the caller's own memory.  CUDA
+locks a page that two buffers share for each of them.  A buffer CUDA will
+not lock (the caller locked it already, or the driver refuses) takes the
+same copies, which CUDA then stages through pageable memory; a solver on
+the CPU locks nothing.
+
+**The ABI contract**: a buffer passed to a step stays page-locked from its
+first step until :func:`reset` (``f2t_finalize_``), which unregisters every
+buffer the session registered, and must not be freed before.  Nothing
+detects a buffer freed early: CUDA keeps its old pages locked, and a new
+buffer at the same address and size is taken for the locked one, so the
+step reads stale inputs from the old pages and writes its results there,
+not into the new buffer, with no error.  A buffer at a registered address
+with another byte count is registered anew.  So a host allocates its ABI
+buffers once and passes the same arrays every step, never a temporary
+(``transpose(x)``, a non-contiguous section): FESOM2's own fields are
+level-fastest ``(nl-1, node)``, the ABI's level-major ``[L, N]``, so a
+FESOM2 host keeps ABI buffers of its own, allocated at set-up beside the
+fields, as FESOM2 allocates the tracers and ``del_ttf_adv*``
+(``oce_setup_step.F90``), ``fct_LO`` and the antidiffusive fluxes
+(``oce_adv_tra_fct.F90``) and ``hnode`` / ``hnode_new`` (``oce_ale.F90``)
+once for the run.
+
 Under a profiler a :func:`step` is the span ``abi.step``, with
-``abi.copy_in`` (the cast to the config's dtype and the copy to the
-device), ``solver.step`` and ``abi.copy_out`` (the copy to the host and the
-write into the caller's f64 buffers) under it (``runtime/tracing.py``).
+``abi.copy_in`` (the DMA of the caller's buffers and the cast on the
+card), ``solver.step`` and ``abi.copy_out`` (the cast on the card, the DMA
+into the caller's buffers and the synchronize, which also waits for
+copy-in's DMA) under it (``runtime/tracing.py``).  The counters
+``abi.bytes_registered`` and ``abi.bytes_pageable`` add up the bytes of
+the caller's buffers that moved from and to page-locked memory and from
+and to any other.
 """
 
 from __future__ import annotations
@@ -73,12 +108,76 @@ __all__ = ["setup", "dims", "step", "reset"]
 DEVICE_ENV = "FESOM2_TORCH_DEVICE"
 
 
+class Pins:
+    """The caller's buffers that a session page-locked: byte count by
+    address, and those whose registration failed, which are not tried
+    again at that size."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.held: dict = {}
+        self.refused: dict = {}
+
+    def pinned(self, a: np.ndarray) -> bool:
+        """Whether ``a``'s bytes are page-locked, registering them at their
+        first sight."""
+        addr, n = a.ctypes.data, a.nbytes
+        if self.held.get(addr) == n:
+            return True
+        if self.refused.get(addr) == n:
+            return False
+        if addr in self.held:
+            self._unregister(addr)
+            del self.held[addr]
+        self.refused.pop(addr, None)
+        if int(_cudart().cudaHostRegister(addr, n, 0)) == 0:
+            self.held[addr] = n
+            return True
+        _clear_error(self.device)
+        self.refused[addr] = n
+        return False
+
+    def _unregister(self, addr: int) -> None:
+        if int(_cudart().cudaHostUnregister(addr)) != 0:
+            _clear_error(self.device)
+
+    def release(self) -> None:
+        """Unregisters every buffer the session registered."""
+        for addr in self.held:
+            self._unregister(addr)
+        self.held.clear()
+        self.refused.clear()
+
+
+def _cudart():
+    return torch.cuda.cudart()
+
+
+def _clear_error(device: torch.device) -> None:
+    """Clears the CUDA runtime's last error, which a refused registration
+    leaves set and the next kernel launch's check would raise:
+    ``torch.cuda.cudart()`` binds no ``cudaGetLastError``, so a launch's
+    check reads it, and resets it."""
+    try:
+        torch.zeros(1, device=device)
+    except RuntimeError:
+        pass
+
+
+def _pinnable(device: torch.device) -> bool:
+    """Whether a solver on ``device`` page-locks the caller's buffers: on
+    the card, not on the CPU."""
+    return device.type == "cuda"
+
+
 class Session(NamedTuple):
-    """What :func:`setup` built: the mesh, the config and the solver."""
+    """What :func:`setup` built: the mesh, the config, the solver and the
+    buffers it page-locked (None on the CPU)."""
 
     mesh: Mesh
     cfg: FctAleConfig
     solver: FctAleSolver
+    pins: Pins | None
 
 
 _SESSION: Session | None = None
@@ -164,7 +263,10 @@ def setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
         mesh = build_mesh_from_elements(elem_nodes, nlev_elem, nl, node_xy)
         mesh.validate()
         cfg = config(backend, dt_milli, vlimit, iter_yn)
-        _SESSION = Session(mesh, cfg, _solver(mesh, cfg, backend))
+        solver = _solver(mesh, cfg, backend)
+        pins = Pins(solver.device) if _pinnable(solver.device) else None
+        reset()
+        _SESSION = Session(mesh, cfg, solver, pins)
         return 0
     except (NoDevice, BadDevice) as e:
         print(f"fesom2_accelerate_tpu_torch.host_embed.setup: {e}",
@@ -207,23 +309,46 @@ def views(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
     )
 
 
+def _counted(a: np.ndarray) -> None:
+    """Adds ``a``'s bytes to the counter of the path they take."""
+    pins = session().pins
+    tracing.count("abi.bytes_registered" if pins is not None
+                  and pins.pinned(a) else "abi.bytes_pageable", a.nbytes)
+
+
 @tracing.spanned("abi.copy_in")
 def copy_in(host: dict) -> dict:
     """The fields of :func:`views` as the solver's state (copies, in the
-    config's dtype, on its device)."""
-    return session().solver.init_state(host)
+    config's dtype, on its device): each buffer copied to the device in
+    f64, on the card enqueued on the current stream (DMA of the buffer once
+    it is page-locked), and cast there."""
+    s = session()
+    state = {}
+    for k, v in host.items():
+        _counted(v)
+        # copy=True: on any device the state never aliases the buffer
+        state[k] = torch.from_numpy(v).to(
+            s.solver.device, non_blocking=True, copy=True).to(s.cfg.dtype)
+    return state
 
 
 @tracing.spanned("abi.copy_out")
 def copy_out(out: dict, host: dict) -> None:
     """Writes a step's results into the caller's buffers: the limited
     fluxes over ``fct_adf_v`` / ``fct_adf_h``; ``fct_LO`` in iterative
-    mode, else ``del_ttf_advvert`` / ``del_ttf_advhoriz``."""
+    mode, else ``del_ttf_advvert`` / ``del_ttf_advhoriz``.  Each result is
+    cast to f64 on its device and copied into the buffer (DMA once it is
+    page-locked).  Every buffer is whole when it returns."""
+    s = session()
     keys = ["fct_adf_v", "fct_adf_h"] + (
-        ["fct_LO"] if session().cfg.iter_yn
+        ["fct_LO"] if s.cfg.iter_yn
         else ["del_ttf_advvert", "del_ttf_advhoriz"])
     for k in keys:
-        np.copyto(host[k], out[k].cpu().numpy())
+        _counted(host[k])
+        torch.from_numpy(host[k]).copy_(out[k].to(torch.float64),
+                                        non_blocking=True)
+    if s.pins is not None:
+        torch.cuda.current_stream(s.solver.device).synchronize()
 
 
 @tracing.spanned("abi.step")
@@ -248,6 +373,9 @@ def step(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
 
 
 def reset() -> int:
+    """Ends the session: unregisters every buffer it page-locked."""
     global _SESSION
+    if _SESSION is not None and _SESSION.pins is not None:
+        _SESSION.pins.release()
     _SESSION = None
     return 0

@@ -167,6 +167,19 @@ void f2t_dims_(int *n_nodes, int *n_edges, int *n_layers, int *istat) {
 // overwrite fct_adf_v/fct_adf_h; non-iterative mode accumulates del_v/del_h,
 // iterative mode updates fct_LO (the stage-c outputs the reference built as
 // K10/K11 but never wired into its phase entry points).
+//
+// On the card the eight buffers move by DMA: the first step that sees a
+// buffer page-locks it (cudaHostRegister), and it stays page-locked until
+// f2t_finalize_.  A buffer passed to a step must not be freed before
+// f2t_finalize_: nothing detects it, and a new buffer at the same address
+// and size gives silently wrong results (the step reads and writes the
+// old, still locked pages).  So pass the same arrays, allocated once, every
+// step, never a temporary (transpose(x), a non-contiguous section): FESOM2
+// allocates its fields once for the run, level-fastest (nl-1, node), so a
+// FESOM2 host keeps level-major ABI buffers of its own beside them
+// (docs/TORCH_USAGE.md section 6).  Every step copies every buffer in and
+// its results out; each output buffer is whole when the call returns
+// (host_embed.py).
 void f2t_fct_ale_step_(const double *ttf, double *fct_LO, double *fct_adf_v,
                        double *fct_adf_h, const double *hnode,
                        const double *hnode_new, double *del_v, double *del_h,
@@ -184,6 +197,8 @@ void f2t_fct_ale_step_(const double *ttf, double *fct_LO, double *fct_adf_v,
   *istat = (r == 0) ? 0 : 1;
 }
 
+// Ends the session (host_embed.reset): unregisters every buffer a step
+// page-locked, so the host may free them after this call.
 void f2t_finalize_(int *istat) {
   *istat = 0;
   if (g_finalized.load() || !Py_IsInitialized()) return;

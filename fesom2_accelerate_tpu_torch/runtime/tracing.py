@@ -12,7 +12,8 @@ The counterpart of ``fesom2_accelerate_tpu/runtime/tracing.py``:
 * :func:`time_run` -- a solver's ``run`` at the bench's protocol: events,
   device and host time a step, what the run chose, a graph run's copy-in;
 * :func:`span` and :func:`spanned` -- the program's spans (below), read
-  back by :func:`spans`.
+  back by :func:`spans`;
+* :func:`count` -- the program's counters, read back by :func:`counters`.
 
 ``chip_smoke.py``, the tuning harness (``utils/tuning.py``) and the bench
 (``utils/bench.py``, ``utils/scaling.py``) time with these functions.
@@ -43,6 +44,14 @@ and counted by :func:`dropped_spans`.  :func:`reset_spans` clears both.
 Spans take no CUDA event, no synchronize and no device query, so they do
 not change the pacing of host and card.  They nest on the one host thread
 that steps the model.
+
+Counters.  ``count(name, n)`` adds ``n`` to the counter ``name``, always
+on, profiler or not: a dict update, a few hundred ns.  :func:`counters`
+returns the totals since the process started or :func:`reset_counters`.
+The host ABI counts the bytes it moves between the caller's f64 buffers
+and the solver's device: ``abi.bytes_registered`` from and to memory it
+page-locked, ``abi.bytes_pageable`` from and to any other, and on a CPU
+solver (``host_embed.py``).
 """
 
 from __future__ import annotations
@@ -169,6 +178,25 @@ def reset_spans() -> None:
     _record.clear()
     _open.clear()
     _dropped = 0
+
+
+# the counters: name -> total
+_counts: dict = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the counter ``name`` (module docstring)."""
+    _counts[name] = _counts.get(name, 0) + n
+
+
+def counters() -> dict:
+    """The counters: name -> total since the process started or
+    :func:`reset_counters`."""
+    return dict(_counts)
+
+
+def reset_counters() -> None:
+    _counts.clear()
 
 
 def card_line() -> str:

@@ -21,11 +21,22 @@ over ``host_embed``), the counterpart of tests/test_native.py:108-181.
 * the port's ``extern "C"`` block declares the names and parameter lists
   of the JAX package's ``native/fesom2_tpu_host.cpp`` (a text check);
 * ``build_mesh_from_elements`` keeps the edge order H-K34 needs on the
-  host's elements.
+  host's elements;
+* the registry of page-locked buffers (``host_embed.Pins``), with
+  ``cudaHostRegister`` / ``cudaHostUnregister`` replaced by fakes and the
+  solver's device reported as a card (the solver a CPU one): each buffer
+  registered once across steps and tracers, ``hnode`` / ``hnode_new``
+  shared, one synchronize a step, the buffers bit for bit those of a
+  witness that casts on the host; two buffers on one page both
+  registered; a changed size registered anew; a refused registration
+  counts the buffer's bytes under ``abi.bytes_pageable``; ``reset`` (and
+  a new ``setup``) unregisters everything; a CPU solver registers nothing.
+  The card's half is ``tests/test_torch_host_embed_card.py``.
 
 The build is skipped only where g++ or libpython is absent, as
 tests/test_native.py skips."""
 
+import mmap
 import pathlib
 import re
 
@@ -50,6 +61,7 @@ from fesom2_accelerate_tpu_torch.model import FctAleSolver
 from fesom2_accelerate_tpu_torch.native import build, demo
 from fesom2_accelerate_tpu_torch.ops.cuda.step import fct_ale_step_cuda
 from fesom2_accelerate_tpu_torch.ops.meshdata import check_edge_order
+from fesom2_accelerate_tpu_torch.runtime import tracing
 
 from conftest import masked_allclose
 
@@ -302,3 +314,283 @@ def test_host_built_mesh_keeps_edge_order(preset):
                                     mesh.nl, mesh.node_xy)
     np.testing.assert_array_equal(host.edges, mesh.edges)
     assert check_edge_order(torch.from_numpy(host.edges)) == mesh.n_edges
+
+
+# ---- the registry of page-locked buffers, on the CPU -------------------
+
+PAGE = mmap.PAGESIZE
+SHARED = ("hnode", "hnode_new")
+
+
+def _own_pages(a: np.ndarray) -> np.ndarray:
+    """A copy of ``a`` on pages of its own, as a large host array's are."""
+    raw = np.empty(-(-a.nbytes // PAGE) * PAGE + PAGE, np.uint8)
+    off = -raw.ctypes.data % PAGE
+    out = raw[off:off + a.nbytes].view(a.dtype).reshape(a.shape)
+    out[...] = a
+    return out
+
+
+def _tracer_buffers(mesh, tracers: int = 2) -> list:
+    """Each tracer's eight f64 buffers, each on pages of its own,
+    ``hnode`` and ``hnode_new`` shared by the tracers."""
+    bufs = []
+    for t in range(tracers):
+        fields = random_fields(mesh, seed=5 + t)
+        bufs.append({k: bufs[0][k] if t and k in SHARED
+                     else _own_pages(np.asarray(fields[k], np.float64))
+                     for k, _ in demo.FIELD_FILES})
+    return bufs
+
+
+def _outputs(iter_yn: bool) -> list:
+    return ["fct_adf_v", "fct_adf_h"] + (
+        ["fct_LO"] if iter_yn else ["del_ttf_advvert", "del_ttf_advhoriz"])
+
+
+def _pageable_steps(solver, iter_yn: bool, bufs: list, steps: int) -> list:
+    """Copies of ``bufs`` after ``steps`` steps of every tracer through the
+    witness's copies, pageable and cast on the host: ``init_state``, the
+    step, ``.cpu()`` and numpy's write."""
+    shared = {k: bufs[0][k].copy() for k in SHARED}
+    got = [dict({k: v.copy() for k, v in b.items() if k not in SHARED},
+                **shared) for b in bufs]
+    for _ in range(steps):
+        for b in got:
+            out = solver.step(solver.init_state(b))
+            for k in _outputs(iter_yn):
+                np.copyto(b[k], out[k].cpu().numpy())
+    return got
+
+
+def _assert_same_bits(got: dict, want: dict) -> None:
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].view(np.uint64),
+                                      v.view(np.uint64), err_msg=k)
+
+
+class FakeCudart:
+    """``cudaHostRegister`` / ``cudaHostUnregister`` that record their
+    calls.  A registration of an address in ``refuse`` fails with the code
+    it maps to (1, ``cudaErrorInvalidValue``; 712,
+    ``cudaErrorHostMemoryAlreadyRegistered``); as CUDA on the card, a page
+    two buffers share is locked for each."""
+
+    def __init__(self, refuse=None):
+        self.tries, self.registered, self.unregistered = [], [], []
+        self.refuse = dict(refuse or {})
+        self.live: dict = {}
+
+    def cudaHostRegister(self, addr, n, flags):
+        assert flags == 0
+        self.tries.append(addr)
+        if addr in self.refuse:
+            return self.refuse[addr]
+        self.registered.append((addr, n))
+        self.live[addr] = n
+        return 0
+
+    def cudaHostUnregister(self, addr):
+        assert addr in self.live
+        del self.live[addr]
+        self.unregistered.append(addr)
+        return 0
+
+
+class Card:
+    """The solver's device reported as a card: the registry on, its cudart
+    and the stream's synchronize faked, the solver a CPU one (backend 0 the
+    plain f64 stages, backend 1 the CUDA step function's plain versions)."""
+
+    def __init__(self, monkeypatch, cudart: FakeCudart):
+        self.cudart, self.syncs, self.cleared = cudart, 0, 0
+        card = self
+
+        class Stream:
+            def synchronize(self):
+                card.syncs += 1
+
+        def cpu_solver(mesh, cfg, backend):
+            if backend == 0:
+                return FctAleSolver(mesh, cfg, "torch", device="cpu")
+            solver = FctAleSolver(mesh, cfg, device="cpu")
+            solver._step_fn = fct_ale_step_cuda
+            return solver
+
+        def clear_error(device):
+            card.cleared += 1
+
+        monkeypatch.setattr(host_embed, "_solver", cpu_solver)
+        monkeypatch.setattr(host_embed, "_pinnable", lambda device: True)
+        monkeypatch.setattr(host_embed, "_cudart", lambda: cudart)
+        monkeypatch.setattr(host_embed, "_clear_error", clear_error)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: Stream())
+        tracing.reset_counters()
+
+    @staticmethod
+    def steps(bufs: list, steps: int) -> None:
+        for _ in range(steps):
+            for b in bufs:
+                assert host_embed.step(*(b[k].ctypes.data
+                                         for k, _ in demo.FIELD_FILES)) == 0
+
+
+def _moved(bufs: list, iter_yn: bool) -> int:
+    """The bytes one step of every tracer moves: eight buffers in, the
+    results out."""
+    return sum(sum(b[k].nbytes for k, _ in demo.FIELD_FILES)
+               + sum(b[k].nbytes for k in _outputs(iter_yn)) for b in bufs)
+
+
+@pytest.mark.parametrize("backend", [0, 1])
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_each_buffer_registered_once(toy, monkeypatch, backend, iter_yn):
+    """Two tracers, three steps: 14 registrations (``hnode`` and
+    ``hnode_new`` once), every byte from and to registered memory, a
+    synchronize a step, the buffers bit for bit the witness's."""
+    mesh, _ = toy
+    card = Card(monkeypatch, FakeCudart())
+    bufs = _tracer_buffers(mesh)
+    try:
+        assert _setup(mesh, backend, iter_yn) == 0
+        want = _pageable_steps(host_embed.session().solver, iter_yn, bufs, 3)
+        card.steps(bufs, 3)
+        refused = dict(host_embed.session().pins.refused)
+    finally:
+        host_embed.reset()
+    distinct = {b[k].ctypes.data: b[k].nbytes for b in bufs for k in b}
+    assert len(distinct) == 14
+    assert sorted(card.cudart.registered) == sorted(distinct.items())
+    assert {bufs[0][k].ctypes.data for k in SHARED} == {
+        bufs[1][k].ctypes.data for k in SHARED}
+    assert not refused and card.syncs == 6 and card.cleared == 0
+    assert tracing.counters() == {"abi.bytes_registered":
+                                  3 * _moved(bufs, iter_yn)}
+    for got, w in zip(bufs, want):
+        _assert_same_bits(got, w)
+
+
+@pytest.mark.parametrize("code", [1, 712])
+def test_refused_registration_takes_the_pageable_path(toy, monkeypatch,
+                                                      code):
+    """A buffer CUDA refuses (``fct_adf_h``: in and out; refused by the
+    driver, or locked by the caller already) is copied from and to
+    pageable memory, is not tried again, and counts its bytes under
+    ``abi.bytes_pageable``; the others stay registered, and the buffers
+    are the witness's bit for bit."""
+    mesh, _ = toy
+    bufs = _tracer_buffers(mesh, tracers=1)
+    b = bufs[0]
+    key = "fct_adf_h"
+    addr = b[key].ctypes.data
+    cudart = FakeCudart(refuse={addr: code})
+    card = Card(monkeypatch, cudart)
+    try:
+        assert _setup(mesh, 1) == 0
+        want = _pageable_steps(host_embed.session().solver, False, bufs, 2)
+        card.steps(bufs, 2)
+        refused = dict(host_embed.session().pins.refused)
+    finally:
+        host_embed.reset()
+    assert refused == {addr: b[key].nbytes}
+    assert cudart.tries.count(addr) == 1 and card.cleared == 1
+    assert {a for a, _ in cudart.registered} == {
+        v.ctypes.data for k, v in b.items() if k != key}
+    pageable = 2 * 2 * b[key].nbytes
+    assert tracing.counters() == {
+        "abi.bytes_pageable": pageable,
+        "abi.bytes_registered": 2 * _moved(bufs, False) - pageable}
+    _assert_same_bits(b, want[0])
+
+
+def test_a_shared_page_registers_both(toy, monkeypatch):
+    """``ttf`` and ``fct_LO`` end to end on one page: both registered, as
+    CUDA locks a shared page for each (the card test shows it), every byte
+    from and to registered memory, the buffers the witness's bit for
+    bit."""
+    mesh, _ = toy
+    bufs = _tracer_buffers(mesh, tracers=1)
+    b = bufs[0]
+    n = b["ttf"].size
+    assert b["ttf"].nbytes % PAGE
+    pair = _own_pages(np.concatenate([b["ttf"].ravel(),
+                                      b["fct_LO"].ravel()]))
+    b["ttf"] = pair[:n].reshape(b["ttf"].shape)
+    b["fct_LO"] = pair[n:].reshape(b["fct_LO"].shape)
+    card = Card(monkeypatch, FakeCudart())
+    try:
+        assert _setup(mesh, 1) == 0
+        want = _pageable_steps(host_embed.session().solver, False, bufs, 2)
+        card.steps(bufs, 2)
+    finally:
+        host_embed.reset()
+    assert sorted(card.cudart.registered) == sorted(
+        (v.ctypes.data, v.nbytes) for v in b.values())
+    assert tracing.counters() == {"abi.bytes_registered":
+                                  2 * _moved(bufs, False)}
+    _assert_same_bits(b, want[0])
+
+
+def test_changed_size_registers_anew(monkeypatch):
+    """The same address with another byte count: unregistered, then
+    registered at its new size, once."""
+    cudart = FakeCudart()
+    monkeypatch.setattr(host_embed, "_cudart", lambda: cudart)
+    pins = host_embed.Pins(torch.device("cpu"))
+    a = _own_pages(np.zeros(3 * PAGE // 8))
+    assert pins.pinned(a[:PAGE // 8]) and pins.pinned(a[:PAGE // 8])
+    assert pins.pinned(a) and pins.pinned(a)
+    addr = a.ctypes.data
+    assert cudart.registered == [(addr, PAGE), (addr, 3 * PAGE)]
+    assert cudart.unregistered == [addr]
+    assert pins.held == {addr: 3 * PAGE}
+
+
+@pytest.mark.parametrize("end", ["reset", "setup"])
+def test_reset_unregisters_everything(toy, monkeypatch, end):
+    """``reset`` (``f2t_finalize_``), and a new ``setup``, unregister every
+    buffer the session registered."""
+    mesh, _ = toy
+    card = Card(monkeypatch, FakeCudart())
+    bufs = _tracer_buffers(mesh)
+    try:
+        assert _setup(mesh, 1) == 0
+        card.steps(bufs, 1)
+        assert len(card.cudart.registered) == 14
+        assert not card.cudart.unregistered
+        if end == "reset":
+            assert host_embed.reset() == 0
+        else:
+            assert _setup(mesh, 1) == 0
+            assert host_embed.session().pins.held == {}
+    finally:
+        host_embed.reset()
+    assert sorted(card.cudart.unregistered) == sorted(
+        a for a, _ in card.cudart.registered)
+
+
+def test_cpu_solver_never_registers(toy, monkeypatch):
+    """Backend 0 on the CPU registers nothing: no registry, no call of
+    cudart, every byte under ``abi.bytes_pageable``, the buffers the
+    witness's bit for bit."""
+    mesh, _ = toy
+    monkeypatch.setenv(host_embed.DEVICE_ENV, "cpu")
+
+    def no_cudart():
+        raise AssertionError("a CPU solver called cudart")
+
+    monkeypatch.setattr(host_embed, "_cudart", no_cudart)
+    tracing.reset_counters()
+    bufs = _tracer_buffers(mesh)
+    try:
+        assert _setup(mesh, 0) == 0
+        assert host_embed.session().pins is None
+        want = _pageable_steps(host_embed.session().solver, False, bufs, 2)
+        Card.steps(bufs, 2)
+    finally:
+        host_embed.reset()
+    assert tracing.counters() == {"abi.bytes_pageable": 2 * _moved(bufs,
+                                                                   False)}
+    for got, w in zip(bufs, want):
+        _assert_same_bits(got, w)

@@ -1,0 +1,239 @@
+"""PyTorch port: the host ABI's DMA of the caller's f64 buffers, on the
+card (``host_embed.copy_in`` / ``copy_out``).
+
+Marked ``card``: each test skips where there is no CUDA device.  The file
+imports neither JAX nor the JAX package, so it runs on a machine that has
+neither, without the suite's ``conftest.py``::
+
+    python -m pytest --noconftest tests/test_torch_host_embed_card.py
+
+* on the ``toy`` mesh and at core2 width, backends 1 and 0, ``iter_yn``
+  both ways: after two steps the caller's eight buffers are bit for bit
+  those of the pageable path (the cast on the host, ``.cpu()``, numpy's
+  write, kept here as the witness) from the same inputs, every byte went
+  by DMA of registered memory, and ``reset`` unregistered every buffer;
+* a buffer the caller had page-locked itself: CUDA refuses the session's
+  registration, the CUDA runtime's error is cleared, the buffer is copied
+  from and to pageable memory and the buffers are still the witness's bit
+  for bit;
+* two buffers that share a page: CUDA locks the page for each, and the
+  buffers are the witness's bit for bit;
+* the contract's end: after ``reset`` the host frees its buffers and
+  allocates new ones at the same addresses, and a new session's steps on
+  them are the witness's bit for bit.
+"""
+
+import mmap
+
+import numpy as np
+import pytest
+import torch
+
+from fesom2_accelerate_tpu_torch import host_embed
+from fesom2_accelerate_tpu_torch.mesh import (
+    generate_planar_mesh,
+    random_fields,
+)
+from fesom2_accelerate_tpu_torch.native import demo
+from fesom2_accelerate_tpu_torch.runtime import tracing
+
+pytestmark = pytest.mark.card
+
+PAGE = mmap.PAGESIZE
+DT_MILLI = 500
+STEPS = 2
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch.cuda.is_available() is False")
+    return torch.cuda.get_device_name(0)
+
+
+@pytest.fixture(scope="module")
+def meshes(card):
+    return {}
+
+
+def _mesh(meshes: dict, preset: str):
+    if preset not in meshes:
+        meshes[preset] = generate_planar_mesh(preset=preset)
+    return meshes[preset]
+
+
+def _own_pages(a: np.ndarray) -> np.ndarray:
+    """A copy of ``a`` on pages of its own, as a large host array's are
+    (the ``toy`` mesh's fields are a few hundred bytes)."""
+    raw = np.empty(-(-a.nbytes // PAGE) * PAGE + PAGE, np.uint8)
+    off = -raw.ctypes.data % PAGE
+    out = raw[off:off + a.nbytes].view(a.dtype).reshape(a.shape)
+    out[...] = a
+    return out
+
+
+def _setup(mesh, backend: int, iter_yn: bool) -> None:
+    en = np.ascontiguousarray(mesh.elem_nodes, np.int32)
+    nl = np.ascontiguousarray(mesh.nlev_elem, np.int32)
+    xy = np.ascontiguousarray(mesh.node_xy, np.float64)
+    assert host_embed.setup(mesh.n_elems, mesh.nl, en.ctypes.data,
+                            nl.ctypes.data, mesh.n_nodes, xy.ctypes.data,
+                            DT_MILLI, 1, int(iter_yn), backend) == 0
+
+
+def _outputs(iter_yn: bool) -> list:
+    return ["fct_adf_v", "fct_adf_h"] + (
+        ["fct_LO"] if iter_yn else ["del_ttf_advvert", "del_ttf_advhoriz"])
+
+
+def _steps(bufs: dict) -> None:
+    for _ in range(STEPS):
+        assert host_embed.step(*(bufs[k].ctypes.data
+                                 for k, _ in demo.FIELD_FILES)) == 0
+
+
+def _pageable_steps(solver, iter_yn: bool, bufs: dict) -> dict:
+    """Copies of ``bufs`` after STEPS steps of the pageable path, the
+    parent's ``copy_in`` / ``copy_out``: ``FctAleSolver.init_state`` (the
+    cast on the host), the step, ``.cpu()`` and numpy's write."""
+    got = {k: v.copy() for k, v in bufs.items()}
+    for _ in range(STEPS):
+        out = solver.step(solver.init_state(got))
+        for k in _outputs(iter_yn):
+            np.copyto(got[k], out[k].cpu().numpy())
+    return got
+
+
+def _assert_same_bits(got: dict, want: dict) -> None:
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].view(np.uint64),
+                                      v.view(np.uint64), err_msg=k)
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+@pytest.mark.parametrize("backend", [1, 0])
+@pytest.mark.parametrize("preset", ["toy", "core2"])
+def test_buffers_bit_identical_to_the_pageable_path(card, meshes, preset,
+                                                    backend, iter_yn):
+    mesh = _mesh(meshes, preset)
+    fields = random_fields(mesh, seed=11, dtype=np.float64)
+    bufs = {k: _own_pages(np.asarray(fields[k], np.float64))
+            for k, _ in demo.FIELD_FILES}
+    tracing.reset_counters()
+    try:
+        _setup(mesh, backend, iter_yn)
+        want = _pageable_steps(host_embed.session().solver, iter_yn, bufs)
+        tracing.reset_counters()
+        _steps(bufs)
+        held = dict(host_embed.session().pins.held)
+    finally:
+        host_embed.reset()
+    assert held == {v.ctypes.data: v.nbytes for v in bufs.values()}
+    moved = sum(v.nbytes for v in bufs.values()) + sum(
+        bufs[k].nbytes for k in _outputs(iter_yn))
+    assert tracing.counters() == {"abi.bytes_registered": STEPS * moved}
+    _assert_same_bits(bufs, want)
+    # reset unregistered them: each registers again, and is released
+    cudart = torch.cuda.cudart()
+    for addr, n in held.items():
+        assert int(cudart.cudaHostRegister(addr, n, 0)) == 0
+        assert int(cudart.cudaHostUnregister(addr)) == 0
+
+
+def test_a_refused_registration_on_the_card(card, meshes):
+    """``ttf`` page-locked by the caller: the session's registration fails
+    (CUDA's "already registered"), its error does not reach the next
+    launch, and ``ttf`` takes the pageable path."""
+    mesh = _mesh(meshes, "toy")
+    fields = random_fields(mesh, seed=12, dtype=np.float64)
+    bufs = {k: _own_pages(np.asarray(fields[k], np.float64))
+            for k, _ in demo.FIELD_FILES}
+    ttf = bufs["ttf"]
+    cudart = torch.cuda.cudart()
+    assert int(cudart.cudaHostRegister(ttf.ctypes.data, ttf.nbytes, 0)) == 0
+    try:
+        _setup(mesh, 1, False)
+        want = _pageable_steps(host_embed.session().solver, False, bufs)
+        tracing.reset_counters()
+        _steps(bufs)
+        torch.cuda.synchronize()
+        refused = dict(host_embed.session().pins.refused)
+    finally:
+        host_embed.reset()
+        assert int(cudart.cudaHostUnregister(ttf.ctypes.data)) == 0
+    assert refused == {ttf.ctypes.data: ttf.nbytes}
+    assert tracing.counters()["abi.bytes_pageable"] == STEPS * ttf.nbytes
+    _assert_same_bits(bufs, want)
+
+
+def test_a_shared_page_on_the_card(card, meshes):
+    """``ttf`` and ``fct_LO`` end to end on one page (the ``toy`` mesh's
+    fields are a few hundred bytes): CUDA locks the shared page for each,
+    both go by DMA, the buffers are the witness's bit for bit, and after
+    ``reset`` each registers again and is released."""
+    mesh = _mesh(meshes, "toy")
+    fields = random_fields(mesh, seed=13, dtype=np.float64)
+    bufs = {k: _own_pages(np.asarray(fields[k], np.float64))
+            for k, _ in demo.FIELD_FILES}
+    n = bufs["ttf"].size
+    assert bufs["ttf"].nbytes % PAGE
+    pair = _own_pages(np.concatenate([bufs["ttf"].ravel(),
+                                      bufs["fct_LO"].ravel()]))
+    bufs["ttf"] = pair[:n].reshape(bufs["ttf"].shape)
+    bufs["fct_LO"] = pair[n:].reshape(bufs["fct_LO"].shape)
+    try:
+        _setup(mesh, 1, False)
+        want = _pageable_steps(host_embed.session().solver, False, bufs)
+        tracing.reset_counters()
+        _steps(bufs)
+        held = dict(host_embed.session().pins.held)
+    finally:
+        host_embed.reset()
+    assert held == {v.ctypes.data: v.nbytes for v in bufs.values()}
+    assert "abi.bytes_pageable" not in tracing.counters()
+    _assert_same_bits(bufs, want)
+    cudart = torch.cuda.cudart()
+    for addr, n in held.items():
+        assert int(cudart.cudaHostRegister(addr, n, 0)) == 0
+        assert int(cudart.cudaHostUnregister(addr)) == 0
+
+
+def _mapped(a: np.ndarray) -> tuple:
+    """A copy of ``a`` in an anonymous mapping of its own, which closing
+    unmaps, as the C library frees a large allocation."""
+    m = mmap.mmap(-1, -(-a.nbytes // PAGE) * PAGE)
+    out = np.frombuffer(m, a.dtype, a.size).reshape(a.shape)
+    out[...] = a
+    return m, out
+
+
+def test_freed_after_reset_and_allocated_anew(card, meshes):
+    """A session's steps, ``reset``, the buffers unmapped and at once
+    mapped anew (where the kernel gives the addresses back, at the same
+    ones) and filled with other fields: a new session's steps on them are
+    the witness's bit for bit, every byte from and to page-locked memory."""
+    mesh = _mesh(meshes, "core2")
+    fields = [random_fields(mesh, seed=seed, dtype=np.float64)
+              for seed in (14, 15)]
+    addrs, unmap = [], []
+    for f in fields:
+        for m in unmap:
+            m.close()
+        maps = {k: _mapped(np.asarray(f[k], np.float64))
+                for k, _ in demo.FIELD_FILES}
+        bufs = {k: a for k, (_, a) in maps.items()}
+        addrs.append({a.ctypes.data for a in bufs.values()})
+        try:
+            _setup(mesh, 1, False)
+            want = _pageable_steps(host_embed.session().solver, False, bufs)
+            tracing.reset_counters()
+            _steps(bufs)
+        finally:
+            host_embed.reset()
+        assert "abi.bytes_pageable" not in tracing.counters()
+        _assert_same_bits(bufs, want)
+        unmap = [m for m, _ in maps.values()]
+        del maps, bufs, want
+    for m in unmap:
+        m.close()
+    print("addresses reused:", len(addrs[0] & addrs[1]), "of", len(addrs[0]))

@@ -13,7 +13,9 @@
   ``solver.step``, ``abi.copy_out``), the step forms through the kernel
   wrappers' plain versions (``graphs.loop`` over ``solver.step`` over
   ``kernels.<wrapper>``), every wrapper a span, and the launch counts
-  unchanged by tracing.
+  unchanged by tracing;
+* the counters: on with no profiler, totals by name, a copy returned,
+  cleared by ``reset_counters``.
 """
 
 import functools
@@ -133,6 +135,19 @@ def test_cap_and_dropped(monkeypatch):
     assert tracing.dropped_spans() == 2
     tracing.reset_spans()
     assert tracing.spans() == [] and tracing.dropped_spans() == 0
+
+
+def test_counters():
+    tracing.reset_counters()
+    tracing.count("a")
+    tracing.count("a", 5)
+    tracing.count("b", 2)
+    got = tracing.counters()
+    assert got == {"a": 6, "b": 2}
+    got["a"] = 0
+    assert tracing.counters()["a"] == 6
+    tracing.reset_counters()
+    assert tracing.counters() == {}
 
 
 def test_stamps_on_the_profilers_clock():
