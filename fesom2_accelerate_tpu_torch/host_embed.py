@@ -10,7 +10,9 @@ Here it is split in two:
   or C host links against (``f2t_init_``, ``f2t_setup_``, ``f2t_dims_``,
   ``f2t_fct_ale_step_``, ``f2t_finalize_``), with the parameter lists of
   the JAX package's ``native/fesom2_tpu_host.cpp``, so a host links either
-  library unchanged.  It embeds CPython and calls this module;
+  library unchanged, and a rank's partition in two phases around the
+  host's exchange (``f2t_setup_part_``, ``f2t_fct_ale_pre_comm_``,
+  ``f2t_fct_ale_post_comm_``).  It embeds CPython and calls this module;
 * this module: it wraps the caller's host pointers as numpy views
   (zero-copy), builds the mesh (``mesh/topology.py``
   ``build_mesh_from_elements``) and the solver once at :func:`setup` (the
@@ -73,19 +75,42 @@ fields, as FESOM2 allocates the tracers and ``del_ttf_adv*``
 (``oce_adv_tra_fct.F90``) and ``hnode`` / ``hnode_new`` (``oce_ale.F90``)
 once for the run.
 
+**A rank's partition** (the deployment the reference's three phases
+exist for, src/fesom2-accelerate.cu:258,342,358).  :func:`setup_part`
+takes the rank's local mesh in FESOM2's local numbering, owned nodes
+first, and a step is one :func:`pre_comm`, the host's own
+``exchange_nod(fct_plus, fct_minus)``, and one :func:`post_comm`, per
+tracer.  :func:`pre_comm` writes both factors, every column, into two f64
+buffers of the host's; the host overwrites their halo columns with their
+owners' values; :func:`post_comm` reads only those halo columns back and
+writes the step's results as :func:`step` does.  The two phases take the
+same ten buffers, under the same contract as a step's eight: the factor
+buffers too stay page-locked from their first phase until :func:`reset`.
+Owned results are right only where every element that touches an owned
+node is in the local mesh and the exchange filled every halo column; in
+iterative mode the host refreshes ``fct_LO``'s halo after a step, as the
+sharded step does.  With no halo (``n_owned`` every node, or a session of
+:func:`setup`) the phases give :func:`step`'s bits.
+
 Under a profiler a :func:`step` is the span ``abi.step``, with
 ``abi.copy_in`` (the DMA of the caller's buffers and the cast on the
 card), ``solver.step`` and ``abi.copy_out`` (the cast on the card, the DMA
 into the caller's buffers and the synchronize, which also waits for
-copy-in's DMA) under it (``runtime/tracing.py``).  The counters
+copy-in's DMA) under it (``runtime/tracing.py``).  A :func:`pre_comm` is
+the span ``abi.pre_comm`` (``abi.copy_in``, ``solver.pre_comm``,
+``abi.factors_out``, ``solver.inter_comm``, then the wait for the
+factors), a :func:`post_comm` ``abi.post_comm`` (``abi.factors_in``,
+``solver.post_comm``, ``abi.copy_out``).  The counters
 ``abi.bytes_registered`` and ``abi.bytes_pageable`` add up the bytes of
 the caller's buffers that moved from and to page-locked memory and from
-and to any other.
+and to any other, and ``abi.factor_bytes`` those of the factors, both
+ways.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import sys
 import traceback
@@ -100,12 +125,16 @@ from fesom2_accelerate_tpu_torch.mesh.topology import (
     build_mesh_from_elements,
 )
 from fesom2_accelerate_tpu_torch.model.fct_ale import FctAleSolver
+from fesom2_accelerate_tpu_torch.ops.cuda import kernels
 from fesom2_accelerate_tpu_torch.runtime import tracing
 
-__all__ = ["setup", "dims", "step", "reset"]
+__all__ = ["setup", "setup_part", "dims", "step", "pre_comm", "post_comm",
+           "reset"]
 
 # the environment variable by which a caller asks for the CPU (backend 0)
 DEVICE_ENV = "FESOM2_TORCH_DEVICE"
+# the limiter factors a rank's host exchanges between pre_comm and post_comm
+FACTORS = ("fct_plus", "fct_minus")
 
 
 class Pins:
@@ -170,14 +199,33 @@ def _pinnable(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-class Session(NamedTuple):
-    """What :func:`setup` built: the mesh, the config, the solver and the
-    buffers it page-locked (None on the CPU)."""
+class Pending(NamedTuple):
+    """What a :func:`pre_comm` leaves on the device for the
+    :func:`post_comm` after it: the ten buffers' addresses, the eight
+    fields' views, the state copied in, the factors (``pre``) and the work
+    enqueued while the host exchanges (``inter``)."""
+
+    addrs: tuple
+    host: dict
+    state: dict
+    pre: dict
+    inter: object
+
+
+@dataclasses.dataclass
+class Session:
+    """What :func:`setup` or :func:`setup_part` built: the mesh (a rank's
+    local mesh, owned columns first), the config, the solver, the buffers
+    it page-locked (None on the CPU), the number of owned columns (every
+    column after :func:`setup`) and what a :func:`pre_comm` left for its
+    :func:`post_comm`."""
 
     mesh: Mesh
     cfg: FctAleConfig
     solver: FctAleSolver
     pins: Pins | None
+    n_owned: int
+    pending: Pending | None = None
 
 
 _SESSION: Session | None = None
@@ -247,14 +295,32 @@ def _solver(mesh: Mesh, cfg: FctAleConfig, backend: int) -> FctAleSolver:
                         device=_device(backend))
 
 
-def setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
-          n_nodes: int, node_xy_addr: int, dt_milli: int, vlimit: int,
-          iter_yn: int, backend: int) -> int:
-    """Builds the mesh and the solver from host connectivity (once, as the
-    reference's ``transfer_mesh_`` and ``alloc_var_``): ``elem_nodes``
-    [n_elems, 3] int32, 0-based; ``nlev_elem`` [n_elems] int32;
-    ``node_xy`` [n_nodes, 2] float64.  Returns 0 on success, 1 on failure
-    (the reference's ``istat``, src/fesom2-accelerate.cu:114-127)."""
+def part_mesh(mesh: Mesh, n_owned: int) -> Mesh:
+    """``mesh`` as one part of a split step: columns [0, n_owned) the owned
+    nodes, every later one a halo node whose node->element and node->edge
+    rows are emptied, as ``parallel/partition.py`` leaves a part's halo
+    rows.  A halo node's rows on a rank are incomplete: its factors come
+    from the host's exchange, and H-K4's FIX form needs every row inside
+    the owned columns (``kernels.update_fixup``).  A mesh with no halo is
+    returned as it is."""
+    if not 1 <= n_owned <= mesh.n_nodes:
+        raise ValueError(f"n_owned={n_owned}: a rank owns 1 to n_nodes="
+                         f"{mesh.n_nodes} nodes, numbered first")
+    if n_owned == mesh.n_nodes:
+        return mesh
+    rows = {}
+    for name, empty in (("node_elems", -1), ("node_elems_pos", -1),
+                        ("node_elems_num", 0), ("node_edges", -1),
+                        ("node_edges_sign", -1), ("node_edges_num", 0)):
+        a = getattr(mesh, name).copy()
+        a[n_owned:] = empty
+        rows[name] = a
+    return dataclasses.replace(mesh, **rows)
+
+
+def _setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
+           n_nodes: int, n_owned: int | None, node_xy_addr: int,
+           dt_milli: int, vlimit: int, iter_yn: int, backend: int) -> int:
     global _SESSION
     try:
         elem_nodes = _view(elem_nodes_addr, (n_elems, 3), np.int32).copy()
@@ -262,11 +328,14 @@ def setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
         node_xy = _view(node_xy_addr, (n_nodes, 2), np.float64).copy()
         mesh = build_mesh_from_elements(elem_nodes, nlev_elem, nl, node_xy)
         mesh.validate()
+        if n_owned is None:
+            n_owned = mesh.n_nodes
+        mesh = part_mesh(mesh, n_owned)
         cfg = config(backend, dt_milli, vlimit, iter_yn)
         solver = _solver(mesh, cfg, backend)
         pins = Pins(solver.device) if _pinnable(solver.device) else None
         reset()
-        _SESSION = Session(mesh, cfg, solver, pins)
+        _SESSION = Session(mesh, cfg, solver, pins, n_owned)
         return 0
     except (NoDevice, BadDevice) as e:
         print(f"fesom2_accelerate_tpu_torch.host_embed.setup: {e}",
@@ -275,6 +344,39 @@ def setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
     except Exception:  # the ABI's boundary: report, return istat 1
         traceback.print_exc()
         return 1
+
+
+def setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
+          n_nodes: int, node_xy_addr: int, dt_milli: int, vlimit: int,
+          iter_yn: int, backend: int) -> int:
+    """Builds the mesh and the solver from host connectivity (once, as the
+    reference's ``transfer_mesh_`` and ``alloc_var_``): ``elem_nodes``
+    [n_elems, 3] int32, 0-based; ``nlev_elem`` [n_elems] int32;
+    ``node_xy`` [n_nodes, 2] float64.  Returns 0 on success, 1 on failure
+    (the reference's ``istat``, src/fesom2-accelerate.cu:114-127)."""
+    return _setup(n_elems, nl, elem_nodes_addr, nlev_elem_addr, n_nodes,
+                  None, node_xy_addr, dt_milli, vlimit, iter_yn, backend)
+
+
+def setup_part(n_elems: int, nl: int, elem_nodes_addr: int,
+               nlev_elem_addr: int, n_nodes: int, n_owned: int,
+               node_xy_addr: int, dt_milli: int, vlimit: int, iter_yn: int,
+               backend: int) -> int:
+    """:func:`setup` on one rank's partition, in FESOM2's local numbering:
+    its ``n_owned`` owned nodes (``myDim_nod2D``) first, then its halo
+    nodes (``eDim_nod2D``), ``n_nodes`` in all; every element that touches
+    an owned node, in any order, with local node ids.  The halo nodes'
+    incidence rows are emptied (:func:`part_mesh`): the split step's
+    layout, so no column is permuted.  :func:`dims` then gives the local
+    counts.  The edges are derived from the local elements, each running
+    from its lower local id, sorted by it: the order of the host's edge
+    buffers, whose fluxes are signed by those directions (a host negates
+    the flux of an edge that runs the other way in its own numbering, in
+    and out).  A step is :func:`pre_comm`, the host's exchange of the
+    factors' halo columns, :func:`post_comm`; :func:`step` refuses a
+    session with a halo.  Returns 0 or 1, as :func:`setup`."""
+    return _setup(n_elems, nl, elem_nodes_addr, nlev_elem_addr, n_nodes,
+                  n_owned, node_xy_addr, dt_milli, vlimit, iter_yn, backend)
 
 
 def session() -> Session:
@@ -307,6 +409,15 @@ def views(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
         del_ttf_advvert=_view(del_v_a, (L, N), np.float64),
         del_ttf_advhoriz=_view(del_h_a, (L, N), np.float64),
     )
+
+
+def factor_views(plus_a: int, minus_a: int) -> dict:
+    """The caller's two f64 factor buffers, [L, N] each, as zero-copy
+    numpy views by name (``FACTORS``)."""
+    mesh = session().mesh
+    shape = (mesh.n_layers, mesh.n_nodes)
+    return dict(zip(FACTORS, (_view(plus_a, shape, np.float64),
+                              _view(minus_a, shape, np.float64))))
 
 
 def _counted(a: np.ndarray) -> None:
@@ -363,9 +474,125 @@ def step(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
     iterative mode overwrites ``fct_LO`` and leaves the residual fluxes in
     ``fct_adf_v`` / ``fct_adf_h``.  Returns 0, or 1 on failure."""
     try:
+        s = session()
+        if s.n_owned < s.mesh.n_nodes:
+            raise ValueError(
+                f"a partition with {s.mesh.n_nodes - s.n_owned} halo nodes "
+                f"steps as pre_comm, the host's exchange of the factors' "
+                f"halo columns, post_comm: a whole step would limit the "
+                f"edges next to the halo on factors no exchange filled")
         host = views(ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
                      del_v_a, del_h_a)
-        copy_out(session().solver.step(copy_in(host)), host)
+        copy_out(s.solver.step(copy_in(host)), host)
+        return 0
+    except Exception:  # the ABI's boundary: report, return istat 1
+        traceback.print_exc()
+        return 1
+
+
+@tracing.spanned("abi.factors_out")
+def factors_out(pair: torch.Tensor, factors: dict):
+    """Copies the limiter factors ``pair`` ([2, L, N]) into the caller's
+    two buffers, every column: cast to f64 on the device, each copied
+    into its buffer (DMA once it is page-locked), enqueued on the current
+    stream.  Returns an event behind the copies on the card, None on the
+    CPU, where they are done."""
+    s = session()
+    both = pair.to(torch.float64)
+    for k, v in zip(FACTORS, both):
+        _counted(factors[k])
+        tracing.count("abi.factor_bytes", factors[k].nbytes)
+        torch.from_numpy(factors[k]).copy_(v, non_blocking=True)
+    if s.pins is None:
+        return None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(s.solver.device))
+    return done
+
+
+@tracing.spanned("abi.factors_in")
+def factors_in(pair: torch.Tensor, factors: dict) -> None:
+    """Writes the halo columns [n_owned, N) of the caller's two factor
+    buffers, which the host's exchange filled, into ``pair`` in place:
+    each buffer's halo block gathered on the host (pageable), copied to
+    the device in f64 and cast there.  The owned columns keep
+    :func:`pre_comm`'s values: nothing reads the caller's."""
+    s = session()
+    if s.n_owned == s.mesh.n_nodes:
+        return
+    for half, k in zip(pair, FACTORS):
+        halo = factors[k][:, s.n_owned:]
+        tracing.count("abi.bytes_pageable", halo.nbytes)
+        tracing.count("abi.factor_bytes", halo.nbytes)
+        half[:, s.n_owned:] = torch.from_numpy(halo).to(
+            s.solver.device, non_blocking=True, copy=True).to(s.cfg.dtype)
+
+
+@tracing.spanned("abi.pre_comm")
+def pre_comm(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int,
+             hnode_a: int, hnode_new_a: int, del_v_a: int, del_h_a: int,
+             plus_a: int, minus_a: int) -> int:
+    """A rank's step up to its host's exchange (the reference's
+    ``fct_ale_pre_comm_acc_``) on the eight f64 buffers of :func:`step`
+    and two f64 factor buffers ``fct_plus``, ``fct_minus`` [L, N]: the
+    eight copied in (:func:`copy_in`), K1, K2 (backend 1) or the plain
+    stages a1..b2 (backend 0), the factors of every column written into
+    the two buffers (:func:`factors_out`), then the work that reads no
+    exchanged value enqueued (K3, or b3 vertical), which the card does
+    while the host exchanges.  Returns once the factors are in the
+    buffers: 0, or 1 on failure, also where a pre_comm still awaits its
+    post_comm.  The rest of the step stays on the device for
+    :func:`post_comm`."""
+    try:
+        s = session()
+        if s.pending is not None:
+            raise RuntimeError("pre_comm: the pre_comm before it awaits "
+                               "its post_comm")
+        addrs = (ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
+                 del_v_a, del_h_a, plus_a, minus_a)
+        host = views(*addrs[:8])
+        state = copy_in(host)
+        pre = s.solver.pre_comm(state)
+        done = factors_out(kernels.factor_pair(pre["fct_plus"],
+                                               pre["fct_minus"]),
+                           factor_views(plus_a, minus_a))
+        inter = s.solver.inter_comm(state, pre)
+        if done is not None:
+            done.synchronize()
+        s.pending = Pending(addrs, host, state, pre, inter)
+        return 0
+    except Exception:  # the ABI's boundary: report, return istat 1
+        traceback.print_exc()
+        return 1
+
+
+@tracing.spanned("abi.post_comm")
+def post_comm(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int,
+              hnode_a: int, hnode_new_a: int, del_v_a: int, del_h_a: int,
+              plus_a: int, minus_a: int) -> int:
+    """The rest of the step after the host's exchange (the reference's
+    ``fct_ale_post_comm_acc_``), on the ten buffers of the
+    :func:`pre_comm` before it: the factors' halo columns copied in
+    (:func:`factors_in`), K4-fix on the owned columns (backend 1) or the
+    plain b3 and stage c (backend 0), and the results written into the
+    caller's buffers as :func:`step` writes them (:func:`copy_out`, one
+    synchronize).  Returns 0, or 1 on failure (no pre_comm before it, or
+    other buffers)."""
+    try:
+        s = session()
+        pending, s.pending = s.pending, None
+        if pending is None:
+            raise RuntimeError("post_comm: no pre_comm before it")
+        addrs = (ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
+                 del_v_a, del_h_a, plus_a, minus_a)
+        if addrs != pending.addrs:
+            raise ValueError("post_comm takes the ten buffers of the "
+                             "pre_comm before it")
+        pre = pending.pre
+        factors_in(kernels.factor_pair(pre["fct_plus"], pre["fct_minus"]),
+                   factor_views(plus_a, minus_a))
+        copy_out(s.solver.post_comm(pending.state, pre, pending.inter,
+                                    (0, s.n_owned)), pending.host)
         return 0
     except Exception:  # the ABI's boundary: report, return istat 1
         traceback.print_exc()

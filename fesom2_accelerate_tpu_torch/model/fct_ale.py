@@ -3,7 +3,12 @@
 Counterpart of ``fesom2_accelerate_tpu/model/fct_ale.py``.  The phase split
 of the reference (src/fesom2-accelerate.cu:258-379) survives as
 ``pre_comm`` / ``inter_comm`` / ``post_comm``, the places where a sharded
-run inserts its halo exchange (docs/refactoring.md:200,235).  The solver
+run inserts its halo exchange (docs/refactoring.md:200,235).  The solver's
+methods of those names run one part's step around an exchange that its
+caller makes (a FESOM2 rank's own ``exchange_nod``, through
+``host_embed``), on either backend: the plain stages (:data:`PHASES`
+"torch", as ``parallel/step_sharded.py``'s plain step runs them) or the
+split step's K1, K2 | K3 | K4-fix (``ops/cuda/step.py``).  The solver
 keeps the mesh tensors on one explicit device and runs one of two step
 functions over state tensors on that device:
 
@@ -51,6 +56,7 @@ import torch
 from fesom2_accelerate_tpu_torch.config import FctAleConfig, resolve_backend
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 from fesom2_accelerate_tpu_torch.ops import stages
+from fesom2_accelerate_tpu_torch.ops.cuda import step as cstep
 from fesom2_accelerate_tpu_torch.ops.cuda.step import (
     fct_ale_step_cuda,
     fct_ale_step_cuda_batched,
@@ -118,6 +124,46 @@ def fct_ale_step(md: MeshData, cfg: FctAleConfig, state: dict) -> dict:
     return update_step(md, cfg, state, lim, vert, horiz)
 
 
+def pre_exchange(md: MeshData, cfg: FctAleConfig, state: dict) -> dict:
+    """:func:`pre_comm` on a state, its limiter factors ``fct_plus`` and
+    ``fct_minus`` stacked into the two halves of one [2, ...] tensor, so
+    that ``kernels.factor_pair`` gives both as one view, as the CUDA
+    phase ``ops/cuda/step.py:pre_exchange`` does: halo columns written
+    into the pair are what the halves read."""
+    lim = pre_comm(md, cfg, state["ttf"], state["fct_LO"],
+                   state["fct_adf_v"], state["fct_adf_h"])
+    both = torch.stack([lim["fct_plus"], lim["fct_minus"]])
+    lim.update(fct_plus=both[0], fct_minus=both[1])
+    return lim
+
+
+def limit_vertical(md: MeshData, cfg: FctAleConfig, state: dict,
+                   lim: dict) -> tuple:
+    """:func:`inter_comm` on :func:`pre_exchange`'s factors: node-local
+    work that reads no exchanged value."""
+    return inter_comm(md, cfg, lim["fct_plus"], lim["fct_minus"],
+                      state["fct_adf_v"])
+
+
+def post_exchange(md: MeshData, cfg: FctAleConfig, state: dict, lim: dict,
+                  vert: tuple, owned: tuple | None = None) -> dict:
+    """:func:`post_comm` on the (exchanged) factors of ``lim`` and stage c
+    -> the step's output dict.  ``owned`` is not read: b3 horizontal
+    limits every edge on the exchanged factors."""
+    return update_step(md, cfg, state, lim, vert,
+                       post_comm(md, cfg, lim["fct_plus"], lim["fct_minus"],
+                                 state["fct_adf_h"]))
+
+
+# a part's step in three phases around the exchange of its limiter factors,
+# by backend: before it (the factors), while it is in flight (what reads no
+# exchanged value), after it (on the owned columns (lo, hi))
+PHASES = {
+    "torch": (pre_exchange, limit_vertical, post_exchange),
+    "cuda": (cstep.pre_exchange, cstep.limit_edges, cstep.post_exchange_split),
+}
+
+
 def update_step(md: MeshData, cfg: FctAleConfig, state: dict, lim: dict,
                 vert: tuple, horiz: tuple) -> dict:
     """Stage c and the step's output dict, from ``pre_comm``'s output and
@@ -162,6 +208,11 @@ class FctAleSolver:
         state = solver.init_state(fields)      # host numpy -> device
         state = solver.step(state)             # one FCT-ALE step
         state = solver.run(state, n_steps=10)  # CUDA graphs where they pay
+        # a part's step around a host's exchange of fct_plus / fct_minus
+        pre = solver.pre_comm(state)
+        inter = solver.inter_comm(state, pre)
+        ...  # the halo columns of factor_pair(pre["fct_plus"], ...) filled
+        state = solver.post_comm(state, pre, inter, owned=(0, n_owned))
         # Tb tracers: per-tracer fields [Tb, ...], hnode/hnode_new [L, N]
         batch = solver.run_tracers(solver.init_state_tracers(fields_tb), 10)
 
@@ -194,6 +245,7 @@ class FctAleSolver:
             self._tracer_step_fn = functools.partial(
                 fct_ale_step_cuda_batched, fuse_k12=fuse_k12,
                 fuse_k34=fuse_k34)
+        self._phases = PHASES[backend]
         self.mesh = mesh
         self.cfg = cfg
         self.backend = backend
@@ -218,6 +270,38 @@ class FctAleSolver:
     @tracing.spanned("solver.step")
     def step(self, state: dict) -> dict:
         return self._step_fn(self.md, self.cfg, state)
+
+    # ---- a part's step around a host's exchange -------------------------
+
+    @tracing.spanned("solver.pre_comm")
+    def pre_comm(self, state: dict) -> dict:
+        """A part's step up to the exchange of its limiter factors (the
+        reference's ``fct_ale_pre_comm_acc_``): K1, K2 on backend "cuda"
+        (whatever the form flags), the plain stages a1..b2 on "torch" -> a
+        dict whose ``fct_plus`` and ``fct_minus`` are the two halves of one
+        [2, ...] tensor (``kernels.factor_pair``): the exchange writes their
+        halo columns there."""
+        return self._phases[0](self.md, self.cfg, state)
+
+    @tracing.spanned("solver.inter_comm")
+    def inter_comm(self, state: dict, pre: dict):
+        """The work that reads no exchanged value, enqueued while the
+        exchange is in flight (``fct_ale_inter_comm_acc_``): K3, every edge
+        limited on the factors of ``pre`` as they are ("cuda"), or b3
+        vertical ("torch")."""
+        return self._phases[1](self.md, self.cfg, state, pre)
+
+    @tracing.spanned("solver.post_comm")
+    def post_comm(self, state: dict, pre: dict, inter,
+                  owned: tuple) -> dict:
+        """The rest of the step, on the exchanged factors of ``pre``
+        (``fct_ale_post_comm_acc_``) -> the output dict of :meth:`step`:
+        K4-fix ("cuda": the edges with an endpoint outside the owned
+        columns ``owned = (lo, hi)`` limited again, and stage c, in one
+        launch), or b3 horizontal and stage c ("torch").  With every column
+        owned and no halo, the three phases give the bits of :meth:`step`
+        (on the card, K3 then K4-fix give those of K34)."""
+        return self._phases[2](self.md, self.cfg, state, pre, inter, owned)
 
     def run(self, state: dict, n_steps: int) -> dict:
         """n_steps of the step function; the carry keeps the input's keys

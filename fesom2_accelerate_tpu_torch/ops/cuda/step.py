@@ -30,7 +30,11 @@ A step over P parts in one process enqueues every part's pre-exchange
 phase, starts the one exchange, enqueues every part's K3 (split mode),
 then finishes the exchange, so the exchange is not called from inside a
 part's step (``parallel/step_sharded.py``).  The iterative mode's
-``fct_LO`` halo refresh after stage c is done there as well.
+``fct_LO`` halo refresh after stage c is done there as well.  One part
+whose exchange its host makes (a FESOM2 rank through ``host_embed``'s
+``pre_comm`` / ``post_comm``) runs :func:`pre_exchange`,
+:func:`limit_edges` and :func:`post_exchange_split` as
+``FctAleSolver.pre_comm`` / ``inter_comm`` / ``post_comm``.
 :func:`fct_ale_step_cuda` is the single-device step, in one of the four
 forms the JAX package selects with ``build_pallas_data(fuse_k12=,
 fuse_k34=)``: K1 -> K2 or K12, then K34 or K3 -> K4.  On one device there

@@ -472,24 +472,18 @@ def sharded_fct_ale_step(mds: list, cfg: FctAleConfig, halo_fill,
     pre-exchange factors (node-local, owned columns final) while it is in
     flight, as the reference's inter_comm phase runs while MPI completes,
     then the exchange finished and b3 horizontal on the exchanged
-    factors."""
+    factors: the phases of ``model.fct_ale.PHASES["torch"]``, which one
+    part whose exchange is its host's runs too (``host_embed``)."""
     parts = list(zip(mds, states))
-    lims = [single.pre_comm(md, cfg, s["ttf"], s["fct_LO"], s["fct_adf_v"],
-                            s["fct_adf_h"]) for md, s in parts]
-    both = [torch.stack([lim["fct_plus"], lim["fct_minus"]])
-            for lim in lims]
-    pending = halo_fill.start(both)
-    verts = [single.inter_comm(md, cfg, lim["fct_plus"], lim["fct_minus"],
-                               s["fct_adf_v"])
+    lims = [single.pre_exchange(md, cfg, s) for md, s in parts]
+    pending = halo_fill.start([
+        kernels.factor_pair(lim["fct_plus"], lim["fct_minus"])
+        for lim in lims])
+    verts = [single.limit_vertical(md, cfg, s, lim)
              for (md, s), lim in zip(parts, lims)]
     halo_fill.finish(pending)
-    for lim, pm in zip(lims, both):
-        lim.update(fct_plus=pm[0], fct_minus=pm[1])
-    outs = [single.update_step(
-        md, cfg, s, lim, vert,
-        single.post_comm(md, cfg, lim["fct_plus"], lim["fct_minus"],
-                         s["fct_adf_h"]))
-        for (md, s), lim, vert in zip(parts, lims, verts)]
+    outs = [single.post_exchange(md, cfg, s, lim, vert)
+            for (md, s), lim, vert in zip(parts, lims, verts)]
     if cfg.iter_yn:
         halo_fill([o["fct_LO"] for o in outs])
     return outs

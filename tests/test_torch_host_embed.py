@@ -290,15 +290,31 @@ def _extern_c(path: pathlib.Path) -> dict:
 
 
 def test_c_surface_matches_jax_shim():
+    """The JAX shim's five entry points with its parameter lists, and the
+    three of a rank's partition beside them."""
     port = REPO / "fesom2_accelerate_tpu_torch" / "native"
     ours = _extern_c(port / "fesom2_torch_host.cpp")
-    assert ours == _extern_c(REPO / "native" / "fesom2_tpu_host.cpp")
-    assert set(ours) == {"f2t_init_", "f2t_setup_", "f2t_dims_",
-                         "f2t_fct_ale_step_", "f2t_finalize_"}
-    # the demo host declares the same surface
+    jax_shim = _extern_c(REPO / "native" / "fesom2_tpu_host.cpp")
+    assert {n: ours[n] for n in jax_shim} == jax_shim
+    assert set(jax_shim) == {"f2t_init_", "f2t_setup_", "f2t_dims_",
+                             "f2t_fct_ale_step_", "f2t_finalize_"}
+    assert set(ours) - set(jax_shim) == {
+        "f2t_setup_part_", "f2t_fct_ale_pre_comm_", "f2t_fct_ale_post_comm_"}
+    # the partition's set-up: f2t_setup_'s parameters, n_owned after
+    # n_nodes; the phases: the step's buffers, then the two factors
+    setup = ours["f2t_setup_"].split(", ")
+    i = setup.index("const int *n_nodes") + 1
+    assert ours["f2t_setup_part_"].split(", ") == \
+        setup[:i] + ["const int *n_owned"] + setup[i:]
+    step = ours["f2t_fct_ale_step_"].split(", ")
+    assert ours["f2t_fct_ale_pre_comm_"].split(", ") == step[:-1] + [
+        "double *fct_plus", "double *fct_minus", "int *istat"]
+    assert ours["f2t_fct_ale_post_comm_"].split(", ") == step[:-1] + [
+        "const double *fct_plus", "const double *fct_minus", "int *istat"]
+    # the demo host declares the JAX shim's surface
     decls = re.findall(r"void\s+(f2t_\w+)\s*\(([^)]*)\);",
                        (port / "host_embed_demo.cpp").read_text())
-    assert {n: " ".join(p.split()) for n, p in decls} == ours
+    assert {n: " ".join(p.split()) for n, p in decls} == jax_shim
     # the shim imports the port, never the JAX package
     src = (port / "fesom2_torch_host.cpp").read_text()
     assert '"fesom2_accelerate_tpu_torch.host_embed"' in src

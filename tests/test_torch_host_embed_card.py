@@ -20,7 +20,14 @@ neither, without the suite's ``conftest.py``::
   buffers are the witness's bit for bit;
 * the contract's end: after ``reset`` the host frees its buffers and
   allocates new ones at the same addresses, and a new session's steps on
-  them are the witness's bit for bit.
+  them are the witness's bit for bit;
+* a rank's phases, backends 1 and 0: on one part with no halo at core2
+  width, ``pre_comm`` then ``post_comm`` give the buffers of ``step`` bit
+  for bit, every factor column written; 2 stripes of core2 in two
+  processes on the card (``tests/phases_ranks.py``, gloo) match the
+  plain whole-mesh reference ``portbench/reference/fct.py`` after 1 and 3
+  steps, at the ABI cell's limit 2e-4 (backend 1) and at 1e-12 (backend
+  0), and do not with the exchange skipped.
 """
 
 import mmap
@@ -29,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+import phases_ranks
 from fesom2_accelerate_tpu_torch import host_embed
 from fesom2_accelerate_tpu_torch.mesh import (
     generate_planar_mesh,
@@ -36,6 +44,8 @@ from fesom2_accelerate_tpu_torch.mesh import (
 )
 from fesom2_accelerate_tpu_torch.native import demo
 from fesom2_accelerate_tpu_torch.runtime import tracing
+from portbench.reference import fct
+from portbench.reference.compare import relerr
 
 pytestmark = pytest.mark.card
 
@@ -237,3 +247,64 @@ def test_freed_after_reset_and_allocated_anew(card, meshes):
     for m in unmap:
         m.close()
     print("addresses reused:", len(addrs[0] & addrs[1]), "of", len(addrs[0]))
+
+
+@pytest.mark.parametrize("backend", [1, 0])
+def test_phases_on_one_part_are_the_step(card, meshes, backend):
+    mesh = _mesh(meshes, "core2")
+    fields = random_fields(mesh, seed=16, dtype=np.float64)
+    by_step, by_phases = ({k: _own_pages(np.asarray(fields[k], np.float64))
+                           for k, _ in demo.FIELD_FILES} for _ in range(2))
+    factors = [_own_pages(np.zeros(by_step["ttf"].shape)) for _ in range(2)]
+    en = np.ascontiguousarray(mesh.elem_nodes, np.int32)
+    nl = np.ascontiguousarray(mesh.nlev_elem, np.int32)
+    xy = np.ascontiguousarray(mesh.node_xy, np.float64)
+    ten = [by_phases[k].ctypes.data for k, _ in demo.FIELD_FILES] + [
+        a.ctypes.data for a in factors]
+    try:
+        assert host_embed.setup_part(mesh.n_elems, mesh.nl, en.ctypes.data,
+                                     nl.ctypes.data, mesh.n_nodes,
+                                     mesh.n_nodes, xy.ctypes.data, DT_MILLI,
+                                     1, 0, backend) == 0
+        for _ in range(STEPS):
+            assert host_embed.step(*(by_step[k].ctypes.data
+                                     for k, _ in demo.FIELD_FILES)) == 0
+            assert host_embed.pre_comm(*ten) == 0
+            assert host_embed.post_comm(*ten) == 0
+    finally:
+        host_embed.reset()
+    _assert_same_bits(by_phases, by_step)
+    assert all(np.abs(a).max() > 0 for a in factors)
+
+
+# the whole-mesh reference's limits: the ABI cell's (f32 kernels), f64's
+PART_LIMITS = {1: 2e-4, 0: 1e-12}
+CORE2 = (420, 303, 48)  # the configuration's planar mesh: nx, ny, nl
+
+
+@pytest.mark.parametrize("backend", [1, 0])
+def test_two_parts_in_two_processes_match_the_reference(card, tmp_path,
+                                                        backend):
+    steps = [1, 3]
+    status, logs = phases_ranks.launch(2, tmp_path / "out.npz", CORE2,
+                                       backend, steps, "cuda", 600.0)
+    assert status == 0, "\n".join(f"rank {r}:\n{log[-3000:]}"
+                                  for r, log in enumerate(logs))
+    with np.load(tmp_path / "out.npz") as z:
+        saved = {k: z[k] for k in z.files}
+    _, ref, fields = phases_ranks.case(CORE2)
+    mk = fct.Masks(ref, torch.float64, "cuda")
+    f = {k: torch.as_tensor(v, device="cuda") for k, v in fields.items()}
+    eps = host_embed.config(backend, DT_MILLI, 1, 0).flux_eps
+    for s in range(1, max(steps) + 1):
+        f.update(fct.step(mk, f, dt=DT_MILLI * 1e-3, flux_eps=eps))
+        if s not in steps:
+            continue
+        want = {k: f[k] for k in phases_ranks.WRITTEN}
+        for exchanged in (True, False):
+            got = {k: saved[phases_ranks.key(exchanged, s, k)]
+                   for k in phases_ranks.WRITTEN}
+            err = relerr(got, want)
+            print(f"backend {backend}, step {s}, exchanged {exchanged}: "
+                  f"relerr {err:.3e}")
+            assert (err <= PART_LIMITS[backend]) == exchanged, err

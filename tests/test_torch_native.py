@@ -14,7 +14,10 @@
 * a build that cannot run (no such compiler) or fails raises, and
   ``load`` never returns None;
 * the core and the host-embedding shim load in one process (ctypes'
-  ``RTLD_LOCAL``), and each call reaches its own library.
+  ``RTLD_LOCAL``), and each call reaches its own library;
+* the built shim's ``f2t_setup_part_`` -> ``f2t_fct_ale_pre_comm_`` ->
+  ``f2t_fct_ale_post_comm_`` on one rank (no halo), backend 0 on the
+  CPU, give ``f2t_fct_ale_step_``'s buffers bit for bit.
 
 Each test skips where there is no C++ compiler (``native.available``),
 as tests/test_native.py does."""
@@ -275,6 +278,81 @@ shim.f2t_dims_(*(ctypes.byref(d) for d in dims), ctypes.byref(st))
 assert st.value == 0
 assert [d.value for d in dims] == [mesh.n_nodes, mesh.n_edges,
                                    mesh.n_layers]
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=str(REPO),
+                                   FESOM2_TORCH_DEVICE="cpu"),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_shim_phases_on_one_rank_are_the_step():
+    """Through the built library only (ctypes, this process's
+    interpreter): ``f2t_setup_`` and two ``f2t_fct_ale_step_`` calls, then
+    ``f2t_setup_part_`` with every node owned and two rounds of
+    ``f2t_fct_ale_pre_comm_`` / ``f2t_fct_ale_post_comm_`` on fresh copies
+    of the same fields: the eight buffers bit for bit alike, and the
+    factors of every column written."""
+    if not build.available():
+        pytest.skip("host embedding shim unavailable (no g++ or libpython)")
+    code = r"""
+import ctypes
+import numpy as np
+from fesom2_accelerate_tpu_torch.mesh import generate_planar_mesh
+from fesom2_accelerate_tpu_torch.mesh import random_fields
+from fesom2_accelerate_tpu_torch.native import build, demo
+
+shim = ctypes.CDLL(str(build.build()[0]))
+mesh = generate_planar_mesh(preset="toy")
+fields = random_fields(mesh, seed=3)
+i, p = ctypes.c_int, ctypes.c_void_p
+en = np.ascontiguousarray(mesh.elem_nodes, np.int32)
+nl_e = np.ascontiguousarray(mesh.nlev_elem, np.int32)
+xy = np.ascontiguousarray(mesh.node_xy, np.float64)
+st = i(1)
+
+
+def ref(*ints):
+    return [ctypes.byref(i(v)) for v in ints]
+
+
+def bufs():
+    return {k: np.array(fields[k], np.float64) for k, _ in demo.FIELD_FILES}
+
+
+by_step, by_phases = bufs(), bufs()
+factors = [np.zeros(by_step["ttf"].shape) for _ in range(2)]
+shim.f2t_init_(ctypes.byref(st))
+assert st.value == 0
+shim.f2t_setup_(*ref(mesh.n_elems, mesh.nl), en.ctypes.data_as(p),
+                nl_e.ctypes.data_as(p), *ref(mesh.n_nodes),
+                xy.ctypes.data_as(p), *ref(500, 1, 0, 0), ctypes.byref(st))
+assert st.value == 0
+step = [by_step[k].ctypes.data_as(p) for k, _ in demo.FIELD_FILES]
+for _ in range(2):
+    shim.f2t_fct_ale_step_(*step, ctypes.byref(st))
+    assert st.value == 0
+shim.f2t_setup_part_(*ref(mesh.n_elems, mesh.nl), en.ctypes.data_as(p),
+                     nl_e.ctypes.data_as(p), *ref(mesh.n_nodes, mesh.n_nodes),
+                     xy.ctypes.data_as(p), *ref(500, 1, 0, 0),
+                     ctypes.byref(st))
+assert st.value == 0
+ten = [by_phases[k].ctypes.data_as(p) for k, _ in demo.FIELD_FILES] + [
+    a.ctypes.data_as(p) for a in factors]
+for _ in range(2):
+    shim.f2t_fct_ale_pre_comm_(*ten, ctypes.byref(st))
+    assert st.value == 0
+    shim.f2t_fct_ale_post_comm_(*ten, ctypes.byref(st))
+    assert st.value == 0
+shim.f2t_fct_ale_post_comm_(*ten, ctypes.byref(st))
+assert st.value == 1  # no pre_comm before it
+shim.f2t_finalize_(ctypes.byref(st))
+assert st.value == 0
+for k, v in by_step.items():
+    assert np.array_equal(by_phases[k].view(np.uint64), v.view(np.uint64)), k
+assert all(np.abs(a).max() > 0 for a in factors)
 print("ok")
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
