@@ -47,9 +47,21 @@ embedding holds one solver a process, as the ABI passes no handle.
 Copies.  Each :func:`step` copies every input buffer to the solver's
 device in f64 and casts it there to the config's dtype (bit for bit the
 host's round-to-nearest cast), casts each result to f64 there and copies it
-straight into the caller's buffer, and, on the card, synchronizes once
-before it returns.  Nothing is skipped or kept on the device between steps:
-every call moves every buffer.  On the card the first step that sees a
+straight into the caller's buffer, and, on the card, synchronizes before it
+returns.  Nothing is skipped or kept on the device between steps: every
+call moves every buffer.  The copy plan (:data:`INPUTS`, :data:`RESULTS`)
+orders them: each input by the phase of the split step that first reads
+it, each result by the phase after which it is final.  With backend 1 on
+the card and all eight buffers page-locked, a step is a pipeline over
+three streams (:func:`pipelined_step`): every input's DMA is enqueued at
+once in plan order on a copy stream, the solver's ``pre_comm`` (K1, K2),
+``inter_comm`` (K3) and ``post_comm`` (K4-fix, every column owned, which
+gives ``FctAleSolver.step``'s bits) each wait for the inputs they read
+first, and each result goes back on a third stream once its phase has
+ended, so the fluxes go out over PCIe while the inputs that only stage c
+reads still come in.  Every other step (backend 0, a solver on the CPU, a
+buffer CUDA would not lock) copies in, steps and copies out in turn on the
+current stream.  On the card the first step that sees a
 buffer page-locks its bytes (``cudaHostRegister``, default flags) and the
 session keeps them locked, by address and byte count, from then on
 (:class:`Pins`), so the copies are DMA of the caller's own memory.  CUDA
@@ -93,18 +105,22 @@ sharded step does.  With no halo (``n_owned`` every node, or a session of
 :func:`setup`) the phases give :func:`step`'s bits.
 
 Under a profiler a :func:`step` is the span ``abi.step``, with
-``abi.copy_in`` (the DMA of the caller's buffers and the cast on the
-card), ``solver.step`` and ``abi.copy_out`` (the cast on the card, the DMA
-into the caller's buffers and the synchronize, which also waits for
-copy-in's DMA) under it (``runtime/tracing.py``).  A :func:`pre_comm` is
+``abi.copy_in`` (the DMA of the caller's buffers enqueued, and in turn
+the cast on the card), ``solver.step`` (pipelined: ``solver.pre_comm``,
+``solver.inter_comm``, ``solver.post_comm``) and ``abi.copy_out`` (the
+cast on the card and the DMA into the caller's buffers enqueued, and the
+wait, which also waits for copy-in's DMA) under it
+(``runtime/tracing.py``).  A :func:`pre_comm` is
 the span ``abi.pre_comm`` (``abi.copy_in``, ``solver.pre_comm``,
 ``abi.factors_out``, ``solver.inter_comm``, then the wait for the
 factors), a :func:`post_comm` ``abi.post_comm`` (``abi.factors_in``,
 ``solver.post_comm``, ``abi.copy_out``).  The counters
 ``abi.bytes_registered`` and ``abi.bytes_pageable`` add up the bytes of
 the caller's buffers that moved from and to page-locked memory and from
-and to any other, and ``abi.factor_bytes`` those of the factors, both
-ways.
+and to any other, ``abi.factor_bytes`` those of the factors, both ways,
+``abi.bytes_out`` those of the results written back (by a step or a
+post-comm) and ``abi.bytes_out_early`` the part of them whose copy a
+pipelined step ordered behind K2 or K3 rather than stage c.
 """
 
 from __future__ import annotations
@@ -135,6 +151,26 @@ __all__ = ["setup", "setup_part", "dims", "step", "pre_comm", "post_comm",
 DEVICE_ENV = "FESOM2_TORCH_DEVICE"
 # the limiter factors a rank's host exchanges between pre_comm and post_comm
 FACTORS = ("fct_plus", "fct_minus")
+# The copy plan of a step.  Each of the eight input buffers by the phase of
+# the split step (FctAleSolver.pre_comm, inter_comm, post_comm) that first
+# reads it, in the order a step copies them in: what K1 reads, what K2
+# reads, then what only stage c reads.
+INPUTS = (("ttf", "pre_comm"), ("fct_LO", "pre_comm"),
+          ("fct_adf_v", "pre_comm"), ("fct_adf_h", "pre_comm"),
+          ("hnode", "post_comm"), ("hnode_new", "post_comm"),
+          ("del_ttf_advvert", "post_comm"), ("del_ttf_advhoriz", "post_comm"))
+# Each result by the phase after which it is final, by iter_yn, in the order
+# a step writes them back: the limited (iterative: residual) vertical flux
+# after K2, the horizontal one after K3 (K4-fix rewrites only the edges with
+# an endpoint outside the owned columns, and a step owns every column),
+# stage c's fields after K4-fix.  A result final before post_comm is early.
+RESULTS = {
+    False: (("fct_adf_v", "pre_comm"), ("fct_adf_h", "inter_comm"),
+            ("del_ttf_advvert", "post_comm"),
+            ("del_ttf_advhoriz", "post_comm")),
+    True: (("fct_adf_v", "pre_comm"), ("fct_adf_h", "inter_comm"),
+           ("fct_LO", "post_comm")),
+}
 
 
 class Pins:
@@ -217,8 +253,9 @@ class Session:
     """What :func:`setup` or :func:`setup_part` built: the mesh (a rank's
     local mesh, owned columns first), the config, the solver, the buffers
     it page-locked (None on the CPU), the number of owned columns (every
-    column after :func:`setup`) and what a :func:`pre_comm` left for its
-    :func:`post_comm`."""
+    column after :func:`setup`), what a :func:`pre_comm` left for its
+    :func:`post_comm`, and a pipelined step's copy and write-back streams,
+    made at its first call."""
 
     mesh: Mesh
     cfg: FctAleConfig
@@ -226,6 +263,7 @@ class Session:
     pins: Pins | None
     n_owned: int
     pending: Pending | None = None
+    streams: tuple | None = None
 
 
 _SESSION: Session | None = None
@@ -427,39 +465,142 @@ def _counted(a: np.ndarray) -> None:
                   and pins.pinned(a) else "abi.bytes_pageable", a.nbytes)
 
 
+def _counted_out(a: np.ndarray, early: bool) -> None:
+    """Adds ``a``'s bytes to the counters of the path they take and of the
+    results written back, and of the early ones where ``early``."""
+    _counted(a)
+    tracing.count("abi.bytes_out", a.nbytes)
+    if early:
+        tracing.count("abi.bytes_out_early", a.nbytes)
+
+
 @tracing.spanned("abi.copy_in")
 def copy_in(host: dict) -> dict:
     """The fields of :func:`views` as the solver's state (copies, in the
-    config's dtype, on its device): each buffer copied to the device in
-    f64, on the card enqueued on the current stream (DMA of the buffer once
-    it is page-locked), and cast there."""
+    config's dtype, on its device): each buffer in plan order
+    (:data:`INPUTS`) copied to the device in f64, on the card enqueued on
+    the current stream (DMA of the buffer once it is page-locked), and cast
+    there."""
     s = session()
     state = {}
-    for k, v in host.items():
-        _counted(v)
+    for k, _ in INPUTS:
+        _counted(host[k])
         # copy=True: on any device the state never aliases the buffer
-        state[k] = torch.from_numpy(v).to(
+        state[k] = torch.from_numpy(host[k]).to(
             s.solver.device, non_blocking=True, copy=True).to(s.cfg.dtype)
     return state
 
 
 @tracing.spanned("abi.copy_out")
 def copy_out(out: dict, host: dict) -> None:
-    """Writes a step's results into the caller's buffers: the limited
-    fluxes over ``fct_adf_v`` / ``fct_adf_h``; ``fct_LO`` in iterative
-    mode, else ``del_ttf_advvert`` / ``del_ttf_advhoriz``.  Each result is
-    cast to f64 on its device and copied into the buffer (DMA once it is
-    page-locked).  Every buffer is whole when it returns."""
+    """Writes a step's results (:data:`RESULTS`) into the caller's
+    buffers: the limited fluxes over ``fct_adf_v`` / ``fct_adf_h``;
+    ``fct_LO`` in iterative mode, else ``del_ttf_advvert`` /
+    ``del_ttf_advhoriz``.  Each result is cast to f64 on its device and
+    copied into the buffer (DMA once it is page-locked), on the current
+    stream.  Every buffer is whole when it returns."""
     s = session()
-    keys = ["fct_adf_v", "fct_adf_h"] + (
-        ["fct_LO"] if s.cfg.iter_yn
-        else ["del_ttf_advvert", "del_ttf_advhoriz"])
-    for k in keys:
-        _counted(host[k])
+    for k, _ in RESULTS[s.cfg.iter_yn]:
+        _counted_out(host[k], False)
         torch.from_numpy(host[k]).copy_(out[k].to(torch.float64),
                                         non_blocking=True)
     if s.pins is not None:
         torch.cuda.current_stream(s.solver.device).synchronize()
+
+
+def pipelines(s: Session, host: dict) -> bool:
+    """Whether a step on the buffers ``host`` is a pipeline
+    (:func:`pipelined_step`): backend 1 on the card, every buffer
+    page-locked (registered here at its first sight)."""
+    return (s.solver.backend == "cuda" and s.pins is not None
+            and all([s.pins.pinned(v) for v in host.values()]))
+
+
+@tracing.spanned("abi.copy_in")
+def stage_in(host: dict, copy) -> dict:
+    """A pipelined step's copy-in: every buffer's f64 DMA enqueued at once
+    on the stream ``copy``, in plan order (:data:`INPUTS`), behind what the
+    current stream holds, each followed by an event -> {field: (the f64
+    copy on the card, its event)}.  The current stream casts them."""
+    s = session()
+    compute = torch.cuda.current_stream(s.solver.device)
+    copy.wait_stream(compute)
+    staged = {}
+    with torch.cuda.stream(copy):
+        for k, _ in INPUTS:
+            _counted(host[k])
+            t = torch.from_numpy(host[k]).to(s.solver.device,
+                                              non_blocking=True, copy=True)
+            t.record_stream(compute)
+            ready = torch.cuda.Event()
+            ready.record(copy)
+            staged[k] = (t, ready)
+    return staged
+
+
+@tracing.spanned("abi.copy_out")
+def stage_out(out: dict, host: dict, done: dict, back) -> None:
+    """A pipelined step's write-back: on the stream ``back``, each result
+    in plan order (:data:`RESULTS`), behind the event ``done`` holds for
+    the phase after which it is final, cast to f64 and copied into the
+    caller's buffer; then the wait for every stream of the step."""
+    s = session()
+    with torch.cuda.stream(back):
+        for k, phase in RESULTS[s.cfg.iter_yn]:
+            back.wait_event(done[phase])
+            t = out[k]
+            t.record_stream(back)
+            _counted_out(host[k], phase != "post_comm")
+            torch.from_numpy(host[k]).copy_(t.to(torch.float64),
+                                            non_blocking=True)
+    _wait(s)
+
+
+def _wait(s: Session) -> None:
+    """Waits for every stream a pipelined step enqueued on."""
+    torch.cuda.current_stream(s.solver.device).synchronize()
+    for st in s.streams:
+        st.synchronize()
+
+
+def pipelined_step(s: Session, host: dict) -> None:
+    """One step on the caller's page-locked buffers ``host`` with its
+    copies in both directions at once: the inputs' DMA enqueued on a copy
+    stream (:func:`stage_in`); on the current stream the solver's three
+    phases, each after the casts of the inputs it reads first, each
+    followed by an event; the results written back on a third stream as
+    their phases end (:func:`stage_out`).  The phases on a whole mesh give
+    :meth:`FctAleSolver.step`'s bits.  Every stream is waited for before it
+    returns (:func:`stage_out`) or raises, so no copy touches a buffer
+    after the step."""
+    dev = s.solver.device
+    if s.streams is None:
+        s.streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    copy, back = s.streams
+    compute = torch.cuda.current_stream(dev)
+    staged, state, done = {}, {}, {}
+
+    def phase(name: str, run):
+        for k, first in INPUTS:
+            if first == name:
+                t, ready = staged[k]
+                compute.wait_event(ready)
+                state[k] = t.to(s.cfg.dtype)
+        result = run()
+        done[name] = torch.cuda.Event()
+        done[name].record(compute)
+        return result
+
+    try:
+        staged.update(stage_in(host, copy))
+        pre = phase("pre_comm", lambda: s.solver.pre_comm(state))
+        inter = phase("inter_comm", lambda: s.solver.inter_comm(state, pre))
+        out = phase("post_comm", lambda: s.solver.post_comm(
+            state, pre, inter, (0, s.n_owned)))
+        stage_out(out, host, done, back)
+    except BaseException:
+        _wait(s)
+        raise
 
 
 @tracing.spanned("abi.step")
@@ -472,7 +613,9 @@ def step(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
     wired): ``fct_adf_v`` / ``fct_adf_h`` are overwritten with the limited
     fluxes; non-iterative mode accumulates into ``del_v`` / ``del_h``;
     iterative mode overwrites ``fct_LO`` and leaves the residual fluxes in
-    ``fct_adf_v`` / ``fct_adf_h``.  Returns 0, or 1 on failure."""
+    ``fct_adf_v`` / ``fct_adf_h``.  Pipelined (:func:`pipelined_step`)
+    where it can be, else copy-in, step, copy-out in turn; either way every
+    buffer is whole when it returns.  Returns 0, or 1 on failure."""
     try:
         s = session()
         if s.n_owned < s.mesh.n_nodes:
@@ -483,7 +626,10 @@ def step(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
                 f"edges next to the halo on factors no exchange filled")
         host = views(ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
                      del_v_a, del_h_a)
-        copy_out(s.solver.step(copy_in(host)), host)
+        if pipelines(s, host):
+            pipelined_step(s, host)
+        else:
+            copy_out(s.solver.step(copy_in(host)), host)
         return 0
     except Exception:  # the ABI's boundary: report, return istat 1
         traceback.print_exc()

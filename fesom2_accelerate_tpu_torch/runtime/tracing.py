@@ -54,7 +54,9 @@ The host ABI counts the bytes it moves between the caller's f64 buffers
 and the solver's device: ``abi.bytes_registered`` from and to memory it
 page-locked, ``abi.bytes_pageable`` from and to any other, and on a CPU
 solver (``host_embed.py``); ``abi.factor_bytes`` those of a rank's limiter
-factors, out at its pre-comm and back at its post-comm.
+factors, out at its pre-comm and back at its post-comm; ``abi.bytes_out``
+those of the results written back, and ``abi.bytes_out_early`` the part a
+pipelined step sent behind K2's or K3's end rather than stage c's.
 """
 
 from __future__ import annotations

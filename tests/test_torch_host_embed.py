@@ -30,7 +30,14 @@ over ``host_embed``), the counterpart of tests/test_native.py:108-181.
   witness that casts on the host; two buffers on one page both
   registered; a changed size registered anew; a refused registration
   counts the buffer's bytes under ``abi.bytes_pageable``; ``reset`` (and
-  a new ``setup``) unregisters everything; a CPU solver registers nothing.
+  a new ``setup``) unregisters everything; a CPU solver registers nothing;
+* the copy plan (``host_embed.INPUTS``, ``RESULTS``) holds each input and
+  each result once, for both ``iter_yn`` values; a session on the CPU and
+  a backend-0 one take the serial order and count no early bytes; the
+  pipelined step on fake streams and events enqueues every copy in plan
+  order, each phase behind the copies it reads, each result behind the
+  phase that finalises it, waits for every stream, and gives the serial
+  order's bits.
   The card's half is ``tests/test_torch_host_embed_card.py``.
 
 The build is skipped only where g++ or libpython is absent, as
@@ -58,6 +65,7 @@ from fesom2_accelerate_tpu_torch.mesh.topology import (
     build_mesh_from_elements,
 )
 from fesom2_accelerate_tpu_torch.model import FctAleSolver
+from fesom2_accelerate_tpu_torch.model.fct_ale import PHASES
 from fesom2_accelerate_tpu_torch.native import build, demo
 from fesom2_accelerate_tpu_torch.ops.cuda.step import fct_ale_step_cuda
 from fesom2_accelerate_tpu_torch.ops.meshdata import check_edge_order
@@ -459,6 +467,11 @@ def _moved(bufs: list, iter_yn: bool) -> int:
                + sum(b[k].nbytes for k in _outputs(iter_yn)) for b in bufs)
 
 
+def _out(bufs: list, iter_yn: bool) -> int:
+    """The result bytes one step of every tracer writes back."""
+    return sum(b[k].nbytes for b in bufs for k in _outputs(iter_yn))
+
+
 @pytest.mark.parametrize("backend", [0, 1])
 @pytest.mark.parametrize("iter_yn", [False, True])
 def test_each_buffer_registered_once(toy, monkeypatch, backend, iter_yn):
@@ -482,7 +495,8 @@ def test_each_buffer_registered_once(toy, monkeypatch, backend, iter_yn):
         bufs[1][k].ctypes.data for k in SHARED}
     assert not refused and card.syncs == 6 and card.cleared == 0
     assert tracing.counters() == {"abi.bytes_registered":
-                                  3 * _moved(bufs, iter_yn)}
+                                  3 * _moved(bufs, iter_yn),
+                                  "abi.bytes_out": 3 * _out(bufs, iter_yn)}
     for got, w in zip(bufs, want):
         _assert_same_bits(got, w)
 
@@ -516,7 +530,8 @@ def test_refused_registration_takes_the_pageable_path(toy, monkeypatch,
     pageable = 2 * 2 * b[key].nbytes
     assert tracing.counters() == {
         "abi.bytes_pageable": pageable,
-        "abi.bytes_registered": 2 * _moved(bufs, False) - pageable}
+        "abi.bytes_registered": 2 * _moved(bufs, False) - pageable,
+        "abi.bytes_out": 2 * _out(bufs, False)}
     _assert_same_bits(b, want[0])
 
 
@@ -544,7 +559,8 @@ def test_a_shared_page_registers_both(toy, monkeypatch):
     assert sorted(card.cudart.registered) == sorted(
         (v.ctypes.data, v.nbytes) for v in b.values())
     assert tracing.counters() == {"abi.bytes_registered":
-                                  2 * _moved(bufs, False)}
+                                  2 * _moved(bufs, False),
+                                  "abi.bytes_out": 2 * _out(bufs, False)}
     _assert_same_bits(b, want[0])
 
 
@@ -607,6 +623,224 @@ def test_cpu_solver_never_registers(toy, monkeypatch):
     finally:
         host_embed.reset()
     assert tracing.counters() == {"abi.bytes_pageable": 2 * _moved(bufs,
-                                                                   False)}
+                                                                   False),
+                                  "abi.bytes_out": 2 * _out(bufs, False)}
     for got, w in zip(bufs, want):
         _assert_same_bits(got, w)
+
+
+# ---- the copy plan and the pipelined step, on the CPU ------------------
+
+PHASE_ORDER = ("pre_comm", "inter_comm", "post_comm")
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_copy_plan_holds_every_buffer_once(iter_yn):
+    """Each of the eight inputs once, in the ABI's order, first read by
+    K1/K2's phase or stage c's; each result once, in phase order, the two
+    fluxes early (K2's and K3's phases), stage c's fields late."""
+    names = [k for k, _ in demo.FIELD_FILES]
+    assert [k for k, _ in host_embed.INPUTS] == names
+    phases = [PHASE_ORDER.index(p) for _, p in host_embed.INPUTS]
+    assert phases == sorted(phases)
+    assert {p for _, p in host_embed.INPUTS} == {"pre_comm", "post_comm"}
+    results = host_embed.RESULTS[iter_yn]
+    assert sorted(k for k, _ in results) == sorted(_outputs(iter_yn))
+    assert len({k for k, _ in results}) == len(results)
+    phases = [PHASE_ORDER.index(p) for _, p in results]
+    assert phases == sorted(phases)
+    assert [k for k, p in results if p != "post_comm"] == ["fct_adf_v",
+                                                           "fct_adf_h"]
+
+
+@pytest.mark.parametrize("where", ["cpu", "backend0"])
+def test_serial_sessions_count_no_early_bytes(toy, monkeypatch, where):
+    """A solver on the CPU, and backend 0 on a (reported) card with every
+    buffer page-locked, copy in, step and copy out in turn: no pipeline,
+    every result byte under ``abi.bytes_out``, none early, the buffers the
+    witness's bit for bit."""
+    mesh, _ = toy
+    if where == "cpu":
+        monkeypatch.setenv(host_embed.DEVICE_ENV, "cpu")
+        tracing.reset_counters()
+    else:
+        Card(monkeypatch, FakeCudart())
+
+    def no_pipeline(s, host):
+        raise AssertionError("a serial session pipelined its step")
+
+    monkeypatch.setattr(host_embed, "pipelined_step", no_pipeline)
+    bufs = _tracer_buffers(mesh)
+    try:
+        assert _setup(mesh, 0) == 0
+        want = _pageable_steps(host_embed.session().solver, False, bufs, 2)
+        Card.steps(bufs, 2)
+    finally:
+        host_embed.reset()
+    c = tracing.counters()
+    assert c["abi.bytes_out"] == 2 * _out(bufs, False)
+    assert "abi.bytes_out_early" not in c
+    for got, w in zip(bufs, want):
+        _assert_same_bits(got, w)
+
+
+class FakeStreams:
+    """``torch.cuda``'s streams, events and stream context, and
+    ``Tensor.record_stream``, as fakes that log what each stream is given:
+    the pipelined step's order, on the CPU.  The solver's three phases log
+    their runs on the current stream."""
+
+    def __init__(self, monkeypatch):
+        self.log, self.current, self.events = [], None, 0
+        fake = self
+
+        class Stream:
+            def __init__(self, name):
+                self.name = name
+
+            def wait_stream(self, other):
+                fake.log.append((self.name, "wait_stream", other.name))
+
+            def wait_event(self, event):
+                fake.log.append((self.name, "wait", event.n))
+
+            def synchronize(self):
+                fake.log.append((self.name, "sync"))
+
+        class Event:
+            def __init__(self):
+                fake.events += 1
+                self.n = fake.events
+
+            def record(self, stream):
+                fake.log.append((stream.name, "record", self.n))
+
+        def stream(s):
+            class Context:
+                def __enter__(self):
+                    self.old, fake.current = fake.current, s
+
+                def __exit__(self, *exc):
+                    fake.current = self.old
+
+            return Context()
+
+        made = iter(["copy", "back"])
+        self.current = Stream("compute")
+        monkeypatch.setattr(torch.cuda, "Stream",
+                            lambda device=None: Stream(next(made)))
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(torch.cuda, "stream", stream)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: fake.current)
+        monkeypatch.setattr(torch.Tensor, "record_stream",
+                            lambda t, s: fake.log.append(
+                                (fake.current.name, "record_stream", s.name)),
+                            raising=False)
+
+    def on(self, name: str) -> list:
+        return [e[1:] for e in self.log if e[0] == name]
+
+
+def _pipelining_card(monkeypatch, fail: str | None = None) -> FakeStreams:
+    """A (reported) card whose backend-1 solver runs the CUDA phases'
+    plain versions on the CPU, each phase logging its run (the phase
+    ``fail`` raising instead), streams and events faked."""
+    Card(monkeypatch, FakeCudart())
+    fake = FakeStreams(monkeypatch)
+
+    def logged(name, run):
+        def phase(*args):
+            fake.log.append((fake.current.name, "run", name))
+            if name == fail:
+                raise RuntimeError(f"{name} failed")
+            return run(*args)
+        return phase
+
+    def cuda_phases(mesh, cfg, backend):
+        solver = FctAleSolver(mesh, cfg, device="cpu")
+        solver._step_fn = fct_ale_step_cuda
+        solver._phases = PHASES["cuda"]
+        solver.backend = "cuda"
+        for name in PHASE_ORDER:
+            monkeypatch.setattr(solver, name,
+                                logged(name, getattr(solver, name)))
+        return solver
+
+    monkeypatch.setattr(host_embed, "_solver", cuda_phases)
+    return fake
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_pipelined_step_on_fake_streams(toy, monkeypatch, iter_yn):
+    """Backend 1's phases (each kernel wrapper's plain version) on a
+    (reported) card, every buffer page-locked, streams and events faked:
+    the copy stream takes every input in plan order, each behind an event;
+    the current stream casts a phase's inputs after their events, runs the
+    phase, records its event; the write-back stream takes each result
+    behind its phase's event; every stream is waited for; the counters
+    hold every result, the two fluxes early; and three steps of two
+    tracers give the serial witness's bits."""
+    mesh, _ = toy
+    fake = _pipelining_card(monkeypatch)
+    bufs = _tracer_buffers(mesh)
+    try:
+        assert _setup(mesh, 1, iter_yn) == 0
+        want = _pageable_steps(host_embed.session().solver, iter_yn, bufs, 3)
+        fake.log.clear()
+        fake.events = 0
+        Card.steps(bufs[:1], 1)
+        one = list(fake.log)
+        Card.steps(bufs[1:], 1)
+        Card.steps(bufs, 2)
+    finally:
+        host_embed.reset()
+    for got, w in zip(bufs, want):
+        _assert_same_bits(got, w)
+    # one step's order: events 1-8 the inputs', 9-11 the phases'
+    fake.log = one
+    assert fake.on("copy")[:17] == [("wait_stream", "compute")] + [
+        e for i in range(1, 9) for e in (("record_stream", "compute"),
+                                         ("record", i))]
+    inputs = {k: i + 1 for i, (k, _) in enumerate(host_embed.INPUTS)}
+    compute = []
+    for n, name in enumerate(PHASE_ORDER):
+        compute += [("wait", inputs[k]) for k, p in host_embed.INPUTS
+                    if p == name]
+        compute += [("run", name), ("record", 9 + n)]
+    assert fake.on("compute")[:len(compute)] == compute
+    back = []
+    for k, p in host_embed.RESULTS[iter_yn]:
+        back += [("wait", 9 + PHASE_ORDER.index(p)),
+                 ("record_stream", "back")]
+    assert fake.on("back")[:len(back)] == back
+    last = {e[0] for e in one[-3:]}
+    assert last == {"compute", "copy", "back"} and all(
+        e[1] == "sync" for e in one[-3:])
+    assert tracing.counters() == {
+        "abi.bytes_registered": 3 * _moved(bufs, iter_yn),
+        "abi.bytes_out": 3 * _out(bufs, iter_yn),
+        "abi.bytes_out_early": 3 * sum(
+            b[k].nbytes for b in bufs for k in ("fct_adf_v", "fct_adf_h"))}
+
+
+def test_a_failed_pipelined_step_waits_for_its_streams(toy, monkeypatch,
+                                                       capsys):
+    """A phase that raises: ``step`` returns 1 after it has waited for
+    the copy, current and write-back streams, so no copy in flight
+    touches a buffer after the call."""
+    mesh, _ = toy
+    fake = _pipelining_card(monkeypatch, fail="inter_comm")
+    b = _tracer_buffers(mesh, tracers=1)
+    try:
+        assert _setup(mesh, 1) == 0
+        assert host_embed.step(*(b[0][k].ctypes.data
+                                 for k, _ in demo.FIELD_FILES)) == 1
+    finally:
+        host_embed.reset()
+    assert "inter_comm failed" in capsys.readouterr().err
+    runs = [e[2] for e in fake.log if e[1] == "run"]
+    assert runs == ["pre_comm", "inter_comm"]
+    assert fake.log[-3:] == [("compute", "sync"), ("copy", "sync"),
+                             ("back", "sync")]
+    assert fake.on("back") == [("sync",)]

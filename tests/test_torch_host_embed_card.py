@@ -21,6 +21,14 @@ neither, without the suite's ``conftest.py``::
 * the contract's end: after ``reset`` the host frees its buffers and
   allocates new ones at the same addresses, and a new session's steps on
   them are the witness's bit for bit;
+* the pipelined step (backend 1, every buffer page-locked), on the
+  ``toy`` mesh and at core2 width, ``iter_yn`` both ways: after three
+  steps the caller's buffers are bit for bit those of the serial order
+  (``FctAleSolver.step`` on the f64 inputs cast on the card, its results
+  cast back there), each step counts the two fluxes' bytes early and
+  every result's written back, and ``abi.bytes_registered`` grows by the
+  eight buffers in and the results out; a buffer read as soon as
+  ``step`` returns is the one read after a ``torch.cuda.synchronize()``;
 * a rank's phases, backends 1 and 0: on one part with no halo at core2
   width, ``pre_comm`` then ``post_comm`` give the buffers of ``step`` bit
   for bit, every factor column written; 2 stripes of core2 in two
@@ -114,6 +122,12 @@ def _pageable_steps(solver, iter_yn: bool, bufs: dict) -> dict:
     return got
 
 
+def _early(bufs: dict) -> int:
+    """The bytes of the results a pipelined step writes back early: the
+    limited (or residual) fluxes."""
+    return bufs["fct_adf_v"].nbytes + bufs["fct_adf_h"].nbytes
+
+
 def _assert_same_bits(got: dict, want: dict) -> None:
     for k, v in want.items():
         np.testing.assert_array_equal(got[k].view(np.uint64),
@@ -139,9 +153,11 @@ def test_buffers_bit_identical_to_the_pageable_path(card, meshes, preset,
     finally:
         host_embed.reset()
     assert held == {v.ctypes.data: v.nbytes for v in bufs.values()}
-    moved = sum(v.nbytes for v in bufs.values()) + sum(
-        bufs[k].nbytes for k in _outputs(iter_yn))
-    assert tracing.counters() == {"abi.bytes_registered": STEPS * moved}
+    out = sum(bufs[k].nbytes for k in _outputs(iter_yn))
+    moved = sum(v.nbytes for v in bufs.values()) + out
+    early = {"abi.bytes_out_early": STEPS * _early(bufs)} if backend else {}
+    assert tracing.counters() == {"abi.bytes_registered": STEPS * moved,
+                                  "abi.bytes_out": STEPS * out, **early}
     _assert_same_bits(bufs, want)
     # reset unregistered them: each registers again, and is released
     cudart = torch.cuda.cudart()
@@ -247,6 +263,67 @@ def test_freed_after_reset_and_allocated_anew(card, meshes):
     for m in unmap:
         m.close()
     print("addresses reused:", len(addrs[0] & addrs[1]), "of", len(addrs[0]))
+
+
+def _serial_steps(solver, iter_yn: bool, bufs: dict, steps: int) -> dict:
+    """Copies of ``bufs`` after ``steps`` steps in the serial order on the
+    card: the f64 inputs copied to the card and cast there,
+    ``FctAleSolver.step``, its results cast back to f64 there and
+    copied back."""
+    got = {k: v.copy() for k, v in bufs.items()}
+    for _ in range(steps):
+        state = {k: torch.from_numpy(v).to(solver.device).to(
+            solver.cfg.dtype) for k, v in got.items()}
+        out = solver.step(state)
+        for k in _outputs(iter_yn):
+            np.copyto(got[k], out[k].to(torch.float64).cpu().numpy())
+    return got
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+@pytest.mark.parametrize("preset", ["toy", "core2"])
+def test_pipelined_step_is_the_serial_order(card, meshes, preset, iter_yn):
+    mesh = _mesh(meshes, preset)
+    fields = random_fields(mesh, seed=17, dtype=np.float64)
+    bufs = {k: _own_pages(np.asarray(fields[k], np.float64))
+            for k, _ in demo.FIELD_FILES}
+    out = sum(bufs[k].nbytes for k in _outputs(iter_yn))
+    moved = sum(v.nbytes for v in bufs.values()) + out
+    try:
+        _setup(mesh, 1, iter_yn)
+        want = _serial_steps(host_embed.session().solver, iter_yn, bufs, 3)
+        tracing.reset_counters()
+        for n in range(1, 4):
+            assert host_embed.step(*(bufs[k].ctypes.data
+                                     for k, _ in demo.FIELD_FILES)) == 0
+            assert host_embed.session().streams is not None
+            assert tracing.counters() == {
+                "abi.bytes_registered": n * moved, "abi.bytes_out": n * out,
+                "abi.bytes_out_early": n * _early(bufs)}
+    finally:
+        host_embed.reset()
+    _assert_same_bits(bufs, want)
+
+
+def test_buffers_whole_when_step_returns(card, meshes):
+    """Each buffer read as soon as ``step`` returns is the buffer read
+    after a ``torch.cuda.synchronize()``: no copy of the step is still in
+    flight."""
+    mesh = _mesh(meshes, "core2")
+    fields = random_fields(mesh, seed=18, dtype=np.float64)
+    bufs = {k: _own_pages(np.asarray(fields[k], np.float64))
+            for k, _ in demo.FIELD_FILES}
+    try:
+        _setup(mesh, 1, False)
+        for _ in range(STEPS):
+            assert host_embed.step(*(bufs[k].ctypes.data
+                                     for k, _ in demo.FIELD_FILES)) == 0
+            at_return = {k: v.copy() for k, v in bufs.items()}
+            torch.cuda.synchronize()
+            _assert_same_bits(at_return, bufs)
+        assert host_embed.session().streams is not None
+    finally:
+        host_embed.reset()
 
 
 @pytest.mark.parametrize("backend", [1, 0])
