@@ -3052,17 +3052,17 @@ def abi_demo_case(exe, mesh, key: str, backend: int, device: str,
 
 
 def abi_timed(mesh, fields: dict, backend: int) -> tuple:
-    """ABI_STEPS steps of ``backend`` through ``host_embed``'s Python calls
-    on ctypes-addressed buffers (as ``step`` runs them for the C host):
-    copy-in, step and copy-out timed apart,
-    the port's launch counts across the steps, and the device memory a
-    step takes above what the process held before it.  Backend 0's solver must hold
-    its mesh on the card and run the plain stages.  -> (times ms by part,
-    launch counts, the host buffers after the last step, the device
-    memory the process had allocated before a step (the session's mesh
-    and state, and what earlier phases still hold), the most allocated
-    during one and the difference, {"before_step_MB", "step_peak_MB",
-    "step_MB"})."""
+    """ABI_STEPS calls of ``host_embed.step`` of ``backend`` on
+    ctypes-addressed buffers (as the C host makes them), each timed whole
+    (its copies in, the solver's three phases, its copies out and its
+    wait), the port's launch counts across the calls, and the device
+    memory a call takes above what the process held before it.  Backend
+    0's solver must hold its mesh on the card and run the plain stages.
+    -> (times ms {"step": [...]}, launch counts, the host buffers after the
+    last call, the device memory the process had allocated before a call
+    (the session's mesh and what earlier phases still hold), the most
+    allocated during one and the difference, {"before_step_MB",
+    "step_peak_MB", "step_MB"})."""
     from fesom2_accelerate_tpu_torch import host_embed
     from fesom2_accelerate_tpu_torch.native import demo
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
@@ -3087,27 +3087,24 @@ def abi_timed(mesh, fields: dict, backend: int) -> tuple:
                 f"backend {backend}: solver {solver.backend!r} "
                 f"{solver.cfg.dtype} on {solver.device}, mesh tensors on "
                 f"{sorted(devs)}; expected {want} on cuda")
-        times = {"copy_in": [], "step": [], "copy_out": []}
+        times = {"step": []}
         mem = {"before_step_MB": 0.0, "step_peak_MB": 0.0, "step_MB": 0.0}
         K.reset_launch_counts()
         # the host's buffers live until reset, as the ABI's contract asks
-        # of page-locked buffers; each step starts from the same fields
+        # of page-locked buffers; each call starts from the same fields
         bufs = {k: np.array(fields[k], np.float64)
                 for k, _ in demo.FIELD_FILES}
         for _ in range(ABI_STEPS):
             for k, _ in demo.FIELD_FILES:
                 np.copyto(bufs[k], fields[k])
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            host = host_embed.views(*abi_ptrs(bufs))
-            state = host_embed.copy_in(host)
-            torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if host_embed.step(*abi_ptrs(bufs)) != 0:
+                raise AssertionError(f"host_embed.step(backend={backend}) "
+                                     f"failed on core2")
             t1 = time.perf_counter()
-            out = solver.step(state)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
             peak = torch.cuda.max_memory_allocated()
             if peak <= base:
                 raise AssertionError(f"backend {backend}: the step took no "
@@ -3115,12 +3112,7 @@ def abi_timed(mesh, fields: dict, backend: int) -> tuple:
             mem = {"before_step_MB": base / 1e6,
                    "step_peak_MB": max(mem["step_peak_MB"], peak / 1e6),
                    "step_MB": max(mem["step_MB"], (peak - base) / 1e6)}
-            host_embed.copy_out(out, host)
-            t3 = time.perf_counter()
-            for k, a, b in (("copy_in", t0, t1), ("step", t1, t2),
-                            ("copy_out", t2, t3)):
-                times[k].append((b - a) * 1e3)
-            del state, out
+            times["step"].append((t1 - t0) * 1e3)
         counts = K.launch_counts()
     finally:
         host_embed.reset()
@@ -3128,19 +3120,17 @@ def abi_timed(mesh, fields: dict, backend: int) -> tuple:
 
 
 def abi_row(mesh, backend: int, times: dict, mem: dict, card: str) -> dict:
-    """The line of one backend's ABI times on ``mesh``: min and all of each
-    part, the bytes copied at the caller's f64 and their rate."""
+    """The line of one backend's ABI calls on ``mesh``: min and all of
+    their times, the bytes a call copies at the caller's f64 both ways and
+    their rate over the whole call."""
     L, N, Ed = mesh.n_layers, mesh.n_nodes, mesh.n_edges
-    nbytes = {"copy_in": 8 * (6 * L * N + (L + 1) * N + L * Ed),
-              "copy_out": 8 * (2 * L * N + (L + 1) * N + L * Ed)}
+    nbytes = (8 * (6 * L * N + (L + 1) * N + L * Ed)
+              + 8 * (2 * L * N + (L + 1) * N + L * Ed))
     row = {"phase": 12, "mesh": "core2", "backend": backend,
-           "steps": ABI_STEPS, "card": card}
-    for k, v in times.items():
-        row[f"{k}_ms"] = min(v)
-        row[f"{k}_ms_runs"] = v
-        if k in nbytes:
-            row[f"{k}_MB"] = nbytes[k] / 1e6
-            row[f"{k}_GBps"] = nbytes[k] / (min(v) * 1e6)
+           "steps": ABI_STEPS, "card": card,
+           "step_ms": min(times["step"]), "step_ms_runs": times["step"],
+           "copied_MB": nbytes / 1e6,
+           "copied_GBps": nbytes / (min(times["step"]) * 1e6)}
     row.update(mem)
     return row
 
@@ -3152,10 +3142,10 @@ def phase_host_abi(card: str, meshes: dict) -> None:
     backend 1 (the CUDA kernels, f32) on core2; backend 0 (the plain
     stages, f64) on core2 on the card, also within GT_TOL of the port's
     oracle (phase 13's step, on its fields), and on small on the CPU, asked
-    for with FESOM2_TORCH_DEVICE=cpu.  Then ABI_STEPS steps of backend 1
-    and of backend 0 on core2 through the shim's Python calls, timed as
-    copy-in, step and copy-out; backend 0's on the card, launching no
-    kernel of the port, its buffers bit for bit the demo's."""
+    for with FESOM2_TORCH_DEVICE=cpu.  Then ABI_STEPS calls of
+    ``host_embed.step`` of backend 1 (K1, K2, K3, K4-fix a call) and of
+    backend 0 on core2, each timed whole; backend 0's on the card,
+    launching no kernel of the port; the buffers bit for bit the demo's."""
     from fesom2_accelerate_tpu_torch.mesh import random_fields
     from fesom2_accelerate_tpu_torch.native import build
 
@@ -3179,7 +3169,7 @@ def phase_host_abi(card: str, meshes: dict) -> None:
 
     fields = {0: gt_fields, 1: random_fields(mesh, seed=0, dtype=np.float64)}
     expect = {0: {}, 1: {"bounds": ABI_STEPS, "limit": ABI_STEPS,
-                         "update_fused": ABI_STEPS}}
+                         "b3h": ABI_STEPS, "update_fixup": ABI_STEPS}}
     for backend in (1, 0):
         times, counts, bufs, mem = abi_timed(mesh, fields[backend], backend)
         check_counts(counts, expect[backend], f"ABI steps, backend "

@@ -44,31 +44,33 @@ values), so the C side needs nothing beyond ``PyObject_CallObject`` with
 integer arguments.  Connectivity is 0-based, as in the JAX shim.  The
 embedding holds one solver a process, as the ABI passes no handle.
 
-Copies.  Each :func:`step` copies every input buffer to the solver's
-device in f64 and casts it there to the config's dtype (bit for bit the
-host's round-to-nearest cast), casts each result to f64 there and copies it
-straight into the caller's buffer, and, on the card, synchronizes before it
-returns.  Nothing is skipped or kept on the device between steps: every
-call moves every buffer.  The copy plan (:data:`INPUTS`, :data:`RESULTS`)
-orders them: each input by the phase of the split step that first reads
-it, each result by the phase after which it is final.  With backend 1 on
-the card and all eight buffers page-locked, a step is a pipeline over
-three streams (:func:`pipelined_step`): every input's DMA is enqueued at
-once in plan order on a copy stream, the solver's ``pre_comm`` (K1, K2),
-``inter_comm`` (K3) and ``post_comm`` (K4-fix, every column owned, which
-gives ``FctAleSolver.step``'s bits) each wait for the inputs they read
-first, and each result goes back on a third stream once its phase has
-ended, so the fluxes go out over PCIe while the inputs that only stage c
-reads still come in.  Every other step (backend 0, a solver on the CPU, a
-buffer CUDA would not lock) copies in, steps and copies out in turn on the
-current stream.  On the card the first step that sees a
-buffer page-locks its bytes (``cudaHostRegister``, default flags) and the
-session keeps them locked, by address and byte count, from then on
-(:class:`Pins`), so the copies are DMA of the caller's own memory.  CUDA
-locks a page that two buffers share for each of them.  A buffer CUDA will
-not lock (the caller locked it already, or the driver refuses) takes the
-same copies, which CUDA then stages through pageable memory; a solver on
-the CPU locks nothing.
+Copies.  Every call copies each input buffer to the solver's device in
+f64 and casts it there to the config's dtype (bit for bit the host's
+round-to-nearest cast), casts each result to f64 there and copies it
+straight into the caller's buffer, and, on the card, waits for its copies
+before it returns.  Nothing is skipped or kept on the device between
+calls: every call moves every buffer.  Every entry point runs the solver's
+three phases (``FctAleSolver.pre_comm``, ``inter_comm``, ``post_comm``;
+every column owned, a whole step's bits) under one copy plan
+(:data:`INPUTS`, :data:`RESULTS`): each input by the phase that first reads
+it, each result by the phase after which it is final.  :func:`copy_in`
+enqueues every input's DMA in plan order, each followed by an event;
+each phase casts the inputs it reads first, after their events;
+:func:`copy_out` writes each result back behind its phase's event, then
+waits.  Where that work goes is chosen once a call (:func:`_begin`): on
+the card a :func:`step` takes three streams ("lanes"), the inputs' copies
+on a copy stream, the phases on the current stream, the write-back on a
+third, so the fluxes K2 and K3 finalise go out over PCIe while the inputs
+that only stage c reads still come in; a rank's :func:`pre_comm` and
+:func:`post_comm` put every copy on the current stream; on the CPU there
+are no streams and each copy runs in plan order, in turn.  On the card the
+first call that sees a buffer page-locks its bytes (``cudaHostRegister``,
+default flags) and the session keeps them locked, by address and byte
+count, from then on (:class:`Pins`), so the copies are DMA of the caller's
+own memory.  CUDA locks a page that two buffers share for each of them.  A
+buffer CUDA will not lock (the caller locked it already, or the driver
+refuses) takes the same copies on the same lanes, which CUDA then stages
+through pageable memory; a solver on the CPU locks nothing.
 
 **The ABI contract**: a buffer passed to a step stays page-locked from its
 first step until :func:`reset` (``f2t_finalize_``), which unregisters every
@@ -105,28 +107,26 @@ sharded step does.  With no halo (``n_owned`` every node, or a session of
 :func:`setup`) the phases give :func:`step`'s bits.
 
 Under a profiler a :func:`step` is the span ``abi.step``, with
-``abi.copy_in`` (the DMA of the caller's buffers enqueued, and in turn
-the cast on the card), ``solver.step`` (pipelined: ``solver.pre_comm``,
-``solver.inter_comm``, ``solver.post_comm``) and ``abi.copy_out`` (the
-cast on the card and the DMA into the caller's buffers enqueued, and the
-wait, which also waits for copy-in's DMA) under it
-(``runtime/tracing.py``).  A :func:`pre_comm` is
-the span ``abi.pre_comm`` (``abi.copy_in``, ``solver.pre_comm``,
-``abi.factors_out``, ``solver.inter_comm``, then the wait for the
-factors), a :func:`post_comm` ``abi.post_comm`` (``abi.factors_in``,
-``solver.post_comm``, ``abi.copy_out``).  The counters
-``abi.bytes_registered`` and ``abi.bytes_pageable`` add up the bytes of
-the caller's buffers that moved from and to page-locked memory and from
-and to any other, ``abi.factor_bytes`` those of the factors, both ways,
-``abi.bytes_out`` those of the results written back (by a step or a
-post-comm) and ``abi.bytes_out_early`` the part of them whose copy a
-pipelined step ordered behind K2 or K3 rather than stage c.
+``abi.copy_in`` (the inputs' DMA enqueued), ``solver.pre_comm``,
+``solver.inter_comm``, ``solver.post_comm`` and ``abi.copy_out`` (the
+results' casts and DMA enqueued, and the wait for every lane of the call,
+which also waits for copy-in's DMA) under it (``runtime/tracing.py``).  A
+:func:`pre_comm` is the span ``abi.pre_comm`` (``abi.copy_in``,
+``solver.pre_comm``, ``abi.factors_out``, ``solver.inter_comm``, then the
+wait for the factors), a :func:`post_comm` ``abi.post_comm``
+(``abi.factors_in``, ``solver.post_comm``, ``abi.copy_out``).  The
+counters ``abi.bytes_registered`` and ``abi.bytes_pageable`` add up the
+bytes of the caller's buffers that moved from and to page-locked memory
+and from and to any other, ``abi.bytes_out`` those of the results written
+back and ``abi.bytes_out_early`` the part of them copied on the
+write-back stream behind K2's or K3's end rather than stage c's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 import sys
 import traceback
@@ -159,18 +159,23 @@ INPUTS = (("ttf", "pre_comm"), ("fct_LO", "pre_comm"),
           ("fct_adf_v", "pre_comm"), ("fct_adf_h", "pre_comm"),
           ("hnode", "post_comm"), ("hnode_new", "post_comm"),
           ("del_ttf_advvert", "post_comm"), ("del_ttf_advhoriz", "post_comm"))
-# Each result by the phase after which it is final, by iter_yn, in the order
-# a step writes them back: the limited (iterative: residual) vertical flux
-# after K2, the horizontal one after K3 (K4-fix rewrites only the edges with
-# an endpoint outside the owned columns, and a step owns every column),
-# stage c's fields after K4-fix.  A result final before post_comm is early.
-RESULTS = {
+# Each result by the phase after which it is final, by the solver's backend
+# and iter_yn, in the order a call writes them back.  "cuda": the limited
+# (iterative: residual) vertical flux after K2, the horizontal one after K3
+# (K4-fix rewrites only the edges with an endpoint outside the owned
+# columns, and a step owns every column), stage c's fields after K4-fix.  A
+# result final before post_comm is early.
+RESULTS = {"cuda": {
     False: (("fct_adf_v", "pre_comm"), ("fct_adf_h", "inter_comm"),
             ("del_ttf_advvert", "post_comm"),
             ("del_ttf_advhoriz", "post_comm")),
     True: (("fct_adf_v", "pre_comm"), ("fct_adf_h", "inter_comm"),
            ("fct_LO", "post_comm")),
-}
+}}
+# "torch" (backend 0's plain stages) runs no K2 or K3, and its b3 ends in
+# inter_comm and post_comm: each result is taken after post_comm
+RESULTS["torch"] = {it: tuple((k, "post_comm") for k, _ in plan)
+                    for it, plan in RESULTS["cuda"].items()}
 
 
 class Pins:
@@ -238,14 +243,27 @@ def _pinnable(device: torch.device) -> bool:
 class Pending(NamedTuple):
     """What a :func:`pre_comm` leaves on the device for the
     :func:`post_comm` after it: the ten buffers' addresses, the eight
-    fields' views, the state copied in, the factors (``pre``) and the work
-    enqueued while the host exchanges (``inter``)."""
+    fields' views, the inputs copied in and not yet cast (``staged``), the
+    state cast so far, the factors (``pre``) and the work enqueued while
+    the host exchanges (``inter``)."""
 
     addrs: tuple
     host: dict
+    staged: dict
     state: dict
     pre: dict
     inter: object
+
+
+class Lanes(NamedTuple):
+    """The streams of one call: the solver's phases (``compute``, the
+    current stream), the inputs' copies and the results' write-back.
+    ``copy`` or ``back`` None: that work goes on the compute stream, in
+    order; every lane None: the CPU, where each copy is done in turn."""
+
+    compute: object
+    copy: object
+    back: object
 
 
 @dataclasses.dataclass
@@ -254,8 +272,10 @@ class Session:
     local mesh, owned columns first), the config, the solver, the buffers
     it page-locked (None on the CPU), the number of owned columns (every
     column after :func:`setup`), what a :func:`pre_comm` left for its
-    :func:`post_comm`, and a pipelined step's copy and write-back streams,
-    made at its first call."""
+    :func:`post_comm`, a step's copy and write-back streams, made at its
+    first call on the card, and the current call's lanes, the buffers
+    page-locked among its own (address, byte count) and the events after
+    which each phase's results are final (:func:`_begin`)."""
 
     mesh: Mesh
     cfg: FctAleConfig
@@ -264,6 +284,9 @@ class Session:
     n_owned: int
     pending: Pending | None = None
     streams: tuple | None = None
+    lanes: Lanes = Lanes(None, None, None)
+    locked: frozenset = frozenset()
+    done: dict = dataclasses.field(default_factory=dict)
 
 
 _SESSION: Session | None = None
@@ -458,154 +481,149 @@ def factor_views(plus_a: int, minus_a: int) -> dict:
                               _view(minus_a, shape, np.float64))))
 
 
+def _begin(s: Session, buffers, side: bool) -> None:
+    """Chooses a call's lanes once, from what the session sees, and
+    page-locks the call's ``buffers`` at their first sight (the one caller
+    of :meth:`Pins.pinned`; ``s.locked`` keeps what it found).  On the CPU
+    there are no streams.  On the card the phases go on the current
+    stream, and the copies, where ``side`` (a :func:`step`), on the
+    session's copy and write-back streams, else (a rank's phases) on the
+    current stream too.  A buffer CUDA would not lock takes the same
+    lanes."""
+    s.done = {}
+    if s.pins is None:
+        s.lanes, s.locked = Lanes(None, None, None), frozenset()
+        return
+    s.locked = frozenset((a.ctypes.data, a.nbytes) for a in buffers
+                         if s.pins.pinned(a))
+    compute = torch.cuda.current_stream(s.solver.device)
+    if not side:
+        s.lanes = Lanes(compute, None, None)
+        return
+    if s.streams is None:
+        s.streams = (torch.cuda.Stream(s.solver.device),
+                     torch.cuda.Stream(s.solver.device))
+    s.lanes = Lanes(compute, *s.streams)
+
+
+def _event(stream):
+    """An event recorded on ``stream``; None where there is no stream."""
+    if stream is None:
+        return None
+    event = torch.cuda.Event()
+    event.record(stream)
+    return event
+
+
+def _wait(s: Session | None) -> None:
+    """Waits for every stream of the call's lanes (none on the CPU), so
+    that no copy of the call touches a caller's buffer after it."""
+    for stream in s.lanes if s is not None else ():
+        if stream is not None:
+            stream.synchronize()
+
+
 def _counted(a: np.ndarray) -> None:
-    """Adds ``a``'s bytes to the counter of the path they take."""
-    pins = session().pins
-    tracing.count("abi.bytes_registered" if pins is not None
-                  and pins.pinned(a) else "abi.bytes_pageable", a.nbytes)
-
-
-def _counted_out(a: np.ndarray, early: bool) -> None:
-    """Adds ``a``'s bytes to the counters of the path they take and of the
-    results written back, and of the early ones where ``early``."""
-    _counted(a)
-    tracing.count("abi.bytes_out", a.nbytes)
-    if early:
-        tracing.count("abi.bytes_out_early", a.nbytes)
+    """Adds ``a``'s bytes to the counter of the path :func:`_begin` found
+    they take."""
+    locked = (a.ctypes.data, a.nbytes) in session().locked
+    tracing.count("abi.bytes_registered" if locked else "abi.bytes_pageable",
+                  a.nbytes)
 
 
 @tracing.spanned("abi.copy_in")
 def copy_in(host: dict) -> dict:
-    """The fields of :func:`views` as the solver's state (copies, in the
-    config's dtype, on its device): each buffer in plan order
-    (:data:`INPUTS`) copied to the device in f64, on the card enqueued on
-    the current stream (DMA of the buffer once it is page-locked), and cast
-    there."""
+    """Copies the fields of :func:`views` to the solver's device in f64,
+    in plan order (:data:`INPUTS`): on the card enqueued on the call's
+    copy lane behind what the compute lane holds (DMA of the buffer once
+    it is page-locked), each followed by an event where that lane is a
+    stream of its own -> {field: (the f64 copy, its event or None)}.  The
+    phase that first reads a field casts it (:func:`_phase`)."""
     s = session()
-    state = {}
-    for k, _ in INPUTS:
-        _counted(host[k])
-        # copy=True: on any device the state never aliases the buffer
-        state[k] = torch.from_numpy(host[k]).to(
-            s.solver.device, non_blocking=True, copy=True).to(s.cfg.dtype)
-    return state
+    lanes = s.lanes
+    if lanes.copy is not None:
+        lanes.copy.wait_stream(lanes.compute)
+    staged = {}
+    with torch.cuda.stream(lanes.copy):
+        for k, _ in INPUTS:
+            _counted(host[k])
+            # copy=True: on any device the state never aliases the buffer
+            t = torch.from_numpy(host[k]).to(s.solver.device,
+                                              non_blocking=True, copy=True)
+            if lanes.copy is not None:
+                t.record_stream(lanes.compute)
+            staged[k] = (t, _event(lanes.copy))
+    return staged
+
+
+def _phase(s: Session, staged: dict, state: dict, name: str, *args):
+    """The solver's phase ``name`` (``pre_comm``, ``inter_comm``,
+    ``post_comm``) on the compute lane, on ``state`` and ``args``: first
+    the inputs it reads first (:data:`INPUTS`) taken from ``staged`` and
+    cast to the config's dtype, each after its copy's event; then, where
+    the results go back on a stream of their own, the event after which
+    the phase's are final (``s.done``)."""
+    for k, first in INPUTS:
+        if first == name:
+            t, ready = staged.pop(k)
+            if ready is not None:
+                s.lanes.compute.wait_event(ready)
+            state[k] = t.to(s.cfg.dtype)
+    result = getattr(s.solver, name)(state, *args)
+    if s.lanes.back is not None:
+        s.done[name] = _event(s.lanes.compute)
+    return result
 
 
 @tracing.spanned("abi.copy_out")
 def copy_out(out: dict, host: dict) -> None:
-    """Writes a step's results (:data:`RESULTS`) into the caller's
-    buffers: the limited fluxes over ``fct_adf_v`` / ``fct_adf_h``;
-    ``fct_LO`` in iterative mode, else ``del_ttf_advvert`` /
-    ``del_ttf_advhoriz``.  Each result is cast to f64 on its device and
-    copied into the buffer (DMA once it is page-locked), on the current
-    stream.  Every buffer is whole when it returns."""
+    """Writes a call's results into the caller's buffers: the limited
+    fluxes over ``fct_adf_v`` / ``fct_adf_h``; ``fct_LO`` in iterative
+    mode, else ``del_ttf_advvert`` / ``del_ttf_advhoriz``.  Each result in
+    plan order (:data:`RESULTS`), cast to f64 on its device and copied into
+    the buffer (DMA once it is page-locked), on the call's write-back lane,
+    where that is a stream of its own behind the event of the phase after
+    which the result is final.  Every buffer is whole when it returns."""
     s = session()
-    for k, _ in RESULTS[s.cfg.iter_yn]:
-        _counted_out(host[k], False)
-        torch.from_numpy(host[k]).copy_(out[k].to(torch.float64),
-                                        non_blocking=True)
-    if s.pins is not None:
-        torch.cuda.current_stream(s.solver.device).synchronize()
-
-
-def pipelines(s: Session, host: dict) -> bool:
-    """Whether a step on the buffers ``host`` is a pipeline
-    (:func:`pipelined_step`): backend 1 on the card, every buffer
-    page-locked (registered here at its first sight)."""
-    return (s.solver.backend == "cuda" and s.pins is not None
-            and all([s.pins.pinned(v) for v in host.values()]))
-
-
-@tracing.spanned("abi.copy_in")
-def stage_in(host: dict, copy) -> dict:
-    """A pipelined step's copy-in: every buffer's f64 DMA enqueued at once
-    on the stream ``copy``, in plan order (:data:`INPUTS`), behind what the
-    current stream holds, each followed by an event -> {field: (the f64
-    copy on the card, its event)}.  The current stream casts them."""
-    s = session()
-    compute = torch.cuda.current_stream(s.solver.device)
-    copy.wait_stream(compute)
-    staged = {}
-    with torch.cuda.stream(copy):
-        for k, _ in INPUTS:
-            _counted(host[k])
-            t = torch.from_numpy(host[k]).to(s.solver.device,
-                                              non_blocking=True, copy=True)
-            t.record_stream(compute)
-            ready = torch.cuda.Event()
-            ready.record(copy)
-            staged[k] = (t, ready)
-    return staged
-
-
-@tracing.spanned("abi.copy_out")
-def stage_out(out: dict, host: dict, done: dict, back) -> None:
-    """A pipelined step's write-back: on the stream ``back``, each result
-    in plan order (:data:`RESULTS`), behind the event ``done`` holds for
-    the phase after which it is final, cast to f64 and copied into the
-    caller's buffer; then the wait for every stream of the step."""
-    s = session()
+    back = s.lanes.back
     with torch.cuda.stream(back):
-        for k, phase in RESULTS[s.cfg.iter_yn]:
-            back.wait_event(done[phase])
+        for k, phase in RESULTS[s.solver.backend][s.cfg.iter_yn]:
             t = out[k]
-            t.record_stream(back)
-            _counted_out(host[k], phase != "post_comm")
+            if back is not None:
+                back.wait_event(s.done[phase])
+                t.record_stream(back)
+            _counted(host[k])
+            tracing.count("abi.bytes_out", host[k].nbytes)
+            if back is not None and phase != "post_comm":
+                tracing.count("abi.bytes_out_early", host[k].nbytes)
             torch.from_numpy(host[k]).copy_(t.to(torch.float64),
                                             non_blocking=True)
     _wait(s)
 
 
-def _wait(s: Session) -> None:
-    """Waits for every stream a pipelined step enqueued on."""
-    torch.cuda.current_stream(s.solver.device).synchronize()
-    for st in s.streams:
-        st.synchronize()
-
-
-def pipelined_step(s: Session, host: dict) -> None:
-    """One step on the caller's page-locked buffers ``host`` with its
-    copies in both directions at once: the inputs' DMA enqueued on a copy
-    stream (:func:`stage_in`); on the current stream the solver's three
-    phases, each after the casts of the inputs it reads first, each
-    followed by an event; the results written back on a third stream as
-    their phases end (:func:`stage_out`).  The phases on a whole mesh give
-    :meth:`FctAleSolver.step`'s bits.  Every stream is waited for before it
-    returns (:func:`stage_out`) or raises, so no copy touches a buffer
-    after the step."""
-    dev = s.solver.device
-    if s.streams is None:
-        s.streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
-    copy, back = s.streams
-    compute = torch.cuda.current_stream(dev)
-    staged, state, done = {}, {}, {}
-
-    def phase(name: str, run):
-        for k, first in INPUTS:
-            if first == name:
-                t, ready = staged[k]
-                compute.wait_event(ready)
-                state[k] = t.to(s.cfg.dtype)
-        result = run()
-        done[name] = torch.cuda.Event()
-        done[name].record(compute)
-        return result
-
-    try:
-        staged.update(stage_in(host, copy))
-        pre = phase("pre_comm", lambda: s.solver.pre_comm(state))
-        inter = phase("inter_comm", lambda: s.solver.inter_comm(state, pre))
-        out = phase("post_comm", lambda: s.solver.post_comm(
-            state, pre, inter, (0, s.n_owned)))
-        stage_out(out, host, done, back)
-    except BaseException:
-        _wait(s)
-        raise
+def _istat(fn):
+    """The ABI's boundary around an entry point: 0 once ``fn`` returns;
+    where it raises, the wait for the call's lanes (no copy in flight
+    touches a buffer after the call), the traceback, and 1."""
+    @functools.wraps(fn)
+    def call(*args) -> int:
+        try:
+            try:
+                fn(*args)
+            except BaseException:
+                _wait(_SESSION)
+                raise
+        except Exception:  # report, return istat 1
+            traceback.print_exc()
+            return 1
+        return 0
+    return call
 
 
 @tracing.spanned("abi.step")
+@_istat
 def step(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
-         hnode_new_a: int, del_v_a: int, del_h_a: int) -> int:
+         hnode_new_a: int, del_v_a: int, del_h_a: int) -> None:
     """One FCT-ALE step on host-owned f64 buffers.
 
     In/out (the read-backs of the reference's phase entry points,
@@ -613,27 +631,25 @@ def step(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int, hnode_a: int,
     wired): ``fct_adf_v`` / ``fct_adf_h`` are overwritten with the limited
     fluxes; non-iterative mode accumulates into ``del_v`` / ``del_h``;
     iterative mode overwrites ``fct_LO`` and leaves the residual fluxes in
-    ``fct_adf_v`` / ``fct_adf_h``.  Pipelined (:func:`pipelined_step`)
-    where it can be, else copy-in, step, copy-out in turn; either way every
+    ``fct_adf_v`` / ``fct_adf_h``.  The solver's three phases with every
+    column owned, which give :meth:`FctAleSolver.step`'s bits, under the
+    copy plan, on the card on three streams (module docstring); every
     buffer is whole when it returns.  Returns 0, or 1 on failure."""
-    try:
-        s = session()
-        if s.n_owned < s.mesh.n_nodes:
-            raise ValueError(
-                f"a partition with {s.mesh.n_nodes - s.n_owned} halo nodes "
-                f"steps as pre_comm, the host's exchange of the factors' "
-                f"halo columns, post_comm: a whole step would limit the "
-                f"edges next to the halo on factors no exchange filled")
-        host = views(ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
-                     del_v_a, del_h_a)
-        if pipelines(s, host):
-            pipelined_step(s, host)
-        else:
-            copy_out(s.solver.step(copy_in(host)), host)
-        return 0
-    except Exception:  # the ABI's boundary: report, return istat 1
-        traceback.print_exc()
-        return 1
+    s = session()
+    if s.n_owned < s.mesh.n_nodes:
+        raise ValueError(
+            f"a partition with {s.mesh.n_nodes - s.n_owned} halo nodes "
+            f"steps as pre_comm, the host's exchange of the factors' "
+            f"halo columns, post_comm: a whole step would limit the "
+            f"edges next to the halo on factors no exchange filled")
+    host = views(ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
+                 del_v_a, del_h_a)
+    _begin(s, host.values(), side=True)
+    staged, state = copy_in(host), {}
+    pre = _phase(s, staged, state, "pre_comm")
+    inter = _phase(s, staged, state, "inter_comm", pre)
+    copy_out(_phase(s, staged, state, "post_comm", pre, inter,
+                    (0, s.n_owned)), host)
 
 
 @tracing.spanned("abi.factors_out")
@@ -647,13 +663,8 @@ def factors_out(pair: torch.Tensor, factors: dict):
     both = pair.to(torch.float64)
     for k, v in zip(FACTORS, both):
         _counted(factors[k])
-        tracing.count("abi.factor_bytes", factors[k].nbytes)
         torch.from_numpy(factors[k]).copy_(v, non_blocking=True)
-    if s.pins is None:
-        return None
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(s.solver.device))
-    return done
+    return _event(s.lanes.compute)
 
 
 @tracing.spanned("abi.factors_in")
@@ -669,15 +680,15 @@ def factors_in(pair: torch.Tensor, factors: dict) -> None:
     for half, k in zip(pair, FACTORS):
         halo = factors[k][:, s.n_owned:]
         tracing.count("abi.bytes_pageable", halo.nbytes)
-        tracing.count("abi.factor_bytes", halo.nbytes)
         half[:, s.n_owned:] = torch.from_numpy(halo).to(
             s.solver.device, non_blocking=True, copy=True).to(s.cfg.dtype)
 
 
 @tracing.spanned("abi.pre_comm")
+@_istat
 def pre_comm(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int,
              hnode_a: int, hnode_new_a: int, del_v_a: int, del_h_a: int,
-             plus_a: int, minus_a: int) -> int:
+             plus_a: int, minus_a: int) -> None:
     """A rank's step up to its host's exchange (the reference's
     ``fct_ale_pre_comm_acc_``) on the eight f64 buffers of :func:`step`
     and two f64 factor buffers ``fct_plus``, ``fct_minus`` [L, N]: the
@@ -685,64 +696,57 @@ def pre_comm(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int,
     stages a1..b2 (backend 0), the factors of every column written into
     the two buffers (:func:`factors_out`), then the work that reads no
     exchanged value enqueued (K3, or b3 vertical), which the card does
-    while the host exchanges.  Returns once the factors are in the
-    buffers: 0, or 1 on failure, also where a pre_comm still awaits its
-    post_comm.  The rest of the step stays on the device for
-    :func:`post_comm`."""
-    try:
-        s = session()
-        if s.pending is not None:
-            raise RuntimeError("pre_comm: the pre_comm before it awaits "
-                               "its post_comm")
-        addrs = (ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
-                 del_v_a, del_h_a, plus_a, minus_a)
-        host = views(*addrs[:8])
-        state = copy_in(host)
-        pre = s.solver.pre_comm(state)
-        done = factors_out(kernels.factor_pair(pre["fct_plus"],
-                                               pre["fct_minus"]),
-                           factor_views(plus_a, minus_a))
-        inter = s.solver.inter_comm(state, pre)
-        if done is not None:
-            done.synchronize()
-        s.pending = Pending(addrs, host, state, pre, inter)
-        return 0
-    except Exception:  # the ABI's boundary: report, return istat 1
-        traceback.print_exc()
-        return 1
+    while the host exchanges; every copy on the current stream.  Returns
+    once the factors are in the buffers: 0, or 1 on failure, also where a
+    pre_comm still awaits its post_comm.  The rest of the step stays on
+    the device for :func:`post_comm`."""
+    s = session()
+    if s.pending is not None:
+        raise RuntimeError("pre_comm: the pre_comm before it awaits "
+                           "its post_comm")
+    addrs = (ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
+             del_v_a, del_h_a, plus_a, minus_a)
+    host, factors = views(*addrs[:8]), factor_views(plus_a, minus_a)
+    _begin(s, [*host.values(), *factors.values()], side=False)
+    staged, state = copy_in(host), {}
+    pre = _phase(s, staged, state, "pre_comm")
+    done = factors_out(kernels.factor_pair(pre["fct_plus"],
+                                           pre["fct_minus"]), factors)
+    inter = _phase(s, staged, state, "inter_comm", pre)
+    if done is not None:
+        done.synchronize()
+    s.pending = Pending(addrs, host, staged, state, pre, inter)
 
 
 @tracing.spanned("abi.post_comm")
+@_istat
 def post_comm(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int,
               hnode_a: int, hnode_new_a: int, del_v_a: int, del_h_a: int,
-              plus_a: int, minus_a: int) -> int:
+              plus_a: int, minus_a: int) -> None:
     """The rest of the step after the host's exchange (the reference's
     ``fct_ale_post_comm_acc_``), on the ten buffers of the
     :func:`pre_comm` before it: the factors' halo columns copied in
-    (:func:`factors_in`), K4-fix on the owned columns (backend 1) or the
-    plain b3 and stage c (backend 0), and the results written into the
-    caller's buffers as :func:`step` writes them (:func:`copy_out`, one
-    synchronize).  Returns 0, or 1 on failure (no pre_comm before it, or
-    other buffers)."""
-    try:
-        s = session()
-        pending, s.pending = s.pending, None
-        if pending is None:
-            raise RuntimeError("post_comm: no pre_comm before it")
-        addrs = (ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
-                 del_v_a, del_h_a, plus_a, minus_a)
-        if addrs != pending.addrs:
-            raise ValueError("post_comm takes the ten buffers of the "
-                             "pre_comm before it")
-        pre = pending.pre
-        factors_in(kernels.factor_pair(pre["fct_plus"], pre["fct_minus"]),
-                   factor_views(plus_a, minus_a))
-        copy_out(s.solver.post_comm(pending.state, pre, pending.inter,
-                                    (0, s.n_owned)), pending.host)
-        return 0
-    except Exception:  # the ABI's boundary: report, return istat 1
-        traceback.print_exc()
-        return 1
+    (:func:`factors_in`), the inputs only stage c reads cast, K4-fix on
+    the owned columns (backend 1) or the plain b3 and stage c (backend 0),
+    and the results written into the caller's buffers as :func:`step`
+    writes them (:func:`copy_out`), every copy on the current stream.
+    Returns 0, or 1 on failure (no pre_comm before it, or other
+    buffers)."""
+    s = session()
+    pending, s.pending = s.pending, None
+    if pending is None:
+        raise RuntimeError("post_comm: no pre_comm before it")
+    addrs = (ttf_a, lo_a, adf_v_a, adf_h_a, hnode_a, hnode_new_a,
+             del_v_a, del_h_a, plus_a, minus_a)
+    if addrs != pending.addrs:
+        raise ValueError("post_comm takes the ten buffers of the "
+                         "pre_comm before it")
+    _begin(s, pending.host.values(), side=False)
+    pre = pending.pre
+    factors_in(kernels.factor_pair(pre["fct_plus"], pre["fct_minus"]),
+               factor_views(plus_a, minus_a))
+    copy_out(_phase(s, pending.staged, pending.state, "post_comm", pre,
+                    pending.inter, (0, s.n_owned)), pending.host)
 
 
 def reset() -> int:

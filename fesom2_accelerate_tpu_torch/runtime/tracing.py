@@ -24,9 +24,10 @@ Spans.  The run path, the kernel wrappers and the host ABI mark where
 their host time goes with ``with span(name):`` or ``@spanned(name)``
 (``graphs.run``, ``graphs.loop``, ``graphs.copy_in``, ``graphs.replay``,
 ``graphs.capture``, ``solver.step``, ``kernels.<wrapper>``, ``abi.step``,
-``abi.copy_in``, ``abi.copy_out``; a rank's phases ``abi.pre_comm``,
-``abi.post_comm``, ``abi.factors_out``, ``abi.factors_in``,
-``solver.pre_comm``, ``solver.inter_comm``, ``solver.post_comm``).  A span is on only while a
+``abi.copy_in``, ``abi.copy_out``, ``solver.pre_comm``,
+``solver.inter_comm``, ``solver.post_comm``; a rank's phases
+``abi.pre_comm``, ``abi.post_comm``, ``abi.factors_out``,
+``abi.factors_in``).  A span is on only while a
 ``torch.profiler`` session records (``torch.autograd.profiler.
 _is_profiler_enabled``): profiling a run of steps is how it is turned on.
 Off, :func:`span` reads that flag and returns a shared object that does
@@ -53,10 +54,9 @@ returns the totals since the process started or :func:`reset_counters`.
 The host ABI counts the bytes it moves between the caller's f64 buffers
 and the solver's device: ``abi.bytes_registered`` from and to memory it
 page-locked, ``abi.bytes_pageable`` from and to any other, and on a CPU
-solver (``host_embed.py``); ``abi.factor_bytes`` those of a rank's limiter
-factors, out at its pre-comm and back at its post-comm; ``abi.bytes_out``
-those of the results written back, and ``abi.bytes_out_early`` the part a
-pipelined step sent behind K2's or K3's end rather than stage c's.
+solver (``host_embed.py``); ``abi.bytes_out`` those of the results written
+back, and ``abi.bytes_out_early`` the part a step sent on its write-back
+stream behind K2's or K3's end rather than stage c's.
 """
 
 from __future__ import annotations

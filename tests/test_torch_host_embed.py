@@ -24,20 +24,23 @@ over ``host_embed``), the counterpart of tests/test_native.py:108-181.
   host's elements;
 * the registry of page-locked buffers (``host_embed.Pins``), with
   ``cudaHostRegister`` / ``cudaHostUnregister`` replaced by fakes and the
-  solver's device reported as a card (the solver a CPU one): each buffer
-  registered once across steps and tracers, ``hnode`` / ``hnode_new``
-  shared, one synchronize a step, the buffers bit for bit those of a
-  witness that casts on the host; two buffers on one page both
-  registered; a changed size registered anew; a refused registration
-  counts the buffer's bytes under ``abi.bytes_pageable``; ``reset`` (and
-  a new ``setup``) unregisters everything; a CPU solver registers nothing;
+  solver's device reported as a card (the solver a CPU one, streams and
+  events faked): each buffer registered once across steps and tracers,
+  ``hnode`` / ``hnode_new`` shared, one wait for each stream a step, the
+  buffers bit for bit those of a witness that casts on the host; two
+  buffers on one page both registered; a changed size registered anew; a
+  refused registration counts the buffer's bytes under
+  ``abi.bytes_pageable``; ``reset`` (and a new ``setup``) unregisters
+  everything; a CPU solver registers nothing;
 * the copy plan (``host_embed.INPUTS``, ``RESULTS``) holds each input and
-  each result once, for both ``iter_yn`` values; a session on the CPU and
-  a backend-0 one take the serial order and count no early bytes; the
-  pipelined step on fake streams and events enqueues every copy in plan
-  order, each phase behind the copies it reads, each result behind the
-  phase that finalises it, waits for every stream, and gives the serial
-  order's bits.
+  each result once, for both backends and ``iter_yn`` values, and each
+  result it takes early is final after its phase; a session on the CPU
+  takes no stream, backend 0 on a card the three streams, and neither
+  counts an early byte; ``step`` never calls ``FctAleSolver.step``; a
+  step on fake streams and events enqueues every copy in plan order,
+  each phase behind the copies it reads, each result behind the phase
+  that finalises it, waits for every stream, also where a phase raises,
+  and gives the witness's bits.
   The card's half is ``tests/test_torch_host_embed_card.py``.
 
 The build is skipped only where g++ or libpython is absent, as
@@ -421,24 +424,107 @@ class FakeCudart:
         return 0
 
 
-class Card:
-    """The solver's device reported as a card: the registry on, its cudart
-    and the stream's synchronize faked, the solver a CPU one (backend 0 the
-    plain f64 stages, backend 1 the CUDA step function's plain versions)."""
+PHASE_ORDER = ("pre_comm", "inter_comm", "post_comm")
 
-    def __init__(self, monkeypatch, cudart: FakeCudart):
-        self.cudart, self.syncs, self.cleared = cudart, 0, 0
-        card = self
+
+class FakeStreams:
+    """``torch.cuda``'s streams, events and stream context, and
+    ``Tensor.record_stream``, as fakes that log what each stream is given:
+    a call's order on the card, on the CPU.  The solver's three phases log
+    their runs on the current stream."""
+
+    def __init__(self, monkeypatch):
+        self.log, self.current, self.events = [], None, 0
+        fake = self
 
         class Stream:
+            def __init__(self, name):
+                self.name = name
+
+            def wait_stream(self, other):
+                fake.log.append((self.name, "wait_stream", other.name))
+
+            def wait_event(self, event):
+                fake.log.append((self.name, "wait", event.n))
+
             def synchronize(self):
-                card.syncs += 1
+                fake.log.append((self.name, "sync"))
+
+        class Event:
+            def __init__(self):
+                fake.events += 1
+                self.n = fake.events
+
+            def record(self, stream):
+                fake.log.append((stream.name, "record", self.n))
+
+            def synchronize(self):
+                fake.log.append(("host", "event_sync", self.n))
+
+        def stream(s):
+            class Context:
+                def __enter__(self):
+                    self.old = fake.current
+                    fake.current = s or fake.current
+
+                def __exit__(self, *exc):
+                    fake.current = self.old
+
+            return Context()
+
+        made = iter(["copy", "back"])
+        self.current = Stream("compute")
+        monkeypatch.setattr(torch.cuda, "Stream",
+                            lambda device=None: Stream(next(made)))
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(torch.cuda, "stream", stream)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: fake.current)
+        monkeypatch.setattr(torch.Tensor, "record_stream",
+                            lambda t, s: fake.log.append(
+                                (fake.current.name, "record_stream", s.name)),
+                            raising=False)
+
+    def on(self, name: str) -> list:
+        return [e[1:] for e in self.log if e[0] == name]
+
+    def syncs(self) -> dict:
+        return {n: self.on(n).count(("sync",))
+                for n in ("compute", "copy", "back")}
+
+
+class Card:
+    """The solver's device reported as a card: the registry on, its cudart
+    faked, streams and events faked (:class:`FakeStreams`, ``fake``), the
+    solver a CPU one whose three phases log their runs (the phase ``fail``
+    raising instead): backend 0 the plain f64 stages, backend 1 the CUDA
+    phases' plain versions (its step the CUDA step function's)."""
+
+    def __init__(self, monkeypatch, cudart: FakeCudart,
+                 fail: str | None = None):
+        self.cudart, self.cleared = cudart, 0
+        self.fake = fake = FakeStreams(monkeypatch)
+        card = self
+
+        def logged(name, run):
+            def phase(*args):
+                fake.log.append((fake.current.name, "run", name))
+                if name == fail:
+                    raise RuntimeError(f"{name} failed")
+                return run(*args)
+            return phase
 
         def cpu_solver(mesh, cfg, backend):
             if backend == 0:
-                return FctAleSolver(mesh, cfg, "torch", device="cpu")
-            solver = FctAleSolver(mesh, cfg, device="cpu")
-            solver._step_fn = fct_ale_step_cuda
+                solver = FctAleSolver(mesh, cfg, "torch", device="cpu")
+            else:
+                solver = FctAleSolver(mesh, cfg, device="cpu")
+                solver._step_fn = fct_ale_step_cuda
+                solver._phases = PHASES["cuda"]
+                solver.backend = "cuda"
+            for name in PHASE_ORDER:
+                monkeypatch.setattr(solver, name,
+                                    logged(name, getattr(solver, name)))
             return solver
 
         def clear_error(device):
@@ -448,8 +534,6 @@ class Card:
         monkeypatch.setattr(host_embed, "_pinnable", lambda device: True)
         monkeypatch.setattr(host_embed, "_cudart", lambda: cudart)
         monkeypatch.setattr(host_embed, "_clear_error", clear_error)
-        monkeypatch.setattr(torch.cuda, "current_stream",
-                            lambda device=None: Stream())
         tracing.reset_counters()
 
     @staticmethod
@@ -472,12 +556,23 @@ def _out(bufs: list, iter_yn: bool) -> int:
     return sum(b[k].nbytes for b in bufs for k in _outputs(iter_yn))
 
 
+def _early(bufs: list, backend: int, steps: int) -> dict:
+    """The counter ``abi.bytes_out_early`` after ``steps`` steps of every
+    tracer on a card: backend 1 writes back the fluxes K2 and K3 finalise
+    early; backend 0 (the plain stages) nothing, so it has no key."""
+    if backend == 0:
+        return {}
+    return {"abi.bytes_out_early": steps * sum(
+        b[k].nbytes for b in bufs for k in ("fct_adf_v", "fct_adf_h"))}
+
+
 @pytest.mark.parametrize("backend", [0, 1])
 @pytest.mark.parametrize("iter_yn", [False, True])
 def test_each_buffer_registered_once(toy, monkeypatch, backend, iter_yn):
     """Two tracers, three steps: 14 registrations (``hnode`` and
     ``hnode_new`` once), every byte from and to registered memory, a
-    synchronize a step, the buffers bit for bit the witness's."""
+    synchronize of each of the three streams a step, the buffers bit for
+    bit the witness's."""
     mesh, _ = toy
     card = Card(monkeypatch, FakeCudart())
     bufs = _tracer_buffers(mesh)
@@ -493,10 +588,12 @@ def test_each_buffer_registered_once(toy, monkeypatch, backend, iter_yn):
     assert sorted(card.cudart.registered) == sorted(distinct.items())
     assert {bufs[0][k].ctypes.data for k in SHARED} == {
         bufs[1][k].ctypes.data for k in SHARED}
-    assert not refused and card.syncs == 6 and card.cleared == 0
+    assert not refused and card.cleared == 0
+    assert card.fake.syncs() == {"compute": 6, "copy": 6, "back": 6}
     assert tracing.counters() == {"abi.bytes_registered":
                                   3 * _moved(bufs, iter_yn),
-                                  "abi.bytes_out": 3 * _out(bufs, iter_yn)}
+                                  "abi.bytes_out": 3 * _out(bufs, iter_yn),
+                                  **_early(bufs, backend, 3)}
     for got, w in zip(bufs, want):
         _assert_same_bits(got, w)
 
@@ -531,7 +628,7 @@ def test_refused_registration_takes_the_pageable_path(toy, monkeypatch,
     assert tracing.counters() == {
         "abi.bytes_pageable": pageable,
         "abi.bytes_registered": 2 * _moved(bufs, False) - pageable,
-        "abi.bytes_out": 2 * _out(bufs, False)}
+        "abi.bytes_out": 2 * _out(bufs, False), **_early(bufs, 1, 2)}
     _assert_same_bits(b, want[0])
 
 
@@ -560,7 +657,8 @@ def test_a_shared_page_registers_both(toy, monkeypatch):
         (v.ctypes.data, v.nbytes) for v in b.values())
     assert tracing.counters() == {"abi.bytes_registered":
                                   2 * _moved(bufs, False),
-                                  "abi.bytes_out": 2 * _out(bufs, False)}
+                                  "abi.bytes_out": 2 * _out(bufs, False),
+                                  **_early(bufs, 1, 2)}
     _assert_same_bits(b, want[0])
 
 
@@ -629,47 +727,81 @@ def test_cpu_solver_never_registers(toy, monkeypatch):
         _assert_same_bits(got, w)
 
 
-# ---- the copy plan and the pipelined step, on the CPU ------------------
-
-PHASE_ORDER = ("pre_comm", "inter_comm", "post_comm")
+# ---- the copy plan and the step's lanes, on the CPU --------------------
 
 
 @pytest.mark.parametrize("iter_yn", [False, True])
 def test_copy_plan_holds_every_buffer_once(iter_yn):
     """Each of the eight inputs once, in the ABI's order, first read by
-    K1/K2's phase or stage c's; each result once, in phase order, the two
-    fluxes early (K2's and K3's phases), stage c's fields late."""
+    K1/K2's phase or stage c's; each result once, in phase order, for
+    each backend: on "cuda" the two fluxes early (K2's and K3's phases),
+    stage c's fields late; on "torch" every result after post_comm."""
     names = [k for k, _ in demo.FIELD_FILES]
     assert [k for k, _ in host_embed.INPUTS] == names
     phases = [PHASE_ORDER.index(p) for _, p in host_embed.INPUTS]
     assert phases == sorted(phases)
     assert {p for _, p in host_embed.INPUTS} == {"pre_comm", "post_comm"}
-    results = host_embed.RESULTS[iter_yn]
-    assert sorted(k for k, _ in results) == sorted(_outputs(iter_yn))
-    assert len({k for k, _ in results}) == len(results)
-    phases = [PHASE_ORDER.index(p) for _, p in results]
-    assert phases == sorted(phases)
-    assert [k for k, p in results if p != "post_comm"] == ["fct_adf_v",
-                                                           "fct_adf_h"]
+    assert set(host_embed.RESULTS) == {"cuda", "torch"}
+    for backend, early in (("cuda", ["fct_adf_v", "fct_adf_h"]),
+                           ("torch", [])):
+        results = host_embed.RESULTS[backend][iter_yn]
+        assert sorted(k for k, _ in results) == sorted(_outputs(iter_yn))
+        assert len({k for k, _ in results}) == len(results)
+        phases = [PHASE_ORDER.index(p) for _, p in results]
+        assert phases == sorted(phases)
+        assert [k for k, p in results if p != "post_comm"] == early
+
+
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_results_are_final_after_their_phase(toy, iter_yn):
+    """Each result the plan writes back before post_comm is a tensor its
+    phase returned (K2's factors dict, K3's flux pair), which no later
+    phase writes on a whole mesh: the CUDA phases' plain versions, the
+    three phases against the whole step's bits."""
+    mesh, fields = toy
+    cfg = host_embed.config(1, DT_MILLI, 1, int(iter_yn))
+    solver = FctAleSolver(mesh, cfg, device="cpu")
+    solver._phases = PHASES["cuda"]
+    state = solver.init_state(fields)
+    pre = solver.pre_comm(state)
+    inter = solver.inter_comm(state, pre)
+    kept = {"pre_comm": {k: v.clone() for k, v in pre.items()
+                         if v is not None},
+            "inter_comm": [t.clone() for t in inter if t is not None]}
+    out = solver.post_comm(state, pre, inter, (0, mesh.n_nodes))
+    whole = FctAleSolver(mesh, cfg, device="cpu")
+    whole._step_fn = fct_ale_step_cuda
+    want = whole.step(whole.init_state(fields))
+    for k, phase in host_embed.RESULTS["cuda"][iter_yn]:
+        assert torch.equal(out[k], want[k]), k
+        if phase == "pre_comm":
+            assert any(out[k] is v for v in pre.values()), k
+            assert any(torch.equal(out[k], v)
+                       for v in kept[phase].values()), k
+        elif phase == "inter_comm":
+            assert any(out[k] is t for t in inter), k
+            assert any(torch.equal(out[k], t) for t in kept[phase]), k
 
 
 @pytest.mark.parametrize("where", ["cpu", "backend0"])
 def test_serial_sessions_count_no_early_bytes(toy, monkeypatch, where):
-    """A solver on the CPU, and backend 0 on a (reported) card with every
-    buffer page-locked, copy in, step and copy out in turn: no pipeline,
-    every result byte under ``abi.bytes_out``, none early, the buffers the
-    witness's bit for bit."""
+    """A solver on the CPU takes no stream: each copy in plan order, in
+    turn, every result byte under ``abi.bytes_out``, none early.  Backend
+    0 on a (reported) card takes the three streams of every step on the
+    card, and its plain stages write no result back before post_comm.
+    Either way the buffers are the witness's bit for bit."""
     mesh, _ = toy
     if where == "cpu":
         monkeypatch.setenv(host_embed.DEVICE_ENV, "cpu")
         tracing.reset_counters()
+
+        def no_stream(*args, **kwargs):
+            raise AssertionError("a CPU session made a stream or event")
+
+        monkeypatch.setattr(torch.cuda, "Stream", no_stream)
+        monkeypatch.setattr(torch.cuda, "Event", no_stream)
     else:
-        Card(monkeypatch, FakeCudart())
-
-    def no_pipeline(s, host):
-        raise AssertionError("a serial session pipelined its step")
-
-    monkeypatch.setattr(host_embed, "pipelined_step", no_pipeline)
+        card = Card(monkeypatch, FakeCudart())
     bufs = _tracer_buffers(mesh)
     try:
         assert _setup(mesh, 0) == 0
@@ -680,95 +812,84 @@ def test_serial_sessions_count_no_early_bytes(toy, monkeypatch, where):
     c = tracing.counters()
     assert c["abi.bytes_out"] == 2 * _out(bufs, False)
     assert "abi.bytes_out_early" not in c
+    if where == "backend0":
+        assert card.fake.syncs() == {"compute": 4, "copy": 4, "back": 4}
+        assert card.fake.on("copy").count(("record_stream", "compute")) \
+            == 4 * len(host_embed.INPUTS)
+        assert card.fake.on("back").count(("record_stream", "back")) \
+            == 4 * len(_outputs(False))
     for got, w in zip(bufs, want):
         _assert_same_bits(got, w)
 
 
-class FakeStreams:
-    """``torch.cuda``'s streams, events and stream context, and
-    ``Tensor.record_stream``, as fakes that log what each stream is given:
-    the pipelined step's order, on the CPU.  The solver's three phases log
-    their runs on the current stream."""
+@pytest.mark.parametrize("where", ["cpu", "card"])
+def test_step_never_calls_the_whole_step(toy, monkeypatch, where):
+    """``host_embed.step`` runs the solver's three phases on every device:
+    with ``FctAleSolver.step`` raising, steps of backend 0 on the CPU and
+    of backend 1 on a (reported) card succeed and give the witness's
+    bits."""
+    mesh, _ = toy
+    if where == "cpu":
+        monkeypatch.setenv(host_embed.DEVICE_ENV, "cpu")
+        backend = 0
+    else:
+        Card(monkeypatch, FakeCudart())
+        backend = 1
+    bufs = _tracer_buffers(mesh)
+    try:
+        assert _setup(mesh, backend) == 0
+        want = _pageable_steps(host_embed.session().solver, False, bufs, 2)
 
-    def __init__(self, monkeypatch):
-        self.log, self.current, self.events = [], None, 0
-        fake = self
+        def whole_step(self, state):
+            raise AssertionError("host_embed.step called FctAleSolver.step")
 
-        class Stream:
-            def __init__(self, name):
-                self.name = name
-
-            def wait_stream(self, other):
-                fake.log.append((self.name, "wait_stream", other.name))
-
-            def wait_event(self, event):
-                fake.log.append((self.name, "wait", event.n))
-
-            def synchronize(self):
-                fake.log.append((self.name, "sync"))
-
-        class Event:
-            def __init__(self):
-                fake.events += 1
-                self.n = fake.events
-
-            def record(self, stream):
-                fake.log.append((stream.name, "record", self.n))
-
-        def stream(s):
-            class Context:
-                def __enter__(self):
-                    self.old, fake.current = fake.current, s
-
-                def __exit__(self, *exc):
-                    fake.current = self.old
-
-            return Context()
-
-        made = iter(["copy", "back"])
-        self.current = Stream("compute")
-        monkeypatch.setattr(torch.cuda, "Stream",
-                            lambda device=None: Stream(next(made)))
-        monkeypatch.setattr(torch.cuda, "Event", Event)
-        monkeypatch.setattr(torch.cuda, "stream", stream)
-        monkeypatch.setattr(torch.cuda, "current_stream",
-                            lambda device=None: fake.current)
-        monkeypatch.setattr(torch.Tensor, "record_stream",
-                            lambda t, s: fake.log.append(
-                                (fake.current.name, "record_stream", s.name)),
-                            raising=False)
-
-    def on(self, name: str) -> list:
-        return [e[1:] for e in self.log if e[0] == name]
+        monkeypatch.setattr(FctAleSolver, "step", whole_step)
+        Card.steps(bufs, 2)
+    finally:
+        host_embed.reset()
+    for got, w in zip(bufs, want):
+        _assert_same_bits(got, w)
 
 
-def _pipelining_card(monkeypatch, fail: str | None = None) -> FakeStreams:
-    """A (reported) card whose backend-1 solver runs the CUDA phases'
-    plain versions on the CPU, each phase logging its run (the phase
-    ``fail`` raising instead), streams and events faked."""
-    Card(monkeypatch, FakeCudart())
-    fake = FakeStreams(monkeypatch)
-
-    def logged(name, run):
-        def phase(*args):
-            fake.log.append((fake.current.name, "run", name))
-            if name == fail:
-                raise RuntimeError(f"{name} failed")
-            return run(*args)
-        return phase
-
-    def cuda_phases(mesh, cfg, backend):
-        solver = FctAleSolver(mesh, cfg, device="cpu")
-        solver._step_fn = fct_ale_step_cuda
-        solver._phases = PHASES["cuda"]
-        solver.backend = "cuda"
-        for name in PHASE_ORDER:
-            monkeypatch.setattr(solver, name,
-                                logged(name, getattr(solver, name)))
-        return solver
-
-    monkeypatch.setattr(host_embed, "_solver", cuda_phases)
-    return fake
+@pytest.mark.parametrize("backend", [0, 1])
+def test_phases_put_every_copy_on_the_current_stream(toy, monkeypatch,
+                                                     backend):
+    """A rank's ``pre_comm`` and ``post_comm`` (one part, no halo) on a
+    (reported) card: no stream made, every copy, cast and phase on the
+    current stream in the order copy-in, K1 and K2, the factors out, K3,
+    the wait for the factors, then K4-fix, the results out and one
+    synchronize; no early byte; two steps give the witness's bits."""
+    mesh, _ = toy
+    fake = Card(monkeypatch, FakeCudart()).fake
+    b = _tracer_buffers(mesh, tracers=1)
+    factors = [_own_pages(np.zeros(b[0]["ttf"].shape)) for _ in range(2)]
+    ten = [b[0][k].ctypes.data for k, _ in demo.FIELD_FILES] + [
+        a.ctypes.data for a in factors]
+    en = np.ascontiguousarray(mesh.elem_nodes, np.int32)
+    nl = np.ascontiguousarray(mesh.nlev_elem, np.int32)
+    xy = np.ascontiguousarray(mesh.node_xy, np.float64)
+    try:
+        assert host_embed.setup_part(mesh.n_elems, mesh.nl, en.ctypes.data,
+                                     nl.ctypes.data, mesh.n_nodes,
+                                     mesh.n_nodes, xy.ctypes.data, DT_MILLI,
+                                     1, 0, backend) == 0
+        want = _pageable_steps(host_embed.session().solver, False, b, 2)
+        fake.log.clear()
+        for _ in range(2):
+            assert host_embed.pre_comm(*ten) == 0
+            assert host_embed.post_comm(*ten) == 0
+        assert host_embed.session().streams is None
+    finally:
+        host_embed.reset()
+    _assert_same_bits(b[0], want[0])
+    assert {e[0] for e in fake.log} == {"compute", "host"}
+    step = [e[1:] for e in fake.log[:len(fake.log) // 2]]
+    assert [e for e in step if e[0] in ("run", "event_sync", "sync")] == [
+        ("run", "pre_comm"), ("run", "inter_comm"), ("event_sync", 1),
+        ("run", "post_comm"), ("sync",)]
+    c = tracing.counters()
+    assert "abi.bytes_out_early" not in c
+    assert c["abi.bytes_out"] == 2 * _out(b, False)
 
 
 @pytest.mark.parametrize("iter_yn", [False, True])
@@ -782,7 +903,7 @@ def test_pipelined_step_on_fake_streams(toy, monkeypatch, iter_yn):
     hold every result, the two fluxes early; and three steps of two
     tracers give the serial witness's bits."""
     mesh, _ = toy
-    fake = _pipelining_card(monkeypatch)
+    fake = Card(monkeypatch, FakeCudart()).fake
     bufs = _tracer_buffers(mesh)
     try:
         assert _setup(mesh, 1, iter_yn) == 0
@@ -810,7 +931,7 @@ def test_pipelined_step_on_fake_streams(toy, monkeypatch, iter_yn):
         compute += [("run", name), ("record", 9 + n)]
     assert fake.on("compute")[:len(compute)] == compute
     back = []
-    for k, p in host_embed.RESULTS[iter_yn]:
+    for k, p in host_embed.RESULTS["cuda"][iter_yn]:
         back += [("wait", 9 + PHASE_ORDER.index(p)),
                  ("record_stream", "back")]
     assert fake.on("back")[:len(back)] == back
@@ -819,9 +940,7 @@ def test_pipelined_step_on_fake_streams(toy, monkeypatch, iter_yn):
         e[1] == "sync" for e in one[-3:])
     assert tracing.counters() == {
         "abi.bytes_registered": 3 * _moved(bufs, iter_yn),
-        "abi.bytes_out": 3 * _out(bufs, iter_yn),
-        "abi.bytes_out_early": 3 * sum(
-            b[k].nbytes for b in bufs for k in ("fct_adf_v", "fct_adf_h"))}
+        "abi.bytes_out": 3 * _out(bufs, iter_yn), **_early(bufs, 1, 3)}
 
 
 def test_a_failed_pipelined_step_waits_for_its_streams(toy, monkeypatch,
@@ -830,7 +949,7 @@ def test_a_failed_pipelined_step_waits_for_its_streams(toy, monkeypatch,
     the copy, current and write-back streams, so no copy in flight
     touches a buffer after the call."""
     mesh, _ = toy
-    fake = _pipelining_card(monkeypatch, fail="inter_comm")
+    fake = Card(monkeypatch, FakeCudart(), fail="inter_comm").fake
     b = _tracer_buffers(mesh, tracers=1)
     try:
         assert _setup(mesh, 1) == 0

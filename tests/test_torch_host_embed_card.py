@@ -21,8 +21,8 @@ neither, without the suite's ``conftest.py``::
 * the contract's end: after ``reset`` the host frees its buffers and
   allocates new ones at the same addresses, and a new session's steps on
   them are the witness's bit for bit;
-* the pipelined step (backend 1, every buffer page-locked), on the
-  ``toy`` mesh and at core2 width, ``iter_yn`` both ways: after three
+* the step on its three streams (backend 1, every buffer page-locked), on
+  the ``toy`` mesh and at core2 width, ``iter_yn`` both ways: after three
   steps the caller's buffers are bit for bit those of the serial order
   (``FctAleSolver.step`` on the f64 inputs cast on the card, its results
   cast back there), each step counts the two fluxes' bytes early and
@@ -123,7 +123,7 @@ def _pageable_steps(solver, iter_yn: bool, bufs: dict) -> dict:
 
 
 def _early(bufs: dict) -> int:
-    """The bytes of the results a pipelined step writes back early: the
+    """The bytes of the results a backend-1 step writes back early: the
     limited (or residual) fluxes."""
     return bufs["fct_adf_v"].nbytes + bufs["fct_adf_h"].nbytes
 

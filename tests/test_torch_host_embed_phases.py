@@ -9,8 +9,9 @@ reference ``portbench/reference/fct.py``:
   kills every rank): the owned columns and edges gathered after 1 and 3
   steps equal the reference's at 1e-12; with the exchange skipped they do
   not, by more than 1e-6;
-* one part with no halo: ``pre_comm`` then ``post_comm`` give the buffers
-  of ``host_embed.step`` bit for bit, ``iter_yn`` both ways;
+* one part with no halo: ``host_embed.step``, and ``pre_comm`` then
+  ``post_comm``, give the buffers of ``FctAleSolver.step`` on the same
+  inputs bit for bit, ``iter_yn`` both ways;
 * the halo rows of the part's mesh emptied, the others kept
   (``host_embed.part_mesh``), and ``n_owned`` outside 1..N refused;
 * the contract: ``post_comm`` with no ``pre_comm`` before it or on other
@@ -119,17 +120,23 @@ def test_one_part_phases_are_the_step_bit_for_bit(case, monkeypatch,
     monkeypatch.setenv(host_embed.DEVICE_ENV, "cpu")
     by_step, step_factors, addrs = _buffers(fields)
     by_phases, factors, paddrs = _buffers(fields)
+    want = {k: v.copy() for k, v in by_step.items()}
     try:
         assert _setup(raw, MESH[2], ref.n_nodes, iter_yn) == 0
+        solver = host_embed.session().solver
         for _ in range(2):
+            out = solver.step(solver.init_state(want))
+            for k, _ in host_embed.RESULTS["torch"][iter_yn]:
+                np.copyto(want[k], out[k].numpy())
             assert host_embed.step(*addrs[:8]) == 0
             assert host_embed.pre_comm(*paddrs) == 0
             assert host_embed.post_comm(*paddrs) == 0
     finally:
         host_embed.reset()
-    for k, v in by_step.items():
-        np.testing.assert_array_equal(by_phases[k].view(np.uint64),
-                                      v.view(np.uint64), err_msg=k)
+    for k, v in want.items():
+        for got in (by_step, by_phases):
+            np.testing.assert_array_equal(got[k].view(np.uint64),
+                                          v.view(np.uint64), err_msg=k)
     # the factors of every column reached the host
     assert np.abs(factors[0]).max() > 0 and np.abs(factors[1]).max() > 0
 

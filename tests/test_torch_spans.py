@@ -10,7 +10,8 @@
   marker's ``start_ns()`` / ``end_ns()`` in the profiler's events;
 * the instrumented paths on the CPU: ``host_embed`` backend 0 with
   ``FESOM2_TORCH_DEVICE=cpu`` (``abi.step`` over ``abi.copy_in``,
-  ``solver.step``, ``abi.copy_out``), the step forms through the kernel
+  ``solver.pre_comm``, ``solver.inter_comm``, ``solver.post_comm``,
+  ``abi.copy_out``), the step forms through the kernel
   wrappers' plain versions (``graphs.loop`` over ``solver.step`` over
   ``kernels.<wrapper>``), every wrapper a span, and the launch counts
   unchanged by tracing;
@@ -185,11 +186,13 @@ def test_abi_step_spans(toy, monkeypatch):
         host_embed.reset()
     one = [("abi.step", None, "abi.step"),
            ("abi.copy_in", "abi.step", "abi.step"),
-           ("solver.step", "abi.step", "abi.step"),
+           ("solver.pre_comm", "abi.step", "abi.step"),
+           ("solver.inter_comm", "abi.step", "abi.step"),
+           ("solver.post_comm", "abi.step", "abi.step"),
            ("abi.copy_out", "abi.step", "abi.step")]
     spans = tracing.spans()
     assert tree(spans) == one * 2
-    assert spans[4].call == 4
+    assert spans[6].call == 6
 
 
 @pytest.mark.parametrize("form, wrappers", [
