@@ -42,13 +42,16 @@ state signature, ``graphs.StepGraphs.run``); where the card does, as on
 core2, the graphs' copies would cost more than they save and the run is
 the loop of steps.  ``step`` and ``step_tracers`` run one step eagerly,
 each the span ``solver.step`` under a profiler (``runtime/tracing.py``).
+On the card a step is enqueued from a launch plan (``ops/cuda/step.py``
+``StepPlans``): built at the first step of a state signature, it holds the
+kernels' launchers with their arguments bound, so a step checks each state
+tensor once and allocates and launches each kernel in turn.  A run of 0 or 1
+steps is the loop of steps, with no graph bookkeeping.
 ``backend="torch"`` (the plain stages, the correctness gate, on any
 device) runs the Python loop of steps.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -57,10 +60,6 @@ from fesom2_accelerate_tpu_torch.config import FctAleConfig, resolve_backend
 from fesom2_accelerate_tpu_torch.mesh.topology import Mesh
 from fesom2_accelerate_tpu_torch.ops import stages
 from fesom2_accelerate_tpu_torch.ops.cuda import step as cstep
-from fesom2_accelerate_tpu_torch.ops.cuda.step import (
-    fct_ale_step_cuda,
-    fct_ale_step_cuda_batched,
-)
 from fesom2_accelerate_tpu_torch.ops.meshdata import (
     MeshData,
     build_mesh_data,
@@ -240,11 +239,10 @@ class FctAleSolver:
             self._step_fn = fct_ale_step
             self._tracer_step_fn = None
         else:
-            self._step_fn = functools.partial(
-                fct_ale_step_cuda, fuse_k12=fuse_k12, fuse_k34=fuse_k34)
-            self._tracer_step_fn = functools.partial(
-                fct_ale_step_cuda_batched, fuse_k12=fuse_k12,
-                fuse_k34=fuse_k34)
+            self._step_fn = cstep.StepPlans(fuse_k12=fuse_k12,
+                                            fuse_k34=fuse_k34)
+            self._tracer_step_fn = cstep.StepPlans(
+                fuse_k12=fuse_k12, fuse_k34=fuse_k34, batched=True)
         self._phases = PHASES[backend]
         self.mesh = mesh
         self.cfg = cfg

@@ -43,10 +43,17 @@ the two halves of one allocation, which :func:`factor_pair` returns as
 one tensor for a sharded step's exchange), launches the kernel on the
 current stream of the mesh data's device, raises if the launcher reports
 an error, and adds one to its ``launches`` count.  Any other device
-raises.  Nothing falls back.  In the capture of a CUDA graph a call
-launches nothing and a replay calls no wrapper: :func:`capturing` and
-:func:`count_replay` keep the counts those of the launches
-(``runtime/graphs.py``).
+raises.  Nothing falls back.  The launchers of the whole step's kernels
+(``bounds_launch``, ``limit_launch``, ``limit_fused_launch``,
+``update_fused_launch``, ``b3h_launch``, ``update_launch``) bind the mesh
+data's pointers and the static scalars once: the wrappers call them, and so
+does a launch plan of the whole step (``ops/cuda/step.py`` ``StepPlan``),
+which binds them once a state signature.  A launch enters a
+``torch.cuda.device`` guard only where torch's current device is not the
+mesh data's (:func:`selected`): the launcher selects it itself.  In the
+capture of a CUDA graph a call launches nothing and a replay calls no
+wrapper: :func:`capturing` and :func:`count_replay` keep the counts those
+of the launches (``runtime/graphs.py``).
 Under a profiler each call of a wrapper, on any device, is the span
 ``kernels.<wrapper>`` (``runtime/tracing.py``): its checks, its outputs'
 allocations and the launcher's call.
@@ -166,40 +173,94 @@ def _stack(outs) -> tuple:
                  for o in zip(*outs))
 
 
-def _check(md: MeshData, named: dict, slots: int) -> torch.device:
-    """Raise unless every tensor is a contiguous CUDA tensor of the mesh
-    data's dtype, on the mesh data's device, with the shape given, and the
-    kernel's incidence rows (``slots`` wide) fit its registers."""
-    if slots > MAX_DEGREE:
-        raise ValueError(f"node degree {slots} exceeds the kernels' "
-                         f"{MAX_DEGREE} incidence slots")
-    dev = md.device
-    if dev.type != "cuda":
-        raise ValueError(f"CUDA kernels need mesh data on a CUDA device, "
-                         f"got {dev}")
+def check_tensors(named: dict, device: torch.device,
+                  dtype: torch.dtype) -> None:
+    """Raise unless every tensor is a contiguous tensor of ``dtype`` on
+    ``device`` with the shape given: the wrappers' checks of a tensor's
+    metadata, in the order of ``named``."""
     for name, (t, shape) in named.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, mesh data on {dev}")
-        if t.dtype != md.dtype:
-            raise TypeError(f"{name} has dtype {t.dtype}, expected "
-                            f"{md.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, mesh data on "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+
+
+def check_slots(slots: int) -> None:
+    """Raise unless incidence rows ``slots`` wide fit the kernels'
+    registers."""
+    if slots > MAX_DEGREE:
+        raise ValueError(f"node degree {slots} exceeds the kernels' "
+                         f"{MAX_DEGREE} incidence slots")
+
+
+def _check(md: MeshData, named: dict, slots: int) -> torch.device:
+    """Raise unless every tensor is a contiguous CUDA tensor of the mesh
+    data's dtype, on the mesh data's device, with the shape given, and the
+    kernel's incidence rows (``slots`` wide) fit its registers."""
+    check_slots(slots)
+    dev = md.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernels need mesh data on a CUDA device, "
+                         f"got {dev}")
+    check_tensors(named, dev, md.dtype)
     return dev
 
 
-def _launch(name: str, md: MeshData, dev: torch.device, threads: int,
-            *args) -> None:
-    fn = getattr(build.library(), name + _SUFFIX[md.dtype])
-    # the launcher selects dev; the guard gives torch its device back after
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, threads, dev.index or 0, stream)
+_SAME = contextlib.nullcontext()
+
+
+def selected(dev: torch.device):
+    """A guard for launches on ``dev``: ``torch.cuda.device(dev)`` where
+    torch's current device is another, else one that does nothing.  A
+    launcher selects its device itself; the guard gives torch its current
+    device back after."""
+    if torch.cuda.current_device() == dev.index:
+        return _SAME
+    return torch.cuda.device(dev)
+
+
+def current_stream(dev: torch.device) -> int:
+    """The cudaStream_t of torch's current stream on ``dev``."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise if launcher ``name`` reported CUDA error ``rc``."""
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _launch(name: str, dev: torch.device, launch, *args) -> None:
+    """``launch(*args, stream)`` on the current stream of ``dev``, under
+    :func:`selected`; raises if it reports a CUDA error."""
+    with selected(dev):
+        check_launch(name, launch(*args, current_stream(dev)))
+
+
+def _fn(name: str, md: MeshData):
+    """Launcher ``name`` of the mesh data's dtype."""
+    return getattr(build.library(), name + _SUFFIX[md.dtype])
+
+
+def _index(md: MeshData) -> int:
+    """The CUDA device index of the mesh data, as the launchers take it."""
+    return md.device.index or 0
+
+
+def _ints(*values) -> tuple:
+    return tuple(ctypes.c_int(int(v)) for v in values)
+
+
+def _mesh_args(md: MeshData, *names) -> tuple:
+    """The data pointers of mesh data fields ``names``, as launcher
+    arguments."""
+    return tuple(ctypes.c_void_p(getattr(md, n).data_ptr()) for n in names)
 
 
 def _ptr(t):
@@ -233,10 +294,6 @@ def factor_pair(plus: torch.Tensor, minus: torch.Tensor) -> torch.Tensor:
     return torch.stack([plus, minus])
 
 
-def _mesh_ptrs(md: MeshData, *names) -> list:
-    return [getattr(md, n).data_ptr() for n in names]
-
-
 # --------------------------------------------------------------------------
 # K1 bounds: a1 + a2 + a3 -> fct_ttf_max, fct_ttf_min
 # --------------------------------------------------------------------------
@@ -257,6 +314,21 @@ def bounds_ref(md: MeshData, fct_LO, ttf, vlimit: int):
                                             widen=(vlimit == 2))
 
 
+def bounds_launch(md: MeshData, vlimit: int, tb: int, threads: int):
+    """K1's launcher with the mesh data's pointers and the static scalars
+    bound: ``launch(fct_LO, ttf, tmax, tmin, stream)`` (data pointers, a
+    cudaStream_t) -> the CUDA error code.  ``tb``: the tracers, 1 for
+    inputs without the axis."""
+    fn = _fn("fct_bounds", md)
+    mesh = _mesh_args(md, "nd_other", "nd_lev", "nd_num", "nlev_nod")
+    tail = _ints(md.n_layers, md.n_nodes, md.nd_idx.shape[1], vlimit, tb,
+                 threads, _index(md))
+
+    def launch(fct_LO, ttf, tmax, tmin, stream):
+        return fn(fct_LO, ttf, *mesh, tmax, tmin, *tail, stream)
+    return launch
+
+
 @tracing.spanned("kernels.bounds")
 def bounds(md: MeshData, fct_LO, ttf, vlimit: int, *,
            threads: int = DEFAULT_THREADS):
@@ -275,11 +347,9 @@ def bounds(md: MeshData, fct_LO, ttf, vlimit: int, *,
     dev = _check(md, checks, md.nd_idx.shape[1])
     tmax = torch.empty(_rows(tb, L, N), dtype=md.dtype, device=dev)
     tmin = torch.empty_like(tmax)
-    _launch("fct_bounds", md, dev, threads, fct_LO.data_ptr(),
-            ttf.data_ptr(),
-            *_mesh_ptrs(md, "nd_other", "nd_lev", "nd_num", "nlev_nod"),
-            tmax.data_ptr(), tmin.data_ptr(), L, N, md.nd_idx.shape[1],
-            vlimit, tb or 1)
+    _launch("fct_bounds", dev, bounds_launch(md, vlimit, tb or 1, threads),
+            fct_LO.data_ptr(), ttf.data_ptr(), tmax.data_ptr(),
+            tmin.data_ptr())
     bounds.launches += 1
     return tmax, tmin
 
@@ -306,6 +376,25 @@ def limit_ref(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
     return plus, minus, adf_v_lim, adf_v_res
 
 
+def limit_launch(md: MeshData, dt: float, flux_eps: float, tb: int,
+                 threads: int):
+    """K2's launcher, as :func:`bounds_launch`: ``launch(fct_adf_v, tmax,
+    tmin, fct_adf_h, fct_plus, fct_minus, adf_v_lim, adf_v_res, stream)``
+    (``adf_v_res`` None unless ``iter_yn``)."""
+    fn = _fn("fct_limit", md)
+    mesh = _mesh_args(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn", "nd_num",
+                      "nlev_nod")
+    tail = (*_ints(md.n_layers, md.n_nodes, md.n_edges, md.nd_idx.shape[1]),
+            ctypes.c_double(dt), ctypes.c_double(flux_eps),
+            *_ints(tb, threads, _index(md)))
+
+    def launch(fct_adf_v, tmax, tmin, fct_adf_h, plus, minus, adf_v_lim,
+               adf_v_res, stream):
+        return fn(fct_adf_v, tmax, tmin, fct_adf_h, *mesh, plus, minus,
+                  adf_v_lim, adf_v_res, *tail, stream)
+    return launch
+
+
 @tracing.spanned("kernels.limit")
 def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
           flux_eps: float, iter_yn: bool, *, threads: int = DEFAULT_THREADS):
@@ -326,14 +415,11 @@ def limit(md: MeshData, fct_adf_v, tmax, tmin, fct_adf_h, dt: float,
     plus, minus = _factors(_rows(tb, L, N), md.dtype, dev)
     adf_v_lim = torch.empty(_rows(tb, L + 1, N), dtype=md.dtype, device=dev)
     adf_v_res = torch.empty_like(adf_v_lim) if iter_yn else None
-    _launch("fct_limit", md, dev, threads, fct_adf_v.data_ptr(),
-            tmax.data_ptr(),
-            tmin.data_ptr(), fct_adf_h.data_ptr(),
-            *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn",
-                        "nd_num", "nlev_nod"),
-            plus.data_ptr(), minus.data_ptr(), adf_v_lim.data_ptr(),
-            _ptr(adf_v_res), L, N, Ed, md.nd_idx.shape[1], float(dt),
-            float(flux_eps), tb or 1)
+    _launch("fct_limit", dev,
+            limit_launch(md, dt, flux_eps, tb or 1, threads),
+            fct_adf_v.data_ptr(), tmax.data_ptr(), tmin.data_ptr(),
+            fct_adf_h.data_ptr(), plus.data_ptr(), minus.data_ptr(),
+            adf_v_lim.data_ptr(), _ptr(adf_v_res))
     limit.launches += 1
     return plus, minus, adf_v_lim, adf_v_res
 
@@ -352,6 +438,26 @@ def limit_fused_ref(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
     tmax, tmin = bounds_ref(md, fct_LO, ttf, vlimit)
     return (tmax, tmin) + limit_ref(md, fct_adf_v, tmax, tmin, fct_adf_h, dt,
                                     flux_eps, iter_yn)
+
+
+def limit_fused_launch(md: MeshData, vlimit: int, dt: float,
+                       flux_eps: float, threads: int):
+    """K12's launcher, as :func:`bounds_launch`: ``launch(fct_LO, ttf,
+    fct_adf_v, fct_adf_h, tmax, tmin, fct_plus, fct_minus, adf_v_lim,
+    adf_v_res, stream)``."""
+    fn = _fn("fct_limit_fused", md)
+    mesh = _mesh_args(md, "area_inv", "nd_idx", "nd_other", "nd_lev",
+                      "nd_sgn", "nd_num", "nlev_nod")
+    tail = (*_ints(md.n_layers, md.n_nodes, md.n_edges, md.nd_idx.shape[1],
+                   vlimit),
+            ctypes.c_double(dt), ctypes.c_double(flux_eps),
+            *_ints(threads, _index(md)))
+
+    def launch(fct_LO, ttf, fct_adf_v, fct_adf_h, tmax, tmin, plus, minus,
+               adf_v_lim, adf_v_res, stream):
+        return fn(fct_LO, ttf, fct_adf_v, fct_adf_h, *mesh, tmax, tmin, plus,
+                  minus, adf_v_lim, adf_v_res, *tail, stream)
+    return launch
 
 
 @tracing.spanned("kernels.limit_fused")
@@ -380,13 +486,12 @@ def limit_fused(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
     plus, minus = _factors((L, N), md.dtype, dev)
     adf_v_lim = torch.empty((L + 1, N), dtype=md.dtype, device=dev)
     adf_v_res = torch.empty_like(adf_v_lim) if iter_yn else None
-    _launch("fct_limit_fused", md, dev, threads, fct_LO.data_ptr(),
-            ttf.data_ptr(), fct_adf_v.data_ptr(), fct_adf_h.data_ptr(),
-            *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_other", "nd_lev",
-                        "nd_sgn", "nd_num", "nlev_nod"),
-            tmax.data_ptr(), tmin.data_ptr(), plus.data_ptr(),
-            minus.data_ptr(), adf_v_lim.data_ptr(), _ptr(adf_v_res), L, N,
-            Ed, md.nd_idx.shape[1], vlimit, float(dt), float(flux_eps))
+    _launch("fct_limit_fused", dev,
+            limit_fused_launch(md, vlimit, dt, flux_eps, threads),
+            fct_LO.data_ptr(), ttf.data_ptr(), fct_adf_v.data_ptr(),
+            fct_adf_h.data_ptr(), tmax.data_ptr(), tmin.data_ptr(),
+            plus.data_ptr(), minus.data_ptr(), adf_v_lim.data_ptr(),
+            _ptr(adf_v_res))
     limit_fused.launches += 1
     return tmax, tmin, plus, minus, adf_v_lim, adf_v_res
 
@@ -420,6 +525,30 @@ def _stage_c_checks(tb, L: int, N: int, ttf, hnode, hnode_new, fct_LO,
                 fct_LO=(fct_LO, _rows(tb, L, N)),
                 del_ttf_advvert=(del_ttf_advvert, _rows(tb, L, N)),
                 del_ttf_advhoriz=(del_ttf_advhoriz, _rows(tb, L, N)))
+
+
+def update_fused_launch(md: MeshData, dt: float, iter_yn: bool, tb: int,
+                        threads: int):
+    """K34's launcher, as :func:`bounds_launch`: ``launch(fct_plus,
+    fct_minus, adf_v_lim, fct_adf_h, ttf, hnode, hnode_new, fct_LO,
+    del_ttf_advvert, del_ttf_advhoriz, o1, o2, adf_h_lim, adf_h_res,
+    stream)``.  Reads ``md.tile_edges``."""
+    fn = _fn("fct_update_fused", md)
+    mesh = _mesh_args(md, "area_inv", "edges", "nlev_edge", "ed_ptr",
+                      "nd_idx", "nd_other", "nd_lev", "nd_sgn", "nd_num",
+                      "nlev_nod")
+    tail = (*_ints(md.n_layers, md.n_nodes, md.n_edges, md.nd_idx.shape[1],
+                   md.tile_edges),
+            ctypes.c_double(dt),
+            *_ints(iter_yn, tb, threads, _index(md)))
+
+    def launch(plus, minus, adf_v_lim, fct_adf_h, ttf, hnode, hnode_new,
+               fct_LO, del_ttf_advvert, del_ttf_advhoriz, o1, o2, adf_h_lim,
+               adf_h_res, stream):
+        return fn(plus, minus, adf_v_lim, fct_adf_h, ttf, hnode, hnode_new,
+                  fct_LO, del_ttf_advvert, del_ttf_advhoriz, *mesh, o1, o2,
+                  adf_h_lim, adf_h_res, *tail, stream)
+    return launch
 
 
 @tracing.spanned("kernels.update_fused")
@@ -459,17 +588,13 @@ def update_fused(md: MeshData, fct_plus, fct_minus, adf_v_lim, fct_adf_h,
     o2 = None if iter_yn else torch.empty_like(o1)
     adf_h_lim = torch.empty(_rows(tb, L, Ed), dtype=md.dtype, device=dev)
     adf_h_res = torch.empty_like(adf_h_lim) if iter_yn else None
-    _launch("fct_update_fused", md, dev, threads, fct_plus.data_ptr(),
-            fct_minus.data_ptr(), adf_v_lim.data_ptr(), fct_adf_h.data_ptr(),
-            ttf.data_ptr(), hnode.data_ptr(), hnode_new.data_ptr(),
-            fct_LO.data_ptr(), del_ttf_advvert.data_ptr(),
-            del_ttf_advhoriz.data_ptr(),
-            *_mesh_ptrs(md, "area_inv", "edges", "nlev_edge", "ed_ptr",
-                        "nd_idx", "nd_other", "nd_lev", "nd_sgn", "nd_num",
-                        "nlev_nod"),
-            o1.data_ptr(), _ptr(o2), adf_h_lim.data_ptr(), _ptr(adf_h_res),
-            L, N, Ed, md.nd_idx.shape[1], md.tile_edges, float(dt),
-            int(iter_yn), tb or 1)
+    _launch("fct_update_fused", dev,
+            update_fused_launch(md, dt, iter_yn, tb or 1, threads),
+            fct_plus.data_ptr(), fct_minus.data_ptr(), adf_v_lim.data_ptr(),
+            fct_adf_h.data_ptr(), ttf.data_ptr(), hnode.data_ptr(),
+            hnode_new.data_ptr(), fct_LO.data_ptr(),
+            del_ttf_advvert.data_ptr(), del_ttf_advhoriz.data_ptr(),
+            o1.data_ptr(), _ptr(o2), adf_h_lim.data_ptr(), _ptr(adf_h_res))
     update_fused.launches += 1
     return o1, o2, adf_h_lim, adf_h_res
 
@@ -490,6 +615,20 @@ def b3h_ref(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool):
     return stages.b3_horizontal(md, fct_plus, fct_minus, fct_adf_h, iter_yn)
 
 
+def b3h_launch(md: MeshData, tb: int, threads: int):
+    """K3's launcher, as :func:`bounds_launch`: ``launch(fct_plus,
+    fct_minus, fct_adf_h, adf_h_lim, adf_h_res, stream)``."""
+    fn = _fn("fct_b3h", md)
+    mesh = _mesh_args(md, "edges", "nlev_edge")
+    tail = _ints(md.n_layers, md.n_nodes, md.n_edges, tb, threads,
+                 _index(md))
+
+    def launch(plus, minus, fct_adf_h, adf_h_lim, adf_h_res, stream):
+        return fn(plus, minus, fct_adf_h, *mesh, adf_h_lim, adf_h_res, *tail,
+                  stream)
+    return launch
+
+
 @tracing.spanned("kernels.b3h")
 def b3h(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool, *,
         threads: int = DEFAULT_THREADS):
@@ -508,10 +647,9 @@ def b3h(md: MeshData, fct_plus, fct_minus, fct_adf_h, iter_yn: bool, *,
     dev = _check(md, checks, 0)
     adf_h_lim = torch.empty(_rows(tb, L, Ed), dtype=md.dtype, device=dev)
     adf_h_res = torch.empty_like(adf_h_lim) if iter_yn else None
-    _launch("fct_b3h", md, dev, threads, fct_plus.data_ptr(),
-            fct_minus.data_ptr(),
-            fct_adf_h.data_ptr(), *_mesh_ptrs(md, "edges", "nlev_edge"),
-            adf_h_lim.data_ptr(), _ptr(adf_h_res), L, N, Ed, tb or 1)
+    _launch("fct_b3h", dev, b3h_launch(md, tb or 1, threads),
+            fct_plus.data_ptr(), fct_minus.data_ptr(), fct_adf_h.data_ptr(),
+            adf_h_lim.data_ptr(), _ptr(adf_h_res))
     b3h.launches += 1
     return adf_h_lim, adf_h_res
 
@@ -568,11 +706,12 @@ def b3h_fixup(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
                          f"{dev}")
     n_ids = fix_ids.shape[0]
     if n_ids:
-        _launch("fct_b3h_fixup", md, dev, threads, fct_plus.data_ptr(),
-                fct_minus.data_ptr(), fct_adf_h.data_ptr(),
-                *_mesh_ptrs(md, "edges", "nlev_edge"), fix_ids.data_ptr(),
-                adf_h_lim.data_ptr(), _ptr(adf_h_res if iter_yn else None),
-                L, N, Ed, n_ids, tb or 1)
+        _launch("fct_b3h_fixup", dev, _fn("fct_b3h_fixup", md),
+                fct_plus.data_ptr(), fct_minus.data_ptr(),
+                fct_adf_h.data_ptr(), *_mesh_args(md, "edges", "nlev_edge"),
+                fix_ids.data_ptr(), adf_h_lim.data_ptr(),
+                _ptr(adf_h_res if iter_yn else None), L, N, Ed, n_ids,
+                tb or 1, threads, _index(md))
         b3h_fixup.launches += 1
     return adf_h_lim, adf_h_res
 
@@ -603,6 +742,26 @@ def update_ref(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
         del_ttf_advvert, del_ttf_advhoriz, dt)
 
 
+def update_launch(md: MeshData, dt: float, iter_yn: bool, tb: int,
+                  threads: int):
+    """K4's launcher, as :func:`bounds_launch`: ``launch(adf_v_lim,
+    adf_h_lim, ttf, hnode, hnode_new, fct_LO, del_ttf_advvert,
+    del_ttf_advhoriz, o1, o2, stream)``."""
+    fn = _fn("fct_update", md)
+    mesh = _mesh_args(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn", "nd_num",
+                      "nlev_nod")
+    tail = (*_ints(md.n_layers, md.n_nodes, md.n_edges, md.nd_idx.shape[1]),
+            ctypes.c_double(dt),
+            *_ints(iter_yn, tb, threads, _index(md)))
+
+    def launch(adf_v_lim, adf_h_lim, ttf, hnode, hnode_new, fct_LO,
+               del_ttf_advvert, del_ttf_advhoriz, o1, o2, stream):
+        return fn(adf_v_lim, adf_h_lim, ttf, hnode, hnode_new, fct_LO,
+                  del_ttf_advvert, del_ttf_advhoriz, *mesh, o1, o2, *tail,
+                  stream)
+    return launch
+
+
 @tracing.spanned("kernels.update")
 def update(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
            fct_LO, del_ttf_advvert, del_ttf_advhoriz, dt: float,
@@ -626,14 +785,12 @@ def update(md: MeshData, adf_v_lim, adf_h_lim, ttf, hnode, hnode_new,
     dev = _check(md, checks, md.nd_idx.shape[1])
     o1 = torch.empty(_rows(tb, L, N), dtype=md.dtype, device=dev)
     o2 = None if iter_yn else torch.empty_like(o1)
-    _launch("fct_update", md, dev, threads, adf_v_lim.data_ptr(),
-            adf_h_lim.data_ptr(), ttf.data_ptr(), hnode.data_ptr(),
-            hnode_new.data_ptr(), fct_LO.data_ptr(),
+    _launch("fct_update", dev, update_launch(md, dt, iter_yn, tb or 1,
+                                             threads),
+            adf_v_lim.data_ptr(), adf_h_lim.data_ptr(), ttf.data_ptr(),
+            hnode.data_ptr(), hnode_new.data_ptr(), fct_LO.data_ptr(),
             del_ttf_advvert.data_ptr(), del_ttf_advhoriz.data_ptr(),
-            *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn",
-                        "nd_num", "nlev_nod"),
-            o1.data_ptr(), _ptr(o2), L, N, Ed, md.nd_idx.shape[1],
-            float(dt), int(iter_yn), tb or 1)
+            o1.data_ptr(), _ptr(o2))
     update.launches += 1
     return o1, o2
 
@@ -739,17 +896,18 @@ def update_fixup(md: MeshData, fct_plus, fct_minus, fct_adf_h, adf_h_lim,
     lo, hi = _owned(md, owned)
     o1 = torch.empty(_rows(tb, L, N), dtype=md.dtype, device=dev)
     o2 = None if iter_yn else torch.empty_like(o1)
-    _launch("fct_update_fixup", md, dev, threads, adf_v_lim.data_ptr(),
+    _launch("fct_update_fixup", dev, _fn("fct_update_fixup", md),
+            adf_v_lim.data_ptr(),
             adf_h_lim.data_ptr(), ttf.data_ptr(), hnode.data_ptr(),
             hnode_new.data_ptr(), fct_LO.data_ptr(),
             del_ttf_advvert.data_ptr(), del_ttf_advhoriz.data_ptr(),
-            *_mesh_ptrs(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn",
+            *_mesh_args(md, "area_inv", "nd_idx", "nd_lev", "nd_sgn",
                         "nd_num", "nlev_nod"),
             o1.data_ptr(), _ptr(o2), fct_plus.data_ptr(),
             fct_minus.data_ptr(), fct_adf_h.data_ptr(),
             md.nd_other.data_ptr(), _ptr(adf_h_res if iter_yn else None), L,
             N, Ed, md.nd_idx.shape[1], lo, hi, float(dt), int(iter_yn),
-            tb or 1)
+            tb or 1, threads, _index(md))
     update_fixup.launches += 1
     return o1, o2, adf_h_lim, adf_h_res
 
@@ -781,9 +939,10 @@ def a2(md: MeshData, tmax, tmin, bignumber: float, *,
     dev = _check(md, checks, 0)
     uv_max = torch.empty((L, E), dtype=md.dtype, device=dev)
     uv_min = torch.empty_like(uv_max)
-    _launch("fct_a2", md, dev, threads, tmax.data_ptr(), tmin.data_ptr(),
-            *_mesh_ptrs(md, "elem_nodes", "nlev_elem"), uv_max.data_ptr(),
-            uv_min.data_ptr(), L, N, E, float(bignumber))
+    _launch("fct_a2", dev, _fn("fct_a2", md), tmax.data_ptr(),
+            tmin.data_ptr(), *_mesh_args(md, "elem_nodes", "nlev_elem"),
+            uv_max.data_ptr(), uv_min.data_ptr(), L, N, E, float(bignumber),
+            threads, _index(md))
     a2.launches += 1
     return uv_max, uv_min
 
@@ -850,10 +1009,11 @@ def stress2rhs(md: MeshData, slab, inv_areamass, rhs_a, rhs_m, *,
         raise ValueError(f"{E} elements overflow the int32 slot codes")
     dev = _check(md, checks, md.ne_slot.shape[0])
     out = torch.empty((2, N), dtype=md.dtype, device=dev)
-    _launch("stress2rhs", md, dev, threads, slab.data_ptr(),
-            md.ne_slot.data_ptr(),
-            inv_areamass.data_ptr(), rhs_a.data_ptr(), rhs_m.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), N, E, md.ne_slot.shape[0])
+    _launch("stress2rhs", dev, _fn("stress2rhs", md), slab.data_ptr(),
+            md.ne_slot.data_ptr(), inv_areamass.data_ptr(),
+            rhs_a.data_ptr(), rhs_m.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), N, E, md.ne_slot.shape[0], threads,
+            _index(md))
     stress2rhs.launches += 1
     return out[0], out[1]
 

@@ -52,13 +52,24 @@ is that step.  K12 has no tracer axis, so it takes one tracer only.
 
 from __future__ import annotations
 
+import math
+
+import torch
+
 from fesom2_accelerate_tpu_torch.config import FctAleConfig
 from fesom2_accelerate_tpu_torch.ops.cuda import kernels
 from fesom2_accelerate_tpu_torch.ops.cuda.kernels import DEFAULT_THREADS
 from fesom2_accelerate_tpu_torch.ops.meshdata import MeshData
+from fesom2_accelerate_tpu_torch.runtime import tracing
 
 # the fields of a batched state that every tracer shares ([L, N], no axis)
 BATCH_SHARED = frozenset({"hnode", "hnode_new"})
+
+# the state fields that every form of the whole step reads, in the order in
+# which its kernel wrappers check them; K1 reads the first two, K12 the
+# first four
+STEP_INPUTS = ("fct_LO", "ttf", "fct_adf_v", "fct_adf_h", "hnode",
+               "hnode_new", "del_ttf_advvert", "del_ttf_advhoriz")
 
 
 def pre_exchange(md: MeshData, cfg: FctAleConfig, state: dict, *,
@@ -182,11 +193,254 @@ def fct_ale_step_cuda_batched(md: MeshData, cfg: FctAleConfig, state: dict,
     independent single-tracer steps, in the launches of one (K1 -> K2 ->
     K34, or K3 -> K4 when not ``fuse_k34``).  ``fuse_k12`` raises: the
     batched step runs K1 -> K2, as the JAX package's does."""
+    _check_batched(state, fuse_k12)
+    return fct_ale_step_cuda(md, cfg, state, fuse_k34=fuse_k34,
+                             threads=threads)
+
+
+def _check_batched(state: dict, fuse_k12: bool) -> None:
     if fuse_k12:
         raise ValueError("fuse_k12: H-K12 has no tracer axis; a batched "
                          "step runs K1 -> K2")
     if state["ttf"].dim() != 3:
         raise ValueError(f"a batched state holds ttf as [Tb, L, N], got "
                          f"shape {tuple(state['ttf'].shape)}")
-    return fct_ale_step_cuda(md, cfg, state, fuse_k34=fuse_k34,
-                             threads=threads)
+
+
+# --------------------------------------------------------------------------
+# The whole step enqueued from a launch plan
+# --------------------------------------------------------------------------
+
+
+def input_shapes(md: MeshData, tb: int | None) -> dict:
+    """The shape of each of STEP_INPUTS in a state of ``tb`` tracers (None:
+    one tracer, no axis)."""
+    L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+    rows = kernels._rows
+    return dict(fct_LO=rows(tb, L, N), ttf=rows(tb, L, N),
+                fct_adf_v=rows(tb, L + 1, N), fct_adf_h=rows(tb, L, Ed),
+                hnode=(L, N), hnode_new=(L, N),
+                del_ttf_advvert=rows(tb, L, N),
+                del_ttf_advhoriz=rows(tb, L, N))
+
+
+def check_state(md: MeshData, state: dict, *, fuse_k12: bool = False,
+                threads: int = DEFAULT_THREADS) -> int | None:
+    """Tb of ``state`` (None: no tracer axis), after the checks that the
+    whole step's kernel wrappers make of it, with their errors: the block
+    size, the tracer axis (K12 takes none), the incidence slots, then the
+    device, dtype, shape and contiguity of each of STEP_INPUTS against the
+    mesh data's (``kernels.check_tensors``: tensor metadata only, so CPU
+    mesh data and tensors take the same checks)."""
+    slots = md.nd_idx.shape[1]
+    kernels.check_threads(threads, slots)
+    tb = None if fuse_k12 else kernels._tracers(state["fct_LO"])
+    kernels.check_slots(slots)
+    kernels.check_tensors(
+        {k: (state[k], shape) for k, shape in input_shapes(md, tb).items()},
+        md.device, md.dtype)
+    return tb
+
+
+class StepPlan:
+    """One form of the whole step for one mesh data, configuration and
+    state signature (Tb; every input's shape, dtype and device follow from
+    the mesh data): each kernel's launcher with its mesh-data pointers and
+    static scalars bound (``kernels.<kernel>_launch``, the wrappers' own),
+    and the shapes of the inputs and outputs.
+
+    ``plan(state)`` enqueues the step that :func:`fct_ale_step_cuda` does,
+    from the same launchers with the same arguments: the same kernels, in
+    the same order, on the current stream, so the same bits.  The first
+    kernel's inputs (:attr:`first`) must have passed :meth:`fits`; the
+    others are checked once, after its launch, and a call whose fields do
+    not fit raises the wrappers' errors (:func:`check_state`).  Each kernel
+    is its wrapper's span and adds one to its wrapper's ``launches``; its
+    outputs are allocated just before its launch and not checked again.
+    Output pairs that a step always returns together are the two halves of
+    one allocation: fct_ttf_max and fct_ttf_min, the limiter factors (as
+    the wrappers' ``kernels.factor_pair``), the two increments of a
+    non-iterative step.  Every call returns new output tensors."""
+
+    def __init__(self, md: MeshData, cfg: FctAleConfig, tb: int | None, *,
+                 fuse_k12: bool = False, fuse_k34: bool = True,
+                 threads: int = DEFAULT_THREADS):
+        self.md, self.cfg, self.tb = md, cfg, tb
+        self.fuse_k12, self.fuse_k34, self.threads = (fuse_k12, fuse_k34,
+                                                      threads)
+        self.device, self.dtype = md.device, md.dtype
+        fields = tuple((k, torch.Size(shape))
+                       for k, shape in input_shapes(md, tb).items())
+        self.first = fields[:4 if fuse_k12 else 2]
+        self.rest = fields[len(self.first):]
+        L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
+        nodes = kernels._rows(tb, L, N)
+        # the outputs' shapes as one element expanded: torch.empty_like of
+        # one allocates a contiguous tensor of its shape, dtype and device
+        # in less of the host's time than torch.empty given them
+        blank = torch.empty(1, dtype=self.dtype, device=self.device)
+        self.nodes, self.pair = blank.expand(nodes), blank.expand(2, *nodes)
+        self.levels = blank.expand(kernels._rows(tb, L + 1, N))
+        self.edges = blank.expand(kernels._rows(tb, L, Ed))
+        # the offset of a pair's second half
+        self.half = math.prod(nodes) * self.dtype.itemsize
+        k = tb or 1
+        if fuse_k12:
+            self.k12 = kernels.limit_fused_launch(md, cfg.vlimit, cfg.dt,
+                                                  cfg.flux_eps, threads)
+        else:
+            self.k1 = kernels.bounds_launch(md, cfg.vlimit, k, threads)
+            self.k2 = kernels.limit_launch(md, cfg.dt, cfg.flux_eps, k,
+                                           threads)
+        if fuse_k34:
+            self.k34 = kernels.update_fused_launch(md, cfg.dt, cfg.iter_yn, k,
+                                                   threads)
+        else:
+            self.k3 = kernels.b3h_launch(md, k, threads)
+            self.k4 = kernels.update_launch(md, cfg.dt, cfg.iter_yn, k,
+                                            threads)
+
+    def fits(self, state: dict, fields) -> bool:
+        """Whether the tensors of ``state`` named in ``fields`` (pairs of a
+        name and its shape, :attr:`first` or :attr:`rest`) are contiguous,
+        of the plan's shapes, dtype and device."""
+        dtype, device = self.dtype, self.device
+        for k, shape in fields:
+            t = state[k]
+            if (t.shape != shape or t.dtype != dtype or t.device != device
+                    or not t.is_contiguous()):
+                return False
+        return True
+
+    def __call__(self, state: dict) -> dict:
+        tracing.count("solver.plan_steps")
+        with kernels.selected(self.device):
+            return self._enqueue(state, kernels.current_stream(self.device))
+
+    def _check_rest(self, state: dict) -> None:
+        if not self.fits(state, self.rest):
+            check_state(self.md, state, fuse_k12=self.fuse_k12,
+                        threads=self.threads)
+            raise ValueError("the state does not fit its launch plan")
+
+    def _enqueue(self, state: dict, stream: int) -> dict:
+        iter_yn, half, empty, ptr = (self.cfg.iter_yn, self.half,
+                                     torch.empty_like, kernels._ptr)
+        lo, ttf = state["fct_LO"].data_ptr(), state["ttf"].data_ptr()
+        if self.fuse_k12:
+            v, h = state["fct_adf_v"].data_ptr(), state["fct_adf_h"].data_ptr()
+            with tracing.span("kernels.limit_fused"):
+                bounds, factors = empty(self.pair), empty(self.pair)
+                v_lim = empty(self.levels)
+                v_res = empty(self.levels) if iter_yn else None
+                b, f = bounds.data_ptr(), factors.data_ptr()
+                kernels.check_launch("fct_limit_fused", self.k12(
+                    lo, ttf, v, h, b, b + half, f, f + half, v_lim.data_ptr(),
+                    ptr(v_res), stream))
+            kernels.limit_fused.launches += 1
+            self._check_rest(state)
+        else:
+            with tracing.span("kernels.bounds"):
+                bounds = empty(self.pair)
+                b = bounds.data_ptr()
+                kernels.check_launch("fct_bounds",
+                                     self.k1(lo, ttf, b, b + half, stream))
+            kernels.bounds.launches += 1
+            self._check_rest(state)
+            h = state["fct_adf_h"].data_ptr()
+            with tracing.span("kernels.limit"):
+                factors = empty(self.pair)
+                v_lim = empty(self.levels)
+                v_res = empty(self.levels) if iter_yn else None
+                f = factors.data_ptr()
+                kernels.check_launch("fct_limit", self.k2(
+                    state["fct_adf_v"].data_ptr(), b, b + half, h, f,
+                    f + half, v_lim.data_ptr(), ptr(v_res), stream))
+            kernels.limit.launches += 1
+        # stage c's node inputs, in the launchers' order
+        c = (ttf, state["hnode"].data_ptr(),
+             state["hnode_new"].data_ptr(), lo,
+             state["del_ttf_advvert"].data_ptr(),
+             state["del_ttf_advhoriz"].data_ptr())
+        if self.fuse_k34:
+            with tracing.span("kernels.update_fused"):
+                o = empty(self.nodes if iter_yn else self.pair)
+                h_lim = empty(self.edges)
+                h_res = empty(self.edges) if iter_yn else None
+                p = o.data_ptr()
+                kernels.check_launch("fct_update_fused", self.k34(
+                    f, f + half, v_lim.data_ptr(), h, *c, p,
+                    None if iter_yn else p + half, h_lim.data_ptr(),
+                    ptr(h_res), stream))
+            kernels.update_fused.launches += 1
+        else:
+            with tracing.span("kernels.b3h"):
+                h_lim = empty(self.edges)
+                h_res = empty(self.edges) if iter_yn else None
+                kernels.check_launch("fct_b3h", self.k3(
+                    f, f + half, h, h_lim.data_ptr(), ptr(h_res), stream))
+            kernels.b3h.launches += 1
+            with tracing.span("kernels.update"):
+                o = empty(self.nodes if iter_yn else self.pair)
+                p = o.data_ptr()
+                kernels.check_launch("fct_update", self.k4(
+                    v_lim.data_ptr(), h_lim.data_ptr(), *c, p,
+                    None if iter_yn else p + half, stream))
+            kernels.update.launches += 1
+        tmax, tmin = bounds.unbind()
+        plus, minus = factors.unbind()
+        o1, o2 = (o, None) if iter_yn else o.unbind()
+        pre = dict(fct_ttf_max=tmax, fct_ttf_min=tmin, fct_plus=plus,
+                   fct_minus=minus, adf_v_lim=v_lim, adf_v_res=v_res)
+        return _assemble(self.cfg, state, pre, o1, o2, h_lim, h_res)
+
+
+class StepPlans:
+    """A step function of one form, :func:`fct_ale_step_cuda` (or, with
+    ``batched``, :func:`fct_ale_step_cuda_batched`), whose steps on the
+    card are enqueued from launch plans: ``plans(md, cfg, state)`` has
+    their contract and results.  A :class:`StepPlan` is built at the first
+    call of each mesh data, configuration and state signature, and kept;
+    a call checks the state's tensors once against the plan it last used,
+    and looks the plan up anew only where they do not fit it.  Mesh data on
+    the CPU runs the wrappers' plain versions (:func:`fct_ale_step_cuda`),
+    from no plan.  Counters (``runtime/tracing.py``): ``solver.plans_built``
+    and ``solver.plan_steps`` (steps enqueued from a plan)."""
+
+    def __init__(self, *, fuse_k12: bool = False, fuse_k34: bool = True,
+                 batched: bool = False, threads: int = DEFAULT_THREADS):
+        self.fuse_k12, self.fuse_k34 = fuse_k12, fuse_k34
+        self.batched, self.threads = batched, threads
+        # (id of the mesh data, config, Tb) -> plan; each plan holds its
+        # mesh data, so no id is reused while its plan is kept
+        self._plans = {}
+        self._last = None
+
+    def __call__(self, md: MeshData, cfg: FctAleConfig, state: dict) -> dict:
+        if self.batched:
+            _check_batched(state, self.fuse_k12)
+        plan = self._last
+        if (plan is None or plan.md is not md or plan.cfg is not cfg
+                or not plan.fits(state, plan.first)):
+            if md.device.type != "cuda":
+                return fct_ale_step_cuda(md, cfg, state,
+                                         fuse_k12=self.fuse_k12,
+                                         fuse_k34=self.fuse_k34,
+                                         threads=self.threads)
+            plan = self._last = self.plan(md, cfg, state)
+        return plan(state)
+
+    def plan(self, md: MeshData, cfg: FctAleConfig, state: dict) -> StepPlan:
+        """The plan of ``state``'s signature, built at its first call;
+        raises as :func:`check_state` where the state does not fit the mesh
+        data."""
+        tb = check_state(md, state, fuse_k12=self.fuse_k12,
+                         threads=self.threads)
+        key = (id(md), cfg, tb)
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = StepPlan(
+                md, cfg, tb, fuse_k12=self.fuse_k12, fuse_k34=self.fuse_k34,
+                threads=self.threads)
+            tracing.count("solver.plans_built")
+        return plan

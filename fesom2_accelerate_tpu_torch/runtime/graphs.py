@@ -147,7 +147,12 @@ class StepGraphs:
     def run(self, step, state: dict, n_steps: int) -> dict:
         """``n_steps`` of ``step`` (a dict of tensors -> a dict with at
         least the same keys) from ``state``: graph replays where graphs
-        pay for this signature, else the loop."""
+        pay for this signature, else the loop.  A run of fewer than 2
+        steps cannot replay: it is the loop, with no cache key."""
+        if n_steps < 2:
+            if n_steps < 0:
+                raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+            return loop(step, state, n_steps)
         key = self._key(step, state, n_steps)
         if key not in self.choices and n_steps > WARM_STEPS + WATCHED_STEPS:
             state = loop(step, state, WARM_STEPS)  # primes the step

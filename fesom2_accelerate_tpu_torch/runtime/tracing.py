@@ -56,7 +56,11 @@ and the solver's device: ``abi.bytes_registered`` from and to memory it
 page-locked, ``abi.bytes_pageable`` from and to any other, and on a CPU
 solver (``host_embed.py``); ``abi.bytes_out`` those of the results written
 back, and ``abi.bytes_out_early`` the part a step sent on its write-back
-stream behind K2's or K3's end rather than stage c's.
+stream behind K2's or K3's end rather than stage c's.  The solvers' whole
+step on the card counts ``solver.plans_built``, the launch plans it built
+(one a mesh data, configuration and state signature), and
+``solver.plan_steps``, the steps it enqueued from a plan
+(``ops/cuda/step.py`` ``StepPlans``).
 """
 
 from __future__ import annotations
