@@ -3010,8 +3010,9 @@ def abi_demo_case(exe, mesh, key: str, backend: int, device: str,
                   seed: int, env: dict) -> dict:
     """The C demo host's one step of ``backend`` through ``f2t_*_`` on
     ``mesh``, bit for bit against the solver ``host_embed`` builds for it
-    (the plain stages for backend 0, the kernels for 1) on ``device``, on
-    ``random_fields(seed)``; ``env`` is added to the demo's environment.
+    (the plain stages for backend 0, the kernels for 1 and 2) on
+    ``device``, on ``random_fields(seed)``; ``env`` is added to the demo's
+    environment.
     Returns the fields the demo wrote back."""
     import tempfile
 
@@ -3077,8 +3078,8 @@ def abi_timed(mesh, fields: dict, backend: int) -> tuple:
                              f"on core2")
     try:
         solver = host_embed.session().solver
-        want = ("torch", torch.float64) if backend == 0 else (
-            "cuda", torch.float32)
+        want = {0: ("torch", torch.float64), 1: ("cuda", torch.float32),
+                2: ("cuda", torch.float64)}[backend]
         devs = {t.device.type for t in vars(solver.md).values()
                 if isinstance(t, torch.Tensor)}
         if (solver.backend, solver.cfg.dtype) != want or devs != {"cuda"} \
@@ -3139,13 +3140,14 @@ def phase_host_abi(card: str, meshes: dict) -> None:
     """Phase 12: the host-embedding ABI.  Builds the shim and its C demo
     host (g++); the demo runs one step of each of ABI_CASES through
     ``f2t_*_``, bit for bit against the solver of its backend and device:
-    backend 1 (the CUDA kernels, f32) on core2; backend 0 (the plain
-    stages, f64) on core2 on the card, also within GT_TOL of the port's
-    oracle (phase 13's step, on its fields), and on small on the CPU, asked
-    for with FESOM2_TORCH_DEVICE=cpu.  Then ABI_STEPS calls of
-    ``host_embed.step`` of backend 1 (K1, K2, K3, K4-fix a call) and of
-    backend 0 on core2, each timed whole; backend 0's on the card,
-    launching no kernel of the port; the buffers bit for bit the demo's."""
+    backend 1 (the CUDA kernels, f32) on core2; backends 0 (the plain
+    stages, f64) and 2 (the CUDA kernels, f64) on core2 on the card, each
+    also within GT_TOL of the port's oracle (phase 13's step, on its
+    fields); backend 0 on small on the CPU, asked for with
+    FESOM2_TORCH_DEVICE=cpu.  Then ABI_STEPS calls of ``host_embed.step``
+    of backends 1 and 2 (K1, K2, K3, K4-fix a call) and of backend 0 on
+    core2, each timed whole; backend 0's on the card, launching no kernel
+    of the port; the buffers bit for bit the demo's."""
     from fesom2_accelerate_tpu_torch.mesh import random_fields
     from fesom2_accelerate_tpu_torch.native import build
 
@@ -3160,17 +3162,20 @@ def phase_host_abi(card: str, meshes: dict) -> None:
     mesh = meshes["core2"]
     gt_fields = random_fields(mesh, seed=GT_SEED, dtype=np.float64)
     ref, _ = gt_oracle_step("core2", mesh, gt_fields, 1, False)
-    worst = max(masked_allclose(v, ref[k], msg=f"demo core2 backend 0 {k} "
-                                f"vs the oracle")
-                for k, v in outs["core2", 0].items())
-    print(f"C demo host, core2, backend 0 (cuda): {sorted(outs['core2', 0])}"
-          f" within {GT_TOL:.0e} of the port's oracle (max abs diff "
-          f"{worst:.3e})", flush=True)
+    for backend in (0, 2):
+        worst = max(masked_allclose(v, ref[k], msg=f"demo core2 backend "
+                                    f"{backend} {k} vs the oracle")
+                    for k, v in outs["core2", backend].items())
+        print(f"C demo host, core2, backend {backend} (cuda): "
+              f"{sorted(outs['core2', backend])} within {GT_TOL:.0e} of the "
+              f"port's oracle (max abs diff {worst:.3e})", flush=True)
 
-    fields = {0: gt_fields, 1: random_fields(mesh, seed=0, dtype=np.float64)}
-    expect = {0: {}, 1: {"bounds": ABI_STEPS, "limit": ABI_STEPS,
-                         "b3h": ABI_STEPS, "update_fixup": ABI_STEPS}}
-    for backend in (1, 0):
+    fields = {0: gt_fields, 1: random_fields(mesh, seed=0, dtype=np.float64),
+              2: gt_fields}
+    kernels = {"bounds": ABI_STEPS, "limit": ABI_STEPS, "b3h": ABI_STEPS,
+               "update_fixup": ABI_STEPS}
+    expect = {0: {}, 1: kernels, 2: kernels}
+    for backend in (1, 2, 0):
         times, counts, bufs, mem = abi_timed(mesh, fields[backend], backend)
         check_counts(counts, expect[backend], f"ABI steps, backend "
                      f"{backend}")
@@ -3221,6 +3226,7 @@ GT_ORACLE = {}
 # 13's fields, and so its oracle step
 ABI_CASES = (("core2", 1, "cuda", 0, {}),
              ("core2", 0, "cuda", GT_SEED, {}),
+             ("core2", 2, "cuda", GT_SEED, {}),
              ("small", 0, "cpu", 0, {"FESOM2_TORCH_DEVICE": "cpu"}))
 
 

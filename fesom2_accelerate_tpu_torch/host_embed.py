@@ -27,13 +27,16 @@ Backends:
   float64 on the card, the correctness path, as the reference ships
   ``src/reference.cpp`` and the JAX shim's backend 0 runs XLA's plain f64
   stages on the chip.  It launches none of the port's kernels, so it stays
-  independent of backend 1.  It runs on the CPU only where the caller asks
-  for it: ``FESOM2_TORCH_DEVICE=cpu`` in the environment (read at
-  :func:`setup`), in the role ``JAX_PLATFORMS=cpu`` plays for the JAX
+  independent of backends 1 and 2.  It runs on the CPU only where the
+  caller asks for it: ``FESOM2_TORCH_DEVICE=cpu`` in the environment (read
+  at :func:`setup`), in the role ``JAX_PLATFORMS=cpu`` plays for the JAX
   shim, since the ABI passes only integers;
-* 1: the CUDA kernels in float32 (``flux_eps=1e-7``) on the card.
+* 1: the CUDA kernels in float32 (``flux_eps=1e-7``) on the card;
+* 2: the CUDA kernels in float64 (``flux_eps=1e-16``) on the card: FESOM2's
+  own working precision (``WP = 8``), as the reference library builds its
+  kernels on ``real_type = double`` (include/fesom2-accelerate.h:10).
 
-Either backend on a host with no card, and backend 1 asked for the CPU,
+Any backend on a host with no card, and backend 1 or 2 asked for the CPU,
 make :func:`setup` say why and return 1; nothing falls back to the CPU and
 nothing stands in for the kernels.  Unset or ``cuda``, the variable means
 the card (the current device, which ``parallel/distributed.py``
@@ -48,8 +51,11 @@ Copies.  Every call copies each input buffer to the solver's device in
 f64 and casts it there to the config's dtype (bit for bit the host's
 round-to-nearest cast), casts each result to f64 there and copies it
 straight into the caller's buffer, and, on the card, waits for its copies
-before it returns.  Nothing is skipped or kept on the device between
-calls: every call moves every buffer.  Every entry point runs the solver's
+before it returns.  Where the config's dtype is f64 (backends 0 and 2) no
+cast happens: the copy the DMA lands in is the solver's state, and a
+result goes back from the tensor the phase wrote (:func:`_cast`).  Nothing
+is skipped or kept on the device between calls: every call moves every
+buffer.  Every entry point runs the solver's
 three phases (``FctAleSolver.pre_comm``, ``inter_comm``, ``post_comm``;
 every column owned, a whole step's bits) under one copy plan
 (:data:`INPUTS`, :data:`RESULTS`): each input by the phase that first reads
@@ -119,7 +125,10 @@ counters ``abi.bytes_registered`` and ``abi.bytes_pageable`` add up the
 bytes of the caller's buffers that moved from and to page-locked memory
 and from and to any other, ``abi.bytes_out`` those of the results written
 back and ``abi.bytes_out_early`` the part of them copied on the
-write-back stream behind K2's or K3's end rather than stage c's.
+write-back stream behind K2's or K3's end rather than stage c's;
+``abi.bytes_cast`` the f64 bytes cast on the device between the caller's
+f64 and the solver's dtype, both ways: every byte of the ABI's traffic
+under backend 1, none under backends 0 and 2.
 """
 
 from __future__ import annotations
@@ -149,6 +158,10 @@ __all__ = ["setup", "setup_part", "dims", "step", "pre_comm", "post_comm",
 
 # the environment variable by which a caller asks for the CPU (backend 0)
 DEVICE_ENV = "FESOM2_TORCH_DEVICE"
+# each backend's dtype and limiter guard ``flux_eps``: 0 the plain stages,
+# 1 and 2 the CUDA kernels (module docstring)
+BACKENDS = {0: (torch.float64, 1e-16), 1: (torch.float32, 1e-7),
+            2: (torch.float64, 1e-16)}
 # the limiter factors a rank's host exchanges between pre_comm and post_comm
 FACTORS = ("fct_plus", "fct_minus")
 # The copy plan of a step.  Each of the eight input buffers by the phase of
@@ -293,8 +306,8 @@ _SESSION: Session | None = None
 
 
 class NoDevice(RuntimeError):
-    """A backend on a host with no CUDA device, or backend 1 asked for the
-    CPU."""
+    """A backend on a host with no CUDA device, or backend 1 or 2 asked for
+    the CPU."""
 
 
 class BadDevice(ValueError):
@@ -312,19 +325,15 @@ def _view(addr: int, shape, dtype) -> np.ndarray:
 
 def config(backend: int, dt_milli: int, vlimit: int,
            iter_yn: int) -> FctAleConfig:
-    """The config of ``backend``: float64 for 0, float32 with
-    ``flux_eps=1e-7`` for 1.  ``dt_milli`` is the timestep in 1e-3 units
-    (the ABI passes integers only)."""
-    if backend == 0:
-        return FctAleConfig(dt=dt_milli * 1e-3, vlimit=vlimit,
-                            iter_yn=bool(iter_yn), dtype=torch.float64)
-    if backend == 1:
-        return FctAleConfig(dt=dt_milli * 1e-3, vlimit=vlimit,
-                            iter_yn=bool(iter_yn), dtype=torch.float32,
-                            flux_eps=1e-7)
-    raise ValueError(f"backend must be 0 (torch f64 on the card, or on the "
-                     f"CPU with {DEVICE_ENV}=cpu) or 1 (CUDA kernels f32), "
-                     f"got {backend}")
+    """The config of ``backend`` (:data:`BACKENDS`).  ``dt_milli`` is the
+    timestep in 1e-3 units (the ABI passes integers only)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be 0 (torch f64 on the card, or on "
+                         f"the CPU with {DEVICE_ENV}=cpu), 1 (CUDA kernels "
+                         f"f32) or 2 (CUDA kernels f64), got {backend}")
+    dtype, flux_eps = BACKENDS[backend]
+    return FctAleConfig(dt=dt_milli * 1e-3, vlimit=vlimit,
+                        iter_yn=bool(iter_yn), dtype=dtype, flux_eps=flux_eps)
 
 
 def _device(backend: int) -> torch.device:
@@ -336,12 +345,13 @@ def _device(backend: int) -> torch.device:
         raise BadDevice(f"{DEVICE_ENV}={asked!r}: unset or 'cuda' runs on "
                         f"the card, 'cpu' runs backend 0 on the CPU")
     if asked == "cpu":
-        if backend == 1:
-            raise NoDevice(f"backend 1 runs the CUDA kernels and needs a "
-                           f"CUDA device: {DEVICE_ENV}=cpu asks for the CPU")
+        if backend != 0:
+            raise NoDevice(f"backend {backend} runs the CUDA kernels and "
+                           f"needs a CUDA device: {DEVICE_ENV}=cpu asks for "
+                           f"the CPU")
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        what = ("runs the CUDA kernels" if backend == 1 else
+        what = ("runs the CUDA kernels" if backend != 0 else
                 f"runs the plain f64 step on the card (or on the CPU with "
                 f"{DEVICE_ENV}=cpu)")
         raise NoDevice(f"backend {backend} {what} and needs a CUDA device: "
@@ -351,7 +361,7 @@ def _device(backend: int) -> torch.device:
 
 def _solver(mesh: Mesh, cfg: FctAleConfig, backend: int) -> FctAleSolver:
     # backend 0 is the plain stages wherever it runs, as the JAX shim's
-    # backend 0 is XLA's; backend 1 the kernels
+    # backend 0 is XLA's; backends 1 and 2 the kernels
     return FctAleSolver(mesh, cfg, "torch" if backend == 0 else "cuda",
                         device=_device(backend))
 
@@ -531,6 +541,16 @@ def _counted(a: np.ndarray) -> None:
                   a.nbytes)
 
 
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` cast to ``dtype`` on its device, counting its f64 bytes under
+    ``abi.bytes_cast``; ``t`` itself, and nothing counted, where it is in
+    ``dtype`` already."""
+    if t.dtype == dtype:
+        return t
+    tracing.count("abi.bytes_cast", t.numel() * 8)
+    return t.to(dtype)
+
+
 @tracing.spanned("abi.copy_in")
 def copy_in(host: dict) -> dict:
     """Copies the fields of :func:`views` to the solver's device in f64,
@@ -560,15 +580,16 @@ def _phase(s: Session, staged: dict, state: dict, name: str, *args):
     """The solver's phase ``name`` (``pre_comm``, ``inter_comm``,
     ``post_comm``) on the compute lane, on ``state`` and ``args``: first
     the inputs it reads first (:data:`INPUTS`) taken from ``staged`` and
-    cast to the config's dtype, each after its copy's event; then, where
-    the results go back on a stream of their own, the event after which
-    the phase's are final (``s.done``)."""
+    cast to the config's dtype (:func:`_cast`: in f64 the copy itself),
+    each after its copy's event; then, where the results go back on a
+    stream of their own, the event after which the phase's are final
+    (``s.done``)."""
     for k, first in INPUTS:
         if first == name:
             t, ready = staged.pop(k)
             if ready is not None:
                 s.lanes.compute.wait_event(ready)
-            state[k] = t.to(s.cfg.dtype)
+            state[k] = _cast(t, s.cfg.dtype)
     result = getattr(s.solver, name)(state, *args)
     if s.lanes.back is not None:
         s.done[name] = _event(s.lanes.compute)
@@ -596,7 +617,7 @@ def copy_out(out: dict, host: dict) -> None:
             tracing.count("abi.bytes_out", host[k].nbytes)
             if back is not None and phase != "post_comm":
                 tracing.count("abi.bytes_out_early", host[k].nbytes)
-            torch.from_numpy(host[k]).copy_(t.to(torch.float64),
+            torch.from_numpy(host[k]).copy_(_cast(t, torch.float64),
                                             non_blocking=True)
     _wait(s)
 
@@ -660,7 +681,7 @@ def factors_out(pair: torch.Tensor, factors: dict):
     stream.  Returns an event behind the copies on the card, None on the
     CPU, where they are done."""
     s = session()
-    both = pair.to(torch.float64)
+    both = _cast(pair, torch.float64)
     for k, v in zip(FACTORS, both):
         _counted(factors[k])
         torch.from_numpy(factors[k]).copy_(v, non_blocking=True)
@@ -680,8 +701,8 @@ def factors_in(pair: torch.Tensor, factors: dict) -> None:
     for half, k in zip(pair, FACTORS):
         halo = factors[k][:, s.n_owned:]
         tracing.count("abi.bytes_pageable", halo.nbytes)
-        half[:, s.n_owned:] = torch.from_numpy(halo).to(
-            s.solver.device, non_blocking=True, copy=True).to(s.cfg.dtype)
+        half[:, s.n_owned:] = _cast(torch.from_numpy(halo).to(
+            s.solver.device, non_blocking=True, copy=True), s.cfg.dtype)
 
 
 @tracing.spanned("abi.pre_comm")
@@ -692,7 +713,7 @@ def pre_comm(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int,
     """A rank's step up to its host's exchange (the reference's
     ``fct_ale_pre_comm_acc_``) on the eight f64 buffers of :func:`step`
     and two f64 factor buffers ``fct_plus``, ``fct_minus`` [L, N]: the
-    eight copied in (:func:`copy_in`), K1, K2 (backend 1) or the plain
+    eight copied in (:func:`copy_in`), K1, K2 (backends 1, 2) or the plain
     stages a1..b2 (backend 0), the factors of every column written into
     the two buffers (:func:`factors_out`), then the work that reads no
     exchanged value enqueued (K3, or b3 vertical), which the card does
@@ -727,8 +748,8 @@ def post_comm(ttf_a: int, lo_a: int, adf_v_a: int, adf_h_a: int,
     ``fct_ale_post_comm_acc_``), on the ten buffers of the
     :func:`pre_comm` before it: the factors' halo columns copied in
     (:func:`factors_in`), the inputs only stage c reads cast, K4-fix on
-    the owned columns (backend 1) or the plain b3 and stage c (backend 0),
-    and the results written into the caller's buffers as :func:`step`
+    the owned columns (backends 1, 2) or the plain b3 and stage c (backend
+    0), and the results written into the caller's buffers as :func:`step`
     writes them (:func:`copy_out`), every copy on the current stream.
     Returns 0, or 1 on failure (no pre_comm before it, or other
     buffers)."""

@@ -8,7 +8,8 @@
 // This shim embeds CPython and drives fesom2_accelerate_tpu_torch.host_embed,
 // which wraps the caller's buffers zero-copy and runs the port's step on the
 // card: the plain float64 step (backend 0; on the CPU only where the caller
-// sets FESOM2_TORCH_DEVICE=cpu) or the CUDA kernels (backend 1).  Its
+// sets FESOM2_TORCH_DEVICE=cpu) or the CUDA kernels (backend 1 in float32,
+// backend 2 in float64).  Its
 // extern "C" block has the names and parameter lists of the JAX package's
 // native/fesom2_tpu_host.cpp, so a host links either library unchanged,
 // and three more for an MPI rank's partition: f2t_setup_part_ and the
@@ -144,9 +145,10 @@ void f2t_init_(int *istat) {
 // alloc_var_ phase).  elem_nodes: [n_elems, 3] int32 row-major, 0-based;
 // nlev_elem: [n_elems] int32; node_xy: [n_nodes, 2] f64.
 // backend: 0 = plain torch f64 on the card (correctness; on the CPU where
-// FESOM2_TORCH_DEVICE=cpu), 1 = CUDA kernels f32 on the card (istat 1
-// where there is no card; either backend then).  dt_milli: timestep in
-// 1e-3 units.
+// FESOM2_TORCH_DEVICE=cpu), 1 = CUDA kernels f32 (flux_eps 1e-7) on the
+// card, 2 = CUDA kernels f64 (flux_eps 1e-16, FESOM2's own precision) on
+// the card.  istat 1 where there is no card (any backend then), and for
+// any other backend number.  dt_milli: timestep in 1e-3 units.
 void f2t_setup_(const int *n_elems, const int *nl, const int *elem_nodes,
                 const int *nlev_elem, const int *n_nodes,
                 const double *node_xy, const int *dt_milli, const int *vlimit,

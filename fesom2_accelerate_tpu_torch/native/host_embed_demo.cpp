@@ -6,6 +6,7 @@
 //
 // Usage: host_embed_demo <dir>
 //   <dir>/meta.txt:  n_elems nl n_nodes dt_milli vlimit iter_yn backend
+//                    (backend 0 plain f64, 1 kernels f32, 2 kernels f64)
 //   <dir>/*.bin:     raw little-endian arrays (see loads below)
 // Writes <dir>/out_{adf_v,adf_h,del_v,del_h,fct_LO}.bin after one step.
 // Exit codes: 0 done; 2 bad input files; 3-7 the ABI call that failed

@@ -56,7 +56,10 @@ and the solver's device: ``abi.bytes_registered`` from and to memory it
 page-locked, ``abi.bytes_pageable`` from and to any other, and on a CPU
 solver (``host_embed.py``); ``abi.bytes_out`` those of the results written
 back, and ``abi.bytes_out_early`` the part a step sent on its write-back
-stream behind K2's or K3's end rather than stage c's.  The solvers' whole
+stream behind K2's or K3's end rather than stage c's; ``abi.bytes_cast``
+the f64 bytes it cast on the device between the caller's f64 and the
+solver's dtype, both ways (backend 1 casts all its traffic, backends 0 and
+2 none).  The solvers' whole
 step on the card counts ``solver.plans_built``, the launch plans it built
 (one a mesh data, configuration and state signature), and
 ``solver.plan_steps``, the steps it enqueued from a plan

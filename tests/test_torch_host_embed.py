@@ -30,7 +30,8 @@ over ``host_embed``), the counterpart of tests/test_native.py:108-181.
   buffers bit for bit those of a witness that casts on the host; two
   buffers on one page both registered; a changed size registered anew; a
   refused registration counts the buffer's bytes under
-  ``abi.bytes_pageable``; ``reset`` (and a new ``setup``) unregisters
+  ``abi.bytes_pageable``; backend 1 counts every byte it moves under
+  ``abi.bytes_cast`` too; ``reset`` (and a new ``setup``) unregisters
   everything; a CPU solver registers nothing;
 * the copy plan (``host_embed.INPUTS``, ``RESULTS``) holds each input and
   each result once, for both backends and ``iter_yn`` values, and each
@@ -556,6 +557,13 @@ def _out(bufs: list, iter_yn: bool) -> int:
     return sum(b[k].nbytes for b in bufs for k in _outputs(iter_yn))
 
 
+def _casts(backend: int, moved: int) -> dict:
+    """The counter ``abi.bytes_cast`` of a session that moved ``moved``
+    bytes: backend 1 casts every one between the host's f64 and f32;
+    backend 0 (f64) none, so it has no key."""
+    return {"abi.bytes_cast": moved} if backend == 1 else {}
+
+
 def _early(bufs: list, backend: int, steps: int) -> dict:
     """The counter ``abi.bytes_out_early`` after ``steps`` steps of every
     tracer on a card: backend 1 writes back the fluxes K2 and K3 finalise
@@ -593,7 +601,9 @@ def test_each_buffer_registered_once(toy, monkeypatch, backend, iter_yn):
     assert tracing.counters() == {"abi.bytes_registered":
                                   3 * _moved(bufs, iter_yn),
                                   "abi.bytes_out": 3 * _out(bufs, iter_yn),
-                                  **_early(bufs, backend, 3)}
+                                  **_early(bufs, backend, 3),
+                                  **_casts(backend, 3 * _moved(bufs,
+                                                               iter_yn))}
     for got, w in zip(bufs, want):
         _assert_same_bits(got, w)
 
@@ -628,7 +638,8 @@ def test_refused_registration_takes_the_pageable_path(toy, monkeypatch,
     assert tracing.counters() == {
         "abi.bytes_pageable": pageable,
         "abi.bytes_registered": 2 * _moved(bufs, False) - pageable,
-        "abi.bytes_out": 2 * _out(bufs, False), **_early(bufs, 1, 2)}
+        "abi.bytes_out": 2 * _out(bufs, False), **_early(bufs, 1, 2),
+        **_casts(1, 2 * _moved(bufs, False))}
     _assert_same_bits(b, want[0])
 
 
@@ -658,7 +669,8 @@ def test_a_shared_page_registers_both(toy, monkeypatch):
     assert tracing.counters() == {"abi.bytes_registered":
                                   2 * _moved(bufs, False),
                                   "abi.bytes_out": 2 * _out(bufs, False),
-                                  **_early(bufs, 1, 2)}
+                                  **_early(bufs, 1, 2),
+                                  **_casts(1, 2 * _moved(bufs, False))}
     _assert_same_bits(b, want[0])
 
 
@@ -940,7 +952,8 @@ def test_pipelined_step_on_fake_streams(toy, monkeypatch, iter_yn):
         e[1] == "sync" for e in one[-3:])
     assert tracing.counters() == {
         "abi.bytes_registered": 3 * _moved(bufs, iter_yn),
-        "abi.bytes_out": 3 * _out(bufs, iter_yn), **_early(bufs, 1, 3)}
+        "abi.bytes_out": 3 * _out(bufs, iter_yn), **_early(bufs, 1, 3),
+        **_casts(1, 3 * _moved(bufs, iter_yn))}
 
 
 def test_a_failed_pipelined_step_waits_for_its_streams(toy, monkeypatch,

@@ -7,11 +7,13 @@ neither, without the suite's ``conftest.py``::
 
     python -m pytest --noconftest tests/test_torch_host_embed_card.py
 
-* on the ``toy`` mesh and at core2 width, backends 1 and 0, ``iter_yn``
-  both ways: after two steps the caller's eight buffers are bit for bit
-  those of the pageable path (the cast on the host, ``.cpu()``, numpy's
-  write, kept here as the witness) from the same inputs, every byte went
-  by DMA of registered memory, and ``reset`` unregistered every buffer;
+* on the ``toy`` mesh and at core2 width, backends 1, 0 and 2,
+  ``iter_yn`` both ways: after two steps the caller's eight buffers are
+  bit for bit those of the pageable path (the cast on the host,
+  ``.cpu()``, numpy's write, kept here as the witness) from the same
+  inputs, every byte went by DMA of registered memory, backend 1 cast
+  every byte on the card and backends 0 and 2 none (``abi.bytes_cast``),
+  and ``reset`` unregistered every buffer;
 * a buffer the caller had page-locked itself: CUDA refuses the session's
   registration, the CUDA runtime's error is cleared, the buffer is copied
   from and to pageable memory and the buffers are still the witness's bit
@@ -26,16 +28,20 @@ neither, without the suite's ``conftest.py``::
   steps the caller's buffers are bit for bit those of the serial order
   (``FctAleSolver.step`` on the f64 inputs cast on the card, its results
   cast back there), each step counts the two fluxes' bytes early and
-  every result's written back, and ``abi.bytes_registered`` grows by the
-  eight buffers in and the results out; a buffer read as soon as
+  every result's written back, and ``abi.bytes_registered`` and
+  ``abi.bytes_cast`` grow by the eight buffers in and the results out; a
+  buffer read as soon as
   ``step`` returns is the one read after a ``torch.cuda.synchronize()``;
-* a rank's phases, backends 1 and 0: on one part with no halo at core2
-  width, ``pre_comm`` then ``post_comm`` give the buffers of ``step`` bit
-  for bit, every factor column written; 2 stripes of core2 in two
-  processes on the card (``tests/phases_ranks.py``, gloo) match the
-  plain whole-mesh reference ``portbench/reference/fct.py`` after 1 and 3
-  steps, at the ABI cell's limit 2e-4 (backend 1) and at 1e-12 (backend
-  0), and do not with the exchange skipped.
+* a rank's phases, backends 1, 0 and 2: on one part with no halo at
+  core2 width, ``pre_comm`` then ``post_comm`` give the buffers of
+  ``step`` bit for bit, every factor column written; 2 stripes of core2
+  in two processes on the card (``tests/phases_ranks.py``, gloo) match
+  the plain whole-mesh reference ``portbench/reference/fct.py`` after 1
+  and 3 steps, at the ABI cell's limit 2e-4 (backend 1) and at 1e-12
+  (backends 0 and 2), and do not with the exchange skipped;
+* backend 2, the kernels in float64, within 1e-12 of backend 0 at core2
+  width after three calls, by ``step`` and by ``pre_comm`` /
+  ``post_comm`` on one part, ``iter_yn`` both ways.
 """
 
 import mmap
@@ -135,7 +141,7 @@ def _assert_same_bits(got: dict, want: dict) -> None:
 
 
 @pytest.mark.parametrize("iter_yn", [False, True])
-@pytest.mark.parametrize("backend", [1, 0])
+@pytest.mark.parametrize("backend", [1, 0, 2])
 @pytest.mark.parametrize("preset", ["toy", "core2"])
 def test_buffers_bit_identical_to_the_pageable_path(card, meshes, preset,
                                                     backend, iter_yn):
@@ -156,8 +162,10 @@ def test_buffers_bit_identical_to_the_pageable_path(card, meshes, preset,
     out = sum(bufs[k].nbytes for k in _outputs(iter_yn))
     moved = sum(v.nbytes for v in bufs.values()) + out
     early = {"abi.bytes_out_early": STEPS * _early(bufs)} if backend else {}
+    cast = {"abi.bytes_cast": STEPS * moved} if backend == 1 else {}
     assert tracing.counters() == {"abi.bytes_registered": STEPS * moved,
-                                  "abi.bytes_out": STEPS * out, **early}
+                                  "abi.bytes_out": STEPS * out, **early,
+                                  **cast}
     _assert_same_bits(bufs, want)
     # reset unregistered them: each registers again, and is released
     cudart = torch.cuda.cudart()
@@ -299,7 +307,8 @@ def test_pipelined_step_is_the_serial_order(card, meshes, preset, iter_yn):
             assert host_embed.session().streams is not None
             assert tracing.counters() == {
                 "abi.bytes_registered": n * moved, "abi.bytes_out": n * out,
-                "abi.bytes_out_early": n * _early(bufs)}
+                "abi.bytes_out_early": n * _early(bufs),
+                "abi.bytes_cast": n * moved}
     finally:
         host_embed.reset()
     _assert_same_bits(bufs, want)
@@ -326,7 +335,7 @@ def test_buffers_whole_when_step_returns(card, meshes):
         host_embed.reset()
 
 
-@pytest.mark.parametrize("backend", [1, 0])
+@pytest.mark.parametrize("backend", [1, 0, 2])
 def test_phases_on_one_part_are_the_step(card, meshes, backend):
     mesh = _mesh(meshes, "core2")
     fields = random_fields(mesh, seed=16, dtype=np.float64)
@@ -355,11 +364,11 @@ def test_phases_on_one_part_are_the_step(card, meshes, backend):
 
 
 # the whole-mesh reference's limits: the ABI cell's (f32 kernels), f64's
-PART_LIMITS = {1: 2e-4, 0: 1e-12}
+PART_LIMITS = {1: 2e-4, 0: 1e-12, 2: 1e-12}
 CORE2 = (420, 303, 48)  # the configuration's planar mesh: nx, ny, nl
 
 
-@pytest.mark.parametrize("backend", [1, 0])
+@pytest.mark.parametrize("backend", [1, 0, 2])
 def test_two_parts_in_two_processes_match_the_reference(card, tmp_path,
                                                         backend):
     steps = [1, 3]
@@ -385,3 +394,47 @@ def test_two_parts_in_two_processes_match_the_reference(card, tmp_path,
             print(f"backend {backend}, step {s}, exchanged {exchanged}: "
                   f"relerr {err:.3e}")
             assert (err <= PART_LIMITS[backend]) == exchanged, err
+
+
+def _three_calls(mesh, fields: dict, backend: int, iter_yn: bool,
+                 phases: bool) -> dict:
+    """The caller's buffers after three calls of ``backend`` on a session
+    of one part with no halo: ``step``, or ``pre_comm`` then
+    ``post_comm``."""
+    bufs = {k: _own_pages(np.asarray(fields[k], np.float64))
+            for k, _ in demo.FIELD_FILES}
+    factors = [_own_pages(np.zeros(bufs["ttf"].shape)) for _ in range(2)]
+    en = np.ascontiguousarray(mesh.elem_nodes, np.int32)
+    nl = np.ascontiguousarray(mesh.nlev_elem, np.int32)
+    xy = np.ascontiguousarray(mesh.node_xy, np.float64)
+    ten = [bufs[k].ctypes.data for k, _ in demo.FIELD_FILES] + [
+        a.ctypes.data for a in factors]
+    try:
+        assert host_embed.setup_part(mesh.n_elems, mesh.nl, en.ctypes.data,
+                                     nl.ctypes.data, mesh.n_nodes,
+                                     mesh.n_nodes, xy.ctypes.data, DT_MILLI,
+                                     1, int(iter_yn), backend) == 0
+        for _ in range(3):
+            if phases:
+                assert host_embed.pre_comm(*ten) == 0
+                assert host_embed.post_comm(*ten) == 0
+            else:
+                assert host_embed.step(*ten[:8]) == 0
+    finally:
+        host_embed.reset()
+    return {k: torch.from_numpy(bufs[k]) for k in _outputs(iter_yn)}
+
+
+@pytest.mark.parametrize("phases", [False, True], ids=["step", "phases"])
+@pytest.mark.parametrize("iter_yn", [False, True])
+def test_backend2_is_backend0_in_float64(card, meshes, iter_yn, phases):
+    mesh = _mesh(meshes, "core2")
+    fields = random_fields(mesh, seed=19, dtype=np.float64)
+    tracing.reset_counters()
+    got = _three_calls(mesh, fields, 2, iter_yn, phases)
+    assert "abi.bytes_cast" not in tracing.counters()
+    want = _three_calls(mesh, fields, 0, iter_yn, phases)
+    err = relerr(got, want)
+    print(f"backend 2 vs 0, iter_yn {iter_yn}, phases {phases}: relerr "
+          f"{err:.3e}")
+    assert err <= PART_LIMITS[2], err
