@@ -34,7 +34,9 @@ Phases (each raises on failure, so the script exits non-zero):
    backend: the default on a CUDA device, which must be "cuda") on core2,
    float32, dt=0.5, flux_eps=1e-7, vlimit 1, against the same 20 steps of
    ``backend="torch"`` on the card, with each kernel's launch count, and
-   the time per step of both paths (CUDA events, best of 3); one line per
+   the time per step of both paths (CUDA events, best of 3); H-K12, H-K3
+   and H-K4, the kernels of that step, each beside its plain version at
+   the main path's state (device time, stream held); one line per
    kernel of the default step, of the split chain and H-K12 (H-K1, H-K2,
    H-K34, H-K3, H-K4, H-K12, K4-fix) at 128 threads, at core2's shapes and at
    those of its part 1 of 4 (the sharded step's): registers
@@ -105,7 +107,7 @@ Phases (each raises on failure, so the script exits non-zero):
       x iter_yn in float32 and float64, a second launch bit-identical;
    b. 20 core2 f32 steps of ``FctAleSolver(backend="cuda")`` in each of the
       four forms (``fuse_k12`` x ``fuse_k34``) against the default
-      K1 -> K2 -> K34, within MAIN_RELERR, with 2, 3 or 4 launches per
+      K12 -> K3 -> K4, within MAIN_RELERR, with 2, 3 or 4 launches per
       step; the step time of each form (events around 20 steps, best of
       3); H-K12 beside H-K1 + H-K2 and its plain version, H-A2 beside its
       plain version (device time, stream held); the plain stages of the
@@ -113,19 +115,20 @@ Phases (each raises on failure, so the script exits non-zero):
    c. a short run of the tuning harness (``utils/tuning.py``): ``tune_a2``
       and ``tune_step`` at 128 and 256 threads on core2, every
       configuration validated against the float64 gate before it is timed;
-8. the multi-tracer path (the tracer axis of H-K1, H-K2, H-K3, H-K3fix,
-   H-K4 in both forms and H-K34; tracer t from ``random_fields(seed=t)``,
+8. the multi-tracer path (the tracer axis of H-K1, H-K2, H-K12, H-K3,
+   H-K3fix, H-K4 in both forms and H-K34; tracer t from ``random_fields(seed=t)``,
    ``hnode`` and ``hnode_new`` shared, as ``bench.py`` makes them):
-   a. each of the seven wrappers at 3 tracers on small and core2 (f32
+   a. each of the eight wrappers at 3 tracers on small and core2 (f32
       vlimit 1 both ways and vlimit 3, f64 iterative; K4-fix with every
       column owned, a whole mesh's case, where it is K4) against 3
       launches at Tb = 1, bit for bit (largest difference printed), and
       against its batched plain version at phase 3's tolerances;
    b. 20 core2 f32 steps of ``FctAleSolver(backend="cuda").run_tracers`` at
-      4 tracers, ``fuse_k34`` both ways, against 20 single-tracer CUDA runs
-      of each tracer, bit for bit, with 3 (or 4) launches a step;
-   c. a float64 ``step_tracers`` on small (vlimit 1/3 x iter_yn x
-      ``fuse_k34``) against the plain step per tracer, 1e-12;
+      4 tracers, in the default form K12 -> K3 -> K4, in K1 -> K2 -> K34
+      and in K1 -> K2 -> K3 -> K4, against 20 single-tracer CUDA runs of
+      each tracer, bit for bit, with 3 (or 4) launches a step;
+   c. a float64 ``step_tracers`` on small (vlimit 1/3 x iter_yn x those
+      three forms) against the plain step per tracer, 1e-12;
    d. ``ShardedFctAleSolver(backend="cuda", devices=["cuda:0"] * 4,
       tracers=4)`` on core2, split and fused, 20 steps, against the
       single-device batched run within MAIN_RELERR, with 16 (split) and 12
@@ -217,8 +220,9 @@ Phases (each raises on failure, so the script exits non-zero):
       tests/conftest.py) of the oracle's stages, iter_yn both ways, at the
       vlimits of c, each fed the oracle's upstream outputs; H-S2R within
       1e-12 of ``oracle.stress2rhs`` and of ``f2t_stress2rhs``;
-   c. one f64 step of ``FctAleSolver(device="cuda")``, default form and
-      K1 -> K2 -> K3 -> K4, against ``oracle.fct_ale_step`` for vlimit 1
+   c. one f64 step of ``FctAleSolver(device="cuda")``, the default form
+      K12 -> K3 -> K4, K1 -> K2 -> K34 and K1 -> K2 -> K3 -> K4, against
+      ``oracle.fct_ale_step`` for vlimit 1
       x iter_yn on core2 (and against ``NativeReference.step``) and vlimit
       2/3 x iter_yn on the cylinder (a core2-size oracle step takes about
       7 s on the host), every output within 1e-12; one f64 4-part split
@@ -239,14 +243,17 @@ Phases (each raises on failure, so the script exits non-zero):
       f32 CUDA steps (events, best of 3), and the topology builds.
 Every kernel instance's ptxas report is printed, and a spill fails the
 build phase.  The last three lines are the per-kernel JSON summary (each
-kernel's launches on its path (H-K3fix's in phase 6a's witness checks,
-H-K4's in phase 7b's K1 -> K2 -> K3 -> K4 form, H-A2's in the tuner), max
-abs error, ms, plain ms, the byte bound
+kernel's launches on its path (H-K12's, H-K3's and H-K4's in phase 4's
+main path, K4-fix's in phase 6b's split step, H-K3fix's in phase 6a's
+witness checks, H-K1's, H-K2's and H-K34's in phase 7b's K1 -> K2 ->
+K34 form, H-A2's in the tuner), max abs error, ms and plain ms at the
+shapes of that path (K4-fix and H-K3fix at core2's part 1, the others at
+the whole core2 mesh), the byte bound
 at the H100 SXM data-sheet rate of ``runtime/profiling.py``, and
 ``library_ms``: null, since no single PyTorch call computes any of these
 functions; ``oracle_max_abs_err_f64``, the largest f64 difference from the
 oracle in phase 13 (b, and for K4-fix also the 4-part step of c); the
-seven with a tracer axis also carry
+eight with a tracer axis also carry
 ``ms_per_tracer_tb8`` and ``bound_ms_tb8``, a tracer's share of one launch
 at 8 tracers and of its bound), the card's name and power limit as
 nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
@@ -455,7 +462,9 @@ def check_kernels(md, state, cfg, errs: Errors, case: str) -> float:
     return k34_vs_k3_k4(md, s, cfg, *ref_l[:3], case)
 
 
-FCT_KERNELS = ("bounds", "limit", "update_fused")
+# the kernels of the solvers' default single-device step (ops/cuda/step.py
+# DEFAULT_FORM: K12 -> K3 -> K4)
+FCT_KERNELS = ("limit_fused", "b3h", "update")
 LIMIT_OUTPUTS = ("fct_plus", "fct_minus", "adf_v_lim", "adf_v_res")
 # phase 3 / 3c cases: (dtype, vlimit, iter_yn)
 FCT_CASES = ([(torch.float32, v, it) for v in (1, 2, 3)
@@ -856,31 +865,24 @@ def phase_main_path(card: str, meshes: dict, reports: list) -> tuple:
               f"{gp / (ms * 1e-3):.4e} grid-points/s "
               f"(core2 f32, {gp} grid points; card {card})")
 
-    # per-kernel time beside its plain version, at the main path's shapes
+    # each kernel of the main path's step (FCT_KERNELS) beside its plain
+    # version, at the main path's state
     s = state_c
     md = sc.md
-    tmax, tmin = K.bounds(md, s["fct_LO"], s["ttf"], 1)
-    plus, minus, avl, _ = K.limit(md, s["fct_adf_v"], tmax, tmin,
-                                  s["fct_adf_h"], cfg.dt, cfg.flux_eps, False)
+    k12 = (md, s["fct_LO"], s["ttf"], s["fct_adf_v"], s["fct_adf_h"],
+           cfg.vlimit, cfg.dt, cfg.flux_eps, False)
+    _, _, plus, minus, avl, _ = K.limit_fused(*k12)
+    ah = s["fct_adf_h"]
+    lim, _ = K.b3h(md, plus, minus, ah, False)
+    node = (s["ttf"], s["hnode"], s["hnode_new"], s["fct_LO"],
+            s["del_ttf_advvert"], s["del_ttf_advhoriz"], cfg.dt, False)
     calls = {
-        "bounds": (
-            lambda: K.bounds(md, s["fct_LO"], s["ttf"], 1),
-            lambda: K.bounds_ref(md, s["fct_LO"], s["ttf"], 1)),
-        "limit": (
-            lambda: K.limit(md, s["fct_adf_v"], tmax, tmin, s["fct_adf_h"],
-                            cfg.dt, cfg.flux_eps, False),
-            lambda: K.limit_ref(md, s["fct_adf_v"], tmax, tmin,
-                                s["fct_adf_h"], cfg.dt, cfg.flux_eps,
-                                False)),
-        "update_fused": (
-            lambda: K.update_fused(md, plus, minus, avl, s["fct_adf_h"],
-                                   s["ttf"], s["hnode"], s["hnode_new"],
-                                   s["fct_LO"], s["del_ttf_advvert"],
-                                   s["del_ttf_advhoriz"], cfg.dt, False),
-            lambda: K.update_fused_ref(md, plus, minus, avl, s["fct_adf_h"],
-                                       s["ttf"], s["hnode"], s["hnode_new"],
-                                       s["fct_LO"], s["del_ttf_advvert"],
-                                       s["del_ttf_advhoriz"], cfg.dt, False)),
+        "limit_fused": (lambda: K.limit_fused(*k12),
+                        lambda: K.limit_fused_ref(*k12)),
+        "b3h": (lambda: K.b3h(md, plus, minus, ah, False),
+                lambda: K.b3h_ref(md, plus, minus, ah, False)),
+        "update": (lambda: K.update(md, avl, lim, *node),
+                   lambda: K.update_ref(md, avl, lim, *node)),
     }
     times = {}
     for name, (kern, plain) in calls.items():
@@ -1493,9 +1495,9 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
 
     # each kernel of the split step, the witness H-K3fix and H-K4, and H-K34,
     # beside its plain version and its bound: at the shapes of part 1 (an
-    # interior part, the main path's) and of the whole mesh (K4-fix on part
-    # 1 only: on a whole mesh it is K4)
-    times = {}
+    # interior part) and of the whole mesh (K4-fix on part 1 only: on a
+    # whole mesh it is K4); by label
+    times = {"part 1": {}, "whole": {}}
     whole = solvers["single"]
     ids1 = torch.tensor(fix_edge_ids(sh.pm, 1), device="cuda")
     for label, md, s, ids in (
@@ -1543,8 +1545,7 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
                                            sh.owned, avl, *node))
         for name, (kern, plain) in calls.items():
             tk = best_times({"kernel": kern, "plain": plain}, 5)
-            if label == "part 1":
-                times[name] = tk
+            times[label][name] = tk
             nbytes, ops = profiling.kernel_io(md, name, ids=ids,
                                               owned=sh.owned)
             bound, _ = profiling.bound_ms(nbytes, ops, md.dtype)
@@ -1562,25 +1563,29 @@ def phase_sharded_path(card: str, meshes: dict) -> tuple:
         nbytes, ops = profiling.kernel_io(md, "update_fixup",
                                           owned=sh.owned)
         bound, _ = profiling.bound_ms(nbytes, ops, md.dtype)
-        alone = (times["b3h_fixup"]["kernel"], times["update"]["kernel"])
+        alone = (times[label]["b3h_fixup"]["kernel"],
+                 times[label]["update"]["kernel"])
         print(f"K4-fix on core2 part 1: {t['K4-fix']:.4f} ms against "
               f"K3fix + K4 {t['K3fix + K4']:.4f} ms back to back "
               f"({alone[0]:.4f} + {alone[1]:.4f} alone); bound "
               f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB; f32; card {card})",
               flush=True)
     md = sh.mds[1]
-    shapes = {"b3h": (md, {}), "b3h_fixup": (md, dict(ids=ids1)),
-              "update": (md, {}), "update_fixup": (md, dict(owned=sh.owned))}
+    shapes = {"b3h_fixup": (md, dict(ids=ids1)),
+              "update_fixup": (md, dict(owned=sh.owned)),
+              **{name: (whole[0].md, {})
+                 for name in ("bounds", "limit", "update_fused")}}
     return counts["split"], times, shapes
 
 
-# the four single-device forms (fuse_k12, fuse_k34), the default first, and
-# each one's launches per step
+# the four single-device forms (fuse_k12, fuse_k34), the default
+# (DEFAULT_FORM) first, and each one's launches per step
+DEFAULT_FORM = (True, False)
 FORMS = {
+    (True, False): {"limit_fused": 1, "b3h": 1, "update": 1},
     (False, True): {"bounds": 1, "limit": 1, "update_fused": 1},
     (True, True): {"limit_fused": 1, "update_fused": 1},
     (False, False): {"bounds": 1, "limit": 1, "b3h": 1, "update": 1},
-    (True, False): {"limit_fused": 1, "b3h": 1, "update": 1},
 }
 TUNE_THREADS = (128, 256)
 
@@ -1786,9 +1791,10 @@ def phase_new_kernel_checks(errs: Errors, meshes: dict) -> None:
 def phase_forms(card: str, meshes: dict) -> tuple:
     """20 core2 f32 steps of FctAleSolver(backend="cuda") in each of the
     four forms against the default form (MAIN_RELERR, launches per step),
-    the step time of each form, and H-K12 and H-A2 beside their plain
-    versions.  Returns each form's launch counts (by form_name), the
-    kernel times and the mesh data they were taken on."""
+    the step time of each form, H-K12 beside H-K1 + H-K2 and its plain
+    version, and H-A2 beside its plain version.  Returns each form's launch
+    counts (by form_name), H-A2's times and the mesh data they were taken
+    on."""
     from fesom2_accelerate_tpu_torch import FctAleConfig, FctAleSolver
     from fesom2_accelerate_tpu_torch.mesh import random_fields
     from fesom2_accelerate_tpu_torch.ops.cuda import kernels as K
@@ -1824,7 +1830,7 @@ def phase_forms(card: str, meshes: dict) -> tuple:
         print(f"form {name}: {MAIN_STEPS} core2 f32 steps, launches "
               f"{ {k: v for k, v in counts[name].items() if v} }, "
               f"{sum(per_step.values())} per step, relerr {err:.3e} "
-              f"against K1->K2->K34", flush=True)
+              f"against {form_name(*DEFAULT_FORM)}", flush=True)
     best = best_times(runs, 1, timer=cuda_time_ms)
     for name, ms in best.items():
         print(f"step time {name}: {ms / MAIN_STEPS:.4f} ms/step (core2 f32, "
@@ -1856,7 +1862,7 @@ def phase_forms(card: str, meshes: dict) -> tuple:
     for stage, r in time_stages(mesh, fields, "cuda").items():
         print(f"plain stage {stage}: {r['ms']:.4f} ms, {r['GBps']} GB/s "
               f"modeled (core2 f32, time_stages; card {card})")
-    return counts, {"limit_fused": t12, "a2": ta2}, md
+    return counts, {"a2": ta2}, md
 
 
 def phase_tuner(meshes: dict) -> dict:
@@ -1887,8 +1893,8 @@ def phase_tuner(meshes: dict) -> dict:
 
 # the kernels with a tracer axis (K4-fix: H-K4's FIX form); phase 8's runs
 # (4 tracers) and its sweep
-TRACER_KERNELS = ("bounds", "limit", "update_fused", "b3h", "b3h_fixup",
-                  "update", "update_fixup")
+TRACER_KERNELS = ("bounds", "limit", "limit_fused", "update_fused", "b3h",
+                  "b3h_fixup", "update", "update_fixup")
 TRACERS = 4
 TB_SWEEP = (1, 2, 4, 8)
 # the tracer counts at which phase 8e times the graph runs against the
@@ -1963,6 +1969,9 @@ def tracer_calls(md, cfg, ids, owned, plain: bool,
         "limit": lambda x: fn("limit")(md, x["fct_adf_v"], x["tmax"],
                                        x["tmin"], x["fct_adf_h"], cfg.dt,
                                        cfg.flux_eps, it),
+        "limit_fused": lambda x: fn("limit_fused")(
+            md, x["fct_LO"], x["ttf"], x["fct_adf_v"], x["fct_adf_h"],
+            cfg.vlimit, cfg.dt, cfg.flux_eps, it),
         "update_fused": lambda x: fn("update_fused")(
             md, x["plus"], x["minus"], x["avl"], x["fct_adf_h"], *node(x)),
         "b3h": lambda x: fn("b3h")(md, x["plus"], x["minus"], x["fct_adf_h"],
@@ -2042,7 +2051,7 @@ def phase_tracer_kernels(errs: Errors, tf: TracerFields) -> None:
                 for i, (g, r) in enumerate(zip(got, ref)):
                     exact = name in ("bounds", "b3h", "b3h_fixup") or (
                         name in ("update_fused", "update_fixup")
-                        and i >= 2)
+                        and i >= 2) or (name == "limit_fused" and i < 2)
                     errs.check(name, f"out{i}", g, r, 0.0 if exact else tol,
                                case)
                 for t in range(tb):
@@ -2064,15 +2073,16 @@ def phase_tracer_kernels(errs: Errors, tf: TracerFields) -> None:
               flush=True)
 
 
-# the single-device forms of a batched step (fuse_k34) and their launches
-# per step
-TRACER_FORMS = {True: {"bounds": 1, "limit": 1, "update_fused": 1},
-                False: {"bounds": 1, "limit": 1, "b3h": 1, "update": 1}}
+# the single-device forms of a batched step that phase 8 runs (fuse_k12,
+# fuse_k34): the default, K1 -> K2 -> K34 and K1 -> K2 -> K3 -> K4, with
+# their launches per step
+TRACER_FORMS = {form: FORMS[form]
+                for form in (DEFAULT_FORM, (False, True), (False, False))}
 
 
 def phase_tracer_runs(tf: TracerFields) -> None:
     """Phase 8b: 20 core2 f32 steps of FctAleSolver(backend="cuda").
-    run_tracers at 4 tracers, in both single-device forms, against 20
+    run_tracers at 4 tracers, in the forms of TRACER_FORMS, against 20
     single-tracer CUDA runs per tracer, bit for bit, with the launches of
     the batched run (set to 0 just before it, read just after).  Phase 8c:
     one float64 batched CUDA step on small against the plain step per
@@ -2085,16 +2095,17 @@ def phase_tracer_runs(tf: TracerFields) -> None:
     per, batched = tf("core2", TRACERS)
     cfg = FctAleConfig(dt=0.5, flux_eps=1e-7, vlimit=1, iter_yn=False,
                        dtype=torch.float32)
-    for fuse_k34, per_step in TRACER_FORMS.items():
+    for (fuse_k12, fuse_k34), per_step in TRACER_FORMS.items():
         sv = FctAleSolver(mesh, cfg, backend="cuda", device="cuda",
-                          fuse_k34=fuse_k34)
+                          fuse_k12=fuse_k12, fuse_k34=fuse_k34)
         state = sv.init_state_tracers(batched)
         torch.cuda.synchronize()
         K.reset_launch_counts()
         out = sv.run_tracers(state, MAIN_STEPS)
         torch.cuda.synchronize()
         counts = K.launch_counts()
-        label = f"run_tracers (core2, Tb={TRACERS}, fuse_k34={fuse_k34})"
+        label = (f"run_tracers (core2, Tb={TRACERS}, "
+                 f"{form_name(fuse_k12, fuse_k34)})")
         check_counts(counts, {k: n * MAIN_STEPS for k, n in per_step.items()},
                      label)
         if set(out) != set(state):
@@ -2123,9 +2134,9 @@ def phase_tracer_runs(tf: TracerFields) -> None:
             cfg = FctAleConfig(vlimit=vlimit, iter_yn=iter_yn, dt=0.7,
                                dtype=torch.float64)
             st = FctAleSolver(mesh, cfg, backend="torch", device="cuda")
-            for fuse_k34 in TRACER_FORMS:
+            for fuse_k12, fuse_k34 in TRACER_FORMS:
                 sc = FctAleSolver(mesh, cfg, backend="cuda", device="cuda",
-                                  fuse_k34=fuse_k34)
+                                  fuse_k12=fuse_k12, fuse_k34=fuse_k34)
                 out = sc.step_tracers(sc.init_state_tracers(batched))
                 for t in range(3):
                     ref = st.step(st.init_state(per[t]))
@@ -2137,11 +2148,13 @@ def phase_tracer_runs(tf: TracerFields) -> None:
                         if e > K.TOLERANCE[torch.float64]:
                             raise AssertionError(
                                 f"f64 step_tracers vlimit={vlimit} "
-                                f"iter={iter_yn} fuse_k34={fuse_k34} {k} "
+                                f"iter={iter_yn} "
+                                f"{form_name(fuse_k12, fuse_k34)} {k} "
                                 f"tracer {t}: relerr {e:.3e}")
                 n += 1
     print(f"step_tracers f64 on small, Tb=3: {n} cases (vlimit 1/3 x "
-          f"iter_yn x fuse_k34) within 1e-12 of the plain step per tracer",
+          f"iter_yn x {len(TRACER_FORMS)} forms) within 1e-12 of the plain "
+          f"step per tracer",
           flush=True)
 
 
@@ -2526,7 +2539,7 @@ def phase_graph_runs(tf: TracerFields, meshes: dict) -> dict:
         name = form_name(k12, k34)
         graph_vs_loop(f"graph replays core2 {name}", replays(sv.step),
                       sv.step, s, MAIN_STEPS, per_step)
-        if (k12, k34) == (False, True):
+        if (k12, k34) == DEFAULT_FORM:
             paths["single"] = (lambda sv=sv: (replays(sv.step), None), s,
                                per_step)
             graph_vs_loop(f"graph replays core2 {name}, blocks "
@@ -2537,7 +2550,7 @@ def phase_graph_runs(tf: TracerFields, meshes: dict) -> dict:
     graph_vs_loop(f"graph replays core2 Tb={TRACERS} (step_tracers)",
                   replays(sv.step_tracers), sv.step_tracers,
                   sv.init_state_tracers(tf("core2", TRACERS)[1]),
-                  MAIN_STEPS, TRACER_FORMS[True])
+                  MAIN_STEPS, TRACER_FORMS[DEFAULT_FORM])
     for mode, names in SHARDED_STEP.items():
         for exchange in ("ppermute", "allgather"):
             make = lambda m=mode, e=exchange: ShardedFctAleSolver(  # noqa
@@ -2565,9 +2578,9 @@ def phase_graph_runs(tf: TracerFields, meshes: dict) -> dict:
         s = sv.init_state(fields)
         label = f"small f64 iterative vlimit {vlimit}"
         graph_vs_loop(f"graph replays {label}", replays(sv.step), sv.step,
-                      s, MAIN_STEPS, FORMS[False, True])
+                      s, MAIN_STEPS, FORMS[DEFAULT_FORM])
         graph_vs_loop(f"run {label}", sv.run, sv.step, s, MAIN_STEPS,
-                      FORMS[False, True])
+                      FORMS[DEFAULT_FORM])
         print(f"run {label}: watched steps {chose_graphs(sv._graphs)}",
               flush=True)
         for mode, names in SHARDED_STEP.items():
@@ -3519,10 +3532,10 @@ def gt_kernels(mesh, key: str, ge: GroundErrors, cpu: str) -> tuple:
 def gt_steps(mesh, key: str, refs: dict, fields: dict, ge: GroundErrors,
              cpu: str, golden: bool) -> tuple:
     """13c: one f64 step of FctAleSolver(device="cuda") in the default
-    form and in K1 -> K2 -> K3 -> K4 against the oracle for each case of
-    ``refs``; with ``golden``, also against NativeReference.step (vlimit
-    1), and one f64 4-part split step of ShardedFctAleSolver, gathered,
-    against the oracle.  Returns (the default form's first solver and its
+    form (K12 -> K3 -> K4), in K1 -> K2 -> K34 and in K1 -> K2 -> K3 ->
+    K4 against the oracle for each case of ``refs``; with ``golden``, also
+    against NativeReference.step (vlimit 1), and one f64 4-part split step
+    of ShardedFctAleSolver, gathered, against the oracle.  Returns (the default form's first solver and its
     state, the golden reference's host seconds a step by iter_yn)."""
     from fesom2_accelerate_tpu_torch import (
         FctAleConfig,
@@ -3543,10 +3556,12 @@ def gt_steps(mesh, key: str, refs: dict, fields: dict, ge: GroundErrors,
             wants["NativeReference"] = reference.step(fields, dt=GT_DT,
                                                       iter_yn=iter_yn)
             nat_secs[iter_yn] = time.perf_counter() - t0
-        for form, fuse_k34 in (("K1 -> K2 -> K34", True),
-                               ("K1 -> K2 -> K3 -> K4", False)):
+        for form, (fuse_k12, fuse_k34) in (
+                ("K12 -> K3 -> K4", DEFAULT_FORM),
+                ("K1 -> K2 -> K34", (False, True)),
+                ("K1 -> K2 -> K3 -> K4", (False, False))):
             solver = FctAleSolver(mesh, cfg, device="cuda",
-                                  fuse_k34=fuse_k34)
+                                  fuse_k12=fuse_k12, fuse_k34=fuse_k34)
             state = solver.init_state(fields)
             out = solver.step(state)
             kept = kept or (solver, state)
@@ -3777,7 +3792,7 @@ def main() -> int:
     counts, times, md = phase_main_path(card, meshes, reports)
     # each kernel's mesh data (and the inputs its bytes depend on) on the
     # path whose launches it counts, for its bound
-    shapes = {name: (md, {}) for name in ("bounds", "limit", "update_fused")}
+    shapes = {name: (md, {}) for name in FCT_KERNELS}
     s2r_counts, times["stress2rhs"], shapes["stress2rhs"] = phase_s2r_path(
         card, meshes)
     counts["stress2rhs"] = s2r_counts["stress2rhs"]
@@ -3786,24 +3801,29 @@ def main() -> int:
     # H-K3fix, the witness, runs in these checks and no longer on a path
     counts["b3h_fixup"] = phase_fold_checks(errs, meshes)["b3h_fixup"]
     phase_sharded_small()
-    split_counts, split_times, part = phase_sharded_path(card, meshes)
+    split_counts, split_times, split_shapes = phase_sharded_path(
+        card, meshes)
     print(f"phase 6 (sharded path) took {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name in ("b3h", "b3h_fixup", "update", "update_fixup"):
-        times[name] = split_times[name]
-        shapes[name] = part[name]
-    for name in ("b3h", "update_fixup"):
-        counts[name] = split_counts[name]
+    # K4-fix and the witness at part 1's shapes, where they run
+    for name in ("b3h_fixup", "update_fixup"):
+        times[name] = split_times["part 1"][name]
+        shapes[name] = split_shapes[name]
+    counts["update_fixup"] = split_counts["update_fixup"]
+    # H-K1, H-K2 and H-K34 at the whole mesh's, where phase 7b's
+    # K1 -> K2 -> K34 form runs them
+    for name in ("bounds", "limit", "update_fused"):
+        times[name] = split_times["whole"][name]
+        shapes[name] = split_shapes[name]
     t0 = time.perf_counter()
     phase_new_kernel_checks(errs, meshes)
     phase_chunk_checks(errs)
-    form_counts, new_times, md = phase_forms(card, meshes)
-    counts["limit_fused"] = form_counts[form_name(True, True)]["limit_fused"]
-    # H-K4 (plain form) runs in the single-device K1 -> K2 -> K3 -> K4 form
-    counts["update"] = form_counts[form_name(False, False)]["update"]
+    form_counts, a2_times, md = phase_forms(card, meshes)
+    for name in ("bounds", "limit", "update_fused"):
+        counts[name] = form_counts[form_name(False, True)][name]
     counts["a2"] = phase_tuner(meshes)["a2"]
-    times.update(new_times)
-    shapes.update(limit_fused=(md, {}), a2=(md, {}))
+    times.update(a2_times)
+    shapes.update(a2=(md, {}))
     print(f"phase 7 (K12, A2, step forms, tuner) took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()

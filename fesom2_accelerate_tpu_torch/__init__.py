@@ -9,10 +9,10 @@ never jax: it carries its own copy of the numpy mesh code (planar and
 cylinder generators, RCM ordering, the FESOM2 mesh-file reader).
 
 * ``FctAleSolver(mesh, cfg, device="cuda")`` runs the step as
-  hand-written CUDA kernels (``ops/cuda/``): K1 bounds -> K2 limit -> K34
-  update_fused by default, or another form with ``fuse_k12`` (K12
-  limit_fused in place of K1 -> K2) and ``fuse_k34=False`` (K3 b3h -> K4
-  update in place of K34);
+  hand-written CUDA kernels (``ops/cuda/``): K12 limit_fused -> K3 b3h ->
+  K4 update by default, or another form with ``fuse_k12=False`` (K1
+  bounds -> K2 limit in place of K12) and ``fuse_k34=True`` (K34
+  update_fused in place of K3 -> K4);
 * ``backend="torch"`` runs the plain PyTorch stages on any device (the
   float64 correctness gate), and is what a solver on the CPU runs: every
   solver's default backend, None, follows its ``device`` (or ``devices``),

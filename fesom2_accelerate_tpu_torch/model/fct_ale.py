@@ -16,7 +16,9 @@ functions over state tensors on that device:
   fct_ale_step_cuda`, hand-written CUDA kernels; CUDA devices only.  The
   keywords ``fuse_k12`` and ``fuse_k34`` choose its form (K12 or K1 -> K2,
   K34 or K3 -> K4), the counterparts of the JAX package's
-  ``build_pallas_data(fuse_k12=, fuse_k34=)``;
+  ``build_pallas_data(fuse_k12=, fuse_k34=)``; by default K12 -> K3 -> K4
+  (``ops/cuda/step.py`` ``DEFAULT_FORM``), the fastest form measured on
+  whole meshes;
 * ``backend="torch"``: :func:`fct_ale_step`, plain PyTorch stages, any
   device, float32 or float64 (the correctness gate).
 
@@ -218,21 +220,23 @@ class FctAleSolver:
     backend: None (the default: "cuda" on a CUDA ``device``, "torch" on
     the CPU), "torch" (plain PyTorch stages, any device and float dtype)
     or "cuda" (the CUDA kernels; ``device`` must be a CUDA device).  With
-    "cuda", ``fuse_k12`` runs K1 and K2 as the one kernel K12 and
-    ``fuse_k34=False`` runs K3 -> K4 in place of K34; "torch" refuses any
-    value but the default.  A CUDA solver whose form runs K34 needs the
-    mesh's edges sorted by first endpoint (``MeshData.ed_ptr``) and raises
-    at construction otherwise.  The tracer methods need "cuda" and the
-    default ``fuse_k12=False``."""
+    "cuda" the step and the tracer step run K12 -> K3 -> K4 by default
+    (``cstep.DEFAULT_FORM``); ``fuse_k12=False`` runs K1 -> K2 in place of
+    K12 and ``fuse_k34=True`` runs K34 in place of K3 -> K4; "torch"
+    refuses any value but the default.  A CUDA solver whose form runs K34
+    needs the mesh's edges sorted by first endpoint (``MeshData.ed_ptr``)
+    and raises at construction otherwise.  The tracer methods need
+    "cuda"."""
 
     def __init__(self, mesh: Mesh, cfg: FctAleConfig = FctAleConfig(),
                  backend: str | None = None, *,
-                 device: torch.device | str, fuse_k12: bool = False,
-                 fuse_k34: bool = True):
+                 device: torch.device | str,
+                 fuse_k12: bool = cstep.DEFAULT_FORM[0],
+                 fuse_k34: bool = cstep.DEFAULT_FORM[1]):
         device = torch.device(device)
         backend = resolve_backend(backend, device)
         if backend == "torch":
-            if (fuse_k12, fuse_k34) != (False, True):
+            if (fuse_k12, fuse_k34) != cstep.DEFAULT_FORM:
                 raise ValueError(
                     "fuse_k12 and fuse_k34 choose the form of "
                     "backend='cuda'; backend='torch' takes the defaults")

@@ -50,7 +50,7 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 ARGTYPES = {
     "fct_bounds": [_P] * 8 + [_I] * 7 + [_P],
     "fct_limit": [_P] * 14 + [_I] * 4 + [_D, _D, _I, _I, _I, _P],
-    "fct_limit_fused": [_P] * 17 + [_I] * 5 + [_D, _D, _I, _I, _P],
+    "fct_limit_fused": [_P] * 17 + [_I] * 5 + [_D, _D, _I, _I, _I, _P],
     "fct_update_fused": [_P] * 24 + [_I] * 5 + [_D, _I, _I, _I, _I, _P],
     "fct_b3h": [_P] * 7 + [_I] * 6 + [_P],
     "fct_b3h_fixup": [_P] * 8 + [_I] * 7 + [_P],

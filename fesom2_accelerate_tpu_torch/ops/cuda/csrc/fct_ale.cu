@@ -1,9 +1,9 @@
 // FCT-ALE kernels for Hopper (sm_90a), templated on float/double, with
 // extern "C" launchers that are loaded through ctypes (ops/cuda/build.py,
 // ops/cuda/kernels.py):
-//   * the single-device chain K1 bounds -> K2 limit -> K34 update_fused,
-//     or any of its other forms: K12 limit_fused (K1 and K2 in one pass)
-//     in place of K1 -> K2, and K3 -> K4 in place of K34;
+//   * the single-device chain K12 limit_fused (K1 and K2 in one pass) ->
+//     K3 b3h -> K4 update, or any of its other forms: K1 bounds -> K2
+//     limit in place of K12, and K34 update_fused in place of K3 -> K4;
 //   * the split chain of a sharded step, K1 -> K2 -> K3 b3h -> halo
 //     exchange -> K4 update in its FIX form: K3 limits every edge on the
 //     pre-exchange factors; K4-fix limits again, from the exchanged ones,
@@ -54,27 +54,33 @@
 // edge->node sum is a gather over the node's incident edges in slot order:
 // no atomics, so results are identical from run to run.
 //
-// The tracer axis.  K1, K2, K3, K3fix, K4 and K34 take Tb tracers in one
-// launch, as their Pallas kernels take a (tiles, tracers) grid: each
+// The tracer axis.  K1, K2, K12, K3, K3fix, K4 and K34 take Tb tracers in
+// one launch, as their Pallas kernels take a (tiles, tracers) grid: each
 // per-tracer field is tracer-major ([Tb, L, N], [Tb, L+1, N], [Tb, L, Ed],
 // tracer t at t times one tracer's size), while hnode, hnode_new, area_inv
 // and every mesh row are shared.  The blocks are ordered tracer-minor on
 // gridDim.x (tracer_block): block b of tracer t is b * Tb + t, so the Tb
 // blocks of one tile or edge block run together and read its incidence
-// rows from L2 after the first.  K3, K3fix and K34 move their
+// rows from L2 after the first.  K3, K3fix, K12 and K34 move their
 // per-tracer pointers to the tracer's fields; K1 adds the tracer's offset
 // to its indices, and K2 and K4 index the tracer's fields by row (its
 // first node row t * L, its first interface row t * (L+1)), since a moved
 // pointer held across their loops takes two registers of its own (eight
-// of them pushed the f64 node-threaded H-K2 into spills).  Either way the
-// single-tracer body runs unchanged, so each tracer's outputs are
-// bit-identical to a Tb = 1 launch on its slice.  Each of the six is
+// of them pushed the f64 node-threaded H-K2 into spills).  K12's moved
+// pointers are the same for every thread of a block, so ptxas keeps them
+// in uniform registers: indexed by row instead, K12 at Tb = 2 ran 5% (f32)
+// to 15% (f64) slower a tracer than at Tb = 1 (core2, H100), with moved
+// pointers 7% (f32) and 2% (f64) faster.  Either way the single-tracer
+// body runs unchanged, so each tracer's outputs are bit-identical to a
+// Tb = 1 launch on its slice.  Each of the seven is
 // compiled twice (template flag TRACERS): a Tb = 1 launch takes the
 // instance without the axis, in which the tracer is 0 at compile time and
 // every offset folds away, so the single-tracer path runs the code it ran
 // before the axis (with the axis in every instance, the Tb = 1 launches
-// ran slower).  K12 and A2 (and H-S2R) take no tracer axis, as their
-// Pallas kernels take none.
+// ran slower).  K12's Pallas kernel takes no tracer axis; the whole-mesh
+// step runs K12 -> K3 -> K4 at every tracer count (ops/cuda/step.py), so
+// K12 takes the axis that K1 and K2 took before it.  A2 (and H-S2R) take
+// none, as their Pallas kernels take none.
 //
 // Launch configuration: every launcher takes the threads per block (64,
 // 128, 256 or 512; 128 is the default the wrappers pass) and every kernel
@@ -595,7 +601,7 @@ limit_kernel(const T* __restrict__ adf_v, const T* __restrict__ tmax,
 // K2's, so the outputs are the bits of K1 -> K2.
 // ---------------------------------------------------------------------------
 
-template <typename T, int MAXD, int THREADS>
+template <typename T, int MAXD, int THREADS, bool TRACERS>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 limit_fused_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
                    const T* __restrict__ adf_v, const T* __restrict__ adf_h,
@@ -609,7 +615,8 @@ limit_fused_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
                    T* __restrict__ tmax_out, T* __restrict__ tmin_out,
                    T* __restrict__ plus_out, T* __restrict__ minus_out,
                    T* __restrict__ adf_v_lim, T* __restrict__ adf_v_res,
-                   int L, int N, int Ed, int KD, int vlimit, T dt, T eps) {
+                   int L, int N, int Ed, int KD, int vlimit, T dt, T eps,
+                   int Tb) {
   constexpr int kWarps = THREADS / kTileNodes;
   constexpr int LC = kLimitFusedLevels;
   // phase A: row r holds level z0 - 2 + r
@@ -619,9 +626,25 @@ limit_fused_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
   // phase B: row r holds K2's factors at level z0 - 1 + r
   __shared__ T s_fp[LC + 1][kTileNodes];
   __shared__ T s_fm[LC + 1][kTileNodes];
+  const TracerBlock tb = tracer_block<TRACERS>(Tb);
+  if constexpr (TRACERS) {
+    // the tracer's fields (see the note at the top)
+    const size_t nodes = (size_t)L * N, ifaces = nodes + N;
+    const size_t edges = (size_t)L * Ed;
+    lo = at_tracer(lo, tb.t, nodes);
+    ttf = at_tracer(ttf, tb.t, nodes);
+    adf_v = at_tracer(adf_v, tb.t, ifaces);
+    adf_h = at_tracer(adf_h, tb.t, edges);
+    tmax_out = at_tracer(tmax_out, tb.t, nodes);
+    tmin_out = at_tracer(tmin_out, tb.t, nodes);
+    plus_out = at_tracer(plus_out, tb.t, nodes);
+    minus_out = at_tracer(minus_out, tb.t, nodes);
+    adf_v_lim = at_tracer(adf_v_lim, tb.t, ifaces);
+    adf_v_res = at_tracer(adf_v_res, tb.t, ifaces);
+  }
   const int lane = threadIdx.x % kTileNodes;
   const int warp = threadIdx.x / kTileNodes;
-  const int n = blockIdx.x * kTileNodes + lane;
+  const int n = tb.b * kTileNodes + lane;
   const int z0 = blockIdx.y * LC;
   const bool node = n < N;
   const int nlev = node ? nlev_nod[n] : 0;
@@ -712,7 +735,13 @@ limit_fused_kernel(const T* __restrict__ lo, const T* __restrict__ ttf,
                    s_fm[r][lane], z < nlev - 1, z, vidx, adf_v_lim,
                    adf_v_res);
     if (z == L - 1) {
-      const size_t last = (size_t)L * N + n;
+      // the bottom interface row, one index spelt two ways: with vidx + N
+      // ptxas schedules phase B's loads of the instance with the tracer
+      // axis better (H-K12 at Tb = 2 11% faster in f32, 2% in f64, core2
+      // on an H100), while L * N + n keeps the Tb = 1 instance the code it
+      // had before the axis (against vidx + N there: 3% faster in f32, 5%
+      // slower in f64)
+      const size_t last = TRACERS ? vidx + N : (size_t)L * N + n;
       adf_v_lim[last] = adf_v[last];
       if (adf_v_res != nullptr) adf_v_res[last] = T(0);
     }
@@ -1402,22 +1431,26 @@ int launch_limit_fused(const void* lo, const void* ttf, const void* adf_v,
                        const void* nd_num, const void* nlev_nod, void* tmax,
                        void* tmin, void* plus, void* minus, void* adf_v_lim,
                        void* adf_v_res, int L, int N, int Ed, int KD,
-                       int vlimit, double dt, double eps, int threads,
-                       int device, void* stream) {
-  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree)
+                       int vlimit, double dt, double eps, int Tb,
+                       int threads, int device, void* stream) {
+  if (L < 1 || N < 1 || Ed < 1 || KD < 1 || KD > kMaxDegree ||
+      !tracers_fit((N + kTileNodes - 1) / kTileNodes, Tb, L))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_config(KD, threads, [&](auto d, auto nt) {
     constexpr int D = decltype(d)::value, TH = decltype(nt)::value;
-    limit_fused_kernel<T, D, TH>
-        <<<tile_grid(N, L, kLimitFusedLevels), TH, 0, s>>>(
-        (const T*)lo, (const T*)ttf, (const T*)adf_v, (const T*)adf_h,
-        (const T*)area_inv, (const int*)nd_idx, (const int*)nd_other,
-        (const int*)nd_lev, (const signed char*)nd_sgn, (const int*)nd_num,
-        (const int*)nlev_nod, (T*)tmax, (T*)tmin, (T*)plus, (T*)minus,
-        (T*)adf_v_lim, (T*)adf_v_res, L, N, Ed, KD, vlimit, (T)dt, (T)eps);
+    with_tracers(Tb, [&](auto tr) {
+      limit_fused_kernel<T, D, TH, decltype(tr)::value>
+          <<<tile_grid(N, L, kLimitFusedLevels, Tb), TH, 0, s>>>(
+              (const T*)lo, (const T*)ttf, (const T*)adf_v, (const T*)adf_h,
+              (const T*)area_inv, (const int*)nd_idx, (const int*)nd_other,
+              (const int*)nd_lev, (const signed char*)nd_sgn,
+              (const int*)nd_num, (const int*)nlev_nod, (T*)tmax, (T*)tmin,
+              (T*)plus, (T*)minus, (T*)adf_v_lim, (T*)adf_v_res, L, N, Ed,
+              KD, vlimit, (T)dt, (T)eps, Tb);
+    });
   });
 }
 
@@ -1627,7 +1660,7 @@ int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
         grid = tile_grid(N, L, kUpdateSplitLevels);
         break;
       case kOccLimitFused:
-        fn = (const void*)limit_fused_kernel<T, D, TH>;
+        fn = (const void*)limit_fused_kernel<T, D, TH, false>;
         grid = tile_grid(N, L, kLimitFusedLevels);
         break;
       case kOccUpdateFixup:
@@ -1657,8 +1690,8 @@ int occupancy(int kernel, int L, int N, int Ed, int KD, int tile_edges,
 }  // namespace
 
 // Plain C interface.  Every pointer is a device pointer (or null for an
-// absent optional output); ``Tb`` (the launchers of K1, K2, K3, K3fix, K4,
-// K4's FIX form and K34) is the number of tracers, 1 or more, whose
+// absent optional output); ``Tb`` (the launchers of K1, K2, K12, K3,
+// K3fix, K4, K4's FIX form and K34) is the number of tracers, 1 or more, whose
 // per-tracer fields lie tracer-major behind each pointer; ``threads`` is
 // the block size (64, 128, 256 or 512, 128 only for K4's FIX form, else
 // cudaErrorInvalidValue and no launch); ``stream`` is a cudaStream_t.  Each launcher returns cudaGetLastError() after its launch
@@ -1698,12 +1731,12 @@ int fct_limit_f64(FCT_LIMIT_ARGS) { return launch_limit<double>(FCT_LIMIT_CALL);
       const void *nd_lev, const void *nd_sgn, const void *nd_num,           \
       const void *nlev_nod, void *tmax, void *tmin, void *plus,             \
       void *minus, void *adf_v_lim, void *adf_v_res, int L, int N, int Ed,  \
-      int KD, int vlimit, double dt, double eps, int threads, int device,   \
-      void *stream
+      int KD, int vlimit, double dt, double eps, int Tb, int threads,       \
+      int device, void *stream
 #define FCT_LIMIT_FUSED_CALL                                                \
   lo, ttf, adf_v, adf_h, area_inv, nd_idx, nd_other, nd_lev, nd_sgn,        \
       nd_num, nlev_nod, tmax, tmin, plus, minus, adf_v_lim, adf_v_res, L,   \
-      N, Ed, KD, vlimit, dt, eps, threads, device, stream
+      N, Ed, KD, vlimit, dt, eps, Tb, threads, device, stream
 
 int fct_limit_fused_f32(FCT_LIMIT_FUSED_ARGS) {
   return launch_limit_fused<float>(FCT_LIMIT_FUSED_CALL);

@@ -24,9 +24,9 @@ stress2rhs    kernels.py:stress2rhs_pallas and                stress2rhs_ref
               kernels_packed.py:stress2rhs_packed_pallas
 ============  ==============================================  ================
 
-All but the last are in ``fct_ale.cu``.  The FCT-ALE step runs K1 -> K2 ->
-K34 on one device by default, K12 in place of K1 -> K2 and K3 -> K4 in
-place of K34 on request (``ops/cuda/step.py``), or K1 -> K2 -> K3 -> halo
+All but the last are in ``fct_ale.cu``.  The FCT-ALE step runs K12 -> K3
+-> K4 on one device by default, K1 -> K2 in place of K12 and K34 in place
+of K3 -> K4 on request (``ops/cuda/step.py``), or K1 -> K2 -> K3 -> halo
 exchange -> K4-fix (``update_fixup``: K4 in its FIX form, which does
 K3fix's work in the same launch) in a sharded step
 (``parallel/step_sharded.py``); ``b3h_fixup`` followed by ``update`` is
@@ -63,16 +63,18 @@ default 128): the launch configuration the tuning harness sweeps.  The
 plain version ignores it; a value outside ``THREADS`` raises on any device,
 and so does any but ``FIX_THREADS`` for ``update_fixup``.
 
-The tracer axis: ``bounds``, ``limit``, ``update_fused``, ``b3h``,
-``b3h_fixup``, ``update`` and ``update_fixup`` take their per-tracer
+The tracer axis: ``bounds``, ``limit``, ``limit_fused``,
+``update_fused``, ``b3h``, ``b3h_fixup``, ``update`` and
+``update_fixup`` take their per-tracer
 fields either 2-D (one tracer: [L, N], [L+1, N], [L, Ed]) or 3-D with a
 leading tracer axis
 ([Tb, L, N], ...), as the Pallas kernels they replace take ``Tb``; their
 outputs then carry the same axis.  ``hnode``, ``hnode_new`` and the mesh
 data are shared by all tracers and stay 2-D.  One launch covers every
 tracer and counts once; each tracer's outputs are bit-identical to a
-launch on that tracer alone.  ``limit_fused``, ``a2`` and ``stress2rhs``
-take no tracer axis, as their Pallas kernels take none.  Every wrapper
+launch on that tracer alone.  ``a2`` and ``stress2rhs`` take no tracer
+axis, as their Pallas kernels take none (``limit_fused``'s takes none
+either; the port's takes one, as its K1 and K2 do).  Every wrapper
 checks its inputs' shapes on the CPU as well, so a wrong shape raises
 there too.
 
@@ -441,7 +443,7 @@ def limit_fused_ref(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
 
 
 def limit_fused_launch(md: MeshData, vlimit: int, dt: float,
-                       flux_eps: float, threads: int):
+                       flux_eps: float, tb: int, threads: int):
     """K12's launcher, as :func:`bounds_launch`: ``launch(fct_LO, ttf,
     fct_adf_v, fct_adf_h, tmax, tmin, fct_plus, fct_minus, adf_v_lim,
     adf_v_res, stream)``."""
@@ -451,7 +453,7 @@ def limit_fused_launch(md: MeshData, vlimit: int, dt: float,
     tail = (*_ints(md.n_layers, md.n_nodes, md.n_edges, md.nd_idx.shape[1],
                    vlimit),
             ctypes.c_double(dt), ctypes.c_double(flux_eps),
-            *_ints(threads, _index(md)))
+            *_ints(tb, threads, _index(md)))
 
     def launch(fct_LO, ttf, fct_adf_v, fct_adf_h, tmax, tmin, plus, minus,
                adf_v_lim, adf_v_res, stream):
@@ -468,12 +470,14 @@ def limit_fused(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
     fct_adf_v, its residual or None): :func:`bounds` and :func:`limit` in
     one launch on tiles of TILE_NODES nodes x LIMIT_FUSED_LEVELS levels
     (``ops/meshdata.py``), without the bounds' round trip through device
-    memory.  One tracer only: H-K12 has no tracer axis."""
+    memory, each with the inputs' tracer axis when they have one."""
     threads = check_threads(threads, md.nd_idx.shape[1])
     L, N, Ed = md.n_layers, md.n_nodes, md.n_edges
-    checks = dict(fct_LO=(fct_LO, (L, N)), ttf=(ttf, (L, N)),
-                  fct_adf_v=(fct_adf_v, (L + 1, N)),
-                  fct_adf_h=(fct_adf_h, (L, Ed)))
+    tb = _tracers(fct_LO)
+    checks = dict(fct_LO=(fct_LO, _rows(tb, L, N)),
+                  ttf=(ttf, _rows(tb, L, N)),
+                  fct_adf_v=(fct_adf_v, _rows(tb, L + 1, N)),
+                  fct_adf_h=(fct_adf_h, _rows(tb, L, Ed)))
     if _on_cpu(fct_LO, ttf, fct_adf_v, fct_adf_h, md.area_inv):
         _shapes(checks)
         return limit_fused_ref(md, fct_LO, ttf, fct_adf_v, fct_adf_h, vlimit,
@@ -481,13 +485,13 @@ def limit_fused(md: MeshData, fct_LO, ttf, fct_adf_v, fct_adf_h,
     if vlimit not in (1, 2, 3):
         raise ValueError(f"vlimit must be 1, 2 or 3, got {vlimit}")
     dev = _check(md, checks, md.nd_idx.shape[1])
-    tmax = torch.empty((L, N), dtype=md.dtype, device=dev)
+    tmax = torch.empty(_rows(tb, L, N), dtype=md.dtype, device=dev)
     tmin = torch.empty_like(tmax)
-    plus, minus = _factors((L, N), md.dtype, dev)
-    adf_v_lim = torch.empty((L + 1, N), dtype=md.dtype, device=dev)
+    plus, minus = _factors(_rows(tb, L, N), md.dtype, dev)
+    adf_v_lim = torch.empty(_rows(tb, L + 1, N), dtype=md.dtype, device=dev)
     adf_v_res = torch.empty_like(adf_v_lim) if iter_yn else None
     _launch("fct_limit_fused", dev,
-            limit_fused_launch(md, vlimit, dt, flux_eps, threads),
+            limit_fused_launch(md, vlimit, dt, flux_eps, tb or 1, threads),
             fct_LO.data_ptr(), ttf.data_ptr(), fct_adf_v.data_ptr(),
             fct_adf_h.data_ptr(), tmax.data_ptr(), tmin.data_ptr(),
             plus.data_ptr(), minus.data_ptr(), adf_v_lim.data_ptr(),

@@ -14,7 +14,7 @@ minus])``).  The
 phases around that exchange:
 
 * :func:`pre_exchange`: K1 bounds, K2 limit (the limiter factors), or
-  K12 (both in one kernel);
+  K12 (both in one kernel; a sharded step runs K1, K2);
 * :func:`limit_edges`: split mode's K3, every edge limited on the
   pre-exchange factors (edges with no halo endpoint are then final); it
   reads no halo column's exchanged value, so the exchange is in flight
@@ -38,8 +38,9 @@ whose exchange its host makes (a FESOM2 rank through ``host_embed``'s
 :func:`fct_ale_step_cuda` is the single-device step, in one of the four
 forms the JAX package selects with ``build_pallas_data(fuse_k12=,
 fuse_k34=)``: K1 -> K2 or K12, then K34 or K3 -> K4.  On one device there
-is no halo, so K3 needs no fixup.  The default is K1 -> K2 -> K34.
-Every phase takes ``threads``, the kernels' block size.
+is no halo, so K3 needs no fixup.  The default is K12 -> K3 -> K4
+(:data:`DEFAULT_FORM`), at every tracer count.  Every phase takes
+``threads``, the kernels' block size.
 
 Every phase also takes a batched state, the layout of the JAX package's
 ``fct_ale_step_pallas_batched``: each per-tracer field with a leading
@@ -47,7 +48,7 @@ tracer axis ([Tb, L, N], [Tb, L+1, N], [Tb, L, Ed]) and ``hnode``,
 ``hnode_new`` (``BATCH_SHARED``) shared [L, N].  The kernels take the
 tracer axis in one launch each, so a batched step launches what a
 single-tracer step does, whatever Tb is; :func:`fct_ale_step_cuda_batched`
-is that step.  K12 has no tracer axis, so it takes one tracer only.
+is that step, in any of the four forms.
 """
 
 from __future__ import annotations
@@ -64,6 +65,17 @@ from fesom2_accelerate_tpu_torch.runtime import tracing
 
 # the fields of a batched state that every tracer shares ([L, N], no axis)
 BATCH_SHARED = frozenset({"hnode", "hnode_new"})
+
+# (fuse_k12, fuse_k34) of the single-device step where its caller names
+# neither: K12 -> K3 -> K4.  On core2 and the core2-size RCM cylinder,
+# where two thirds of the edges cross a node tile of 32 and H-K34 limits
+# each of those twice, it beat K1 -> K2 -> K34 at one and two tracers, in
+# float32 and float64, by 4-13% of the kernels' time (PERF.md §6):
+# H-K12 keeps the bounds out of device memory, and H-K3's one pass over
+# the edges and H-K4's slot sum cost less than H-K34's second limiting of
+# the crossing edges.  No mesh measured preferred another form, so the
+# plan reads no property of the mesh to choose it.
+DEFAULT_FORM = (True, False)
 
 # the state fields that every form of the whole step reads, in the order in
 # which its kernel wrappers check them; K1 reads the first two, K12 the
@@ -170,7 +182,8 @@ def _assemble(cfg: FctAleConfig, state: dict, pre: dict, o1, o2, adf_h_lim,
 
 
 def fct_ale_step_cuda(md: MeshData, cfg: FctAleConfig, state: dict, *,
-                      fuse_k12: bool = False, fuse_k34: bool = True,
+                      fuse_k12: bool = DEFAULT_FORM[0],
+                      fuse_k34: bool = DEFAULT_FORM[1],
                       threads: int = DEFAULT_THREADS) -> dict:
     """Same contract as ``model.fct_ale.fct_ale_step``: the output dict has
     the same keys, for both ``iter_yn`` values.  Launches per step: K12 ->
@@ -183,25 +196,22 @@ def fct_ale_step_cuda(md: MeshData, cfg: FctAleConfig, state: dict, *,
 
 
 def fct_ale_step_cuda_batched(md: MeshData, cfg: FctAleConfig, state: dict,
-                              *, fuse_k12: bool = False,
-                              fuse_k34: bool = True,
+                              *, fuse_k12: bool = DEFAULT_FORM[0],
+                              fuse_k34: bool = DEFAULT_FORM[1],
                               threads: int = DEFAULT_THREADS) -> dict:
     """The multi-tracer step, counterpart of the JAX package's
     ``fct_ale_step_pallas_batched``: ``state`` holds each per-tracer field
     [Tb, ...] and ``hnode``/``hnode_new`` shared [L, N]; the output has the
     keys of :func:`fct_ale_step_cuda`, each per-tracer one [Tb, ...].  Tb
-    independent single-tracer steps, in the launches of one (K1 -> K2 ->
-    K34, or K3 -> K4 when not ``fuse_k34``).  ``fuse_k12`` raises: the
-    batched step runs K1 -> K2, as the JAX package's does."""
-    _check_batched(state, fuse_k12)
-    return fct_ale_step_cuda(md, cfg, state, fuse_k34=fuse_k34,
-                             threads=threads)
+    independent single-tracer steps, in the launches of one, in the form
+    the flags choose (the JAX package's batched step runs K1 -> K2 ->
+    K34 only)."""
+    _check_batched(state)
+    return fct_ale_step_cuda(md, cfg, state, fuse_k12=fuse_k12,
+                             fuse_k34=fuse_k34, threads=threads)
 
 
-def _check_batched(state: dict, fuse_k12: bool) -> None:
-    if fuse_k12:
-        raise ValueError("fuse_k12: H-K12 has no tracer axis; a batched "
-                         "step runs K1 -> K2")
+def _check_batched(state: dict) -> None:
     if state["ttf"].dim() != 3:
         raise ValueError(f"a batched state holds ttf as [Tb, L, N], got "
                          f"shape {tuple(state['ttf'].shape)}")
@@ -224,17 +234,17 @@ def input_shapes(md: MeshData, tb: int | None) -> dict:
                 del_ttf_advhoriz=rows(tb, L, N))
 
 
-def check_state(md: MeshData, state: dict, *, fuse_k12: bool = False,
+def check_state(md: MeshData, state: dict, *,
                 threads: int = DEFAULT_THREADS) -> int | None:
     """Tb of ``state`` (None: no tracer axis), after the checks that the
     whole step's kernel wrappers make of it, with their errors: the block
-    size, the tracer axis (K12 takes none), the incidence slots, then the
-    device, dtype, shape and contiguity of each of STEP_INPUTS against the
-    mesh data's (``kernels.check_tensors``: tensor metadata only, so CPU
-    mesh data and tensors take the same checks)."""
+    size, the tracer axis, the incidence slots, then the device, dtype,
+    shape and contiguity of each of STEP_INPUTS against the mesh data's
+    (``kernels.check_tensors``: tensor metadata only, so CPU mesh data and
+    tensors take the same checks)."""
     slots = md.nd_idx.shape[1]
     kernels.check_threads(threads, slots)
-    tb = None if fuse_k12 else kernels._tracers(state["fct_LO"])
+    tb = kernels._tracers(state["fct_LO"])
     kernels.check_slots(slots)
     kernels.check_tensors(
         {k: (state[k], shape) for k, shape in input_shapes(md, tb).items()},
@@ -260,10 +270,13 @@ class StepPlan:
     Output pairs that a step always returns together are the two halves of
     one allocation: fct_ttf_max and fct_ttf_min, the limiter factors (as
     the wrappers' ``kernels.factor_pair``), the two increments of a
-    non-iterative step.  Every call returns new output tensors."""
+    non-iterative step; K12's two pairs are the halves of one allocation,
+    so that one allocation fewer comes before the step's first launch.
+    Every call returns new output tensors."""
 
     def __init__(self, md: MeshData, cfg: FctAleConfig, tb: int | None, *,
-                 fuse_k12: bool = False, fuse_k34: bool = True,
+                 fuse_k12: bool = DEFAULT_FORM[0],
+                 fuse_k34: bool = DEFAULT_FORM[1],
                  threads: int = DEFAULT_THREADS):
         self.md, self.cfg, self.tb = md, cfg, tb
         self.fuse_k12, self.fuse_k34, self.threads = (fuse_k12, fuse_k34,
@@ -280,6 +293,7 @@ class StepPlan:
         # in less of the host's time than torch.empty given them
         blank = torch.empty(1, dtype=self.dtype, device=self.device)
         self.nodes, self.pair = blank.expand(nodes), blank.expand(2, *nodes)
+        self.quad = blank.expand(2, 2, *nodes)
         self.levels = blank.expand(kernels._rows(tb, L + 1, N))
         self.edges = blank.expand(kernels._rows(tb, L, Ed))
         # the offset of a pair's second half
@@ -287,7 +301,7 @@ class StepPlan:
         k = tb or 1
         if fuse_k12:
             self.k12 = kernels.limit_fused_launch(md, cfg.vlimit, cfg.dt,
-                                                  cfg.flux_eps, threads)
+                                                  cfg.flux_eps, k, threads)
         else:
             self.k1 = kernels.bounds_launch(md, cfg.vlimit, k, threads)
             self.k2 = kernels.limit_launch(md, cfg.dt, cfg.flux_eps, k,
@@ -314,13 +328,14 @@ class StepPlan:
 
     def __call__(self, state: dict) -> dict:
         tracing.count("solver.plan_steps")
+        if self.fuse_k12:
+            tracing.count("solver.k12_steps")
         with kernels.selected(self.device):
             return self._enqueue(state, kernels.current_stream(self.device))
 
     def _check_rest(self, state: dict) -> None:
         if not self.fits(state, self.rest):
-            check_state(self.md, state, fuse_k12=self.fuse_k12,
-                        threads=self.threads)
+            check_state(self.md, state, threads=self.threads)
             raise ValueError("the state does not fit its launch plan")
 
     def _enqueue(self, state: dict, stream: int) -> dict:
@@ -330,14 +345,16 @@ class StepPlan:
         if self.fuse_k12:
             v, h = state["fct_adf_v"].data_ptr(), state["fct_adf_h"].data_ptr()
             with tracing.span("kernels.limit_fused"):
-                bounds, factors = empty(self.pair), empty(self.pair)
+                quad = empty(self.quad)
                 v_lim = empty(self.levels)
                 v_res = empty(self.levels) if iter_yn else None
-                b, f = bounds.data_ptr(), factors.data_ptr()
+                b = quad.data_ptr()
+                f = b + 2 * half
                 kernels.check_launch("fct_limit_fused", self.k12(
                     lo, ttf, v, h, b, b + half, f, f + half, v_lim.data_ptr(),
                     ptr(v_res), stream))
             kernels.limit_fused.launches += 1
+            bounds, factors = quad.unbind()
             self._check_rest(state)
         else:
             with tracing.span("kernels.bounds"):
@@ -404,11 +421,13 @@ class StepPlans:
     a call checks the state's tensors once against the plan it last used,
     and looks the plan up anew only where they do not fit it.  Mesh data on
     the CPU runs the wrappers' plain versions (:func:`fct_ale_step_cuda`),
-    from no plan.  Counters (``runtime/tracing.py``): ``solver.plans_built``
-    and ``solver.plan_steps`` (steps enqueued from a plan)."""
+    from no plan.  Counters (``runtime/tracing.py``): ``solver.plans_built``,
+    ``solver.plan_steps`` (steps enqueued from a plan) and
+    ``solver.k12_steps`` (those of them that launched H-K12)."""
 
-    def __init__(self, *, fuse_k12: bool = False, fuse_k34: bool = True,
-                 batched: bool = False, threads: int = DEFAULT_THREADS):
+    def __init__(self, *, fuse_k12: bool = DEFAULT_FORM[0],
+                 fuse_k34: bool = DEFAULT_FORM[1], batched: bool = False,
+                 threads: int = DEFAULT_THREADS):
         self.fuse_k12, self.fuse_k34 = fuse_k12, fuse_k34
         self.batched, self.threads = batched, threads
         # (id of the mesh data, config, Tb) -> plan; each plan holds its
@@ -418,7 +437,7 @@ class StepPlans:
 
     def __call__(self, md: MeshData, cfg: FctAleConfig, state: dict) -> dict:
         if self.batched:
-            _check_batched(state, self.fuse_k12)
+            _check_batched(state)
         plan = self._last
         if (plan is None or plan.md is not md or plan.cfg is not cfg
                 or not plan.fits(state, plan.first)):
@@ -434,8 +453,7 @@ class StepPlans:
         """The plan of ``state``'s signature, built at its first call;
         raises as :func:`check_state` where the state does not fit the mesh
         data."""
-        tb = check_state(md, state, fuse_k12=self.fuse_k12,
-                         threads=self.threads)
+        tb = check_state(md, state, threads=self.threads)
         key = (id(md), cfg, tb)
         plan = self._plans.get(key)
         if plan is None:

@@ -211,13 +211,12 @@ def kernel_io(md, name: str, iter_yn: bool = False, *, ids=None,
     Tracers: the per-tracer inputs and outputs count ``tracers`` times;
     what every tracer shares (the connectivity and per-node, per-edge
     rows, ``area_inv``, ``hnode``, ``hnode_new``, the fix-edge ids) once.
-    Only the seven wrappers with a tracer axis take ``tracers`` > 1.
+    Only the eight wrappers with a tracer axis take ``tracers`` > 1.
     Operations: the arithmetic and comparisons of the kernel's loop body
     per active (node, level), (incident edge, level), (edge, level),
     (element, level) or incidence, per tracer; far below the bytes' time
     on an H100 for every kernel."""
-    if tracers < 1 or (tracers > 1 and name in ("limit_fused", "a2",
-                                                "stress2rhs")):
+    if tracers < 1 or (tracers > 1 and name in ("a2", "stress2rhs")):
         raise ValueError(f"{name} takes no {tracers} tracers")
     f = torch.empty((), dtype=md.dtype).element_size()
     L, N, Ed, E = md.n_layers, md.n_nodes, md.n_edges, md.n_elems

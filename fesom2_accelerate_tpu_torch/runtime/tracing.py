@@ -61,9 +61,10 @@ the f64 bytes it cast on the device between the caller's f64 and the
 solver's dtype, both ways (backend 1 casts all its traffic, backends 0 and
 2 none).  The solvers' whole
 step on the card counts ``solver.plans_built``, the launch plans it built
-(one a mesh data, configuration and state signature), and
+(one a mesh data, configuration and state signature),
 ``solver.plan_steps``, the steps it enqueued from a plan
-(``ops/cuda/step.py`` ``StepPlans``).
+(``ops/cuda/step.py`` ``StepPlans``), and ``solver.k12_steps``, those of
+them that launched H-K12 (every one in the default form).
 """
 
 from __future__ import annotations

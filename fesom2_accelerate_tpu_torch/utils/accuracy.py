@@ -15,7 +15,7 @@ same two tables:
 
 Each f32 row has a column group for the plain f32 stages
 (``backend="torch"``) and, on a CUDA device, one for the CUDA kernels
-(``backend="cuda"``, the default step K1 -> K2 -> K34).  On the CPU
+(``backend="cuda"``, the default step K12 -> K3 -> K4).  On the CPU
 (``--device cpu``) only the plain stages run.  Every run goes through
 ``FctAleSolver.run`` (``step`` for the one-step table, whose factors the
 run's carry drops), on the device given; ``--device cuda`` without a card

@@ -210,7 +210,8 @@ def setup(cell: Cell, inputs: Inputs, device) -> Setup:
     model = profiling.fct_ale_step_bytes(mesh, 4, iter_yn=cell.iter_yn)
     if cell.path == "fct":
         sv = FctAleSolver(mesh, cfg, device=dev)
-        form = "K1->K2->K34"
+        form = (("K12" if sv.fuse_k12 else "K1->K2")
+                + ("->K34" if sv.fuse_k34 else "->K3->K4"))
         io = profiling.step_io(sv.md, cfg, form, tracers=tb)[0]
         launches = dict.fromkeys(profiling.STEP_FORMS[form], 1)
         if tb == 1:

@@ -53,8 +53,8 @@ from fesom2_accelerate_tpu_torch.runtime.tracing import (
 
 FAMILIES = ("bounds", "limit", "limit_fused", "b3h", "update",
             "update_fused")
-# (fuse_k12, fuse_k34): K1->K2->K34 (the default), K12->K34, K1->K2->K3->K4,
-# K12->K3->K4
+# (fuse_k12, fuse_k34): K1->K2->K34, K12->K34, K1->K2->K3->K4,
+# K12->K3->K4 (the default, ops/cuda/step.py DEFAULT_FORM)
 FORMS = ((False, True), (True, True), (False, False), (True, False))
 # the step's outputs validated against the f64 gate, as the JAX tune_step
 STEP_KEYS = ("fct_plus", "fct_minus", "del_ttf_advvert", "del_ttf_advhoriz",
@@ -344,7 +344,7 @@ def perf_kernels(mesh, threads=kernels.DEFAULT_THREADS, iters=100,
     """Each kernel and each form of the step at one block size, as
     ``scripts/perf_kernels.py`` times the Pallas chain: one record per
     kernel and per form ({"kernel": .., "ms": .., "card": ..}), then a
-    summary with the production chain's sum (K1 + K2 + K34) beside the
+    summary with the default chain's sum (K12 + K3 + K4) beside the
     default form's whole step.  Inputs are validated first (the kernel
     families at 2e-5, a2 at 1e-5); a failed validation raises."""
     dev = require_cuda(device)
@@ -373,8 +373,8 @@ def perf_kernels(mesh, threads=kernels.DEFAULT_THREADS, iters=100,
                             ms=round(ms, 4), card=card))
     ms = {r["kernel"]: r["ms"] for r in records}
     records.append(dict(
-        sum_kernels_ms=round(ms["bounds"] + ms["limit"]
-                             + ms["update_fused"], 4),
-        whole_ms=ms["step[fuse_k12=False,fuse_k34=True]"],
+        sum_kernels_ms=round(ms["limit_fused"] + ms["b3h"] + ms["update"],
+                             4),
+        whole_ms=ms["step[fuse_k12=True,fuse_k34=False]"],
         threads=threads, preset=preset_name, card=card))
     return records

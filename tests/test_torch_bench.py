@@ -144,7 +144,9 @@ def test_roof_check():
 @pytest.mark.parametrize("form", sorted(profiling.STEP_FORMS))
 def test_step_io_sums_the_forms_kernels(small, form, tracers, iter_yn):
     """step_io is kernel_io summed over the kernels each form launches, on
-    small, at Tb = 1 and 8 (K12 has no tracer axis and refuses 8)."""
+    small, at Tb = 1 and 8 (every kernel of a form, K12 too, takes the
+    tracer axis), and K12's bytes at 8 tracers are its shared bytes once
+    and its per-tracer bytes 8 times."""
     md = build_mesh_data(small, torch.float32, "cpu")
     cfg = FctAleConfig(iter_yn=iter_yn)
     want = {
@@ -156,9 +158,13 @@ def test_step_io_sums_the_forms_kernels(small, form, tracers, iter_yn):
     }[form]
     owned = (0, small.n_nodes)  # the whole mesh is one part's owned columns
     if tracers > 1 and "limit_fused" in want:
-        with pytest.raises(ValueError, match="tracers"):
-            profiling.step_io(md, cfg, form, tracers=tracers, owned=owned)
-        return
+        one = profiling.kernel_io(md, "limit_fused", iter_yn)
+        two = profiling.kernel_io(md, "limit_fused", iter_yn, tracers=2)
+        many = profiling.kernel_io(md, "limit_fused", iter_yn,
+                                   tracers=tracers)
+        shared, per = 2 * one[0] - two[0], two[0] - one[0]
+        assert 0 < shared < per
+        assert many == (shared + tracers * per, tracers * one[1])
     parts = [profiling.kernel_io(md, k, iter_yn, owned=owned,
                                  tracers=tracers) for k in want]
     got = profiling.step_io(md, cfg, form, tracers=tracers, owned=owned)

@@ -499,28 +499,29 @@ def test_new_wrappers_refuse_other_devices_and_block_sizes():
 
 
 def test_solver_form_keywords():
-    """fuse_k12 and fuse_k34 choose the form of backend='cuda';
-    backend='torch' (also the default on the CPU) refuses any value but
-    the default, and 'cuda' still needs a CUDA device.  The block size is
-    no keyword of the solver."""
+    """fuse_k12 and fuse_k34 choose the form of backend='cuda' (by default
+    K12 -> K3 -> K4); backend='torch' (also the default on the CPU)
+    refuses any value but the default, and 'cuda' still needs a CUDA
+    device.  The block size is no keyword of the solver."""
     from fesom2_accelerate_tpu_torch import FctAleSolver
 
     mesh = generate_planar_mesh(preset="toy")
     with pytest.raises(TypeError):
         FctAleSolver(mesh, FctAleConfig(), backend="torch", device="cpu",
                      threads=128)
-    for kw in (dict(fuse_k12=True), dict(fuse_k34=False),
-               dict(fuse_k12=True, fuse_k34=False)):
+    for kw in (dict(fuse_k12=False), dict(fuse_k34=True),
+               dict(fuse_k12=False, fuse_k34=True)):
         with pytest.raises(ValueError, match="backend='torch'"):
             FctAleSolver(mesh, FctAleConfig(), backend="torch",
                          device="cpu", **kw)
     with pytest.raises(ValueError, match="CUDA device"):
         FctAleSolver(mesh, FctAleConfig(), backend="cuda", device="cpu",
-                     fuse_k12=True)
+                     fuse_k12=False)
     with pytest.raises(ValueError, match="backend='torch'"):
-        FctAleSolver(mesh, FctAleConfig(), device="cpu", fuse_k12=True)
-    sv = FctAleSolver(mesh, FctAleConfig(), backend="torch", device="cpu")
-    assert (sv.fuse_k12, sv.fuse_k34) == (False, True)
+        FctAleSolver(mesh, FctAleConfig(), device="cpu", fuse_k12=False)
+    sv = FctAleSolver(mesh, FctAleConfig(), backend="torch", device="cpu",
+                      fuse_k12=True, fuse_k34=False)
+    assert (sv.fuse_k12, sv.fuse_k34) == (True, False)
 
 
 def test_ptxas_report_reads_each_instance():

@@ -20,6 +20,11 @@ launchers that record their arguments in place of the kernel library
 * a field the first kernel does not read, refused after that kernel's
   launch, raises the wrapper's error and launches nothing more;
 * mesh data on the CPU runs the wrappers' plain versions, from no plan;
+* where the caller names no form, the plan launches K12 -> K3 -> K4 on
+  every mesh the tier-1 tests build, at one tracer and at several, and
+  counts each such step in ``solver.k12_steps`` as in
+  ``solver.plan_steps``; an explicit flag chooses its form, and the
+  solver hands its flags to both of its step functions;
 * a run of 0 or 1 steps calls the step that many times and computes no
   signature key (``graphs.StepGraphs.run``).
 """
@@ -34,10 +39,12 @@ import torch
 
 from fesom2_accelerate_tpu_torch.config import FctAleConfig
 from fesom2_accelerate_tpu_torch.mesh import (
+    generate_cylinder_mesh,
     generate_planar_mesh,
     random_fields,
 )
 from fesom2_accelerate_tpu_torch.model import FctAleSolver
+from fesom2_accelerate_tpu_torch.model import fct_ale as fct_ale_model
 from fesom2_accelerate_tpu_torch.ops.cuda import build, kernels
 from fesom2_accelerate_tpu_torch.ops.cuda import step as cstep
 from fesom2_accelerate_tpu_torch.ops.meshdata import build_mesh_data
@@ -98,6 +105,8 @@ def wrappers_launch(monkeypatch, launches):
 
 @functools.cache
 def _mesh(preset: str):
+    if preset == "cylinder":  # a small RCM-ordered cylinder
+        return generate_cylinder_mesh(32, 16, 6)[0]
     return generate_planar_mesh(preset=preset)
 
 
@@ -139,9 +148,10 @@ def _named(calls, labels: dict) -> list:
             for name, args in calls]
 
 
-# (fuse_k12, fuse_k34, Tb): every form, K12 without a tracer axis
+# (fuse_k12, fuse_k34, Tb): every form, with and without a tracer axis
 FORMS = [(False, True, None), (False, True, TB), (False, False, None),
-         (False, False, TB), (True, True, None), (True, False, None)]
+         (False, False, TB), (True, True, None), (True, False, None),
+         (True, True, TB), (True, False, TB)]
 
 
 @pytest.mark.parametrize("iter_yn", [False, True])
@@ -174,13 +184,15 @@ def test_plan_launches_the_wrappers_arguments(wrappers_launch, fuse_k12,
         assert out[k].is_contiguous(), k
         if k in state and v is state[k]:
             assert out[k] is state[k], k  # a field the step leaves
-    assert tracing.counters() == {"solver.plans_built": 1,
-                                  "solver.plan_steps": 1}
+    want_counts = {"solver.plans_built": 1, "solver.plan_steps": 1}
+    if fuse_k12:
+        want_counts["solver.k12_steps"] = 1
+    assert tracing.counters() == want_counts
 
 
 def test_a_plan_is_built_once_per_signature(launches):
     md, cfg = _md(), _cfg()
-    plans = cstep.StepPlans(batched=True)
+    plans = cstep.StepPlans(fuse_k12=False, fuse_k34=True, batched=True)
     first, second = _state(tb=TB, seed=3), _state(tb=TB, seed=4)
     plan = plans.plan(md, cfg, first)
     assert plans.plan(md, cfg, second) is plan
@@ -254,7 +266,7 @@ def test_the_plan_refuses_what_the_wrappers_refuse(launches, field, state,
     md, cfg = _md(), _cfg()
     with pytest.raises(error, match=match):
         cstep.check_state(md, state)
-    plans = cstep.StepPlans()
+    plans = cstep.StepPlans(fuse_k12=False, fuse_k34=True)
     with pytest.raises(error, match=match):
         plans.plan(md, cfg, state)
     plan = plans.plan(md, cfg, _state(tb=TB))
@@ -288,13 +300,21 @@ def test_the_check_follows_the_wrappers_other_refusals(launches):
     none["fct_LO"] = none["fct_LO"][:0]
     with pytest.raises(ValueError, match="at least one tracer"):
         cstep.check_state(md, none)
-    with pytest.raises(ValueError, match=r"fct_LO has shape \(2, "):
-        cstep.check_state(md, _state(tb=TB), fuse_k12=True)
-    plans = cstep.StepPlans(fuse_k12=True, batched=True)
-    with pytest.raises(ValueError, match="H-K12 has no tracer axis"):
-        plans(md, _cfg(), _state(tb=TB))
-    with pytest.raises(ValueError, match=r"ttf as \[Tb, L, N\]"):
-        cstep.StepPlans(batched=True)(md, _cfg(), _state())
+    assert cstep.check_state(md, _state(tb=TB)) == TB
+    assert cstep.check_state(md, _state()) is None
+    for k12, k34 in ((True, False), (True, True), (False, True)):
+        plans = cstep.StepPlans(fuse_k12=k12, fuse_k34=k34, batched=True)
+        with pytest.raises(ValueError, match=r"ttf as \[Tb, L, N\]"):
+            plans(md, _cfg(), _state())
+    # a batched K12 runs: on CPU mesh data, its plain version, a tracer
+    # at a time
+    state = _state(tb=TB)
+    out = cstep.StepPlans(fuse_k12=True, batched=True)(md, _cfg(), state)
+    for t in range(TB):
+        one = cstep.fct_ale_step_cuda(
+            md, _cfg(), {k: v if k in cstep.BATCH_SHARED else v[t]
+                         for k, v in state.items()}, fuse_k12=True)
+        assert torch.equal(out["fct_plus"][t], one["fct_plus"])
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -351,3 +371,72 @@ def test_a_one_step_run_of_the_solver_takes_no_key(launches):
             assert torch.equal(out[k], ref[k]), k
         zero = run(state, 0)
         assert all(zero[k] is v for k, v in state.items())
+
+
+# the names of the launchers of each form, in launch order
+K1_K2_K34 = ["fct_bounds_f32", "fct_limit_f32", "fct_update_fused_f32"]
+K12_K34 = ["fct_limit_fused_f32", "fct_update_fused_f32"]
+K1_K2_K3_K4 = ["fct_bounds_f32", "fct_limit_f32", "fct_b3h_f32",
+               "fct_update_f32"]
+K12_K3_K4 = ["fct_limit_fused_f32", "fct_b3h_f32", "fct_update_f32"]
+
+
+@pytest.mark.parametrize("tb", [None, TB])
+@pytest.mark.parametrize("preset", ["toy", "tiny", "small", "cylinder"])
+def test_the_whole_mesh_step_takes_k12_k3_k4(launches, preset, tb):
+    """Where the caller names no form, the plan of every mesh that the
+    tier-1 tests build (planar and RCM-ordered, with none to a third of
+    the live incidence slots' edges starting outside the node's tile)
+    launches K12 -> K3 -> K4, at one tracer and at two, and each step
+    counts once in solver.k12_steps as in solver.plan_steps."""
+    md, cfg, state = _md(preset), _cfg(), _state(preset, tb=tb)
+    plan = cstep.StepPlans(batched=tb is not None).plan(md, cfg, state)
+    assert (plan.fuse_k12, plan.fuse_k34) == cstep.DEFAULT_FORM
+    assert [k for k, _ in plan.first] == list(cstep.STEP_INPUTS[:4])
+    for _ in range(3):
+        plan(state)
+    assert [n for n, _ in launches.calls] == K12_K3_K4 * 3
+    assert tracing.counters() == {"solver.plans_built": 1,
+                                  "solver.plan_steps": 3,
+                                  "solver.k12_steps": 3}
+    assert kernels.launch_counts()["limit_fused"] == 3
+    # K12's launch takes the tracers it was given, 1 without the axis
+    tail = launches.calls[0][1][-4:]
+    assert tail[0] == (tb or 1) and tail[-1] == STREAM
+
+
+@pytest.mark.parametrize("flags,names", [
+    (dict(fuse_k12=False), K1_K2_K3_K4),
+    (dict(fuse_k34=True), K12_K34),
+    (dict(fuse_k12=False, fuse_k34=True), K1_K2_K34),
+    (dict(fuse_k12=True, fuse_k34=False), K12_K3_K4),
+])
+def test_an_explicit_flag_chooses_its_form(launches, flags, names):
+    md, cfg, state = _md("small"), _cfg(), _state("small", tb=TB)
+    plan = cstep.StepPlans(batched=True, **flags).plan(md, cfg, state)
+    plan(state)
+    assert [n for n, _ in launches.calls] == names
+    assert tracing.counters().get("solver.k12_steps", 0) == int(
+        names[0] == "fct_limit_fused_f32")
+
+
+@pytest.mark.parametrize("flags,form", [
+    ({}, cstep.DEFAULT_FORM),
+    (dict(fuse_k12=False), (False, False)),
+    (dict(fuse_k34=True), (True, True)),
+    (dict(fuse_k12=False, fuse_k34=True), (False, True)),
+])
+def test_the_solver_hands_its_flags_to_its_plans(monkeypatch, flags, form):
+    """A CUDA solver's step and tracer step take the form of its flags,
+    K12 -> K3 -> K4 where it is given none (its mesh data built on the
+    CPU here: no card)."""
+    monkeypatch.setattr(
+        fct_ale_model, "build_mesh_data",
+        lambda mesh, dtype, device: build_mesh_data(mesh, dtype, "cpu"))
+    sv = FctAleSolver(_mesh("toy"), _cfg(), "cuda", device="cuda:0",
+                      **flags)
+    assert (sv.fuse_k12, sv.fuse_k34) == form
+    for fn in (sv._step_fn, sv._tracer_step_fn):
+        assert isinstance(fn, cstep.StepPlans)
+        assert (fn.fuse_k12, fn.fuse_k34) == form
+    assert sv._tracer_step_fn.batched and not sv._step_fn.batched

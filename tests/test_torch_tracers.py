@@ -8,15 +8,16 @@ tracer 0, as tests/test_packed.py:212-218 makes them:
   runs its plain version) against the JAX ``fct_ale_step_pallas_batched``
   in TPU interpret mode: ``fct_ttf_max/min`` bit-equal, every other output
   within relerr 1e-6 (another summation order, f32 rounding);
-* (b) each of the six wrappers with a tracer axis against Tb single-tracer
-  calls, bit for bit;
+* (b) each of the seven wrappers with a tracer axis against Tb
+  single-tracer calls, bit for bit;
 * (c) ``FctAleSolver.run_tracers`` against Tb single-tracer ``run``s;
 * (d) the sharded CUDA phases with a tracer axis on 8 CPU parts against the
   JAX ``ShardedFctAleSolver(backend="pallas", tracers=2)`` (interpret mode,
   relerr 2e-6, tests/test_sharded.py) and against the port's own
   single-tracer sharded step, bit for bit;
 * (e) the tracer-aware ``init_state`` -> ``gather_state`` round trip;
-* (f) the refusals; (g) ``profiling.kernel_io(tracers=)``.
+* (f) the refusals, and a batched K12 step against Tb single-tracer ones;
+  (g) ``profiling.kernel_io(tracers=)``.
 
 The CUDA kernels run only on a GPU (``chip_smoke.py`` phase 8 holds each
 against Tb launches at Tb = 1 there); the CUDA solvers need a card, so
@@ -157,6 +158,9 @@ CALLS = {
         s["lim"].clone(), s["res"].clone() if it else None, s["ids"], it),
     "update": lambda md, s, it: kernels.update(md, s["avl"], s["lim"],
                                                *_node_in(s), DT, it),
+    "limit_fused": lambda md, s, it: kernels.limit_fused(
+        md, s["fct_LO"], s["ttf"], s["fct_adf_v"], s["fct_adf_h"], 2, DT,
+        EPS, it),
 }
 
 
@@ -333,11 +337,16 @@ def test_tracer_refusals():
     cfg = FctAleConfig(dt=DT, flux_eps=EPS)
     _, batched = tracer_fields(mesh, TB)
     s = _tensors(batched)
-    # H-K12 has no tracer axis
-    with pytest.raises(ValueError, match="fuse_k12"):
-        fct_ale_step_cuda_batched(md, cfg, s, fuse_k12=True)
-    with pytest.raises(ValueError, match="shape"):
-        pre_exchange(md, cfg, s, fuse_k12=True)
+    # H-K12 takes the tracer axis: a batched K12 step, and its phase, are
+    # Tb single-tracer ones
+    out = fct_ale_step_cuda_batched(md, cfg, s, fuse_k12=True)
+    pre = pre_exchange(md, cfg, s, fuse_k12=True)
+    for t in range(TB):
+        one = fct_ale_step_cuda(md, cfg, _tracer(s, t), fuse_k12=True)
+        for k, v in one.items():
+            got = out[k] if k in BATCH_SHARED else out[k][t]
+            assert v is None and got is None or torch.equal(got, v), k
+        assert torch.equal(pre["fct_plus"][t], one["fct_plus"])
     with pytest.raises(ValueError, match="batched"):
         fct_ale_step_cuda_batched(md, cfg, _tracer(s, 0))
     # tracer batching is the CUDA backend's
@@ -397,6 +406,7 @@ def test_kernel_io_counts_shared_bytes_once(iter_yn):
         "limit": nod * f + 9 * n_live + 8 * N,
         "update_fused": stage_c + 13 * n_live + 8 * N,
         "update": stage_c + 9 * n_live + 8 * N,
+        "limit_fused": nod * f + 13 * n_live + 8 * N,
         "b3h": 12 * Ed,
         "b3h_fixup": 4 * len(ids) + 12 * len(ids),
     }
